@@ -1,0 +1,23 @@
+"""Architecture registry of the port: ``get_config("<arch-id>")``.
+
+This slice serves Mixtral-8x7B only (plain and with the paper's MoP
+serving defaults)."""
+from __future__ import annotations
+
+import importlib
+
+from repro_torch.configs.base import (  # noqa: F401
+    AttentionConfig, ModelConfig, MoEConfig, MoPConfig, reduce_for_smoke,
+)
+
+_MODULES = {
+    "mixtral-8x7b": "mixtral_8x7b",
+    "mixtral-mop": "mixtral_mop",
+}
+
+
+def get_config(arch_id: str) -> ModelConfig:
+    if arch_id not in _MODULES:
+        raise KeyError(f"unknown arch {arch_id!r}; known: {sorted(_MODULES)}")
+    mod = importlib.import_module(f"repro_torch.configs.{_MODULES[arch_id]}")
+    return mod.CONFIG

@@ -1,0 +1,294 @@
+"""Mixed-precision MoE layer on one device: N expert banks (one per ladder
+rung, e.g. int4 | int8 | bf16) + the capacity-bounded local dispatch.
+
+The paper's partial expert quantization turns each MoE layer into per-rung
+banks — ``q4`` (packed int4 + scales), ``q8`` (int8 + scales) and ``f16``
+(bf16) — in ASCENDING-bits bank order, with a per-layer expert permutation
+mapping routed ids into bank slots (``PrecisionPlan.expert_order``).
+
+This is the reference's (``repro.core.mixed_moe``) single-device path:
+rank 0 of an EP group of one, so every expert is local and no collective
+runs. Expert and tensor parallelism are a later slice.
+"""
+from __future__ import annotations
+
+import threading
+from typing import Any, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import MoEConfig
+from repro_torch.core.quantization import QTensor, dequantize, quantize
+from repro_torch.kernels import ops
+
+# --------------------------------------------------------------------------
+# Routing
+# --------------------------------------------------------------------------
+
+_TRACE = threading.local()
+
+
+class capture_routing:
+    """Collect the routing ids (numpy, one (T, k) array per MoE layer call)
+    of the forwards run inside the ``with`` block."""
+
+    def __enter__(self):
+        _TRACE.ids = []
+        return _TRACE.ids
+
+    def __exit__(self, *exc):
+        _TRACE.ids = None
+
+
+def route(router_w: torch.Tensor, x: torch.Tensor, moe: MoEConfig
+          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: (T, d) -> (weights (T,k) f32, ids (T,k) int64). Serving only
+    (no auxiliary losses)."""
+    logits = x.to(torch.float32) @ router_w.to(torch.float32)
+    probs = torch.softmax(logits, dim=-1)
+    top_p, ids = torch.topk(probs, moe.top_k, dim=-1)
+    trace = getattr(_TRACE, "ids", None)
+    if trace is not None:
+        trace.append(ids.cpu().numpy().astype(np.int32))
+    weights = top_p / torch.clamp(top_p.sum(-1, keepdim=True), min=1e-9)
+    return weights, ids
+
+
+# --------------------------------------------------------------------------
+# Local dispatch: sort -> capacity scatter -> FFN -> weighted combine.
+# --------------------------------------------------------------------------
+
+def _bank_bits(name: str) -> int:
+    """Bank key -> bit-width: 'f16' -> 16, 'qN' -> N."""
+    return 16 if name == "f16" else int(name[1:])
+
+
+def _bank_name(bits: int) -> str:
+    return "f16" if bits >= 16 else f"q{bits}"
+
+
+def bank_keys(banks) -> list:
+    """Non-empty bank keys in ascending-bits BANK ORDER (the expert
+    storage order: cheapest rung first — binary: ['q4', 'f16'])."""
+    return sorted((k for k in banks if banks.get(k) is not None),
+                  key=_bank_bits)
+
+
+def _local_slot(flat_e, *, rank, totals, locs):
+    """Map global (permuted) expert ids to this rank's local bank slots.
+
+    ``totals``/``locs`` are per-bank global/per-rank expert counts in
+    bank order. Within bank b (global offset O_b), rank r owns experts
+    [O_b + r*loc_b, O_b + (r+1)*loc_b) -> local slots
+    [sum(loc_<b), sum(loc_<b) + loc_b). Returns (slot, is_local)."""
+    slot = torch.zeros_like(flat_e)
+    ok = torch.zeros(flat_e.shape, dtype=torch.bool, device=flat_e.device)
+    g_off = l_off = 0
+    for tot, loc in zip(totals, locs):
+        rel = flat_e - g_off - rank * loc
+        in_bank = (flat_e >= g_off) & (flat_e < g_off + tot)
+        bank_ok = in_bank & (rel >= 0) & (rel < loc)
+        slot = torch.where(bank_ok, l_off + rel, slot)
+        ok = ok | bank_ok
+        g_off += tot
+        l_off += loc
+    return slot, ok
+
+
+def _dispatch_local(x, ids, weights, *, rank, totals, locs, capacity):
+    """Pack routed tokens into (e_loc, capacity, d); returns buffers +
+    metadata needed for the combine. Dropped assignments (over capacity,
+    or ids outside this rank's banks, e.g. the invalid-token sentinel)
+    point at one extra buffer row that is cut off, which stands in for the
+    reference's scatter ``mode="drop"``."""
+    t, d = x.shape
+    e_loc = sum(locs)
+    k = ids.shape[1]
+    flat_e = ids.reshape(-1)                                  # (T*k,)
+    flat_w = weights.reshape(-1)
+    local_e, is_local = _local_slot(flat_e, rank=rank, totals=totals,
+                                    locs=locs)
+    key = torch.where(is_local, local_e, torch.full_like(local_e, e_loc))
+    order = torch.argsort(key, stable=True)                   # (T*k,)
+    sorted_e = key[order]
+    counts = torch.bincount(sorted_e, minlength=e_loc + 1)
+    starts = torch.cumsum(counts, 0) - counts
+    pos = torch.arange(t * k, device=x.device) - starts[sorted_e]
+    valid = (sorted_e < e_loc) & (pos < capacity)
+    drop = e_loc * capacity
+    dest = torch.where(valid, sorted_e * capacity + pos,
+                       torch.full_like(pos, drop))
+    tok = order // k
+    xbuf = torch.zeros((drop + 1, d), dtype=x.dtype, device=x.device)
+    xbuf[dest] = x[tok]
+    return xbuf[:drop].reshape(e_loc, capacity, d), dest, order, \
+        flat_w[order]
+
+
+def _combine_local(ybuf, dest, order, w_sorted, t, d, k):
+    """Weighted combine. The reference scatter-adds the (T*k) sorted
+    contributions into zeros; here they are put back in (T, k) order and
+    summed in a fixed order (deterministic on CUDA, where ``index_add_``
+    is atomic). With top-2, ``0 + a + b`` in bf16 does not depend on the
+    order, so this is bit-equal to the reference."""
+    flat = ybuf.reshape(-1, ybuf.shape[-1])
+    flat = torch.cat([flat, flat.new_zeros((1, flat.shape[-1]))])
+    contrib = flat[dest]                       # dropped -> the zero row
+    contrib = contrib * w_sorted[:, None].to(contrib.dtype)
+    unsorted = torch.empty_like(contrib)
+    unsorted[order] = contrib                  # back to (token, choice)
+    unsorted = unsorted.reshape(t, k, d)
+    y = torch.zeros((t, d), dtype=ybuf.dtype, device=ybuf.device)
+    for j in range(k):
+        y = y + unsorted[:, j]
+    return y
+
+
+# --------------------------------------------------------------------------
+# N-bank expert FFN (one bank per ladder rung, ascending-bits order)
+# --------------------------------------------------------------------------
+
+def _act(act: str, up: torch.Tensor, gate_fn) -> torch.Tensor:
+    if act == "swiglu":
+        return F.silu(gate_fn()) * up
+    if act == "gelu":
+        return F.gelu(up, approximate="tanh")
+    return torch.square(F.relu(up))
+
+
+def _ffn_bf16(bank, xb, act, use_kernel: bool = False):
+    """(E, C, d) x (E, d, f) -> (E, C, d).
+
+    ``use_kernel=True`` runs the grouped bf16 CUDA kernel (B4, one launch
+    for the whole f16 bank); otherwise a bf16 batched matmul."""
+    mm = ops.grouped_bf16_matmul if use_kernel else torch.matmul
+    up = mm(xb, bank["w_up"])
+    h = _act(act, up, lambda: mm(xb, bank["w_gate"]))
+    return mm(h, bank["w_down"])
+
+
+def _ffn_q(bank, xb, act, use_kernel: bool):
+    """Quantized bank: the grouped dequant-matmul CUDA kernel (B3; f32
+    dequant inside the kernel) or the dequant-to-bf16 reference path."""
+    if use_kernel:
+        mm = ops.q_expert_matmul
+        up = mm(xb, bank["w_up"])
+        h = _act(act, up, lambda: mm(xb, bank["w_gate"]))
+        return mm(h, bank["w_down"])
+    deq = {k: dequantize(v) for k, v in bank.items()}
+    return _ffn_bf16(deq, xb, act)
+
+
+def _expert_ffn(banks, xb, act, use_kernel):
+    """banks: {"q4"|"q8": {...QTensor...}|None, "f16": {...bf16...}|None}
+    with expert storage in ascending-bits bank order along E (quantized
+    rungs first); ``xb`` is sliced per bank accordingly. With
+    ``use_kernel`` each rung's whole bank is ONE grouped kernel launch per
+    matrix."""
+    outs = []
+    off = 0
+    for key in bank_keys(banks):
+        bank = banks[key]
+        n = _bank_len(bank)
+        if not n:
+            continue
+        sl = xb[off:off + n]
+        if _bank_bits(key) < 16:
+            outs.append(_ffn_q(bank, sl, act, use_kernel))
+        else:
+            outs.append(_ffn_bf16(bank, sl, act, use_kernel))
+        off += n
+    return torch.cat(outs, dim=0) if len(outs) > 1 else outs[0]
+
+
+def _bank_len(bank) -> int:
+    w = bank["w_up"]
+    return (w.q if isinstance(w, QTensor) else w).shape[0]
+
+
+# --------------------------------------------------------------------------
+# The MoE apply (single device)
+# --------------------------------------------------------------------------
+
+def moe_apply(banks, x: torch.Tensor, weights: torch.Tensor,
+              ids: torch.Tensor, moe: MoEConfig, *, act: str = "swiglu",
+              use_kernel: bool = False,
+              capacity: Optional[int] = None) -> torch.Tensor:
+    """x: (T, d) -> (T, d).
+
+    ``banks`` is either the train layout {"f16": {...(E,d,f) bf16...}} or
+    the rung-keyed serve layout {"q4": ..., "q8": ..., "f16": ...}
+    (bank order = ascending bits, cheapest rung first). ``capacity``
+    overrides the capacity-factor formula with an explicit per-expert slot
+    count."""
+    t, d = x.shape
+    keys = bank_keys(banks)
+    totals = tuple(_bank_len(banks[k]) for k in keys)
+    locs = totals                       # one device: every expert is local
+    if capacity is None:
+        cap = int(np.ceil(t * moe.top_k * moe.capacity_factor
+                          / moe.num_experts))
+    else:
+        cap = int(capacity)
+    cap = max(4, ((cap + 3) // 4) * 4)
+    xbuf, dest, order, w_sorted = _dispatch_local(
+        x, ids, weights, rank=0, totals=totals, locs=locs, capacity=cap)
+    ybuf = _expert_ffn(banks, xbuf, act, use_kernel)
+    return _combine_local(ybuf, dest, order, w_sorted, t, d, ids.shape[1])
+
+
+# --------------------------------------------------------------------------
+# Bank construction from a PrecisionPlan (serve) or plain params (train)
+# --------------------------------------------------------------------------
+
+def train_banks(moe_params: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+    return {"q4": None,
+            "f16": {k: moe_params[k] for k in ("w_gate", "w_up", "w_down")}}
+
+
+def build_ladder_banks(moe_params: Dict[str, torch.Tensor], bits_row,
+                       *, ladder=(16, 4), group_size: int = 64):
+    """Split one layer's experts into per-rung banks in ascending-bits
+    bank order.
+
+    ``bits_row``: (E,) int — each expert's ladder rung. Returns
+    (banks, order) where ``order`` is the expert permutation (cheapest
+    rung first) — the caller permutes the router columns with it. Every
+    ladder rung gets a bank key (``None`` when empty)."""
+    bits_row = np.asarray(bits_row)
+    rungs = sorted(ladder)
+    order = np.concatenate(
+        [np.where(bits_row == b)[0] for b in rungs]).astype(np.int32)
+    dev = moe_params["w_up"].device
+    idx = torch.as_tensor(order, dtype=torch.long, device=dev)
+    perm = {k: moe_params[k].index_select(0, idx)
+            for k in ("w_gate", "w_up", "w_down")}
+    banks: Dict[str, Any] = {}
+    off = 0
+    for b in rungs:
+        cnt = int((bits_row == b).sum())
+        name = _bank_name(b)
+        if cnt == 0:
+            banks[name] = None
+            continue
+        sl = {k: v[off:off + cnt] for k, v in perm.items()}
+        banks[name] = sl if b >= 16 else \
+            {k: quantize(v, b, group_size) for k, v in sl.items()}
+        off += cnt
+    return banks, order
+
+
+def moe_dense_ref(moe_params, x, moe: MoEConfig, act: str = "swiglu"):
+    """O(T*E) oracle: every expert computes every token (tests only)."""
+    weights, ids = route(moe_params["router"], x, moe)
+    w_full = torch.zeros((x.shape[0], moe.num_experts), dtype=torch.float32,
+                         device=x.device)
+    w_full.scatter_add_(1, ids, weights)
+    banks = {"w_gate": moe_params["w_gate"], "w_up": moe_params["w_up"],
+             "w_down": moe_params["w_down"]}
+    y_all = _ffn_bf16(banks, x[None].expand((moe.num_experts,) + x.shape),
+                      act)                               # (E, T, d)
+    return torch.einsum("etd,te->td", y_all.to(torch.float32), w_full
+                        ).to(x.dtype)

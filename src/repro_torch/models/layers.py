@@ -1,0 +1,186 @@
+"""Shared neural layers (plain functions over parameter dicts).
+
+Conventions (as in ``repro.models.layers``):
+  * params are nested dicts keyed by the names in ModelConfig.param_shapes()
+  * activations are bf16, reductions/norms/softmax in f32
+  * attention supports GQA (kv < heads) and sliding-window ring-buffer KV
+    caches whose entries carry absolute-position tags (-1 = empty), so
+    sliding-window masks stay exact after the ring wraps
+
+Attention has the reference's cached branches (prefill-from-empty and
+decode over the ring buffer) and always contracts grouped-query attention
+without expanding K/V, as the reference does on one device (its flat
+spelling on meshes is the same computation).
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import AttentionConfig
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6
+             ) -> torch.Tensor:
+    xf = x.to(torch.float32)
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * scale.to(torch.float32)
+            ).to(x.dtype)
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float
+         ) -> torch.Tensor:
+    """x: (..., S, H, hd); positions broadcastable to (..., S)."""
+    hd = x.shape[-1]
+    half = hd // 2
+    exps = -torch.arange(0, half, dtype=torch.float32, device=x.device) / half
+    freqs = torch.pow(torch.tensor(theta, dtype=torch.float32,
+                                   device=x.device), exps)
+    ang = positions[..., None].to(torch.float32) * freqs    # (..., S, half)
+    cos = torch.cos(ang)[..., None, :]                      # (.., S, 1, half)
+    sin = torch.sin(ang)[..., None, :]
+    xf1 = x[..., :half].to(torch.float32)
+    xf2 = x[..., half:].to(torch.float32)
+    return torch.cat([xf1 * cos - xf2 * sin, xf2 * cos + xf1 * sin],
+                     dim=-1).to(x.dtype)
+
+
+# --------------------------------------------------------------------------
+# KV cache: fixed-size ring buffer (window = sliding_window or max length),
+# slots tagged with absolute positions (-1 = empty).
+# --------------------------------------------------------------------------
+
+def _update_cache(cache, k_new, v_new, positions):
+    """Insert S_new entries at slots ``position % window``. Writes IN PLACE
+    into the cache tensors (the engine holds the only reference, and the
+    multi-layer cache is never copied per token); returns the same dict."""
+    window = cache["k"].shape[1]
+    slots = positions % window                                 # (B, S_new)
+    b_idx = torch.arange(k_new.shape[0], device=k_new.device)[:, None]
+    cache["k"][b_idx, slots] = k_new.to(cache["k"].dtype)
+    cache["v"][b_idx, slots] = v_new.to(cache["v"].dtype)
+    cache["pos"][b_idx, slots] = positions.to(cache["pos"].dtype)
+    return cache
+
+
+def _prefill_cache(cache, k_new, v_new, positions):
+    """Prefill-from-empty cache contents: positions are contiguous
+    0..S-1, so the ring buffer is a (rolled) slice of k/v."""
+    b, s, hkv, hd = k_new.shape
+    window = cache["k"].shape[1]
+    if s >= window:
+        shift = (s - window) % window      # slot of the first kept entry
+        def cut(a):
+            return torch.roll(a[:, -window:], shift, dims=1)
+        k, v, pos = cut(k_new), cut(v_new), cut(positions)
+    else:
+        k = F.pad(k_new, (0, 0, 0, 0, 0, window - s))
+        v = F.pad(v_new, (0, 0, 0, 0, 0, window - s))
+        pos = F.pad(positions, (0, window - s), value=-1)
+    return {"k": k.to(cache["k"].dtype),
+            "v": v.to(cache["v"].dtype),
+            "pos": pos.to(torch.int32)}
+
+
+_Q_CHUNK = 512      # query-block size for long-sequence attention
+
+
+def _sdpa_grouped_block(q, k, v, mask, scale) -> torch.Tensor:
+    """GQA without materializing repeated K/V: queries are reshaped to
+    (B, Sq, Hkv, G, hd) and contract the SHARED kv head dim directly."""
+    b, sq, h, hd = q.shape
+    hkv = k.shape[2]
+    g = h // hkv
+    q5 = q.reshape(b, sq, hkv, g, hd)
+    logits = torch.einsum("bqcgd,bkcd->bcgqk", q5.to(torch.float32),
+                          k.to(torch.float32)) * scale
+    logits = torch.where(mask[:, :, None], logits,
+                         torch.full_like(logits, -1e30))
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    out = torch.einsum("bcgqk,bkcd->bqcgd", probs, v)
+    return out.reshape(b, sq, h, hd)
+
+
+def _sdpa(q, k, v, mask) -> torch.Tensor:
+    """q: (B,Sq,H,hd) k,v: (B,Sk,Hkv,hd) mask: (B,1,Sq,Sk) bool.
+
+    Long queries are processed in blocks of _Q_CHUNK so the score tensor is
+    O(chunk x Sk), never O(Sq x Sk); exact softmax (each block sees all
+    of K)."""
+    sq, hd = q.shape[1], q.shape[3]
+    scale = hd ** -0.5
+    if sq <= 2 * _Q_CHUNK or sq % _Q_CHUNK:
+        return _sdpa_grouped_block(q, k, v, mask, scale)
+    outs = [_sdpa_grouped_block(q[:, i:i + _Q_CHUNK], k, v,
+                                mask[:, :, i:i + _Q_CHUNK], scale)
+            for i in range(0, sq, _Q_CHUNK)]
+    return torch.cat(outs, dim=1)
+
+
+def attention(p: Dict[str, Any], x: torch.Tensor, acfg: AttentionConfig, *,
+              positions: torch.Tensor, cache: Dict[str, torch.Tensor],
+              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Causal self-attention through a ring-buffer KV cache.
+
+    x: (B, S, d); positions: (B, S) absolute positions of x (-1 = pad).
+    S > 1 -> prefill-from-empty: attend over the in-context k/v and return
+    the freshly written ring buffer.
+    S == 1 -> decode: the new k/v go into the ring buffer (in place) and
+    attention runs over it with position-tag masking.
+    """
+    b, s, d = x.shape
+    h, hkv, hd = acfg.num_heads, acfg.num_kv_heads, acfg.head_dim
+
+    q = (x @ p["wq"]).reshape(b, s, h, hd)
+    k = (x @ p["wk"]).reshape(b, s, hkv, hd)
+    v = (x @ p["wv"]).reshape(b, s, hkv, hd)
+
+    q = rope(q, positions, acfg.rope_theta)
+    k = rope(k, positions, acfg.rope_theta)
+
+    if s > 1:
+        new_cache = _prefill_cache(cache, k, v, positions)
+        qpos = positions
+        # right-padded slot prefills tag pads with pos=-1; never attended
+        mask = (qpos[:, None, :, None] >= qpos[:, None, None, :]) \
+            & (qpos[:, None, None, :] >= 0)
+        if acfg.sliding_window:
+            mask &= (qpos[:, None, :, None] - qpos[:, None, None, :]
+                     < acfg.sliding_window)
+        out = _sdpa(q, k, v, mask)
+    else:
+        new_cache = _update_cache(cache, k, v, positions)
+        kpos = new_cache["pos"]                                  # (B, W)
+        qpos = positions                                         # (B, S)
+        valid = kpos[:, None, None, :] >= 0
+        causal = kpos[:, None, None, :] <= qpos[:, None, :, None]
+        mask = valid & causal
+        if acfg.sliding_window:
+            mask &= (qpos[:, None, :, None] - kpos[:, None, None, :]
+                     < acfg.sliding_window)
+        out = _sdpa(q, new_cache["k"], new_cache["v"], mask)
+
+    return out.reshape(b, s, h * hd) @ p["wo"], new_cache
+
+
+def mlp(p: Dict[str, Any], x: torch.Tensor, act: str) -> torch.Tensor:
+    if act == "swiglu":
+        return (F.silu(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
+    if act == "gelu":
+        return F.gelu(x @ p["w_up"], approximate="tanh") @ p["w_down"]
+    if act == "relu_sq":
+        return torch.square(F.relu(x @ p["w_up"])) @ p["w_down"]
+    raise ValueError(act)
+
+
+def embed(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    return table[ids]
+
+
+def unembed(table: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """(B,S,d) @ (V,d)^T -> (B,S,V) logits in f32 (f32 products and sums,
+    like the reference's ``preferred_element_type=f32``)."""
+    return torch.einsum("bsd,vd->bsv", x.to(torch.float32),
+                        table.to(torch.float32))

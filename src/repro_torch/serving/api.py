@@ -1,0 +1,122 @@
+"""Public serving surface — declarative QoS API (``repro.serving.api``).
+
+Callers declare *targets*, not knob values: a deployment states a
+:class:`~repro_torch.core.pareto.QoSTarget` (min tokens/s, max quality
+loss, memory budget), each request a :class:`RequestSLO` and
+:class:`SamplingParams`; the engine picks the MoP configuration off its
+:class:`~repro_torch.core.pareto.ParetoFrontier`.
+
+    engine = build_engine(cfg, params, EngineConfig(max_slots=4,
+                                                    paged_kv=False))
+    engine.apply_target(QoSTarget(mem_budget_bytes=40e9))
+    rid = engine.submit_request(ServeRequest(prompt, max_new_tokens=8))
+    engine.step()
+    print(engine.result(rid))
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional, Tuple
+
+import numpy as np
+
+from repro_torch.core.cost_model import HardwareModel
+from repro_torch.core.pareto import (  # noqa: F401  (public re-exports)
+    FrontierPoint, InfeasibleTarget, ParetoFrontier, QoSTarget,
+)
+from repro_torch.serving.scheduler import (  # noqa: F401  (public re-exports)
+    Request, RequestSLO, SamplingParams,
+)
+
+__all__ = [
+    "EngineConfig", "SamplingParams", "RequestSLO", "ServeRequest",
+    "ServeResult", "QoSTarget", "FrontierPoint", "ParetoFrontier",
+    "InfeasibleTarget", "build_engine",
+]
+
+
+@dataclasses.dataclass(frozen=True)
+class EngineConfig:
+    """Typed construction parameters for the serving engine; the fields
+    and defaults are the reference's.
+
+    Capacity: ``max_slots`` (decode batch width), ``max_len`` (per-slot
+    KV window), ``max_active_tokens`` / ``max_queue`` (admission control).
+    Expert streaming: ``swap_bytes`` — device LRU swap capacity for
+    non-resident experts. Precision: ``ladder`` — the deployment's
+    precision ladder (e.g. ``(16, 8, 4)``). ``use_kernel`` runs the
+    expert FFN on the CUDA dequant-matmul kernels. ``hw`` — analytic
+    hardware model; None measures the host link on the device and uses
+    the H100 defaults otherwise.
+
+    This slice serves through the slot KV cache, synchronously, without
+    speculation, on one device; the paged cache's ``page_size``,
+    ``kv_pool_pages`` and ``kv_reserve`` arrive with it. ``paged_kv=True``
+    (the reference's default), ``overlap=True``, ``prefetch=True``,
+    ``speculate > 0`` and ``ep > 1`` raise ``NotImplementedError`` at
+    engine construction; pass ``paged_kv=False``, which the reference keeps
+    bit-identical to paged.
+    """
+    max_slots: int = 8
+    max_len: int = 256
+    use_kernel: bool = False
+    max_active_tokens: Optional[int] = None
+    max_queue: Optional[int] = None
+    swap_bytes: Optional[int] = None
+    prefetch: bool = False
+    overlap: bool = False
+    overlap_efficiency: Optional[float] = None
+    ladder: Optional[Tuple[int, ...]] = None
+    hw: Optional[HardwareModel] = None
+    paged_kv: bool = True
+    ep: int = 1
+    speculate: int = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class ServeRequest:
+    """One generation request on the declarative surface."""
+    prompt: np.ndarray
+    max_new_tokens: int = 16
+    sampling: Optional[SamplingParams] = None
+    slo: RequestSLO = dataclasses.field(default_factory=RequestSLO)
+
+
+@dataclasses.dataclass(frozen=True)
+class ServeResult:
+    """Completed request: tokens + the QoS the request actually got."""
+    rid: int
+    tokens: List[int]
+    latency_s: float
+    ttft_s: Optional[float]
+    priority: int
+    deadline_s: Optional[float]
+    deadline_met: Optional[bool]   # None when no deadline was declared
+
+    @classmethod
+    def from_request(cls, req: Request) -> "ServeResult":
+        if req.t_done is None:
+            raise ValueError(f"request {req.rid} is still in flight")
+        return cls(rid=req.rid, tokens=list(req.out_tokens),
+                   latency_s=req.latency_s, ttft_s=req.ttft_s,
+                   priority=req.slo.priority,
+                   deadline_s=req.slo.deadline_s,
+                   deadline_met=req.deadline_met)
+
+    def summary(self) -> str:
+        dl = ("" if self.deadline_met is None else
+              f" deadline={'MET' if self.deadline_met else 'MISSED'}")
+        return (f"req {self.rid} prio={self.priority}: "
+                f"{len(self.tokens)} tok in {self.latency_s * 1e3:.0f} ms"
+                + dl)
+
+
+def build_engine(cfg, params, config: Optional[EngineConfig] = None, *,
+                 device=None):
+    """Construct an :class:`~repro_torch.serving.engine.
+    AdaptiveServingEngine` from an :class:`EngineConfig` on ``device``
+    (default: the card; raises on a host without one unless
+    ``device="cpu"``)."""
+    from repro_torch.serving.engine import AdaptiveServingEngine
+    return AdaptiveServingEngine(cfg, params, config=config or EngineConfig(),
+                                 device=device)
