@@ -25,7 +25,7 @@ Phases (each raises on failure, and the script then exits non-zero):
                (G, 14336, 4096)) and at a prefill-sized C = 128, within
                one bf16 ulp of |plain| + 1e-3; bit-exact checks (grouped
                == per-expert, integer-friendly inputs, empty group ==
-               zeros); CUDA-event times beside the plain version, the
+               zeros, f32 dequant); CUDA-event times beside the plain version, the
                bound and a library yardstick (``torch.bmm`` on the
                dequantized bf16 weights, which the port never calls).
 
@@ -90,10 +90,9 @@ def phase_build():
     cuda_lib.build()
     secs = time.perf_counter() - t0
     log(f"build: {secs:.2f} s (nvcc {' '.join(cuda_lib.NVCC_FLAGS)})")
-    for stem, text in cuda_lib.BUILD_LOG.items():
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line or "error" in line:
-                log(f"  ptxas[{stem}]: {line.strip()}")
+    for line in cuda_lib.BUILD_LOG.splitlines():
+        if "registers" in line or "spill" in line or "error" in line:
+            log(f"  ptxas: {line.strip()}")
     return secs
 
 
@@ -191,26 +190,36 @@ def phase_serve(torch, np, seed: int, card: str, profile: bool = False):
            "bank_sizes": {str(k): v for k, v in sizes.items()},
            "point": point.summary(), "launches": launches}
     # the same traffic again on the warm engine (first-call set-up, the
-    # host blobs and the swap cache are in place): steady-state numbers
+    # host blobs and the swap cache are in place)
+    # (it repeats the prompts, so routing repeats and the expert cache is
+    # warm). The first iteration admits and prefills all four requests;
+    # the launches of the decode-only iterations after it give the
+    # launches per decode iteration.
     def rerun():
         engine.reset_counters()
         t0 = time.perf_counter()
         for p in prompts:
             engine.submit_request(ServeRequest(p, max_new_tokens=8))
+        engine.run_iteration()
+        before, iters = dict(ops.LAUNCHES), engine.metrics["iterations"]
         engine.step()
         torch.cuda.synchronize()
-        return time.perf_counter() - t0
+        n = engine.metrics["iterations"] - iters
+        per_iter = {k: (ops.LAUNCHES[k] - before[k]) / n for k in before}
+        return time.perf_counter() - t0, per_iter
 
-    warm_wall = rerun()
+    warm_wall, per_iter = rerun()
     m = dict(engine.metrics)
     warm_decode_ms = m["decode_s"] / max(m["iterations"], 1) * 1e3
     log(f"  warm rerun on {card}: {warm_wall:.3f} s, "
         f"{engine.throughput_tokens_per_s():.2f} tok/s over decode, "
         f"{warm_decode_ms:.3f} ms per decode iteration, prefill "
-        f"{m['prefill_s'] / 4 * 1e3:.3f} ms per request")
+        f"{m['prefill_s'] / 4 * 1e3:.3f} ms per request; launches per "
+        f"decode iteration {per_iter}")
     out.update(warm_wall_s=warm_wall, warm_decode_ms_per_iter=warm_decode_ms,
                warm_tokens_per_s=engine.throughput_tokens_per_s(),
-               warm_prefill_ms_per_request=m["prefill_s"] / 4 * 1e3)
+               warm_prefill_ms_per_request=m["prefill_s"] / 4 * 1e3,
+               launches_per_decode_iter=per_iter)
     if profile:
         # one more warm pass under the profiler: device time by kernel,
         # set against the unprofiled pass's wall time
@@ -320,18 +329,27 @@ def _to(tree, torch, dev):
 # phase 5: kernels against their plain versions
 # --------------------------------------------------------------------------
 
-def _time_ms(torch, fn, reps: int, warmup: int = 2) -> float:
-    for _ in range(warmup):
-        fn()
+def _time_ms(torch, fns, reps: int, warmup: int = 2) -> float:
+    """Mean CUDA-event time of one call, cycling through ``fns`` (the same
+    function on copies of its inputs that together exceed the L2 cache, so
+    no launch reads its weights from L2)."""
+    for i in range(warmup):
+        fns[i % len(fns)]()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    for _ in range(reps):
-        fn()
+    for i in range(reps):
+        fns[i % len(fns)]()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def _copies(torch, nbytes: int) -> int:
+    """Input copies to cycle through so that they exceed twice the L2."""
+    l2 = torch.cuda.get_device_properties(0).L2_cache_size
+    return max(1, math.ceil(2 * l2 / nbytes))
 
 
 def _close(torch, got, want):
@@ -371,12 +389,12 @@ def phase_kernels(torch, np, sizes, seed: int, reps: int):
     from repro_torch.kernels import q4_matmul as qk
     gen = torch.Generator(device="cuda").manual_seed(seed)
     d, f = D_MODEL, D_FF
-    rungs = {4: sizes.get(4, 0), 8: sizes.get(8, 0), 16: sizes.get(16, 0)}
     records, extra = [], []
 
-    def measure(name, kernel, plain, library, x, w_bytes, n_out, k, n,
-                scale_bytes=0):
-        g, c = x.shape[0], x.shape[1]
+    def measure(name, cases, g, c, k, n, w_bytes, scale_bytes=0):
+        """``cases``: one (kernel, plain, library) triple per input copy;
+        the first copy is checked, all are cycled through when timed."""
+        kernel, plain, _ = cases[0]
         got = kernel()
         want = plain()
         torch.cuda.synchronize()
@@ -385,41 +403,47 @@ def phase_kernels(torch, np, sizes, seed: int, reps: int):
             raise AssertionError(f"{name} (G={g}, C={c}, K={k}, N={n}) "
                                  f"disagrees with its plain version: "
                                  f"max |diff| {err}")
-        ms = _time_ms(torch, kernel, reps)
-        plain_ms = _time_ms(torch, plain, max(2, reps // 5), warmup=1)
-        lib_ms = _time_ms(torch, library, reps)
-        nbytes = x.numel() * 2 + w_bytes + scale_bytes + n_out * 2
+        ms = _time_ms(torch, [t[0] for t in cases], reps)
+        plain_ms = _time_ms(torch, [t[1] for t in cases], max(2, reps // 5),
+                            warmup=1)
+        lib_ms = _time_ms(torch, [t[2] for t in cases], reps)
+        nbytes = g * c * k * 2 + w_bytes + scale_bytes + g * c * n * 2
         bound, by = _bound_ms(nbytes, 2.0 * g * c * k * n)
-        return {"G": g, "C": c, "K": k, "N": n, "ms": ms,
-                "plain_ms": plain_ms, "library_ms": lib_ms,
+        return {"G": g, "C": c, "K": k, "N": n, "copies": len(cases),
+                "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
                 "bound_ms": bound, "bound_by": by, "max_abs_err": err}
 
-    def q_case(bits, g, c, k, n, grouped):
-        x, qt = _make_bank(torch, gen, g, c, k, n, bits)
+    def q_triple(bits, x, qt, grouped):
         deq = dequantize(qt)                          # bf16, for bmm only
         if grouped:
-            kern = lambda: ops.grouped_q_matmul(x, qt)
-            plain = lambda: gk.grouped_quantized_matmul_plain(
-                x, qt.q, qt.scales, bits=bits, group_size=GROUP)
-            lib = lambda: torch.bmm(x, deq)
-        else:
-            x1, q1 = x[0], qt.map(lambda t: t[0])
-            kern = lambda: ops.q_matmul(x1, q1)
-            plain = lambda: qk.quantized_matmul_plain(
-                x1, q1.q, q1.scales, bits=bits, group_size=GROUP)
-            lib = lambda: torch.mm(x1, deq[0])
-            x = x1[None]
-        wb = qt.q.numel() if grouped else qt.q[0].numel()
-        sb = (qt.scales.numel() if grouped else qt.scales[0].numel()) * 2
-        return measure(f"q{bits}", kern, plain, lib, x, wb,
-                       x.shape[0] * c * n, k, n, sb)
+            return (lambda: ops.grouped_q_matmul(x, qt),
+                    lambda: gk.grouped_quantized_matmul_plain(
+                        x, qt.q, qt.scales, bits=bits, group_size=GROUP),
+                    lambda: torch.bmm(x, deq))
+        x1, q1 = x[0], qt.map(lambda t: t[0])
+        return (lambda: ops.q_matmul(x1, q1),
+                lambda: qk.quantized_matmul_plain(
+                    x1, q1.q, q1.scales, bits=bits, group_size=GROUP),
+                lambda: torch.mm(x1, deq[0]))
+
+    def q_case(bits, g, c, k, n, grouped):
+        w_bytes = g * k * n * bits // 8
+        sb = g * (k // GROUP) * n * 2
+        cases = [q_triple(bits, *_make_bank(torch, gen, g, c, k, n, bits),
+                          grouped)
+                 for _ in range(_copies(torch, w_bytes + sb))]
+        return measure(f"q{bits}", cases, g, c, k, n, w_bytes, sb)
+
+    def bf16_triple(x, w):
+        return (lambda: ops.grouped_bf16_matmul(x, w),
+                lambda: gk.grouped_bf16_matmul_plain(x, w),
+                lambda: torch.bmm(x, w))
 
     def bf16_case(g, c, k, n):
-        x, w = _make_bank(torch, gen, g, c, k, n, 16)
-        return measure("bf16", lambda: ops.grouped_bf16_matmul(x, w),
-                       lambda: gk.grouped_bf16_matmul_plain(x, w),
-                       lambda: torch.bmm(x, w), x, w.numel() * 2,
-                       g * c * n, k, n)
+        w_bytes = g * k * n * 2
+        cases = [bf16_triple(*_make_bank(torch, gen, g, c, k, n, 16))
+                 for _ in range(_copies(torch, w_bytes))]
+        return measure("bf16", cases, g, c, k, n, w_bytes)
 
     specs = [
         ("q4_matmul", "cuda", "B1", "src/repro/kernels/q4_matmul.py:39",
@@ -428,16 +452,17 @@ def phase_kernels(torch, np, sizes, seed: int, reps: int):
          lambda c, k, n: q_case(8, 1, c, k, n, False)),
         ("grouped_q4", "cuda", "B3",
          "src/repro/kernels/grouped_matmul.py:63",
-         lambda c, k, n: q_case(4, max(rungs[4], 1), c, k, n, True)),
+         lambda c, k, n: q_case(4, sizes[4], c, k, n, True)),
         ("grouped_q8", "cuda", "B3",
          "src/repro/kernels/grouped_matmul.py:63",
-         lambda c, k, n: q_case(8, max(rungs[8], 1), c, k, n, True)),
+         lambda c, k, n: q_case(8, sizes[8], c, k, n, True)),
         ("grouped_bf16", "cuda", "B4",
          "src/repro/kernels/grouped_matmul.py:84",
-         lambda c, k, n: bf16_case(max(rungs[16], 1), c, k, n)),
+         lambda c, k, n: bf16_case(sizes[16], c, k, n)),
     ]
-    log(f"kernels: bank layout per rung {rungs} (experts per layer), "
-        f"group {GROUP}; times from CUDA events over {reps} launches")
+    log(f"kernels: bank layout per rung {sizes} (experts per layer), "
+        f"group {GROUP}; times from CUDA events over {reps} launches, "
+        "cycling through input copies that exceed twice the L2")
     for name, route, tag, replaces, case in specs:
         rows = {}
         for label, (c, k, n) in (("up", (C_DECODE, d, f)),
@@ -446,7 +471,7 @@ def phase_kernels(torch, np, sizes, seed: int, reps: int):
             r = case(c, k, n)
             rows[label] = r
             log(f"  {name:13s} {label:10s} G={r['G']} C={r['C']:3d} "
-                f"K={k:5d} N={n:5d}: {r['ms']:.4f} ms (bound "
+                f"K={k:5d} N={n:5d} x{r['copies']}: {r['ms']:.4f} ms (bound "
                 f"{r['bound_ms']:.4f} ms by {r['bound_by']}, "
                 f"{r['bound_ms'] / r['ms']:.1%} of bound), plain "
                 f"{r['plain_ms']:.4f} ms, bmm {r['library_ms']:.4f} ms, "
@@ -471,7 +496,26 @@ def phase_kernels(torch, np, sizes, seed: int, reps: int):
 
 def _exact_checks(torch, gen, gk, ops, QTensor):
     """Bit-exact contracts: grouped == per-expert loop, integer-friendly
-    inputs exact, an empty group gives exact zeros."""
+    inputs exact, W dequantized in f32 (never rounded to bf16), an empty
+    group gives exact zeros."""
+    from repro_torch.core.quantization import pack_int4
+
+    def exact_case(bits, xi, codes, scale, what):
+        """Kernel and plain version bit-equal to the float64 result
+        rounded once to bf16 (every product and sum is exact in f32)."""
+        g, k, n = codes.shape
+        q = pack_int4(codes) if bits == 4 else codes
+        scales = torch.full((g, k // GROUP, n), scale, device="cuda").to(
+            torch.bfloat16)
+        qt_i = QTensor(q=q, scales=scales, bits=bits, group_size=GROUP)
+        exact = (xi.double() @ (codes.double() * scale)).to(torch.bfloat16)
+        got = ops.grouped_q_matmul(xi, qt_i)
+        plain = gk.grouped_quantized_matmul_plain(
+            xi, q, scales, bits=bits, group_size=GROUP)
+        if not (_bits_equal(torch, got, exact)
+                and _bits_equal(torch, plain, exact)):
+            raise AssertionError(f"{what} q{bits} not exact")
+
     for bits in (4, 8):
         x, qt = _make_bank(torch, gen, 3, C_DECODE, D_MODEL, D_FF, bits)
         grouped = ops.grouped_q_matmul(x, qt)
@@ -484,27 +528,25 @@ def _exact_checks(torch, gen, gk, ops, QTensor):
         if not bool((z[1].float() == 0).all()):
             raise AssertionError(f"empty group q{bits} not exactly zero")
         # integer-friendly: small integer x, power-of-two scales, K = 256
-        g, c, k, n = 2, 5, 256, 128
-        xi = torch.randint(-3, 4, (g, c, k), generator=gen,
-                           device="cuda").to(torch.bfloat16)
         qmax = 7 if bits == 4 else 127
-        codes = torch.randint(-qmax - 1, qmax + 1, (g, k, n), generator=gen,
-                              device="cuda").to(torch.int8)
-        if bits == 4:
-            from repro_torch.core.quantization import pack_int4
-            q = pack_int4(codes)
-        else:
-            q = codes
-        scales = torch.full((g, k // GROUP, n), 0.125, device="cuda").to(
-            torch.bfloat16)
-        qt_i = QTensor(q=q, scales=scales, bits=bits, group_size=GROUP)
-        exact = (xi.double() @ (codes.double() * 0.125)).to(torch.bfloat16)
-        got = ops.grouped_q_matmul(xi, qt_i)
-        plain = gk.grouped_quantized_matmul_plain(
-            xi, q, scales, bits=bits, group_size=GROUP)
-        if not (_bits_equal(torch, got, exact)
-                and _bits_equal(torch, plain, exact)):
-            raise AssertionError(f"integer-friendly q{bits} not exact")
+        xi = torch.randint(-3, 4, (2, 5, 256), generator=gen,
+                           device="cuda").to(torch.bfloat16)
+        codes = torch.randint(-qmax - 1, qmax + 1, (2, 256, 128),
+                              generator=gen, device="cuda").to(torch.int8)
+        exact_case(bits, xi, codes, 0.125, "integer-friendly")
+        # f32 dequant: scale 1 + 2^-7 (a bf16) times codes near +-qmax
+        # needs up to 14 significant bits, more than bf16's 8, yet with x
+        # in {-1, 0, 1} and K = 64 every product and sum is exact in f32.
+        # A kernel that rounded W to bf16 gets a large share of these
+        # outputs wrong (tests/test_torch_kernels.py counts them).
+        xi = torch.randint(-1, 2, (2, 8, GROUP), generator=gen,
+                           device="cuda").to(torch.bfloat16)
+        mag = torch.randint(qmax - 3, qmax + 1, (2, GROUP, 256),
+                            generator=gen, device="cuda")
+        sign = torch.randint(0, 2, (2, GROUP, 256), generator=gen,
+                             device="cuda") * 2 - 1
+        exact_case(bits, xi, (mag * sign).to(torch.int8), 1 + 2 ** -7,
+                   "f32-dequant")
     xb = torch.randint(-3, 4, (2, 5, 256), generator=gen,
                        device="cuda").to(torch.bfloat16)
     wb = (torch.randint(-8, 8, (2, 256, 128), generator=gen,
@@ -516,7 +558,7 @@ def _exact_checks(torch, gen, gk, ops, QTensor):
     if not bool((ops.grouped_bf16_matmul(xb, wb)[0].float() == 0).all()):
         raise AssertionError("empty group bf16 not exactly zero")
     log("kernels: bit-exact checks passed (grouped == per-expert, "
-        "integer-friendly inputs, empty groups)")
+        "integer-friendly inputs, f32 dequant, empty groups)")
 
 
 # --------------------------------------------------------------------------
@@ -526,8 +568,6 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--reps", type=int, default=20,
                     help="timed launches per kernel and shape")
-    ap.add_argument("--skip-serve", action="store_true",
-                    help="build and check the kernels only")
     ap.add_argument("--profile", action="store_true",
                     help="profile the warm serving rerun (torch.profiler)")
     ap.add_argument("--out", default=str(ROOT / "chiprun_out"
@@ -544,12 +584,13 @@ def main(argv=None) -> int:
     t_start = time.perf_counter()
     smi = phase_device(torch)
     build_s = phase_build()
-    serve, sizes = ({}, {4: 3, 8: 4, 16: 1}) if args.skip_serve \
-        else phase_serve(torch, np, args.seed, smi, args.profile)
+    serve, sizes = phase_serve(torch, np, args.seed, smi, args.profile)
     parity_err = phase_parity(torch, np, args.seed)
     records, extra = phase_kernels(torch, np, sizes, args.seed, args.reps)
     for rec in records:
-        rec["launches"] = serve.get("launches", {}).get(rec["name"], 0)
+        rec["launches"] = serve["launches"][rec["name"]]
+        rec["launches_per_decode_iter"] = \
+            serve["launches_per_decode_iter"][rec["name"]]
         rec["on_main_path"] = rec["name"].startswith("grouped_")
     total_s = time.perf_counter() - t_start
     log(f"total: {total_s:.1f} s")

@@ -1,6 +1,6 @@
 """Build, load and launch the port's CUDA kernels.
 
-Each source under ``csrc/`` is compiled by hand with ``nvcc`` for ``sm_90a``
+``csrc/dequant_matmul.cu`` is compiled by hand with ``nvcc`` for ``sm_90a``
 into a shared library with a plain C interface and loaded with ``ctypes``
 (no PyTorch headers, so a build takes seconds). The build happens at first
 use, from the sources in the checkout, into ``build/kernels/`` at the repo
@@ -19,12 +19,10 @@ import hashlib
 import os
 import shutil
 import subprocess
-import threading
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Optional
 
-CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("dequant_matmul.cu",)
+SOURCE = Path(__file__).resolve().parent / "csrc" / "dequant_matmul.cu"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -38,11 +36,10 @@ LAUNCHES: Dict[str, int] = {
     "grouped_bf16": 0,    # B4: grouped_bf16_matmul
 }
 
-#: ptxas report (registers, shared memory, spills) of the last build
-BUILD_LOG: Dict[str, str] = {}
+#: nvcc's output (ptxas registers, shared memory, spills) of the last build
+BUILD_LOG = ""
 
-_LOCK = threading.Lock()
-_LIBS: Dict[str, ctypes.CDLL] = {}
+_LIB: Optional[ctypes.CDLL] = None
 
 
 def reset_launches() -> None:
@@ -58,58 +55,48 @@ def _nvcc() -> str:
     return path
 
 
-def _lib_path(src: Path) -> Path:
-    h = hashlib.sha256(src.read_bytes())
+def _lib_path() -> Path:
+    h = hashlib.sha256(SOURCE.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"{src.stem}-{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"{SOURCE.stem}-{h.hexdigest()[:16]}.so"
 
 
-def build() -> Dict[str, Path]:
-    """Compile every source that has no up-to-date library, one ``nvcc``
-    per source, all started together. Returns {stem: library path}."""
-    out, procs = {}, {}
-    for name in SOURCES:
-        src = CSRC / name
-        lib = _lib_path(src)
-        out[src.stem] = lib
-        if lib.exists():
-            continue
-        cmd = [_nvcc(), *NVCC_FLAGS]
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-        cmd += ["-o", str(tmp), str(src)]
-        procs[src.stem] = (subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True), tmp, lib)
-    for stem, (proc, tmp, lib) in procs.items():
-        log, _ = proc.communicate()
-        BUILD_LOG[stem] = log
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {stem}.cu:\n{log}")
-        os.replace(tmp, lib)
-    return out
-
-
-def _load(stem: str) -> ctypes.CDLL:
-    with _LOCK:
-        if stem not in _LIBS:
-            lib = ctypes.CDLL(str(build()[stem]))
-            vp, i32 = ctypes.c_void_p, ctypes.c_int
-            lib.repro_dequant_matmul.argtypes = [
-                i32, vp, vp, vp, vp, i32, i32, i32, i32, i32, vp]
-            lib.repro_dequant_matmul.restype = i32
-            lib.repro_bf16_matmul.argtypes = [
-                vp, vp, vp, i32, i32, i32, i32, vp]
-            lib.repro_bf16_matmul.restype = i32
-            lib.repro_error_string.argtypes = [i32]
-            lib.repro_error_string.restype = ctypes.c_char_p
-            _LIBS[stem] = lib
-        return _LIBS[stem]
+def build() -> Path:
+    """Compile ``dequant_matmul.cu`` unless an up-to-date library exists;
+    returns the library's path."""
+    global BUILD_LOG
+    lib = _lib_path()
+    if lib.exists():
+        return lib
+    cmd = [_nvcc(), *NVCC_FLAGS]
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+    proc = subprocess.run([*cmd, "-o", str(tmp), str(SOURCE)],
+                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                          text=True)
+    BUILD_LOG = proc.stdout
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {SOURCE.name}:\n{proc.stdout}")
+    os.replace(tmp, lib)
+    return lib
 
 
 def dequant_lib() -> ctypes.CDLL:
     """The loaded ``dequant_matmul.cu`` library (built at first use)."""
-    return _load("dequant_matmul")
+    global _LIB
+    if _LIB is None:
+        lib = ctypes.CDLL(str(build()))
+        vp, i32 = ctypes.c_void_p, ctypes.c_int
+        lib.repro_dequant_matmul.argtypes = [
+            i32, vp, vp, vp, vp, i32, i32, i32, i32, i32, vp]
+        lib.repro_dequant_matmul.restype = i32
+        lib.repro_bf16_matmul.argtypes = [
+            vp, vp, vp, i32, i32, i32, i32, vp]
+        lib.repro_bf16_matmul.restype = i32
+        lib.repro_error_string.argtypes = [i32]
+        lib.repro_error_string.restype = ctypes.c_char_p
+        _LIB = lib
+    return _LIB
 
 
 def check(rc: int, what: str) -> None:

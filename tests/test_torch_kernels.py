@@ -142,6 +142,40 @@ def test_integer_friendly_bit_exact(bits):
 
 
 @pytest.mark.parametrize("bits", [4, 8])
+def test_f32_dequant_bit_exact(bits):
+    """W is dequantized in f32 and never rounded to bf16: scale 1 + 2^-7
+    times codes near +-qmax needs up to 14 significant bits, yet with x in
+    {-1, 0, 1} and K = 64 every product and sum is exact in f32, so both
+    packages give the exact result bit for bit, while a bf16-rounded W
+    misses more than a tenth of the outputs."""
+    rng = np.random.default_rng(bits)
+    g, c, k, n = 2, 8, 64, 256
+    qmax = 7 if bits == 4 else 127
+    x = rng.integers(-1, 2, size=(g, c, k)).astype(np.float64)
+    codes = (rng.integers(qmax - 3, qmax + 1, size=(g, k, n))
+             * rng.choice([-1, 1], size=(g, k, n))).astype(np.int8)
+    scale = 1 + 2 ** -7
+    jq = jnp.asarray(codes)
+    if bits == 4:
+        from repro.core.quantization import pack_int4 as jpack
+        jq = jpack(jq)
+    jqt = JQTensor(q=jq, scales=jnp.full((g, 1, n), scale, jnp.bfloat16),
+                   bits=bits, group_size=64)
+    tqt = QTensor(q=to_t(jqt.q), scales=to_t(jqt.scales), bits=bits,
+                  group_size=64)
+    jx = jnp.asarray(x, jnp.bfloat16)
+    got = ops.grouped_q_matmul(to_t(jx), tqt)
+    w = codes.astype(np.float64) * scale
+    exact = torch.from_numpy(x @ w).to(torch.bfloat16)
+    np.testing.assert_array_equal(bits16(got), bits16(exact))
+    np.testing.assert_array_equal(
+        bits16(jops.grouped_q_matmul(jx, jqt)), bits16(exact))
+    w_bf16 = torch.from_numpy(w).to(torch.bfloat16).double().numpy()
+    rounded = torch.from_numpy(x @ w_bf16).to(torch.bfloat16)
+    assert (bits16(rounded) != bits16(exact)).mean() > 0.1
+
+
+@pytest.mark.parametrize("bits", [4, 8])
 @pytest.mark.parametrize("e,c,k,n,group", CASES[:4])
 def test_grouped_bit_exact_vs_expert_loop(e, c, k, n, group, bits):
     _, _, tx, tqt = make_bank(e, c, k, n, bits, group, seed=e + c)
