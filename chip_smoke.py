@@ -7,7 +7,9 @@ Phases (each raises on failure, and the script then exits non-zero):
   1. device  — require CUDA, print the card's name and power limit
                (``nvidia-smi``), turn TF32 off for the plain versions;
   2. build   — build the CUDA kernels from ``src/repro_torch/kernels/csrc``
-               with nvcc for sm_90a and print the build seconds;
+               with nvcc for sm_90a, print the build seconds and each
+               kernel instantiation's registers, shared memory and spill
+               bytes (``-Xptxas -v``); any spill fails the phase;
   3. serve   — the main path: full-width Mixtral-8x7B (d_model 4096,
                32/8 heads of 128, 8 experts top-2, d_ff_expert 14336,
                vocab 32000 padded to 32768) with depth cut to 2 layers,
@@ -20,14 +22,17 @@ Phases (each raises on failure, and the script then exits non-zero):
                (kernels) agree with the same model on the CPU (the
                kernels' plain versions);
   5. kernels — each kernel against its plain PyTorch version on the card
-               at the serving bank layout (G experts per rung, C = 8
-               padded decode rows, up/gate (G, 4096, 14336) and down
-               (G, 14336, 4096)) and at a prefill-sized C = 128, within
-               one bf16 ulp of |plain| + 1e-3; bit-exact checks (grouped
-               == per-expert, integer-friendly inputs, empty group ==
-               zeros, f32 dequant); CUDA-event times beside the plain version, the
-               bound and a library yardstick (``torch.bmm`` on the
-               dequantized bf16 weights, which the port never calls).
+               at the serving bank layout (G experts per rung) and the
+               shapes of ``SHAPES``: C = 8 padded decode rows, up/gate
+               (G, 4096, 14336) and down (G, 14336, 4096), C = 16 decode,
+               and a prefill-sized C = 128; within one bf16 ulp of
+               |plain| + 1e-3, and two launches bit-equal; the split-K
+               reduction bit-equal to its plain version; bit-exact checks
+               (grouped == per-expert, integer-friendly inputs, empty
+               group == zeros, f32 dequant); device times (CUDA graphs)
+               beside the plain version, the bound and a library yardstick
+               (``torch.bmm`` on the dequantized bf16 weights, which the
+               port never calls).
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. ``--out`` also writes the records to a
@@ -53,6 +58,15 @@ D_MODEL, D_FF = 4096, 14336     # Mixtral-8x7B expert widths
 C_DECODE = 8          # padded dispatch rows per expert on the serving path
 C_PREFILL = 128
 GROUP = 64
+#: (C, K, N) of every timed kernel shape: the decode up- and down-
+#: projections at C = 8; decode at C = 16, which is where 26-51 slots pad
+#: to under capacity factor 1.25; and a prefill-sized C = 128 tile
+SHAPES = {
+    "up": (C_DECODE, D_MODEL, D_FF),
+    "down": (C_DECODE, D_FF, D_MODEL),
+    "decode16": (16, D_MODEL, D_FF),
+    "prefill_up": (C_PREFILL, D_MODEL, D_FF),
+}
 
 
 def log(msg: str) -> None:
@@ -84,16 +98,66 @@ def phase_device(torch):
 # phase 2: build
 # --------------------------------------------------------------------------
 
+def ptxas_report(build_log: str):
+    """Registers, shared memory and spill bytes per kernel instantiation,
+    from nvcc's ``-Xptxas -v`` lines."""
+    import re
+    rows, cur = [], None
+    for line in build_log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            cur = {"kernel": _demangle(m.group(1)), "registers": None,
+                   "smem_bytes": 0, "spill_stores": 0, "spill_loads": 0,
+                   "stack_bytes": 0}
+            rows.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            cur["stack_bytes"], cur["spill_stores"], cur["spill_loads"] = \
+                map(int, m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+        m = re.search(r"(\d+) bytes smem", line)
+        if m:
+            cur["smem_bytes"] = int(m.group(1))
+    return rows
+
+
+def _demangle(name: str) -> str:
+    try:
+        out = subprocess.run(["c++filt", name], capture_output=True,
+                             text=True, timeout=10).stdout.strip()
+    except (OSError, subprocess.SubprocessError):
+        return name
+    return out.replace("(anonymous namespace)::", "") or name
+
+
 def phase_build():
+    """Build the kernels and log each instantiation's registers, static
+    shared memory and spills; every kernel of the library can be on the
+    main path, so any spill fails the phase."""
     from repro_torch.kernels import cuda_lib
     t0 = time.perf_counter()
     cuda_lib.build()
     secs = time.perf_counter() - t0
     log(f"build: {secs:.2f} s (nvcc {' '.join(cuda_lib.NVCC_FLAGS)})")
-    for line in cuda_lib.BUILD_LOG.splitlines():
-        if "registers" in line or "spill" in line or "error" in line:
-            log(f"  ptxas: {line.strip()}")
-    return secs
+    rows = ptxas_report(cuda_lib.BUILD_LOG)
+    if not rows:
+        raise AssertionError("no ptxas report in the build log")
+    for r in rows:
+        log(f"  ptxas: {r['kernel']}: {r['registers']} registers, "
+            f"{r['smem_bytes']} B static smem, {r['stack_bytes']} B stack, "
+            f"spill {r['spill_stores']} B stores / {r['spill_loads']} B "
+            "loads")
+    spilled = [r["kernel"] for r in rows
+               if r["spill_stores"] or r["spill_loads"]]
+    if spilled:
+        raise AssertionError(f"kernels spill registers: {spilled}")
+    return secs, rows
 
 
 # --------------------------------------------------------------------------
@@ -168,7 +232,8 @@ def phase_serve(torch, np, seed: int, card: str, profile: bool = False):
         if len(r.tokens) != 8 or not all(0 <= t < cfg.vocab_size
                                          for t in r.tokens):
             raise AssertionError(f"request {r.rid}: bad tokens {r.tokens}")
-    for name in ("grouped_q4", "grouped_q8", "grouped_bf16"):
+    for name in ("grouped_q4", "grouped_q8", "grouped_bf16",
+                 "splitk_reduce"):
         if launches[name] <= 0:
             raise AssertionError(f"kernel {name} never launched while "
                                  f"serving: {launches}")
@@ -330,9 +395,11 @@ def _to(tree, torch, dev):
 # --------------------------------------------------------------------------
 
 def _time_ms(torch, fns, reps: int, warmup: int = 2) -> float:
-    """Mean CUDA-event time of one call, cycling through ``fns`` (the same
-    function on copies of its inputs that together exceed the L2 cache, so
-    no launch reads its weights from L2)."""
+    """Mean CUDA-event time of one call in a loop of ``reps`` calls,
+    cycling through ``fns`` (the same function on copies of its inputs
+    that together exceed the L2 cache, so no launch reads its weights from
+    L2). The host enqueues as the card runs, so this is the time of the
+    slower of the two."""
     for i in range(warmup):
         fns[i % len(fns)]()
     torch.cuda.synchronize()
@@ -343,6 +410,34 @@ def _time_ms(torch, fns, reps: int, warmup: int = 2) -> float:
         fns[i % len(fns)]()
     end.record()
     torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _graph_ms(torch, fns, reps: int) -> float:
+    """Device time of one call: ``reps`` calls cycling through ``fns``
+    captured in one CUDA graph and replayed once between CUDA events, so
+    the host's Python per call is out of the reading (the kernel wrappers
+    and their allocations are captured as they run)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):              # warm-up outside the capture
+        for f in fns:
+            f()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(reps):
+            fns[i % len(fns)]()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
     return start.elapsed_time(end) / reps
 
 
@@ -388,14 +483,16 @@ def phase_kernels(torch, np, sizes, seed: int, reps: int):
     from repro_torch.kernels import ops
     from repro_torch.kernels import q4_matmul as qk
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    d, f = D_MODEL, D_FF
     records, extra = [], []
 
-    def measure(name, cases, g, c, k, n, w_bytes, scale_bytes=0):
-        """``cases``: one (kernel, plain, library) triple per input copy;
-        the first copy is checked, all are cycled through when timed."""
+    def measure(name, cases, g, c, k, n, bits, w_bytes, scale_bytes=0):
+        """``cases``: one (kernel, plain, library) tuple per input copy;
+        the first copy is checked, all are cycled through when timed.
+        Kernel and library times are device times (CUDA graph); the plain
+        version is timed in a plain loop."""
         kernel, plain, _ = cases[0]
         got = kernel()
+        again = kernel()
         want = plain()
         torch.cuda.synchronize()
         err, ok = _close(torch, got, want)
@@ -403,47 +500,52 @@ def phase_kernels(torch, np, sizes, seed: int, reps: int):
             raise AssertionError(f"{name} (G={g}, C={c}, K={k}, N={n}) "
                                  f"disagrees with its plain version: "
                                  f"max |diff| {err}")
-        ms = _time_ms(torch, [t[0] for t in cases], reps)
-        plain_ms = _time_ms(torch, [t[1] for t in cases], max(2, reps // 5),
-                            warmup=1)
-        lib_ms = _time_ms(torch, [t[2] for t in cases], reps)
+        if not _bits_equal(torch, got, again):
+            raise AssertionError(f"{name} (G={g}, C={c}, K={k}, N={n}) "
+                                 "differs between two launches")
+        plan = qk.launch_plan(c, k, n, bits)
+        row = {"G": g, "C": c, "K": k, "N": n, "copies": len(cases),
+               "plan": plan._asdict(), "max_abs_err": err}
+        kernels = [t[0] for t in cases]
+        row["ms"] = _graph_ms(torch, kernels, reps)
+        row["loop_ms"] = _time_ms(torch, kernels, reps)
+        row["plain_ms"] = _time_ms(torch, [t[1] for t in cases],
+                                   max(2, reps // 5), warmup=1)
+        row["library_ms"] = _graph_ms(torch, [t[2] for t in cases], reps)
         nbytes = g * c * k * 2 + w_bytes + scale_bytes + g * c * n * 2
-        bound, by = _bound_ms(nbytes, 2.0 * g * c * k * n)
-        return {"G": g, "C": c, "K": k, "N": n, "copies": len(cases),
-                "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-                "bound_ms": bound, "bound_by": by, "max_abs_err": err}
-
-    def q_triple(bits, x, qt, grouped):
-        deq = dequantize(qt)                          # bf16, for bmm only
-        if grouped:
-            return (lambda: ops.grouped_q_matmul(x, qt),
-                    lambda: gk.grouped_quantized_matmul_plain(
-                        x, qt.q, qt.scales, bits=bits, group_size=GROUP),
-                    lambda: torch.bmm(x, deq))
-        x1, q1 = x[0], qt.map(lambda t: t[0])
-        return (lambda: ops.q_matmul(x1, q1),
-                lambda: qk.quantized_matmul_plain(
-                    x1, q1.q, q1.scales, bits=bits, group_size=GROUP),
-                lambda: torch.mm(x1, deq[0]))
+        row["bound_ms"], row["bound_by"] = _bound_ms(nbytes,
+                                                     2.0 * g * c * k * n)
+        return row
 
     def q_case(bits, g, c, k, n, grouped):
+        def one():
+            x, qt = _make_bank(torch, gen, g, c, k, n, bits)
+            deq = dequantize(qt)                  # bf16, for bmm only
+            if grouped:
+                return (lambda: ops.grouped_q_matmul(x, qt),
+                        lambda: gk.grouped_quantized_matmul_plain(
+                            x, qt.q, qt.scales, bits=bits, group_size=GROUP),
+                        lambda: torch.bmm(x, deq))
+            x1, q1 = x[0], qt.map(lambda t: t[0])
+            return (lambda: ops.q_matmul(x1, q1)[None],
+                    lambda: qk.quantized_matmul_plain(
+                        x1, q1.q, q1.scales, bits=bits,
+                        group_size=GROUP)[None],
+                    lambda: torch.mm(x1, deq[0])[None])
         w_bytes = g * k * n * bits // 8
         sb = g * (k // GROUP) * n * 2
-        cases = [q_triple(bits, *_make_bank(torch, gen, g, c, k, n, bits),
-                          grouped)
-                 for _ in range(_copies(torch, w_bytes + sb))]
-        return measure(f"q{bits}", cases, g, c, k, n, w_bytes, sb)
-
-    def bf16_triple(x, w):
-        return (lambda: ops.grouped_bf16_matmul(x, w),
-                lambda: gk.grouped_bf16_matmul_plain(x, w),
-                lambda: torch.bmm(x, w))
+        cases = [one() for _ in range(_copies(torch, w_bytes + sb))]
+        return measure(f"q{bits}", cases, g, c, k, n, bits, w_bytes, sb)
 
     def bf16_case(g, c, k, n):
+        def one():
+            x, w = _make_bank(torch, gen, g, c, k, n, 16)
+            return (lambda: ops.grouped_bf16_matmul(x, w),
+                    lambda: gk.grouped_bf16_matmul_plain(x, w),
+                    lambda: torch.bmm(x, w))
         w_bytes = g * k * n * 2
-        cases = [bf16_triple(*_make_bank(torch, gen, g, c, k, n, 16))
-                 for _ in range(_copies(torch, w_bytes))]
-        return measure("bf16", cases, g, c, k, n, w_bytes)
+        cases = [one() for _ in range(_copies(torch, w_bytes))]
+        return measure("bf16", cases, g, c, k, n, 16, w_bytes)
 
     specs = [
         ("q4_matmul", "cuda", "B1", "src/repro/kernels/q4_matmul.py:39",
@@ -461,21 +563,23 @@ def phase_kernels(torch, np, sizes, seed: int, reps: int):
          lambda c, k, n: bf16_case(sizes[16], c, k, n)),
     ]
     log(f"kernels: bank layout per rung {sizes} (experts per layer), "
-        f"group {GROUP}; times from CUDA events over {reps} launches, "
-        "cycling through input copies that exceed twice the L2")
+        f"group {GROUP}; kernel and bmm times are device times "
+        f"(CUDA graph of {reps} launches), plain times CUDA events over a "
+        "loop; every timing cycles through input copies that exceed twice "
+        "the L2")
     for name, route, tag, replaces, case in specs:
         rows = {}
-        for label, (c, k, n) in (("up", (C_DECODE, d, f)),
-                                 ("down", (C_DECODE, f, d)),
-                                 ("prefill_up", (C_PREFILL, d, f))):
+        for label, (c, k, n) in SHAPES.items():
             r = case(c, k, n)
             rows[label] = r
             log(f"  {name:13s} {label:10s} G={r['G']} C={r['C']:3d} "
-                f"K={k:5d} N={n:5d} x{r['copies']}: {r['ms']:.4f} ms (bound "
-                f"{r['bound_ms']:.4f} ms by {r['bound_by']}, "
-                f"{r['bound_ms'] / r['ms']:.1%} of bound), plain "
-                f"{r['plain_ms']:.4f} ms, bmm {r['library_ms']:.4f} ms, "
-                f"max|err| {r['max_abs_err']:.2e}")
+                f"K={k:5d} N={n:5d} x{r['copies']} splits "
+                f"{r['plan']['splits']}: {r['ms']:.4f} ms (loop "
+                f"{r['loop_ms']:.4f}; bound {r['bound_ms']:.4f} ms by "
+                f"{r['bound_by']}, {r['bound_ms'] / r['ms']:.1%} of bound), "
+                f"plain {r['plain_ms']:.4f} ms, bmm {r['library_ms']:.4f} ms "
+                f"({r['library_ms'] / r['ms']:.2f}x), max|err| "
+                f"{r['max_abs_err']:.2e}")
             torch.cuda.empty_cache()
         up = rows["up"]
         records.append({
@@ -490,8 +594,58 @@ def phase_kernels(torch, np, sizes, seed: int, reps: int):
                       "N": up["N"]}})
         extra.append({"name": name, "tag": tag, **{
             lbl: r for lbl, r in rows.items()}})
+    records.append(_reduce_record(torch, gen, qk, sizes, reps, extra))
     _exact_checks(torch, gen, gk, ops, QTensor)
     return records, extra
+
+
+def _reduce_record(torch, gen, qk, sizes, reps, extra):
+    """The split-K reduction at the workspaces of the q8 bank's decode up-
+    and down-projections: bit-equal to its plain version (f32 adds in
+    split order, one cast) and to itself on a second launch."""
+    rows = {}
+    g = sizes[8]
+    for label in ("up", "down"):
+        c, k, n = SHAPES[label]
+        splits = qk.launch_plan(c, k, n, 8).splits
+        count = g * c * n
+        cases = [torch.randn((splits, g, c, n), generator=gen,
+                             device="cuda")
+                 for _ in range(_copies(torch, splits * count * 4))]
+        got = qk.splitk_reduce(cases[0])
+        again = qk.splitk_reduce(cases[0])
+        want = qk.splitk_reduce_plain(cases[0])
+        err = float((got.float() - want.float()).abs().max())
+        if not (_bits_equal(torch, got, want)
+                and _bits_equal(torch, got, again)):
+            raise AssertionError(f"splitk_reduce ({label}) differs from its "
+                                 "plain version or between launches")
+        ms = _graph_ms(torch, [lambda w=w: qk.splitk_reduce(w)
+                               for w in cases], reps)
+        plain_ms = _time_ms(torch, [lambda w=w: qk.splitk_reduce_plain(w)
+                                    for w in cases], reps)
+        # bytes dominate: (splits - 1) f32 adds per output at 67 TFLOP/s
+        bound, by = _bound_ms(splits * count * 4 + count * 2, 0.0)
+        rows[label] = {"G": g, "C": c, "N": n, "splits": splits, "ms": ms,
+                       "plain_ms": plain_ms, "bound_ms": bound,
+                       "bound_by": by, "max_abs_err": err}
+        log(f"  splitk_reduce {label:10s} G={g} C={c} N={n} splits "
+            f"{splits}: {ms:.4f} ms (bound {bound:.4f} ms by {by}, "
+            f"{bound / ms:.1%} of bound), plain {plain_ms:.4f} ms, "
+            "bit-equal")
+        torch.cuda.empty_cache()
+    extra.append({"name": "splitk_reduce", "tag": "split-K", **rows})
+    up = rows["up"]
+    return {"name": "splitk_reduce", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/dequant_matmul.cu",
+            "replaces": "src/repro/kernels/grouped_matmul.py:63",
+            "launches": None,
+            "max_abs_err": max(r["max_abs_err"] for r in rows.values()),
+            "ms": up["ms"],
+            "plain_ms": up["plain_ms"], "bound_ms": up["bound_ms"],
+            "bound_by": up["bound_by"], "library_ms": None,
+            "shape": {"splits": up["splits"], "G": up["G"], "C": up["C"],
+                      "N": up["N"]}}
 
 
 def _exact_checks(torch, gen, gk, ops, QTensor):
@@ -583,7 +737,7 @@ def main(argv=None) -> int:
 
     t_start = time.perf_counter()
     smi = phase_device(torch)
-    build_s = phase_build()
+    build_s, ptxas = phase_build()
     serve, sizes = phase_serve(torch, np, args.seed, smi, args.profile)
     parity_err = phase_parity(torch, np, args.seed)
     records, extra = phase_kernels(torch, np, sizes, args.seed, args.reps)
@@ -591,14 +745,15 @@ def main(argv=None) -> int:
         rec["launches"] = serve["launches"][rec["name"]]
         rec["launches_per_decode_iter"] = \
             serve["launches_per_decode_iter"][rec["name"]]
-        rec["on_main_path"] = rec["name"].startswith("grouped_")
+        rec["on_main_path"] = rec["launches"] > 0
     total_s = time.perf_counter() - t_start
     log(f"total: {total_s:.1f} s")
     out = Path(args.out)
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps({
         "nvidia_smi": smi, "device": torch.cuda.get_device_name(0),
-        "build_s": build_s, "serve": serve, "parity_max_abs_diff":
+        "build_s": build_s, "ptxas": ptxas, "serve": serve,
+        "parity_max_abs_diff":
         parity_err, "kernels": records, "kernel_shapes": extra,
         "total_s": total_s}, indent=1))
     print(json.dumps({"kernels": records}), flush=True)

@@ -7,36 +7,67 @@
 //                         and grouped_matmul.py _grouped_q_kernel, bits=8 (B3)
 //   bf16_matmul        <- src/repro/kernels/grouped_matmul.py
 //                         _grouped_bf16_kernel (B4)
-// All compute out[g] = x[g] @ W[g] for a bank of G experts in one launch:
-// x (G, M, K) bf16, W (G, K/2, N) uint8 | (G, K, N) int8 | (G, K, N) bf16,
-// scales (G, K/group, N) bf16, out (G, M, N) bf16. B1/B2 are a launch with
+//   splitk_reduce      <- the f32 accumulator that those kernels carry
+//                         across their sequential K grid axis
+// The matmuls compute out[g] = x[g] @ W[g] for a bank of G experts in one
+// launch: x (G, M, K) bf16, W (G, K/2, N) uint8 | (G, K, N) int8 |
+// (G, K, N) bf16, scales (G, K/group, N) bf16, out (G, M, N) bf16. B1/B2 are a launch with
 // G = 1 through the same code, so the grouped result equals the per-expert
 // result bit for bit.
 //
-// Arithmetic (kept from the reference kernels): each weight is dequantized
-// in f32 as (int)code * (float)scale with no bf16 rounding, products are
-// accumulated in f32 in ascending K order, and the sum is rounded to bf16
-// once. Every product bf16(x) * (code * bf16 scale) is exact in f32, so an
-// all-zero activation group gives exact zeros and integer-friendly inputs
-// are exact.
+// Design: one templated tensor-core body, swap-AB. The kernel computes
+// out[g]^T = W[g]^T . x[g]^T with mma.sync.m16n8k16 (bf16 x bf16 -> f32):
+// weight columns N are the mma's M side (16 per fragment), tokens C its N
+// side (8 per fragment), so a decode buffer of C = 8 rows is exactly one
+// fragment and nothing is padded to 64 rows. A block is 4 warps over 128
+// columns and 8 * NT tokens (NT = 1, 2, 4 or 8); thread (gid, tig) of a
+// warp holds the four consecutive columns 4*gid .. 4*gid+3 of the warp's
+// 32, so one 32-bit shared load gives it one K pair of all four (int4 packs
+// the K pair (2b, 2b+1) of a column in one byte: one bf16x2 A register).
+// B comes from the x rows of the stage with ldmatrix.
 //
-// What bounds it on the H100: the weight bytes. At decode the dispatch
-// buffer has C <= 8 rows per expert against 4096 x 14336 experts, so the
-// kernel does ~2*C FLOPs per weight element read (4*C for int4): far below
-// the ~295 FLOP/byte ridge of the card. The design therefore reads each
-// packed weight byte once per output tile with coalesced vector loads,
-// dequantizes it in registers into a shared-memory f32 tile that all BM
-// rows of the block reuse, and prefetches the next K step's weights into
-// registers while the current tile is multiplied (the TPU kernel
-// overlapped the same way with its pipelined grid). Hopper has no
-// sequential grid axis that can carry an accumulator, so each block owns
-// one (g, BM, BN) output tile and loops over K itself, with the
-// accumulators in registers. The inner loop reads x four K values at a
-// time (one broadcast 16-byte shared load per row), since shared-memory
-// wavefronts, not FMAs, limited the first version. The f32 FMA path keeps
-// the reference's f32 dequant (tensor cores would round W to bf16 or
-// TF32); split-K for the narrow down-projection, cp.async/TMA pipelines
-// and wgmma are later work.
+// Arithmetic. Integer codes enter the tensor core as bf16 integers
+// (|code| <= 128 is exact in bf16's 8-bit significand): int4 through the
+// 0x4300 magic number (bf16 128 + nibble, minus 136), int8 as the bf16
+// difference (128 + low 7 bits) - (128 or 256 by the sign bit). Each
+// quantization group (or each 64 K, whichever is smaller) accumulates into
+// a fresh f32 fragment, which is then added into the output accumulator
+// times the column's f32 scale: acc = fmaf(part, scale[n], acc). W is
+// never rounded to bf16: every product x * code is exact in the tensor
+// core, and an integer-valued partial times a bf16 scale is exact in f32
+// while it fits 24 bits, so an all-zero activation group gives exact
+// zeros and integer-friendly inputs are exact. Within a K split the group partials of an output are added in
+// ascending K order; bf16_matmul is the same body with BITS = 16, no scale
+// step, and the mma accumulating straight into acc (the tensor core's own
+// order within each k16 step, ascending k16 steps).
+//
+// Split-K. launch_plan(c, k, n, bits) in kernels/q4_matmul.py fixes the
+// tile and the K splits from the shape alone (no G): split boundaries are
+// multiples of 64, at most 16 splits. With one split the kernel writes
+// bf16; with more, each split writes its f32 partial to a workspace
+// (splits, G, M, N) that the wrapper allocates, and splitk_reduce (the
+// fifth kernel here, counted on its own) adds the splits in order 0, 1,
+// ... and rounds once to bf16. No float atomics: the same inputs give the
+// same bits on every run and for every G. (A reduction inside a thread-
+// block cluster, through distributed shared memory, was tried during
+// development and was slower at the decode shapes.)
+//
+// What bounds it on the H100, and what the design does about it:
+//   * decode (C <= 16): the weight bytes. ~2*C FLOPs per weight element is
+//     far below the card's ~295 FLOP/byte ridge. Weights stream through a
+//     per-block ring of cp.async (16-byte, .cg) stages, 64 K deep, as many
+//     as fit 72 KB (up to 8, so up to 7 in flight) with one __syncthreads
+//     per stage; the split-K plan puts >= 2 blocks on every SM at G = 1
+//     (the down-projection's N = 4096 alone gives only 32 column tiles).
+//     No f32 weight tile exists in shared memory: codes go from the ring
+//     to registers to the mma. At int4 the per-byte instruction count
+//     (conversion, ldmatrix, mma, group flush), not the bytes, is what
+//     is left.
+//   * prefill (C = 128): the tensor-core operations (0.046 ms for three
+//     int4 up-projection experts against 0.028 ms of bytes). A CUDA-core
+//     f32 path is capped at 67 TFLOP/s and cannot approach that bound; here
+//     each converted weight fragment feeds NT = 8 token fragments. wgmma
+//     and TMA (64-row tiles) are left for a later version.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -44,279 +75,486 @@
 
 namespace {
 
-// Output tiles (BM rows x BN columns per block) come in two shapes: 8 x 64
-// for decode, where the dispatch buffer has C <= 8 rows per expert and
-// narrow tiles put more blocks in flight, and 32 x 128 for prefill, where
-// a taller tile reuses each dequantized weight tile for more rows. The
-// accumulation order of an output does not depend on the tile.
-constexpr int BK = 64;        // K step staged in shared memory
-constexpr int THREADS = 256;
-constexpr int BM_DECODE = 8, BN_DECODE = 64;
-constexpr int BM_PREFILL = 32, BN_PREFILL = 128;
+constexpr int BK = 64;                 // K per pipeline stage
+constexpr int WARPS_N = 4;             // warps across the block's columns
+constexpr int WN = 32;                 // columns per warp (2 m16 fragments)
+constexpr int BN = WARPS_N * WN;       // columns per block
+constexpr int SCALE_ROWS = 4;          // scale rows per stage (group 16)
+constexpr int X_STRIDE = 144;          // bytes per token row of a stage
+constexpr int SMEM_BUDGET = 72 * 1024; // three blocks per SM (NT <= 4)
+constexpr int SMEM_BUDGET_NT8 = 112 * 1024;  // two blocks per SM (NT = 8)
+constexpr int MAX_SPLITS = 16;         // K splits a plan may take
 
-__device__ __forceinline__ float bf16_bits_to_float(uint16_t b) {
-  return __uint_as_float(static_cast<uint32_t>(b) << 16);
-}
-
-// Vector of ``BYTES`` bytes for one global load.
-template <int BYTES> struct Vec;
-template <> struct Vec<4> { using T = uint32_t; };
-template <> struct Vec<8> { using T = uint2; };
-template <> struct Vec<16> { using T = uint4; };
-
-// Raw (undequantized) weight chunks of one BK x BN tile, held in registers
-// between the global load and the shared-memory store. A chunk is ELEMS
-// consecutive columns of one weight row: 4 int4 pairs (4 bytes), 8 int8
-// codes (8 bytes) or 8 bf16 values (16 bytes). Consecutive threads take
-// consecutive chunks of a row, so global loads are coalesced and the
-// 16-byte shared-memory stores of a warp are (nearly) contiguous.
-template <int BITS, int BN>
-struct WeightTile {
-  static constexpr int ELEM_BYTES = BITS == 16 ? 2 : 1;
-  static constexpr int ELEMS = BITS == 4 ? 4 : 8;        // columns per chunk
-  static constexpr int ROWS = BITS == 4 ? BK / 2 : BK;   // stored rows
-  static constexpr int CHUNKS_PER_ROW = BN / ELEMS;
-  static constexpr int CHUNKS = ROWS * CHUNKS_PER_ROW / THREADS;
-  static_assert(CHUNKS * THREADS == ROWS * CHUNKS_PER_ROW, "tile split");
-  static constexpr bool SCALED = BITS != 16;
-  using Raw = typename Vec<ELEMS * ELEM_BYTES>::T;
-  using Scales = typename Vec<ELEMS * 2>::T;             // ELEMS bf16
-  Raw w[CHUNKS];
-  Scales s[SCALED ? CHUNKS : 1];
-
-  __device__ __forceinline__ int col_of() const {
-    return (threadIdx.x % CHUNKS_PER_ROW) * ELEMS;
-  }
-
-  // Loads tile (k0, n0) of one expert. ``wg``/``sg`` point at the expert.
-  __device__ __forceinline__ void load(const uint8_t* wg, const uint16_t* sg,
-                                       int k0, int n0, int K, int N,
-                                       int group_size) {
-    const int stored_rows = BITS == 4 ? K / 2 : K;
-    const int row0 = BITS == 4 ? k0 / 2 : k0;
-    const int col = n0 + col_of();
-#pragma unroll
-    for (int i = 0; i < CHUNKS; ++i) {
-      const int gr = row0 + (threadIdx.x + i * THREADS) / CHUNKS_PER_ROW;
-      const bool ok = gr < stored_rows && col < N;
-      w[i] = ok ? *reinterpret_cast<const Raw*>(
-                      wg + (static_cast<size_t>(gr) * N + col) * ELEM_BYTES)
-                : Raw{};
-      if constexpr (SCALED) {
-        // both K indices of an int4 byte share one group (group is even)
-        const int k = BITS == 4 ? 2 * gr : gr;
-        s[i] = ok ? *reinterpret_cast<const Scales*>(
-                        sg + static_cast<size_t>(k / group_size) * N + col)
-                  : Scales{};
-      }
-    }
-  }
-
-  // Dequantizes into the shared f32 tile ws[BK][BN].
-  __device__ __forceinline__ void store(float (*ws)[BN]) const {
-    const int col = col_of();
-#pragma unroll
-    for (int i = 0; i < CHUNKS; ++i) {
-      const int r = (threadIdx.x + i * THREADS) / CHUNKS_PER_ROW;
-      float f[ELEMS], g[ELEMS];
-      if constexpr (BITS == 16) {
-        const uint16_t* v = reinterpret_cast<const uint16_t*>(&w[i]);
-#pragma unroll
-        for (int j = 0; j < ELEMS; ++j) f[j] = bf16_bits_to_float(v[j]);
-      } else {
-        const uint8_t* v = reinterpret_cast<const uint8_t*>(&w[i]);
-        const uint16_t* sc = reinterpret_cast<const uint16_t*>(&s[i]);
-#pragma unroll
-        for (int j = 0; j < ELEMS; ++j) {
-          const float scale = bf16_bits_to_float(sc[j]);
-          if constexpr (BITS == 4) {
-            // byte b holds K indices (2b, 2b+1) as (low, high) nibbles, +8
-            f[j] = static_cast<float>(static_cast<int>(v[j] & 0xF) - 8)
-                * scale;
-            g[j] = static_cast<float>(static_cast<int>(v[j] >> 4) - 8)
-                * scale;
-          } else {
-            f[j] = static_cast<float>(static_cast<int8_t>(v[j])) * scale;
-          }
-        }
-      }
-      const int row = BITS == 4 ? 2 * r : r;
-#pragma unroll
-      for (int j = 0; j < ELEMS; j += 4) {
-        *reinterpret_cast<float4*>(&ws[row][col + j]) =
-            make_float4(f[j], f[j + 1], f[j + 2], f[j + 3]);
-        if constexpr (BITS == 4) {
-          *reinterpret_cast<float4*>(&ws[row + 1][col + j]) =
-              make_float4(g[j], g[j + 1], g[j + 2], g[j + 3]);
-        }
-      }
-    }
-  }
+// Shared-memory layout of one (BITS, NT) instantiation. A stage holds
+// the raw weight rows (padded so a warp's four K-pair rows fall on distinct
+// banks), the scale rows and the x rows of one 64-K step.
+template <int BITS, int NT>
+struct Tile {
+  static constexpr int THREADS = 32 * WARPS_N;
+  static constexpr int BC = 8 * NT;                      // tokens per block
+  static constexpr int ELEM = BITS == 16 ? 2 : 1;        // bytes per code
+  static constexpr int W_ROWS = BITS == 4 ? BK / 2 : BK; // stored rows
+  static constexpr int W_ROW_BYTES = BN * ELEM;
+  static constexpr int W_STRIDE = W_ROW_BYTES + (BITS == 8 ? 16 : 32);
+  static constexpr int W_BYTES = W_ROWS * W_STRIDE;
+  static constexpr int S_BYTES = BITS == 16 ? 0 : SCALE_ROWS * BN * 2;
+  static constexpr int X_BYTES = BC * X_STRIDE;
+  static constexpr int STAGE_BYTES = W_BYTES + S_BYTES + X_BYTES;
+  static constexpr int STAGES_FIT =
+      (NT >= 8 ? SMEM_BUDGET_NT8 : SMEM_BUDGET) / STAGE_BYTES;
+  static constexpr int STAGES =
+      STAGES_FIT < 2 ? 2 : (STAGES_FIT > 8 ? 8 : STAGES_FIT);
+  static constexpr int SMEM = STAGES * STAGE_BYTES;
+  static constexpr int MIN_BLOCKS = NT >= 8 ? 2 : 3;   // per SM
 };
 
-// The shared block body: one (g, BM, BN) output tile, K looped in BK steps.
-template <int BITS, int BM, int BN>
-__device__ __forceinline__ void matmul_tile(
-    const uint16_t* __restrict__ x, const uint8_t* __restrict__ w,
-    const uint16_t* __restrict__ scales, uint16_t* __restrict__ out,
-    int M, int K, int N, int group_size) {
-  constexpr int TM = BM * BN / THREADS;   // rows per thread, one column
-  constexpr int X_PER_THREAD = BM * BK / THREADS;
-  static_assert(TM * THREADS == BM * BN, "tile must split over the block");
-  static_assert(X_PER_THREAD * THREADS == BM * BK, "x tile must split too");
-  __shared__ __align__(16) float xs[BM][BK];
-  __shared__ __align__(16) float ws[BK][BN];
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16-byte asynchronous copy; ``bytes`` = 0 zero-fills the destination.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_addr(dst)), "l"(src), "r"(bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
+}
+
+__device__ __forceinline__ uint32_t lds32(const char* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+__device__ __forceinline__ uint2 lds64(const char* p) {
+  return *reinterpret_cast<const uint2*>(p);
+}
+
+__device__ __forceinline__ void store_bf16x4(uint16_t* p, float4 v) {
+  __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
+  __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
+  uint2 o;
+  o.x = *reinterpret_cast<uint32_t*>(&lo);
+  o.y = *reinterpret_cast<uint32_t*>(&hi);
+  *reinterpret_cast<uint2*>(p) = o;
+}
+
+__device__ __forceinline__ float bf16_lo(uint32_t v) {
+  return __uint_as_float(v << 16);
+}
+
+__device__ __forceinline__ float bf16_hi(uint32_t v) {
+  return __uint_as_float(v & 0xFFFF0000u);
+}
+
+// Byte j of ``w`` (K pair (2b, 2b+1) of one column as (low, high) nibbles,
+// offset by 8) -> bf16x2 (low - 8, high - 8). ``u`` is w >> 4.
+__device__ __forceinline__ uint32_t int4_pair(uint32_t w, uint32_t u, int j) {
+  const uint32_t sel = j | (j << 4) | ((4 + j) << 8) | ((4 + j) << 12);
+  const uint32_t v = (__byte_perm(w, u, sel) & 0x000F000Fu) | 0x43004300u;
+  const uint32_t bias = 0x43084308u;               // bf16x2 (136, 136)
+  __nv_bfloat162 r = __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&v),
+                             *reinterpret_cast<const __nv_bfloat162*>(&bias));
+  return *reinterpret_cast<uint32_t*>(&r);
+}
+
+// Int8 byte j of ``lo`` and of ``hi`` -> bf16x2 (code_lo, code_hi),
+// exactly: a code b is (b & 0x7F) - 128 * sign, so bf16 (128 + (b & 0x7F))
+// minus bf16 (128 or 256, by the sign bit) is b.
+__device__ __forceinline__ uint32_t int8_pair(uint32_t lo, uint32_t hi,
+                                              int j) {
+  const uint32_t sel = j | (j << 4) | ((4 + j) << 8) | ((4 + j) << 12);
+  const uint32_t p = __byte_perm(lo, hi, sel);
+  const uint32_t mag = (p & 0x007F007Fu) | 0x43004300u;
+  const uint32_t sub = (p & 0x00800080u) | 0x43004300u;
+  __nv_bfloat162 r = __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&mag),
+                             *reinterpret_cast<const __nv_bfloat162*>(&sub));
+  return *reinterpret_cast<uint32_t*>(&r);
+}
+
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// B fragments of one k16 step for token fragments t and t+1 (x4) or t
+// alone (x2), from the x rows of a stage; ``addr`` is this lane's row.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const char* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldmatrix_x2(uint32_t (&r)[4], const char* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+      : "=r"(r[0]), "=r"(r[1]) : "r"(smem_addr(p)));
+}
+
+struct Args {
+  const uint16_t* x;       // (G, M, K)
+  const uint8_t* w;        // the expert bank, BITS-dependent layout
+  const uint16_t* scales;  // (G, K/gs, N) or null
+  uint16_t* out;           // (G, M, N) bf16, written when splits == 1
+  float* ws;               // (splits, G, M, N) f32, written when splits > 1
+  int G, M, K, N, gs, k_chunk, splits;
+};
+
+// Issue the cp.async copies of one 64-K stage starting at ``k0``; rows at
+// or past ``kend`` (and columns past N, tokens past M) are zero-filled.
+template <int BITS, int NT>
+__device__ __forceinline__ void load_stage(
+    char* st, const uint16_t* xg, const uint8_t* wg, const uint16_t* sg,
+    const Args& a, int k0, int kend, int m0, int n0) {
+  using T = Tile<BITS, NT>;
+  const int tid = threadIdx.x;
+  // weights: rows of W_ROW_BYTES, 16-byte chunks, consecutive threads on
+  // consecutive chunks of a row
+  constexpr int W_CPR = T::W_ROW_BYTES / 16;
+  constexpr int W_CHUNKS = T::W_ROWS * W_CPR;
+  static_assert(W_CHUNKS % T::THREADS == 0, "weight chunks split evenly");
+  const int row0 = BITS == 4 ? k0 / 2 : k0;
+  const int row_end = BITS == 4 ? kend / 2 : kend;
+#pragma unroll
+  for (int i = 0; i < W_CHUNKS / T::THREADS; ++i) {
+    const int e = tid + i * T::THREADS;
+    const int r = e / W_CPR, c = e % W_CPR;
+    const int col = n0 + c * 16 / T::ELEM;
+    const bool ok = row0 + r < row_end && col < a.N;
+    const uint8_t* src =
+        wg + (static_cast<size_t>(row0 + r) * a.N + col) * T::ELEM;
+    cp_async16(st + r * T::W_STRIDE + c * 16, ok ? src : wg, ok ? 16 : 0);
+  }
+  if constexpr (BITS != 16) {
+    // scale rows of the groups this stage touches (one when gs >= 64)
+    const int rows = a.gs >= BK ? 1 : BK / a.gs;
+    char* ss = st + T::W_BYTES;
+    if (tid < rows * 16) {
+      const int r = tid / 16, c = tid % 16;
+      const int srow = k0 / a.gs + r;
+      const int col = n0 + c * 8;
+      const bool ok = srow * a.gs < kend && col < a.N;
+      const uint16_t* src = sg + static_cast<size_t>(srow) * a.N + col;
+      cp_async16(ss + r * BN * 2 + c * 16, ok ? src : sg, ok ? 16 : 0);
+    }
+  }
+  // x: BC token rows of 64 bf16 (8 chunks each)
+  char* xs = st + T::W_BYTES + T::S_BYTES;
+  constexpr int X_CHUNKS = T::BC * 8;
+#pragma unroll
+  for (int i = 0; i < (X_CHUNKS + T::THREADS - 1) / T::THREADS; ++i) {
+    const int e = tid + i * T::THREADS;
+    if (e < X_CHUNKS) {
+      const int r = e / 8, c = e % 8;
+      const int m = m0 + r, k = k0 + c * 8;
+      const bool ok = m < a.M && k < kend;
+      const uint16_t* src = xg + static_cast<size_t>(m) * a.K + k;
+      cp_async16(xs + r * X_STRIDE + c * 16, ok ? src : xg, ok ? 16 : 0);
+    }
+  }
+}
+
+// The A fragments of one k16 step for the thread's two m16 fragments:
+// a[j] = {row gid, row gid+8} x {k 2tig.., k 2tig+8..} of fragment j, where
+// fragment j's rows gid and gid+8 are the thread's columns 2j and 2j+1.
+template <int BITS>
+__device__ __forceinline__ void load_a(uint32_t (&a)[2][4], const char* wsm,
+                                       int stride, int step, int colb,
+                                       int tig) {
+  if constexpr (BITS == 4) {
+    const char* base = wsm + (step * 8 + tig) * stride + colb;
+    const uint32_t w0 = lds32(base), w1 = lds32(base + 4 * stride);
+    const uint32_t u0 = w0 >> 4, u1 = w1 >> 4;
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      a[j][0] = int4_pair(w0, u0, 2 * j);
+      a[j][1] = int4_pair(w0, u0, 2 * j + 1);
+      a[j][2] = int4_pair(w1, u1, 2 * j);
+      a[j][3] = int4_pair(w1, u1, 2 * j + 1);
+    }
+  } else if constexpr (BITS == 8) {
+    const char* base = wsm + (step * 16 + 2 * tig) * stride + colb;
+    const uint32_t r0 = lds32(base), r1 = lds32(base + stride);
+    const uint32_t r2 = lds32(base + 8 * stride);
+    const uint32_t r3 = lds32(base + 9 * stride);
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      a[j][0] = int8_pair(r0, r1, 2 * j);
+      a[j][1] = int8_pair(r0, r1, 2 * j + 1);
+      a[j][2] = int8_pair(r2, r3, 2 * j);
+      a[j][3] = int8_pair(r2, r3, 2 * j + 1);
+    }
+  } else {
+    const char* base = wsm + (step * 16 + 2 * tig) * stride + colb;
+    const uint2 r0 = lds64(base), r1 = lds64(base + stride);
+    const uint2 r2 = lds64(base + 8 * stride), r3 = lds64(base + 9 * stride);
+    a[0][0] = __byte_perm(r0.x, r1.x, 0x5410);
+    a[0][1] = __byte_perm(r0.x, r1.x, 0x7632);
+    a[0][2] = __byte_perm(r2.x, r3.x, 0x5410);
+    a[0][3] = __byte_perm(r2.x, r3.x, 0x7632);
+    a[1][0] = __byte_perm(r0.y, r1.y, 0x5410);
+    a[1][1] = __byte_perm(r0.y, r1.y, 0x7632);
+    a[1][2] = __byte_perm(r2.y, r3.y, 0x5410);
+    a[1][3] = __byte_perm(r2.y, r3.y, 0x7632);
+  }
+}
+
+template <int BITS, int NT>
+__global__ void __launch_bounds__(Tile<BITS, NT>::THREADS,
+                                  Tile<BITS, NT>::MIN_BLOCKS)
+tc_matmul_kernel(Args a) {
+  using T = Tile<BITS, NT>;
+  constexpr int S = T::STAGES;
+  extern __shared__ __align__(16) char smem[];
   const int g = blockIdx.z;
-  const int m0 = blockIdx.y * BM;
+  const int split = blockIdx.y % a.splits;
+  const int m0 = (blockIdx.y / a.splits) * T::BC;
   const int n0 = blockIdx.x * BN;
-  const int elem_bytes = BITS == 16 ? 2 : 1;
-  const int stored_rows = BITS == 4 ? K / 2 : K;
-  const uint16_t* xg = x + static_cast<size_t>(g) * M * K;
-  const uint8_t* wg =
-      w + static_cast<size_t>(g) * stored_rows * N * elem_bytes;
-  const uint16_t* sg = BITS == 16 ? nullptr
-      : scales + static_cast<size_t>(g) * (K / group_size) * N;
+  const int kbeg = split * a.k_chunk;
+  const int kend = min(a.K, kbeg + a.k_chunk);
+  const int nst = (kend - kbeg + BK - 1) / BK;
 
-  const int tn = threadIdx.x % BN;          // this thread's column
-  const int tr = (threadIdx.x / BN) * TM;   // and its first row
-  float acc[TM];
-#pragma unroll
-  for (int r = 0; r < TM; ++r) acc[r] = 0.0f;
+  const size_t w_expert = static_cast<size_t>(BITS == 4 ? a.K / 2 : a.K)
+      * a.N * T::ELEM;
+  const uint16_t* xg = a.x + static_cast<size_t>(g) * a.M * a.K;
+  const uint8_t* wg = a.w + g * w_expert;
+  const uint16_t* sg = BITS == 16 ? a.x
+      : a.scales + static_cast<size_t>(g) * (a.K / a.gs) * a.N;
 
-  WeightTile<BITS, BN> wt;
-  uint16_t xr[X_PER_THREAD];
-  auto load_x = [&](int k0) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int wn = warp;
+  const int colb = (wn * WN + 4 * gid) * T::ELEM;  // byte in a weight row
+  const int spf = (a.gs < BK ? a.gs : BK) / 16;    // k16 steps per flush
+
+  float acc[2][NT][4], part[2][NT][4];
 #pragma unroll
-    for (int j = 0; j < X_PER_THREAD; ++j) {
-      const int e = threadIdx.x + j * THREADS;
-      const int r = e / BK, c = e % BK;
-      const bool ok = m0 + r < M && k0 + c < K;
-      xr[j] = ok ? xg[static_cast<size_t>(m0 + r) * K + k0 + c] : 0;
-    }
-  };
-  wt.load(wg, sg, 0, n0, K, N, group_size);
-  load_x(0);
-  for (int k0 = 0; k0 < K; k0 += BK) {
+  for (int j = 0; j < 2; ++j)
 #pragma unroll
-    for (int j = 0; j < X_PER_THREAD; ++j) {
-      const int e = threadIdx.x + j * THREADS;
-      xs[e / BK][e % BK] = bf16_bits_to_float(xr[j]);
-    }
-    wt.store(ws);
-    __syncthreads();
-    if (k0 + BK < K) {     // next step's loads fly while this one computes
-      wt.load(wg, sg, k0 + BK, n0, K, N, group_size);
-      load_x(k0 + BK);
-    }
-    // ascending K per output; x is read four K values at a time (one
-    // broadcast 16-byte load per row)
-#pragma unroll 4
-    for (int kk = 0; kk < BK; kk += 4) {
-      const float w0 = ws[kk][tn], w1 = ws[kk + 1][tn];
-      const float w2 = ws[kk + 2][tn], w3 = ws[kk + 3][tn];
+    for (int t = 0; t < NT; ++t)
 #pragma unroll
-      for (int r = 0; r < TM; ++r) {
-        const float4 xv = *reinterpret_cast<const float4*>(&xs[tr + r][kk]);
-        acc[r] = fmaf(xv.x, w0, acc[r]);
-        acc[r] = fmaf(xv.y, w1, acc[r]);
-        acc[r] = fmaf(xv.z, w2, acc[r]);
-        acc[r] = fmaf(xv.w, w3, acc[r]);
+      for (int i = 0; i < 4; ++i) acc[j][t][i] = part[j][t][i] = 0.0f;
+  // this lane's row address for ldmatrix: matrix q = lane / 8 is token
+  // fragment q / 2, K half q % 2
+  const int ldm = ((NT >= 2 ? lane >> 4 : 0) * 8 + (lane & 7)) * X_STRIDE
+      + ((lane >> 3) & 1) * 16;
+
+#pragma unroll
+  for (int s = 0; s < S - 1; ++s) {
+    if (s < nst)
+      load_stage<BITS, NT>(smem + s * T::STAGE_BYTES, xg, wg, sg, a,
+                               kbeg + s * BK, kend, m0, n0);
+    cp_async_commit();
+  }
+  for (int it = 0; it < nst; ++it) {
+    cp_async_wait<S - 2>();
+    __syncthreads();       // stage ``it`` landed; stage it-1 fully read
+    const int nx = it + S - 1;
+    if (nx < nst)
+      load_stage<BITS, NT>(smem + (nx % S) * T::STAGE_BYTES, xg, wg, sg,
+                           a, kbeg + nx * BK, kend, m0, n0);
+    cp_async_commit();
+    const char* st = smem + (it % S) * T::STAGE_BYTES;
+    const char* xs = st + T::W_BYTES + T::S_BYTES;
+#pragma unroll
+    for (int step = 0; step < BK / 16; ++step) {
+      uint32_t af[2][4];
+      load_a<BITS>(af, st, T::W_STRIDE, step, colb, tig);
+#pragma unroll
+      for (int t = 0; t < NT; t += 2) {
+        uint32_t bf[4];
+        const char* xr = xs + t * 8 * X_STRIDE + ldm + step * 32;
+        if constexpr (NT >= 2) ldmatrix_x4(bf, xr);
+        else ldmatrix_x2(bf, xr);
+#pragma unroll
+        for (int u = 0; u < (NT >= 2 ? 2 : 1); ++u)
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            const uint32_t b0 = bf[2 * u], b1 = bf[2 * u + 1];
+            if constexpr (BITS == 16) mma_bf16(acc[j][t + u], af[j], b0, b1);
+            else mma_bf16(part[j][t + u], af[j], b0, b1);
+          }
+      }
+      if constexpr (BITS != 16) {
+        if ((step + 1) % spf == 0) {      // a group's partial is complete
+          const int srow = a.gs >= BK ? 0 : step * 16 / a.gs;
+          const uint2 sv = lds64(st + T::W_BYTES + srow * BN * 2
+                                 + (wn * WN + 4 * gid) * 2);
+          const float sc[2][2] = {{bf16_lo(sv.x), bf16_hi(sv.x)},
+                                  {bf16_lo(sv.y), bf16_hi(sv.y)}};
+#pragma unroll
+          for (int j = 0; j < 2; ++j)
+#pragma unroll
+            for (int t = 0; t < NT; ++t)
+#pragma unroll
+              for (int i = 0; i < 4; ++i) {
+                acc[j][t][i] = fmaf(part[j][t][i], sc[j][i >> 1],
+                                    acc[j][t][i]);
+                part[j][t][i] = 0.0f;
+              }
+        }
       }
     }
-    __syncthreads();
   }
-  const int n = n0 + tn;
-  if (n < N) {
-    uint16_t* og = out + static_cast<size_t>(g) * M * N;
+  cp_async_wait<0>();
+
+  // thread's outputs: columns n .. n+3, tokens m and m+1 per fragment
+  const int n = n0 + wn * WN + 4 * gid;
+  if (a.splits == 1) {
+    if (n >= a.N) return;                // N % 16 == 0: all four or none
 #pragma unroll
-    for (int r = 0; r < TM; ++r) {
-      const int m = m0 + tr + r;
-      if (m < M) {
-        const __nv_bfloat16 v = __float2bfloat16_rn(acc[r]);
-        og[static_cast<size_t>(m) * N + n] =
-            *reinterpret_cast<const uint16_t*>(&v);
+    for (int t = 0; t < NT; ++t)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int m = m0 + t * 8 + 2 * tig + h;
+        if (m < a.M)
+          store_bf16x4(a.out + (static_cast<size_t>(g) * a.M + m) * a.N + n,
+                       make_float4(acc[0][t][h], acc[0][t][2 + h],
+                                   acc[1][t][h], acc[1][t][2 + h]));
       }
+    return;
+  }
+  // K split: this split's f32 partial goes to the workspace (splits, G,
+  // M, N); splitk_reduce adds the splits in order
+  if (n >= a.N) return;
+  const size_t plane = static_cast<size_t>(a.G) * a.M * a.N;
+#pragma unroll
+  for (int t = 0; t < NT; ++t)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = m0 + t * 8 + 2 * tig + h;
+      if (m < a.M)
+        *reinterpret_cast<float4*>(
+            a.ws + split * plane + (static_cast<size_t>(g) * a.M + m) * a.N
+            + n) = make_float4(acc[0][t][h], acc[0][t][2 + h], acc[1][t][h],
+                               acc[1][t][2 + h]);
     }
+}
+
+// out = bf16(ws[0] + ws[1] + ... ) in split order, four outputs a thread.
+__global__ void __launch_bounds__(256) splitk_reduce_kernel(
+    const float4* __restrict__ ws, uint2* __restrict__ out, int splits,
+    long long count4) {
+  for (long long i = blockIdx.x * 256LL + threadIdx.x; i < count4;
+       i += static_cast<long long>(gridDim.x) * 256) {
+    float4 v[MAX_SPLITS];                // all loads in flight at once
+#pragma unroll
+    for (int p = 0; p < MAX_SPLITS; ++p)
+      if (p < splits) v[p] = ws[p * count4 + i];
+    float4 s = v[0];
+#pragma unroll
+    for (int p = 1; p < MAX_SPLITS; ++p)
+      if (p < splits) {
+        s.x += v[p].x; s.y += v[p].y; s.z += v[p].z; s.w += v[p].w;
+      }
+    store_bf16x4(reinterpret_cast<uint16_t*>(out + i), s);
   }
 }
 
-template <int BITS, int BM, int BN>
-__global__ void __launch_bounds__(THREADS) dequant_matmul_kernel(
-    const uint16_t* __restrict__ x, const uint8_t* __restrict__ w,
-    const uint16_t* __restrict__ scales, uint16_t* __restrict__ out,
-    int M, int K, int N, int group_size) {
-  matmul_tile<BITS, BM, BN>(x, w, scales, out, M, K, N, group_size);
+template <int BITS, int NT>
+int launch(const Args& a, cudaStream_t s) {
+  using T = Tile<BITS, NT>;
+  static bool smem_set = false;     // raise the dynamic-smem cap once
+  if (!smem_set) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        tc_matmul_kernel<BITS, NT>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    smem_set = true;
+  }
+  const dim3 grid((a.N + BN - 1) / BN,
+                  ((a.M + T::BC - 1) / T::BC) * a.splits, a.G);
+  tc_matmul_kernel<BITS, NT><<<grid, T::THREADS, T::SMEM, s>>>(a);
+  return static_cast<int>(cudaGetLastError());
 }
 
-template <int BM, int BN>
-__global__ void __launch_bounds__(THREADS) bf16_matmul_kernel(
-    const uint16_t* __restrict__ x, const uint8_t* __restrict__ w,
-    uint16_t* __restrict__ out, int M, int K, int N) {
-  matmul_tile<16, BM, BN>(x, w, nullptr, out, M, K, N, 1);
+template <int BITS>
+int launch_bits(const Args& a, int block_c, cudaStream_t s) {
+  switch (block_c) {
+    case 8: return launch<BITS, 1>(a, s);
+    case 16: return launch<BITS, 2>(a, s);
+    case 32: return launch<BITS, 4>(a, s);
+    case 64: return launch<BITS, 8>(a, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
-template <int BM, int BN>
-dim3 grid_of(int G, int M, int N) {
-  return dim3((N + BN - 1) / BN, (M + BM - 1) / BM, G);
-}
-
-template <int BITS, int BM, int BN>
-void launch_dequant(const void* x, const void* w, const void* scales,
-                    void* out, int G, int M, int K, int N, int group_size,
-                    cudaStream_t s) {
-  dequant_matmul_kernel<BITS, BM, BN>
-      <<<grid_of<BM, BN>(G, M, N), THREADS, 0, s>>>(
-          static_cast<const uint16_t*>(x), static_cast<const uint8_t*>(w),
-          static_cast<const uint16_t*>(scales), static_cast<uint16_t*>(out),
-          M, K, N, group_size);
-}
-
-template <int BM, int BN>
-void launch_bf16(const void* x, const void* w, void* out, int G, int M,
-                 int K, int N, cudaStream_t s) {
-  bf16_matmul_kernel<BM, BN><<<grid_of<BM, BN>(G, M, N), THREADS, 0, s>>>(
-      static_cast<const uint16_t*>(x), static_cast<const uint8_t*>(w),
-      static_cast<uint16_t*>(out), M, K, N);
+// The plan must be one launch_plan gives: 128-column tiles, a supported
+// token tile, 64-aligned K splits that cover K exactly (at most
+// MAX_SPLITS), and a workspace when there is more than one.
+bool plan_ok(const Args& a, int block_n) {
+  if (block_n != BN || a.k_chunk <= 0 || a.k_chunk % BK) return false;
+  if (a.splits < 1 || a.splits > MAX_SPLITS) return false;
+  if (a.splits != (a.K + a.k_chunk - 1) / a.k_chunk) return false;
+  if (a.splits > 1 && a.ws == nullptr) return false;
+  return a.K % 16 == 0 && a.N % 16 == 0;
 }
 
 }  // namespace
 
 // Plain C entry points (loaded with ctypes). Each launches on ``stream`` and
-// returns cudaGetLastError() so a refused launch is reported to the caller.
-// Shape contract (checked by the Python wrappers): N % 16 == 0, K even,
-// group_size | K, all tensors contiguous.
-extern "C" int repro_dequant_matmul(int bits, const void* x, const void* w,
-                                    const void* scales, void* out, int G,
-                                    int M, int K, int N, int group_size,
-                                    void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool decode = M <= BM_DECODE;
-  if (bits == 4 && decode) {
-    launch_dequant<4, BM_DECODE, BN_DECODE>(x, w, scales, out, G, M, K, N,
-                                            group_size, s);
-  } else if (bits == 4) {
-    launch_dequant<4, BM_PREFILL, BN_PREFILL>(x, w, scales, out, G, M, K, N,
-                                              group_size, s);
-  } else if (bits == 8 && decode) {
-    launch_dequant<8, BM_DECODE, BN_DECODE>(x, w, scales, out, G, M, K, N,
-                                            group_size, s);
-  } else if (bits == 8) {
-    launch_dequant<8, BM_PREFILL, BN_PREFILL>(x, w, scales, out, G, M, K, N,
-                                              group_size, s);
-  } else {
+// returns the launch's CUDA error code so a refused launch is reported to
+// the caller. Shape contract (checked by the Python wrappers): N % 16 == 0,
+// K % 16 == 0, the quantization group a multiple of 16 that divides 64 or
+// that 64 divides, group | K, all tensors contiguous and 16-byte aligned.
+// The tile and split arguments come from launch_plan; with more than one
+// split the kernel writes the f32 workspace ``ws`` (splits, G, M, N) and
+// the caller then launches repro_splitk_reduce into ``out``.
+extern "C" int repro_dequant_matmul(
+    int bits, const void* x, const void* w, const void* scales, void* out,
+    void* ws, int G, int M, int K, int N, int group_size, int block_n,
+    int block_c, int k_chunk, int splits, void* stream) {
+  const Args a{static_cast<const uint16_t*>(x),
+               static_cast<const uint8_t*>(w),
+               static_cast<const uint16_t*>(scales),
+               static_cast<uint16_t*>(out), static_cast<float*>(ws), G, M, K,
+               N, group_size, k_chunk, splits};
+  const bool gs_ok = group_size >= 16 && group_size % 16 == 0
+      && (BK % group_size == 0 || group_size % BK == 0)
+      && K % group_size == 0;
+  if (!plan_ok(a, block_n) || !gs_ok)
     return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bits == 4) return launch_bits<4>(a, block_c, s);
+  if (bits == 8) return launch_bits<8>(a, block_c, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 extern "C" int repro_bf16_matmul(const void* x, const void* w, void* out,
-                                 int G, int M, int K, int N, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (M <= BM_DECODE) {
-    launch_bf16<BM_DECODE, BN_DECODE>(x, w, out, G, M, K, N, s);
-  } else {
-    launch_bf16<BM_PREFILL, BN_PREFILL>(x, w, out, G, M, K, N, s);
-  }
+                                 void* ws, int G, int M, int K, int N,
+                                 int block_n, int block_c, int k_chunk,
+                                 int splits, void* stream) {
+  const Args a{static_cast<const uint16_t*>(x),
+               static_cast<const uint8_t*>(w), nullptr,
+               static_cast<uint16_t*>(out), static_cast<float*>(ws), G, M, K,
+               N, BK, k_chunk, splits};
+  if (!plan_ok(a, block_n)) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_bits<16>(a, block_c, static_cast<cudaStream_t>(stream));
+}
+
+// out (count bf16) = the splits of ws (splits, count) f32 added in order.
+extern "C" int repro_splitk_reduce(const void* ws, void* out, int splits,
+                                   long long count, void* stream) {
+  if (count % 4 || splits < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const long long count4 = count / 4;
+  long long blocks = (count4 + 255) / 256;
+  if (blocks > 132 * 16) blocks = 132 * 16;
+  splitk_reduce_kernel<<<static_cast<unsigned>(blocks < 1 ? 1 : blocks), 256,
+                         0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float4*>(ws), static_cast<uint2*>(out), splits,
+      count4);
   return static_cast<int>(cudaGetLastError());
 }
 

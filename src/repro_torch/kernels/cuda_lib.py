@@ -34,9 +34,11 @@ LAUNCHES: Dict[str, int] = {
     "grouped_q4": 0,      # B3: grouped_quantized_matmul(bits=4)
     "grouped_q8": 0,      # B3: grouped_quantized_matmul(bits=8)
     "grouped_bf16": 0,    # B4: grouped_bf16_matmul
+    "splitk_reduce": 0,   # the K-split partials of any of the above
 }
 
-#: nvcc's output (ptxas registers, shared memory, spills) of the last build
+#: nvcc's output (ptxas registers, shared memory, spills) of the library
+#: in use: set by the build, or read back from the log kept beside it
 BUILD_LOG = ""
 
 _LIB: Optional[ctypes.CDLL] = None
@@ -66,7 +68,9 @@ def build() -> Path:
     returns the library's path."""
     global BUILD_LOG
     lib = _lib_path()
+    log = lib.with_suffix(".log")
     if lib.exists():
+        BUILD_LOG = log.read_text() if log.exists() else ""
         return lib
     cmd = [_nvcc(), *NVCC_FLAGS]
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -77,6 +81,7 @@ def build() -> Path:
     BUILD_LOG = proc.stdout
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {SOURCE.name}:\n{proc.stdout}")
+    log.write_text(proc.stdout)
     os.replace(tmp, lib)
     return lib
 
@@ -87,12 +92,16 @@ def dequant_lib() -> ctypes.CDLL:
     if _LIB is None:
         lib = ctypes.CDLL(str(build()))
         vp, i32 = ctypes.c_void_p, ctypes.c_int
+        plan = [i32] * 4          # block_n, block_c, k_chunk, splits
         lib.repro_dequant_matmul.argtypes = [
-            i32, vp, vp, vp, vp, i32, i32, i32, i32, i32, vp]
+            i32, vp, vp, vp, vp, vp, i32, i32, i32, i32, i32, *plan, vp]
         lib.repro_dequant_matmul.restype = i32
         lib.repro_bf16_matmul.argtypes = [
-            vp, vp, vp, i32, i32, i32, i32, vp]
+            vp, vp, vp, vp, i32, i32, i32, i32, *plan, vp]
         lib.repro_bf16_matmul.restype = i32
+        lib.repro_splitk_reduce.argtypes = [vp, vp, i32, ctypes.c_longlong,
+                                            vp]
+        lib.repro_splitk_reduce.restype = i32
         lib.repro_error_string.argtypes = [i32]
         lib.repro_error_string.restype = ctypes.c_char_p
         _LIB = lib

@@ -18,8 +18,8 @@ import torch
 
 from repro_torch.kernels import cuda_lib
 from repro_torch.kernels.q4_matmul import (
-    check_cuda_operands, launch_dequant, quantized_matmul_plain,
-    validate_blocks,
+    check_cuda_operands, check_cuda_shape, launch_bf16, launch_dequant,
+    quantized_matmul_plain, validate_blocks,
 )
 
 
@@ -74,6 +74,7 @@ def grouped_quantized_matmul(
             x, wq, scales, bits=bits, group_size=group_size,
             out_dtype=out_dtype)
     check_cuda_operands(x, wq, scales, bits=bits, n=n, out_dtype=out_dtype)
+    check_cuda_shape(kdim, group_size)
     cuda_lib.LAUNCHES[f"grouped_q{bits}"] += 1
     return launch_dequant(x, wq, scales, bits=bits, group_size=group_size,
                           n=n)
@@ -106,10 +107,6 @@ def grouped_bf16_matmul(
     if x.device.type == "cpu":
         return grouped_bf16_matmul_plain(x, w, out_dtype=out_dtype)
     check_cuda_operands(x, w, None, bits=16, n=n, out_dtype=out_dtype)
+    check_cuda_shape(kdim, 16)
     cuda_lib.LAUNCHES["grouped_bf16"] += 1
-    out = torch.empty((g, c, n), dtype=torch.bfloat16, device=x.device)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    rc = cuda_lib.dequant_lib().repro_bf16_matmul(
-        x.data_ptr(), w.data_ptr(), out.data_ptr(), g, c, kdim, n, stream)
-    cuda_lib.check(rc, "bf16_matmul")
-    return out
+    return launch_bf16(x, w)

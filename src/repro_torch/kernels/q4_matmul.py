@@ -7,10 +7,19 @@ hand-written ``dequant_matmul<BITS>`` kernel (``csrc/dequant_matmul.cu``)
 as a bank of one expert, which is the same code path as the grouped kernel
 (:mod:`repro_torch.kernels.grouped_matmul`) and therefore bit-identical to
 it per expert. On a CPU tensor it takes the plain PyTorch version beside
-it, :func:`quantized_matmul_plain`, which does the same arithmetic: f32
+it, :func:`quantized_matmul_plain`, which computes the same function: f32
 dequant (``code * scale``, no bf16 rounding), f32 matmul, one cast.
+
+:func:`launch_plan` is the one place that fixes a launch's tiles and K
+splits, from the shape alone (no expert count G), so the grouped launch
+and the per-expert loop run the same arithmetic. With more than one split
+the partials go through an f32 workspace and :func:`splitk_reduce` adds
+them in split order.
 """
 from __future__ import annotations
+
+import math
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -60,17 +69,136 @@ def check_cuda_operands(x: torch.Tensor, wq: torch.Tensor,
         raise ValueError(f"CUDA dequant-matmul needs N % 16 == 0, got {n}")
 
 
+#: columns of W per block (4 warps x 32), the kernels' one tile width
+BLOCK_N = 128
+#: token tiles the kernels are built for (one n8 mma fragment per 8)
+BLOCK_C = (8, 16, 32, 64)
+#: K split boundaries are multiples of this (the kernels' pipeline stage)
+SPLIT_GRAIN = 64
+#: blocks a launch should reach at G = 1: two per SM of an H100 (132 SMs)
+MIN_BLOCKS = 2 * 132
+#: at most this many K splits (the kernels check it too)
+MAX_SPLITS = 16
+
+
+class LaunchPlan(NamedTuple):
+    block_n: int       # weight columns per block
+    block_c: int       # tokens per block
+    k_chunk: int       # K per split, a multiple of SPLIT_GRAIN
+    splits: int        # ceil(K / k_chunk)
+
+
+def launch_plan(c: int, k: int, n: int, bits: int) -> LaunchPlan:
+    """Tiles and K splits of one dequant-matmul launch on (C, K) x (K, N).
+
+    The smallest token tile that holds C; then as many K splits (on
+    64-aligned boundaries) as it takes for ceil(N / 128) x ceil(C /
+    block_c) x splits to reach MIN_BLOCKS, so that even a narrow N (the
+    down-projection's 4096 columns are 32 tiles) fills the card. It takes
+    no expert count: a bank of G experts runs each expert exactly as a
+    launch of one would. ``bits`` (4, 8 or 16) is checked; the tiles do
+    not depend on it."""
+    if bits not in (4, 8, 16):
+        raise ValueError(f"bits must be 4, 8 or 16, got {bits}")
+    block_c = next((b for b in BLOCK_C if c <= b), BLOCK_C[-1])
+    tiles = math.ceil(n / BLOCK_N) * math.ceil(c / block_c)
+    grains = max(1, math.ceil(k / SPLIT_GRAIN))
+    want = max(1, min(grains, MAX_SPLITS, math.ceil(MIN_BLOCKS / tiles)))
+    k_chunk = math.ceil(grains / want) * SPLIT_GRAIN
+    return LaunchPlan(BLOCK_N, block_c, k_chunk, math.ceil(k / k_chunk))
+
+
+def check_cuda_shape(kdim: int, group_size: int) -> None:
+    """K and the quantization group that the CUDA kernels take: K a
+    multiple of 16, the group a multiple of 16 that divides 64 or that 64
+    divides (a group's partial never straddles a pipeline stage unevenly)."""
+    if kdim % 16:
+        raise ValueError(f"CUDA dequant-matmul needs K % 16 == 0, got {kdim}")
+    if group_size % 16 or (SPLIT_GRAIN % group_size
+                           and group_size % SPLIT_GRAIN):
+        raise ValueError(f"CUDA dequant-matmul needs a group of 16, 32 or a "
+                         f"multiple of 64, got {group_size}")
+
+
+def _workspace(plan: LaunchPlan, out: torch.Tensor):
+    """The f32 split partials (splits, G, M, N), or None for one split."""
+    if plan.splits == 1:
+        return None
+    return torch.empty((plan.splits, *out.shape), dtype=torch.float32,
+                       device=out.device)
+
+
 def launch_dequant(x: torch.Tensor, wq: torch.Tensor, scales: torch.Tensor,
                    *, bits: int, group_size: int, n: int) -> torch.Tensor:
-    """Launch ``dequant_matmul<bits>`` on (G, M, K) activations; the
-    caller has validated shapes and counted the launch."""
+    """Launch ``dequant_matmul<bits>`` on (G, M, K) activations with the
+    plan of :func:`launch_plan`, then the split-K reduction when the plan
+    splits K; the caller has validated shapes and counted the matmul."""
     g, m, kdim = x.shape
+    plan = launch_plan(m, kdim, n, bits)
     out = torch.empty((g, m, n), dtype=torch.bfloat16, device=x.device)
+    ws = _workspace(plan, out)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     rc = cuda_lib.dequant_lib().repro_dequant_matmul(
         bits, x.data_ptr(), wq.data_ptr(), scales.data_ptr(),
-        out.data_ptr(), g, m, kdim, n, group_size, stream)
+        out.data_ptr(), None if ws is None else ws.data_ptr(), g, m, kdim,
+        n, group_size, *plan, stream)
     cuda_lib.check(rc, f"dequant_matmul<{bits}>")
+    if ws is not None:
+        splitk_reduce(ws, out)
+    return out
+
+
+def launch_bf16(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Launch ``bf16_matmul`` on (G, M, K) x (G, K, N) with the plan of
+    :func:`launch_plan`, then the split-K reduction when the plan splits
+    K; the caller has validated shapes and counted the matmul."""
+    g, m, kdim = x.shape
+    n = w.shape[2]
+    plan = launch_plan(m, kdim, n, 16)
+    out = torch.empty((g, m, n), dtype=torch.bfloat16, device=x.device)
+    ws = _workspace(plan, out)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    rc = cuda_lib.dequant_lib().repro_bf16_matmul(
+        x.data_ptr(), w.data_ptr(), out.data_ptr(),
+        None if ws is None else ws.data_ptr(), g, m, kdim, n, *plan, stream)
+    cuda_lib.check(rc, "bf16_matmul")
+    if ws is not None:
+        splitk_reduce(ws, out)
+    return out
+
+
+def splitk_reduce_plain(ws: torch.Tensor) -> torch.Tensor:
+    """The reduction's arithmetic in plain PyTorch: f32 adds in split
+    order 0, 1, ..., one cast to bf16."""
+    acc = ws[0].clone()
+    for s in range(1, ws.shape[0]):
+        acc += ws[s]
+    return acc.to(torch.bfloat16)
+
+
+def splitk_reduce(ws: torch.Tensor,
+                  out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``bf16(ws[0] + ws[1] + ...)`` over the split axis of an f32
+    workspace (splits, ...), in split order: the ``splitk_reduce`` kernel
+    on a CUDA tensor, :func:`splitk_reduce_plain` on a CPU one."""
+    if ws.device.type == "cpu":
+        return splitk_reduce_plain(ws)
+    if ws.device.type != "cuda":
+        raise ValueError(f"no kernel for device {ws.device}")
+    if ws.dtype != torch.float32 or not ws.is_contiguous():
+        raise TypeError("splitk_reduce takes a contiguous float32 workspace")
+    count = ws[0].numel()
+    if count % 4:
+        raise ValueError(f"splitk_reduce needs a multiple of 4 outputs, got "
+                         f"{count}")
+    if out is None:
+        out = torch.empty(ws.shape[1:], dtype=torch.bfloat16,
+                          device=ws.device)
+    cuda_lib.LAUNCHES["splitk_reduce"] += 1
+    rc = cuda_lib.dequant_lib().repro_splitk_reduce(
+        ws.data_ptr(), out.data_ptr(), ws.shape[0], count,
+        torch.cuda.current_stream(ws.device).cuda_stream)
+    cuda_lib.check(rc, "splitk_reduce")
     return out
 
 
@@ -120,6 +248,7 @@ def quantized_matmul(
                                       group_size=group_size,
                                       out_dtype=out_dtype)
     check_cuda_operands(x, wq, scales, bits=bits, n=n, out_dtype=out_dtype)
+    check_cuda_shape(kdim, group_size)
     cuda_lib.LAUNCHES[f"q{bits}_matmul"] += 1
     return launch_dequant(x[None], wq, scales, bits=bits,
                           group_size=group_size, n=n)[0]

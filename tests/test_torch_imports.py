@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: no module of ``repro_torch`` (and not
-``chip_smoke.py``) imports JAX, ml_dtypes or the JAX package ``repro``,
-and every module imports on a host without nvcc or a GPU."""
+``chip_smoke.py`` or a script in ``tools/``) imports JAX, ml_dtypes or
+the JAX package ``repro``, and every module imports on a host without
+nvcc or a GPU."""
 import ast
 import os
 import subprocess
@@ -15,7 +16,8 @@ FORBIDDEN = ("jax", "jaxlib", "ml_dtypes", "repro")
 
 
 def sources():
-    return sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return (sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+            + sorted((ROOT / "tools").glob("*.py")))
 
 
 def module_names():

@@ -285,3 +285,199 @@ def test_pack_matches_packed_codes():
     x = torch.eye(64, dtype=torch.bfloat16)[None].repeat(2, 1, 1)
     np.testing.assert_array_equal(ops.grouped_q_matmul(x, qt).float().numpy(),
                                   codes.float().numpy())
+
+
+# --------------------------------------------------------------------------
+# The CUDA kernels' launch plan and arithmetic, checked on the CPU.
+#
+# The kernels run only on the card; what they compute is fixed here: codes
+# enter the tensor core as bf16 integers, each group of min(group, 64) K
+# accumulates an f32 partial that is added into the output times the
+# column's f32 scale (fmaf), K splits from launch_plan are summed in split
+# order and the sum is rounded once to bf16. ``emulate`` repeats that
+# arithmetic in plain PyTorch (the package has no such function: its plain
+# versions compute f32-dequant @ x).
+# --------------------------------------------------------------------------
+
+import importlib.util  # noqa: E402
+import inspect  # noqa: E402
+import math  # noqa: E402
+from pathlib import Path  # noqa: E402
+
+from repro_torch.kernels import q4_matmul as tk  # noqa: E402
+
+
+def _chip_smoke():
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def codes_of(qt: QTensor) -> torch.Tensor:
+    """Signed integer codes (E, K, N) of a quantized bank."""
+    q = qt.q
+    if qt.bits == 4:
+        lo = (q & 0xF).to(torch.int16) - 8
+        hi = (q >> 4).to(torch.int16) - 8
+        return torch.stack([lo, hi], dim=-2).reshape(
+            q.shape[0], q.shape[1] * 2, q.shape[2])
+    return q.to(torch.int16)
+
+
+def emulate(x, codes, scales, *, group, bits):
+    """The kernels' arithmetic for one expert: x (C, K) bf16, codes (K, N)
+    integers (bits 4/8) or bf16 weights (bits 16), scales (K/group, N)."""
+    c, k = x.shape
+    n = codes.shape[1]
+    plan = tk.launch_plan(ops._round_up(c, 8), k, n, bits)
+    xf = x.float()
+    wf = codes.to(torch.bfloat16).float()     # exact for |code| <= 128
+    flush = min(group, 64)
+    total = None
+    for s in range(plan.splits):
+        lo, hi = s * plan.k_chunk, min(k, (s + 1) * plan.k_chunk)
+        if bits == 16:
+            acc = xf[:, lo:hi] @ wf[lo:hi]
+        else:
+            acc = torch.zeros(c, n)
+            for k0 in range(lo, hi, flush):
+                part = xf[:, k0:k0 + flush] @ wf[k0:k0 + flush]
+                scale = scales[k0 // group].float()
+                acc = (acc.double() + part.double() * scale.double()).float()
+        total = acc if total is None else total + acc
+    return total.to(torch.bfloat16)
+
+
+def emulate_bank(x, codes, scales, *, group, bits):
+    return torch.stack([
+        emulate(x[e], codes[e], None if scales is None else scales[e],
+                group=group, bits=bits) for e in range(x.shape[0])])
+
+
+#: the reference's cases plus one whose K the plan splits 16 ways
+EMU_CASES = CASES + [(2, 8, 1024, 128, 64)]
+
+#: shapes with the port's tile contract (N % 16, K % 16, group 16/32/64k)
+PLAN_SHAPES = [(8, 4096, 14336), (8, 14336, 4096), (16, 4096, 14336),
+               (128, 4096, 14336), (8, 64, 64), (5, 256, 128),
+               (1, 128, 128), (24, 192, 192), (256, 4096, 14336),
+               (40, 14336, 4096), (8, 1024, 16)]
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("e,c,k,n,group", EMU_CASES)
+def test_kernel_arithmetic_matches_pallas(e, c, k, n, group, bits):
+    x, jqt, tx, tqt = make_bank(e, c, k, n, bits, group, seed=e * c)
+    got = emulate_bank(tx, codes_of(tqt), tqt.scales, group=group, bits=bits)
+    close(got, jops.grouped_q_matmul(x, jqt))
+
+
+@pytest.mark.parametrize("e,c", [(5, 8), (2, 3), (2, 16)])
+def test_kernel_arithmetic_bf16_matches_pallas(e, c):
+    rng = np.random.default_rng(e + c)
+    x = jnp.asarray(rng.standard_normal((e, c, 1024)), jnp.bfloat16)
+    w = jnp.asarray(rng.standard_normal((e, 1024, 128)) / 32, jnp.bfloat16)
+    got = emulate_bank(to_t(x), to_t(w), None, group=64, bits=16)
+    close(got, jops.grouped_bf16_matmul(x, w))
+
+
+@pytest.mark.parametrize("bits", [4, 8, 16])
+def test_kernel_arithmetic_integer_friendly_exact(bits):
+    """Integer-friendly inputs over four K splits: bit-equal to float64."""
+    rng = np.random.default_rng(10 + bits)
+    g, c, k, n = 2, 5, 256, 128
+    x = rng.integers(-3, 4, size=(g, c, k)).astype(np.float64)
+    qmax = {4: 7, 8: 127, 16: 7}[bits]
+    codes = rng.integers(-qmax - 1, qmax + 1, size=(g, k, n))
+    scale = 0.25 if bits == 16 else 0.125
+    exact = torch.from_numpy(x @ (codes * scale)).to(torch.bfloat16)
+    assert tk.launch_plan(8, k, n, bits).splits == 4
+    tx = torch.from_numpy(x).to(torch.bfloat16)
+    if bits == 16:
+        w = torch.from_numpy(codes * scale).to(torch.bfloat16)
+        got = emulate_bank(tx, w, None, group=64, bits=16)
+    else:
+        scales = torch.full((g, k // 64, n), scale).to(torch.bfloat16)
+        got = emulate_bank(tx, torch.from_numpy(codes), scales, group=64,
+                           bits=bits)
+    np.testing.assert_array_equal(bits16(got), bits16(exact))
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("k", [64, 128])
+def test_kernel_arithmetic_f32_dequant_exact(bits, k):
+    """Scale 1 + 2^-7 times codes near +-qmax: the group partial is an
+    integer and partial * scale is exact in f32, so the kernels'
+    arithmetic is bit-equal to float64, though W in bf16 would not be."""
+    rng = np.random.default_rng(20 + bits + k)
+    g, c, n = 2, 8, 256
+    qmax = 7 if bits == 4 else 127
+    x = rng.integers(-1, 2, size=(g, c, k)).astype(np.float64)
+    codes = (rng.integers(qmax - 3, qmax + 1, size=(g, k, n))
+             * rng.choice([-1, 1], size=(g, k, n)))
+    scale = 1 + 2 ** -7
+    exact = torch.from_numpy(x @ (codes * scale)).to(torch.bfloat16)
+    scales = torch.full((g, k // 64, n), scale).to(torch.bfloat16)
+    got = emulate_bank(torch.from_numpy(x).to(torch.bfloat16),
+                       torch.from_numpy(codes), scales, group=64, bits=bits)
+    np.testing.assert_array_equal(bits16(got), bits16(exact))
+
+
+@pytest.mark.parametrize("bits", [4, 8, 16])
+@pytest.mark.parametrize("c,k,n", PLAN_SHAPES)
+def test_launch_plan_covers_k(c, k, n, bits):
+    """Splits on 64-aligned boundaries that cover K exactly, a token tile
+    that the kernels are built for, the kernels' one column tile."""
+    plan = tk.launch_plan(c, k, n, bits)
+    assert plan.block_n == tk.BLOCK_N and plan.block_c in tk.BLOCK_C
+    assert plan.block_c >= min(c, tk.BLOCK_C[-1])
+    assert plan.k_chunk % tk.SPLIT_GRAIN == 0
+    bounds = [min(k, s * plan.k_chunk) for s in range(plan.splits + 1)]
+    assert bounds[0] == 0 and bounds[-1] == k
+    assert all(lo < hi for lo, hi in zip(bounds, bounds[1:]))
+    assert all(b % tk.SPLIT_GRAIN == 0 for b in bounds[:-1])
+
+
+def test_launch_plan_takes_no_group_count():
+    """The plan is a function of one expert's shape: a bank of G experts
+    runs each expert exactly as a launch of one does."""
+    assert list(inspect.signature(tk.launch_plan).parameters) == [
+        "c", "k", "n", "bits"]
+
+
+@pytest.mark.parametrize("label", ["up", "down", "decode16", "prefill_up"])
+@pytest.mark.parametrize("bits", [4, 8, 16])
+def test_launch_plan_fills_the_card(label, bits):
+    """Every shape chip_smoke.py times gets >= 2 blocks per SM at G = 1."""
+    c, k, n = _chip_smoke().SHAPES[label]
+    plan = tk.launch_plan(c, k, n, bits)
+    blocks = (math.ceil(n / plan.block_n) * math.ceil(c / plan.block_c)
+              * plan.splits)
+    assert blocks >= 264
+
+
+def test_splitk_reduce_adds_in_split_order():
+    """The CPU tensor takes the plain version: f32 adds in split order,
+    one rounding to bf16 (not a tree or a float64 sum)."""
+    rng = np.random.default_rng(5)
+    ws = torch.from_numpy(rng.standard_normal((9, 3, 8, 64)).astype(
+        np.float32) * 1e3)
+    want = ws[0].clone()
+    for s in range(1, 9):
+        want = want + ws[s]
+    np.testing.assert_array_equal(bits16(tk.splitk_reduce(ws)),
+                                  bits16(want.to(torch.bfloat16)))
+    assert all(v == 0 for v in cuda_lib.LAUNCHES.values())
+
+
+@pytest.mark.parametrize("k,group,ok", [
+    (4096, 64, True), (64, 16, True), (128, 32, True), (256, 128, True),
+    (4096, 48, False), (4096, 8, False), (72, 8, False)])
+def test_cuda_shape_contract(k, group, ok):
+    if ok:
+        tk.check_cuda_shape(k, group)
+    else:
+        with pytest.raises(ValueError, match="CUDA dequant-matmul needs"):
+            tk.check_cuda_shape(k, group)

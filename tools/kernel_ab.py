@@ -1,0 +1,205 @@
+#!/usr/bin/env python3
+"""Time the port's dequant-matmul kernels against those of another
+checkout on one NVIDIA card, in turns, at ``chip_smoke.py``'s shapes.
+
+    mkdir -p build/ab/parent                # build/ is ignored by git
+    git archive <commit> | tar -x -C build/ab/parent
+    python3 tools/kernel_ab.py --parent build/ab/parent
+
+Two worker processes, one per checkout, each import their own
+``repro_torch`` (so each builds its own kernels) and reach them through
+the wrappers ``ops.q_matmul``, ``ops.grouped_q_matmul`` and
+``ops.grouped_bf16_matmul``. For every kernel and shape the main process
+asks parent, this, this, parent and reports the mean of each pair. Then, on
+this checkout alone, it times the launch that ``launch_plan`` chooses
+against the same launch with K unsplit, in turns (plan, one split, one
+split, plan). Each worker holds every result against its plain version
+(``chip_smoke._close``) before it times it. Times are device times as in
+``chip_smoke.py``: a CUDA graph of 20 launches cycling through input
+copies that exceed twice the L2. Inputs come from a seed per case, so both
+checkouts see the same bytes. The records go to ``--out``.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+#: kernel name -> (bits, grouped)
+KERNELS = {"q4_matmul": (4, False), "q8_matmul": (8, False),
+           "grouped_q4": (4, True), "grouped_q8": (8, True),
+           "grouped_bf16": (16, True)}
+#: experts per bank of each rung: the serve phase's layout in chip_smoke.py
+SIZES = {4: 3, 8: 4, 16: 1}
+REPS = 20
+REPLY = "@@ab "                 # marks the worker's answers on its stdout
+
+
+def worker(tree: Path) -> None:
+    """Answer one JSON request per stdin line: ``{"kernel", "shape",
+    "one_split"}`` -> ``{"ms", "splits", "max_abs_err"}``."""
+    sys.path[:0] = [str(tree / "src"), str(ROOT)]
+    import torch
+
+    import chip_smoke as cs
+    from repro_torch.kernels import grouped_matmul as gk
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import q4_matmul as qk
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cached = {}
+
+    def build(name, shape):
+        bits, grouped = KERNELS[name]
+        g = SIZES[bits] if grouped else 1
+        c, k, n = cs.SHAPES[shape]
+        nbytes = g * k * n * bits // 8 + (g * (k // cs.GROUP) * n * 2
+                                          if bits < 16 else 0)
+        gen = torch.Generator(device="cuda").manual_seed(
+            list(KERNELS).index(name) * 100
+            + list(cs.SHAPES).index(shape))
+        cases = []
+        for _ in range(cs._copies(torch, nbytes)):
+            x, w = cs._make_bank(torch, gen, g, c, k, n, bits)
+            if bits == 16:
+                cases.append((lambda x=x, w=w: ops.grouped_bf16_matmul(x, w),
+                              lambda x=x, w=w:
+                              gk.grouped_bf16_matmul_plain(x, w)))
+            elif grouped:
+                cases.append((lambda x=x, w=w: ops.grouped_q_matmul(x, w),
+                              lambda x=x, w=w, b=bits:
+                              gk.grouped_quantized_matmul_plain(
+                                  x, w.q, w.scales, bits=b,
+                                  group_size=cs.GROUP)))
+            else:
+                x1, q1 = x[0], w.map(lambda t: t[0])
+                cases.append((lambda x1=x1, q1=q1: ops.q_matmul(x1, q1),
+                              lambda x1=x1, q1=q1, b=bits:
+                              qk.quantized_matmul_plain(
+                                  x1, q1.q, q1.scales, bits=b,
+                                  group_size=cs.GROUP)))
+        return (bits, c, k, n), cases
+
+    for line in sys.stdin:
+        req = json.loads(line)
+        key = (req["kernel"], req["shape"])
+        if key not in cached:
+            cached.clear()
+            torch.cuda.empty_cache()
+            cached[key] = build(*key)
+        (bits, c, k, n), cases = cached[key]
+        plan_fn = getattr(qk, "launch_plan", None)
+        splits = plan_fn(c, k, n, bits).splits if plan_fn else None
+        if req["one_split"]:
+            if plan_fn is None:
+                raise SystemExit("one_split: this checkout has no launch_plan")
+            grain = qk.SPLIT_GRAIN
+            qk.launch_plan = lambda c_, k_, n_, b_: plan_fn(
+                c_, k_, n_, b_)._replace(k_chunk=-(-k_ // grain) * grain,
+                                         splits=1)
+            splits = 1
+        try:
+            err, ok = cs._close(torch, cases[0][0](), cases[0][1]())
+            if not ok:
+                raise AssertionError(f"{key} one_split={req['one_split']} "
+                                     f"disagrees with its plain version: "
+                                     f"max |diff| {err}")
+            ms = cs._graph_ms(torch, [f for f, _ in cases], REPS)
+        finally:
+            if plan_fn is not None:
+                qk.launch_plan = plan_fn
+        print(REPLY + json.dumps({"ms": ms, "splits": splits,
+                                  "max_abs_err": err}), flush=True)
+
+
+class Worker:
+    def __init__(self, tree: Path):
+        self.proc = subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--worker",
+             str(tree)], stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+            text=True)
+
+    def ask(self, kernel: str, shape: str, one_split: bool = False) -> dict:
+        self.proc.stdin.write(json.dumps({"kernel": kernel, "shape": shape,
+                                          "one_split": one_split}) + "\n")
+        self.proc.stdin.flush()
+        for line in self.proc.stdout:
+            if line.startswith(REPLY):
+                return json.loads(line[len(REPLY):])
+        raise RuntimeError(f"worker exited with {self.proc.wait()}")
+
+    def close(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.stdin.close()
+            try:
+                self.proc.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                self.proc.kill()
+                self.proc.wait()
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--parent", help="an unpacked earlier checkout")
+    ap.add_argument("--out", default=str(ROOT / "chiprun_out"
+                                         / "kernel_ab.json"))
+    ap.add_argument("--worker", help=argparse.SUPPRESS)
+    args = ap.parse_args(argv)
+    if args.worker:
+        worker(Path(args.worker))
+        return 0
+    import torch
+    if not torch.cuda.is_available():
+        raise SystemExit("kernel_ab: no CUDA device; this script runs on the "
+                         "card only")
+    parent = Path(args.parent or "").resolve()
+    if not args.parent or not (parent / "src" / "repro_torch").is_dir():
+        raise SystemExit("kernel_ab: --parent must be a checkout with "
+                         "src/repro_torch")
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke as cs
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    print(f"{smi}; bank layout {SIZES}; device ms, CUDA graph of {REPS} "
+          "launches", flush=True)
+    workers = {"parent": Worker(parent), "this": Worker(ROOT)}
+    rows = []
+    try:
+        for name in KERNELS:
+            for shape in cs.SHAPES:
+                ab = [workers[w].ask(name, shape)
+                      for w in ("parent", "this", "this", "parent")]
+                split = [workers["this"].ask(name, shape, one)
+                         for one in (False, True, True, False)]
+                row = {"kernel": name, "shape": shape,
+                       "parent_ms": (ab[0]["ms"] + ab[3]["ms"]) / 2,
+                       "ms": (ab[1]["ms"] + ab[2]["ms"]) / 2,
+                       "splits": split[0]["splits"],
+                       "plan_ms": (split[0]["ms"] + split[3]["ms"]) / 2,
+                       "one_split_ms": (split[1]["ms"] + split[2]["ms"]) / 2,
+                       "turns": {"ab": [r["ms"] for r in ab],
+                                 "split": [r["ms"] for r in split]},
+                       "max_abs_err": max(r["max_abs_err"]
+                                          for r in ab + split)}
+                rows.append(row)
+                print(f"{name:13s} {shape:10s} parent {row['parent_ms']:.4f}"
+                      f" ms, this {row['ms']:.4f} ms "
+                      f"({row['parent_ms'] / row['ms']:.2f}x); plan "
+                      f"({row['splits']} splits) {row['plan_ms']:.4f} ms, one "
+                      f"split {row['one_split_ms']:.4f} ms", flush=True)
+    finally:
+        for w in workers.values():
+            w.close()
+    out = Path(args.out)
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.write_text(json.dumps({"nvidia_smi": smi, "sizes": SIZES,
+                               "reps": REPS, "rows": rows}, indent=1))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
