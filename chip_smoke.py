@@ -14,10 +14,25 @@ Phases (each raises on failure, and the script then exits non-zero):
                32/8 heads of 128, 8 experts top-2, d_ff_expert 14336,
                vocab 32000 padded to 32768) with depth cut to 2 layers,
                random weights from a seeded torch.Generator, served by
-               ``build_engine`` with the dequant-matmul kernels on a
-               frontier point that has q4, q8 and bf16 experts: 4 requests
-               of 16 prompt tokens x 8 new tokens. The kernels' launch
-               counters are zeroed just before and read just after;
+               ``build_engine`` with the default ``EngineConfig`` (paged
+               KV) and the dequant-matmul kernels on a frontier point that
+               has q4, q8 and bf16 experts: 4 requests of 16 prompt tokens
+               x 8 new tokens, a cold pass and a warm rerun. Every serve
+               pass zeroes the kernels' launch counters just before and
+               reads them just after, and requires B3 (q4, q8) and B4;
+     3b. paged == slot — the model hooks give bit-equal prefill and
+               first-decode logits through pages and slot rows; a
+               ``paged_kv=False`` engine serves the same greedy tokens;
+     3c. overlap — ``overlap=True`` (async streaming on side streams, the
+               per-layer pipeline) on a point with all three rungs and at
+               least half of the experts off the card, a swap cache of two
+               experts: greedy tokens equal to the non-overlap engine's on
+               the same point, transfer and overlap metrics printed, no
+               ``expert-xfer`` thread alive after ``close()``;
+     3d. speculative — ``speculate=2`` on the default traffic: greedy
+               tokens equal to plain decode's, the G = 8 int4 draft bank
+               launched, the acceptance rate printed, and a per-op probe
+               of whether a verify row is bit-equal to the decode row;
   4. parity  — the smoke-size model's prefill + decode logits on the card
                (kernels) agree with the same model on the CPU (the
                kernels' plain versions);
@@ -29,12 +44,16 @@ Phases (each raises on failure, and the script then exits non-zero):
                |plain| + 1e-3, and two launches bit-equal; the split-K
                reduction bit-equal to its plain version; bit-exact checks
                (grouped == per-expert, integer-friendly inputs, empty
-               group == zeros, f32 dequant); device times (CUDA graphs)
+               group == zeros, f32 dequant), row invariance (rows of a
+               C = 12 verify launch bit-equal to a C = 8 launch), the
+               G = 8 draft bank at C = 12; device times (CUDA graphs)
                beside the plain version, the bound and a library yardstick
                (``torch.bmm`` on the dequantized bf16 weights, which the
                port never calls).
 
-The line before the last is the kernels' JSON record; the last line is
+A failed phase is reported and the phases that do not need its result
+still run; the script then exits 1 and prints no result. Otherwise the
+line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. ``--out`` also writes the records to a
 JSON file (default ``chiprun_out/chip_smoke.json``).
 """
@@ -46,6 +65,7 @@ import math
 import subprocess
 import sys
 import time
+import traceback
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -66,6 +86,14 @@ SHAPES = {
     "down": (C_DECODE, D_FF, D_MODEL),
     "decode16": (16, D_MODEL, D_FF),
     "prefill_up": (C_PREFILL, D_MODEL, D_FF),
+}
+#: the speculative verify's drop-free capacity B * (K + 1) = 4 * 3 rows per
+#: expert, at which the draft's int4 bank of all 8 experts is also timed
+C_VERIFY = 12
+DRAFT_G = 8
+DRAFT_SHAPES = {
+    "draft_up": (C_VERIFY, D_MODEL, D_FF),
+    "draft_down": (C_VERIFY, D_FF, D_MODEL),
 }
 
 
@@ -183,11 +211,76 @@ def pick_point(frontier, total):
                                     - min(p.counts_per_rung)))
 
 
-def phase_serve(torch, np, seed: int, card: str, profile: bool = False):
+MAX_NEW = 8                    # tokens generated per request
+SERVE_CFG = dict(max_slots=4, max_len=48, use_kernel=True, ladder=(16, 8, 4))
+MAIN_KERNELS = ("grouped_q4", "grouped_q8", "grouped_bf16")
+
+
+def serve_pass(torch, engine, prompts):
+    """Serve ``prompts`` once (``MAX_NEW`` tokens each) with the engine's
+    counters and the kernels' launch counters zeroed just before and read
+    just after. The first iteration admits and prefills every request;
+    the launches of the iterations after it are the launches per decode
+    iteration."""
     from repro_torch.kernels import ops
+    from repro_torch.serving.api import ServeRequest
+    engine.reset_counters()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    rids = [engine.submit_request(ServeRequest(p, max_new_tokens=MAX_NEW))
+            for p in prompts]
+    engine.run_iteration()
+    before, iters = dict(ops.LAUNCHES), engine.metrics["iterations"]
+    engine.step()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n = max(engine.metrics["iterations"] - iters, 1)
+    tokens = [engine.result(r).tokens for r in rids]
+    vocab = engine.cfg.vocab_size
+    for r, t in zip(rids, tokens):
+        if len(t) != MAX_NEW or not all(0 <= x < vocab for x in t):
+            raise AssertionError(f"request {r}: bad tokens {t}")
+    m = dict(engine.metrics)
+    return {"tokens": tokens, "wall_s": wall,
+            "launches": dict(ops.LAUNCHES),
+            "group_launches": {f"{k}@G={g}": v for (k, g), v
+                               in sorted(ops.GROUP_LAUNCHES.items())},
+            "launches_per_decode_iter": {
+                k: (ops.LAUNCHES[k] - before[k]) / n for k in before},
+            "iterations": m["iterations"],
+            "decode_ms_per_iter": m["decode_s"] / max(m["iterations"], 1)
+            * 1e3,
+            "tokens_per_s": engine.throughput_tokens_per_s(),
+            "prefill_ms_per_request": m["prefill_s"] / len(prompts) * 1e3,
+            "transfer_s": m["transfer_s"], "stage_s": m["stage_s"],
+            "summary": engine.summary()}
+
+
+def require_launches(launches, what: str, names=MAIN_KERNELS):
+    missing = [k for k in names if launches.get(k, 0) <= 0]
+    if missing:
+        raise AssertionError(f"{what}: kernels {missing} never launched: "
+                             f"{launches}")
+
+
+def log_pass(what: str, card: str, r) -> None:
+    log(f"  {what} on {card}: {r['wall_s']:.3f} s, "
+        f"{r['tokens_per_s']:.2f} tok/s over decode, "
+        f"{r['decode_ms_per_iter']:.3f} ms per iteration "
+        f"({r['iterations']} iterations), prefill "
+        f"{r['prefill_ms_per_request']:.3f} ms per request, expert transfer "
+        f"{r['transfer_s']:.3f} s, staging {r['stage_s']:.3f} s; launches "
+        f"{r['launches']}, per decode iteration "
+        f"{r['launches_per_decode_iter']}")
+    log(f"    {r['summary']}")
+
+
+def phase_serve(torch, np, seed: int, card: str, profile: bool = False):
+    """The main path: the default ``EngineConfig`` (paged KV), cold pass
+    and warm rerun. Returns the record, the bank layout and the state the
+    later serve phases share (params, prompts, point, tokens)."""
     from repro_torch.models.model import init_params
-    from repro_torch.serving.api import (EngineConfig, ServeRequest,
-                                         build_engine)
+    from repro_torch.serving.api import EngineConfig, build_engine
     cfg = serving_config()
     log(f"serve: {cfg.arch_id} d_model={cfg.d_model} heads="
         f"{cfg.attention.num_heads}/{cfg.attention.num_kv_heads}x"
@@ -202,9 +295,10 @@ def phase_serve(torch, np, seed: int, card: str, profile: bool = False):
     log(f"  init_params: {n_bytes / 1e9:.2f} GB of bf16 master weights on "
         f"the card in {time.perf_counter() - t0:.2f} s (train-layout "
         "master copy stays on the card; _fetch_expert quantizes there)")
-    engine = build_engine(cfg, params, EngineConfig(
-        max_slots=4, max_len=48, use_kernel=True, ladder=(16, 8, 4),
-        paged_kv=False), device="cuda")
+    engine = build_engine(cfg, params, EngineConfig(**SERVE_CFG),
+                          device="cuda")
+    if not engine.paged:
+        raise AssertionError("the default EngineConfig is not paged")
     total = cfg.num_layers * cfg.moe.num_experts
     point = pick_point(engine.frontier, total)
     t0 = time.perf_counter()
@@ -214,85 +308,301 @@ def phase_serve(torch, np, seed: int, card: str, profile: bool = False):
     sizes = dict(zip(sorted(plan.ladder), plan.bank_sizes()))
     bank_bytes = sum(t.numel() * t.element_size() for t in
                      _leaves(engine._serve_params["layers"]["moe"]["banks"]))
-    log(f"  frontier point {point.summary()}; per-layer banks {sizes}; "
+    log(f"  default EngineConfig({SERVE_CFG}) -> paged KV, page_size "
+        f"{engine.kv_meta.page_size}, {engine.kv_meta.num_pages} pages; "
+        f"frontier point {point.summary()}; per-layer banks {sizes}; "
         f"{bank_bytes / 1e9:.2f} GB of banks built in "
         f"{time.perf_counter() - t0:.2f} s")
     rng = np.random.default_rng(seed)
     prompts = [rng.integers(1, cfg.vocab_size, size=16) for _ in range(4)]
-    ops.reset_launches()                      # counts of the main path only
-    t0 = time.perf_counter()
-    rids = [engine.submit_request(ServeRequest(p, max_new_tokens=8))
-            for p in prompts]
-    engine.step()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = dict(ops.LAUNCHES)
-    results = [engine.result(r) for r in rids]
-    for r in results:
-        if len(r.tokens) != 8 or not all(0 <= t < cfg.vocab_size
-                                         for t in r.tokens):
-            raise AssertionError(f"request {r.rid}: bad tokens {r.tokens}")
-    for name in ("grouped_q4", "grouped_q8", "grouped_bf16",
-                 "splitk_reduce"):
-        if launches[name] <= 0:
-            raise AssertionError(f"kernel {name} never launched while "
-                                 f"serving: {launches}")
-    m = engine.metrics
-    decode_ms = m["decode_s"] / max(m["iterations"], 1) * 1e3
-    log(f"  served on {card}: {len(results)} requests x 8 tokens in "
-        f"{wall:.3f} s: "
-        f"{engine.throughput_tokens_per_s():.2f} tok/s over decode, "
-        f"{decode_ms:.3f} ms per decode iteration ({m['iterations']} "
-        f"iterations), prefill {m['prefill_s']:.3f} s, expert transfer "
-        f"{m['transfer_s']:.3f} s, staging {m['stage_s']:.3f} s")
-    log(f"  tokens: {[r.tokens for r in results]}")
-    log(f"  launches while serving: {launches}")
-    log(f"  {engine.summary()}")
-    out = {"tokens_per_s": engine.throughput_tokens_per_s(),
-           "decode_ms_per_iter": decode_ms, "iterations": m["iterations"],
-           "prefill_s": m["prefill_s"], "transfer_s": m["transfer_s"],
-           "stage_s": m["stage_s"], "wall_s": wall,
+    cold = serve_pass(torch, engine, prompts)
+    require_launches(cold["launches"], "serve")
+    require_launches(cold["launches"], "serve", ("splitk_reduce",))
+    log_pass("cold pass", card, cold)
+    log(f"  tokens: {cold['tokens']}")
+    # the same traffic again on the warm engine (host blobs and the swap
+    # cache in place; the prompts repeat, so routing repeats)
+    warm = serve_pass(torch, engine, prompts)
+    if warm["tokens"] != cold["tokens"]:
+        raise AssertionError("warm rerun gave other tokens")
+    log_pass("warm rerun", card, warm)
+    out = {"point": point.summary(),
            "bank_sizes": {str(k): v for k, v in sizes.items()},
-           "point": point.summary(), "launches": launches}
-    # the same traffic again on the warm engine (first-call set-up, the
-    # host blobs and the swap cache are in place)
-    # (it repeats the prompts, so routing repeats and the expert cache is
-    # warm). The first iteration admits and prefills all four requests;
-    # the launches of the decode-only iterations after it give the
-    # launches per decode iteration.
-    def rerun():
-        engine.reset_counters()
-        t0 = time.perf_counter()
-        for p in prompts:
-            engine.submit_request(ServeRequest(p, max_new_tokens=8))
-        engine.run_iteration()
-        before, iters = dict(ops.LAUNCHES), engine.metrics["iterations"]
-        engine.step()
-        torch.cuda.synchronize()
-        n = engine.metrics["iterations"] - iters
-        per_iter = {k: (ops.LAUNCHES[k] - before[k]) / n for k in before}
-        return time.perf_counter() - t0, per_iter
-
-    warm_wall, per_iter = rerun()
-    m = dict(engine.metrics)
-    warm_decode_ms = m["decode_s"] / max(m["iterations"], 1) * 1e3
-    log(f"  warm rerun on {card}: {warm_wall:.3f} s, "
-        f"{engine.throughput_tokens_per_s():.2f} tok/s over decode, "
-        f"{warm_decode_ms:.3f} ms per decode iteration, prefill "
-        f"{m['prefill_s'] / 4 * 1e3:.3f} ms per request; launches per "
-        f"decode iteration {per_iter}")
-    out.update(warm_wall_s=warm_wall, warm_decode_ms_per_iter=warm_decode_ms,
-               warm_tokens_per_s=engine.throughput_tokens_per_s(),
-               warm_prefill_ms_per_request=m["prefill_s"] / 4 * 1e3,
-               launches_per_decode_iter=per_iter)
+           "cold": cold, "warm": warm}
     if profile:
         # one more warm pass under the profiler: device time by kernel,
         # set against the unprofiled pass's wall time
         with _profiler(torch) as prof:
-            rerun()
-        out["profile"] = _profile_report(prof, warm_wall)
+            serve_pass(torch, engine, prompts)
+        out["profile"] = _profile_report(prof, warm["wall_s"])
+    ctx = {"cfg": cfg, "params": params, "engine": engine, "point": point,
+           "prompts": prompts, "tokens": cold["tokens"]}
+    return out, sizes, ctx
+
+
+# --------------------------------------------------------------------------
+# phase 3b-3d: the other serve paths (paged == slot, overlap, speculative)
+# --------------------------------------------------------------------------
+
+def phase_paged_slot(torch, np, ctx, card: str):
+    """Paged KV against the slot cache on the same params and point: the
+    model hooks give bit-equal prefill and first-decode logits, and a
+    ``paged_kv=False`` engine serves the same greedy tokens."""
+    from repro_torch.models.model import page_table
+    from repro_torch.serving.api import EngineConfig, build_engine
+    from repro_torch.serving.paged_kv import PageAllocator
+    eng = ctx["engine"]
+    m, p, window = eng.model, eng._serve_params, eng.window
+    prompts = ctx["prompts"]
+    b = len(prompts)
+    cache = m.init_cache(b, eng.max_len, device="cuda")
+    pool, meta = m.init_paged_cache(b, eng.max_len, device="cuda")
+    alloc = PageAllocator(b, meta.chunks_per_slot, meta.num_pages,
+                          meta.page_size)
+    first = []
+    for i, pr in enumerate(prompts):
+        toks = torch.as_tensor(pr[None], device="cuda")
+        pos = torch.arange(len(pr), device="cuda")[None]
+        lg_s, cache = m.prefill_into_slot(p, cache, toks, pos, i,
+                                          len(pr) - 1)
+        alloc.ensure_prefix(i, len(pr))
+        lg_p, pool = m.paged_prefill_into_slot(
+            p, pool, page_table(alloc.table[i], "cuda"), toks, pos,
+            len(pr) - 1, window=window)
+        if not _bits_equal(torch, lg_s, lg_p):
+            raise AssertionError(f"paged prefill logits differ (slot {i})")
+        first.append(int(torch.argmax(lg_s[0])))
+        alloc.ensure_index(i, len(pr) % window)
+    toks = torch.tensor(first, device="cuda")[:, None]
+    pos = torch.tensor([len(pr) for pr in prompts], device="cuda")
+    lg_s, cache, ids_s = m.decode_step_routed(p, cache, toks, pos)
+    lg_p, pool, ids_p = m.paged_decode_step_routed(
+        p, pool, page_table(alloc.table, "cuda"), toks, pos, window=window)
+    if not (_bits_equal(torch, lg_s, lg_p) and torch.equal(ids_s, ids_p)):
+        raise AssertionError("paged first-decode logits or routes differ "
+                             "from the slot cache's")
+    del cache, pool
+    slot = build_engine(ctx["cfg"], ctx["params"], EngineConfig(
+        **SERVE_CFG, paged_kv=False), device="cuda")
+    slot.apply_frontier_point(ctx["point"])
+    r = serve_pass(torch, slot, prompts)
+    slot.close()
+    del slot
+    torch.cuda.empty_cache()
+    require_launches(r["launches"], "paged == slot")
+    if r["tokens"] != ctx["tokens"]:
+        raise AssertionError(f"slot-cache tokens {r['tokens']} != paged "
+                             f"{ctx['tokens']}")
+    log("paged == slot: prefill and first-decode logits bit-equal through "
+        "the model hooks; the paged_kv=False engine serves the same greedy "
+        "tokens")
+    log_pass("slot-cache pass", card, r)
+    return r
+
+
+def _xfer_threads():
+    import threading
+    return [t.name for t in threading.enumerate()
+            if t.name.startswith("expert-xfer") and t.is_alive()]
+
+
+def phase_overlap(torch, np, ctx, card: str):
+    """The async overlap pipeline (paged) on a point that keeps all three
+    rungs and leaves at least half of the experts off the card, with a
+    swap cache of two experts, so the LRU keeps streaming. Its greedy
+    tokens equal the non-overlap engine's on the same point."""
+    from repro_torch.core.precision_plan import HOST
+    from repro_torch.serving.api import EngineConfig, build_engine
+    cfg, prompts = ctx["cfg"], ctx["prompts"]
+    total = cfg.num_layers * cfg.moe.num_experts
+    probe = build_engine(cfg, ctx["params"], EngineConfig(
+        **SERVE_CFG, overlap=True), device="cuda")
+    cand = [pt for pt in probe.frontier.points
+            if all(c > 0 for c in pt.counts_per_rung)
+            and pt.resident_experts <= total // 2]
+    probe.close()
+    if not cand:
+        raise RuntimeError("no frontier point with all three rungs and half "
+                           "of the experts off the card")
+    point = max(cand, key=lambda pt: pt.resident_experts)
+    host_bits = set(point.plan.bits[point.plan.location == HOST].tolist())
+    swap = 2 * max(cfg.expert_param_bytes(int(b)) for b in host_bits)
+    engine = build_engine(cfg, ctx["params"], EngineConfig(
+        **SERVE_CFG, overlap=True, swap_bytes=swap), device="cuda")
+    engine.apply_frontier_point(point)
+    log(f"overlap: point {point.summary()}, swap cache {swap / 1e9:.3f} GB "
+        f"(two experts at the largest off-card rung), "
+        f"{engine.expert_cache.__class__.__name__}")
+    # the non-overlap engine on the same point gives the reference tokens
+    plain = ctx["engine"]
+    plain.apply_frontier_point(point)
+    if not np.array_equal(plain.current_plan.bits,
+                          engine.current_plan.bits):
+        raise AssertionError("the two engines planned other rungs")
+    want = serve_pass(torch, plain, prompts)
+    log_pass("non-overlap pass on the same point", card, want)
+    out = {"point": point.summary(), "swap_bytes": swap, "plain": want}
+    for label in ("cold", "warm"):
+        r = serve_pass(torch, engine, prompts)
+        require_launches(r["launches"], f"overlap {label}")
+        if r["tokens"] != want["tokens"]:
+            raise AssertionError(f"overlap {label} tokens {r['tokens']} != "
+                                 f"non-overlap {want['tokens']}")
+        m = engine.metrics
+        r.update({k: m[k] for k in (
+            "transfer_s", "prefetch_s", "transfer_exposed_s",
+            "transfer_overlapped_s", "expert_fetches", "expert_accesses")})
+        r["measured_overlap_efficiency"] = \
+            engine.measured_overlap_efficiency()
+        if m["expert_fetches"] + engine.expert_cache.stats.prefetch_bytes \
+                <= 0:
+            raise AssertionError("the overlap pass streamed no expert")
+        log_pass(f"overlap {label} pass", card, r)
+        log(f"    transfer_s {m['transfer_s']:.4f} s, prefetch_s "
+            f"{m['prefetch_s']:.4f} s, transfer_exposed_s "
+            f"{m['transfer_exposed_s']:.4f} s, transfer_overlapped_s "
+            f"{m['transfer_overlapped_s']:.4f} s, measured_overlap_"
+            f"efficiency {r['measured_overlap_efficiency']}; fetches "
+            f"{m['expert_fetches']} of {m['expert_accesses']} accesses")
+        out[label] = r
     engine.close()
-    return out, sizes
+    alive = _xfer_threads()
+    if alive:
+        raise AssertionError(f"expert-xfer threads alive after close: "
+                             f"{alive}")
+    del engine
+    torch.cuda.empty_cache()
+    log("overlap: greedy tokens equal to the non-overlap engine's; no "
+        "expert-xfer thread alive after close()")
+    return out
+
+
+def phase_spec(torch, np, ctx, card: str, seed: int):
+    """Ladder-draft speculation (speculate=2, paged) on the default point
+    and traffic: greedy tokens equal to plain decode's, the draft's int4
+    bank of all 8 experts launched."""
+    from repro_torch.serving.api import EngineConfig, build_engine
+    cfg = ctx["cfg"]
+    engine = build_engine(cfg, ctx["params"], EngineConfig(
+        **SERVE_CFG, speculate=2), device="cuda")
+    engine.apply_frontier_point(ctx["point"])
+    out = {"row_probe": _spec_row_probe(torch, engine, seed)}
+    _verify_equals_decode(torch, engine, ctx["prompts"])
+    for label in ("cold", "warm"):
+        r = serve_pass(torch, engine, ctx["prompts"])
+        require_launches(r["launches"], f"speculative {label}")
+        draft = r["group_launches"].get(f"grouped_q4@G={cfg.moe.num_experts}",
+                                        0)
+        if draft <= 0:
+            raise AssertionError(f"the G={cfg.moe.num_experts} int4 draft "
+                                 f"bank never launched: "
+                                 f"{r['group_launches']}")
+        m = engine.metrics
+        r.update(acceptance_rate=m["acceptance_rate"],
+                 spec_proposed=m["spec_proposed"],
+                 spec_accepted=m["spec_accepted"])
+        log_pass(f"speculative {label} pass", card, r)
+        log(f"    acceptance {m['acceptance_rate']:.3f} "
+            f"({m['spec_accepted']}/{m['spec_proposed']}); launches by bank "
+            f"{r['group_launches']}")
+        if r["tokens"] != ctx["tokens"]:
+            raise AssertionError(f"speculative tokens {r['tokens']} != plain "
+                                 f"{ctx['tokens']}")
+        out[label] = r
+    engine.close()
+    del engine
+    torch.cuda.empty_cache()
+    log("speculative: greedy tokens equal to plain decode's")
+    return out
+
+
+def _verify_equals_decode(torch, engine, prompts):
+    """The verify forward's logits at each of its K+1 positions are
+    bit-equal to plain decode's at that position, through the model
+    hooks: prefill the prompts, decode K+1 greedy steps, and score the
+    same K+1 tokens with one speculative step on a copy of the prefilled
+    cache (DESIGN.md §17.1)."""
+    m, p = engine.model, engine._serve_params
+    s = engine.speculate_k + 1
+    cache = m.init_cache(len(prompts), engine.max_len, device="cuda")
+    tok = []
+    for i, pr in enumerate(prompts):
+        lg, cache = m.prefill_into_slot(
+            p, cache, torch.as_tensor(pr[None], device="cuda"),
+            torch.arange(len(pr), device="cuda")[None], i, len(pr) - 1)
+        tok.append(int(torch.argmax(lg[0])))
+    spec_cache = {k: v.clone() for k, v in cache.items()}
+    pos0 = torch.tensor([len(pr) for pr in prompts], device="cuda")
+    fed, plain = [torch.tensor(tok, device="cuda")], []
+    for j in range(s):
+        lg, cache, _ = m.decode_step_routed(p, cache, fed[-1][:, None],
+                                            pos0 + j)
+        plain.append(lg)
+        fed.append(torch.argmax(lg, dim=-1))
+    toks = torch.stack(fed[:s], dim=1)
+    pos = pos0[:, None] + torch.arange(s, device="cuda")[None]
+    lg, _, _ = m.spec_step_routed(p, spec_cache, toks, pos)
+    for j in range(s):
+        if not _bits_equal(torch, lg[:, j].contiguous(), plain[j]):
+            raise AssertionError(f"verify logits at column {j} differ from "
+                                 "plain decode's")
+    log(f"  verify forward: logits at all {s} columns bit-equal to plain "
+        "decode's at the same positions")
+
+
+def _spec_row_probe(torch, engine, seed: int):
+    """Row invariance of each op of the verify forward on the card: column
+    0 of a (B, K+1) input against the same rows alone, (B, 1), as plain
+    decode runs them. Layer 0 of the serving params; reported, not
+    asserted (the token check above is the contract)."""
+    from repro_torch.models import layers as L
+    from repro_torch.models.transformer import _ffn_or_moe, layer_slice
+    cfg, p = engine.cfg, engine._serve_params
+    lp = layer_slice(p["layers"], 0)
+    b, s = engine.max_slots, engine.speculate_k + 1
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((b, s, cfg.d_model), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    w = engine.window
+    a = cfg.attention
+    ring = {"k": torch.randn((b, w, a.num_kv_heads, a.head_dim),
+                             generator=gen, device="cuda").to(torch.bfloat16),
+            "pos": torch.full((b, w), -1, dtype=torch.int32, device="cuda")}
+    ring["v"] = torch.randn_like(ring["k"].float()).to(torch.bfloat16)
+    ring["pos"][:, :16] = torch.arange(16, device="cuda", dtype=torch.int32)
+    qpos = 16 + torch.arange(s, device="cuda")[None].expand(b, s)
+
+    def attn(t):
+        c = {k: v.clone() for k, v in ring.items()}
+        return L.attention(lp["attn"], t, a, positions=qpos[:, :t.shape[1]],
+                           cache=c, spec=True)[0]
+
+    def moe(t):
+        valid = torch.ones(t.shape[:2], dtype=torch.bool, device="cuda")
+        cap = t.shape[0] * t.shape[1] if t.shape[1] > 1 else None
+        return _ffn_or_moe(lp, t, cfg, True, token_valid=valid,
+                           moe_capacity=cap)[0]
+
+    probes = {
+        "rms_norm": lambda t: L.rms_norm(t, lp["attn_norm"]["scale"]),
+        "wq": lambda t: t @ lp["attn"]["wq"],
+        "wk": lambda t: t @ lp["attn"]["wk"],
+        "wo": lambda t: t @ lp["attn"]["wo"],
+        "attention": attn,
+        "moe (kernels)": moe,
+        "unembed": lambda t: L.unembed(p["lm_head"]["table"], t),
+    }
+    out = {}
+    x1 = x[:, :1].contiguous()
+    for name, f in probes.items():
+        full = f(x)[:, 0]
+        col = f(x1)[:, 0]
+        equal = _bits_equal(torch, full, col) if full.dtype != torch.float32 \
+            else bool(torch.equal(full, col))
+        out[name] = {"bit_equal": equal, "max_abs_diff": float(
+            (full.float() - col.float()).abs().max())}
+    log(f"  verify-row probe (column 0 of B x {s} against B x 1): {out}")
+    return out
 
 
 def _profiler(torch):
@@ -562,6 +872,7 @@ def phase_kernels(torch, np, sizes, seed: int, reps: int):
          "src/repro/kernels/grouped_matmul.py:84",
          lambda c, k, n: bf16_case(sizes[16], c, k, n)),
     ]
+    draft = {"grouped_q4": lambda c, k, n: q_case(4, DRAFT_G, c, k, n, True)}
     log(f"kernels: bank layout per rung {sizes} (experts per layer), "
         f"group {GROUP}; kernel and bmm times are device times "
         f"(CUDA graph of {reps} launches), plain times CUDA events over a "
@@ -569,8 +880,12 @@ def phase_kernels(torch, np, sizes, seed: int, reps: int):
         "the L2")
     for name, route, tag, replaces, case in specs:
         rows = {}
-        for label, (c, k, n) in SHAPES.items():
-            r = case(c, k, n)
+        shapes = [(lbl, shp, case) for lbl, shp in SHAPES.items()]
+        if name in draft:
+            shapes += [(lbl, shp, draft[name])
+                       for lbl, shp in DRAFT_SHAPES.items()]
+        for label, (c, k, n), run in shapes:
+            r = run(c, k, n)
             rows[label] = r
             log(f"  {name:13s} {label:10s} G={r['G']} C={r['C']:3d} "
                 f"K={k:5d} N={n:5d} x{r['copies']} splits "
@@ -596,7 +911,48 @@ def phase_kernels(torch, np, sizes, seed: int, reps: int):
             lbl: r for lbl, r in rows.items()}})
     records.append(_reduce_record(torch, gen, qk, sizes, reps, extra))
     _exact_checks(torch, gen, gk, ops, QTensor)
+    _row_invariance(torch, gen, ops, sizes)
     return records, extra
+
+
+def _row_invariance(torch, gen, ops, sizes):
+    """Row r of a launch at the verify's C = 12 is bit-equal to the same
+    row in a C = 8 launch (placed at another row), for every kernel at the
+    up- and down-projection (and the G = 8 draft bank): a token's result
+    depends neither on how many tokens share its expert nor on its place,
+    so the speculative verify scores a token as plain decode does."""
+    def check(what, fn, x):
+        full = fn(x)
+        # the first C_DECODE rows, in reverse order: a row's result depends
+        # neither on the row count nor on its place in the tile
+        rows = list(range(C_DECODE - 1, -1, -1))
+        part = fn(x[..., rows, :].contiguous())
+        if not _bits_equal(torch, full[..., rows, :].contiguous(), part):
+            raise AssertionError(f"{what}: rows of a C={C_VERIFY} launch "
+                                 f"differ from a C={C_DECODE} launch")
+
+    cases = [("q4_matmul", 4, 1, False), ("q8_matmul", 8, 1, False),
+             ("grouped_q4", 4, sizes[4], True),
+             ("grouped_q8", 8, sizes[8], True),
+             ("grouped_q4 draft", 4, DRAFT_G, True),
+             ("grouped_bf16", 16, sizes[16], True)]
+    for name, bits, g, grouped in cases:
+        for label in ("up", "down"):
+            _, k, n = SHAPES[label]
+            x, w = _make_bank(torch, gen, g, C_VERIFY, k, n, bits)
+            if bits == 16:
+                check(f"{name} {label}",
+                      lambda t: ops.grouped_bf16_matmul(t, w), x)
+            elif grouped:
+                check(f"{name} {label}",
+                      lambda t: ops.grouped_q_matmul(t, w), x)
+            else:
+                w1 = w.map(lambda t: t[0])
+                check(f"{name} {label}", lambda t: ops.q_matmul(t, w1), x[0])
+            del x, w
+            torch.cuda.empty_cache()
+    log(f"kernels: row invariance holds for every kernel (rows of C = "
+        f"{C_VERIFY} launches bit-equal to C = {C_DECODE} launches)")
 
 
 def _reduce_record(torch, gen, qk, sizes, reps, extra):
@@ -737,14 +1093,49 @@ def main(argv=None) -> int:
 
     t_start = time.perf_counter()
     smi = phase_device(torch)
-    build_s, ptxas = phase_build()
-    serve, sizes = phase_serve(torch, np, args.seed, smi, args.profile)
-    parity_err = phase_parity(torch, np, args.seed)
-    records, extra = phase_kernels(torch, np, sizes, args.seed, args.reps)
+    failures = []
+
+    def run(name, fn, *a):
+        """Run one phase; a failure is recorded, later phases still run
+        where they can, and the script then exits non-zero."""
+        try:
+            return fn(*a)
+        except Exception:                       # noqa: BLE001 (reported)
+            failures.append(name)
+            log(f"PHASE FAILED: {name}\n{traceback.format_exc()}")
+            return None
+
+    built = run("build", phase_build)
+    build_s, ptxas = built if built else (None, None)
+    served = run("serve", phase_serve, torch, np, args.seed, smi,
+                 args.profile) if built else None
+    serve, sizes, ctx = served if served else (None, None, None)
+    paths = {}
+    if ctx is not None:
+        paths["serve"] = serve["cold"]
+        for name, fn, extra in (
+                ("paged == slot", phase_paged_slot, ()),
+                ("overlap", phase_overlap, ()),
+                ("speculative", phase_spec, (args.seed,))):
+            r = run(name, fn, torch, np, ctx, smi, *extra)
+            if r is not None:
+                paths[name] = r.get("cold", r)
+            serve[name] = r
+        ctx["engine"].close()
+        del ctx
+        torch.cuda.empty_cache()
+    parity_err = run("parity", phase_parity, torch, np, args.seed) \
+        if built else None
+    kern = run("kernels", phase_kernels, torch, np, sizes, args.seed,
+               args.reps) if sizes else None
+    records, extra = kern if kern else ([], [])
     for rec in records:
-        rec["launches"] = serve["launches"][rec["name"]]
-        rec["launches_per_decode_iter"] = \
-            serve["launches_per_decode_iter"][rec["name"]]
+        rec["launches"] = paths["serve"]["launches"][rec["name"]]
+        rec["launches_per_decode_iter"] = {
+            path: r["launches_per_decode_iter"][rec["name"]]
+            for path, r in paths.items()}
+        rec["launches_by_path"] = {path: r["launches"][rec["name"]]
+                                   for path, r in paths.items()}
         rec["on_main_path"] = rec["launches"] > 0
     total_s = time.perf_counter() - t_start
     log(f"total: {total_s:.1f} s")
@@ -753,9 +1144,12 @@ def main(argv=None) -> int:
     out.write_text(json.dumps({
         "nvidia_smi": smi, "device": torch.cuda.get_device_name(0),
         "build_s": build_s, "ptxas": ptxas, "serve": serve,
-        "parity_max_abs_diff":
-        parity_err, "kernels": records, "kernel_shapes": extra,
-        "total_s": total_s}, indent=1))
+        "parity_max_abs_diff": parity_err, "kernels": records,
+        "kernel_shapes": extra, "failures": failures,
+        "total_s": total_s}, indent=1, default=str))
+    if failures:
+        log(f"chip_smoke: FAILED phases: {failures}")
+        return 1
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

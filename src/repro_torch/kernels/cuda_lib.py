@@ -10,17 +10,19 @@ library. There is no fallback: a missing ``nvcc``, a failed build or a
 refused launch raises.
 
 ``LAUNCHES`` holds one plain integer per kernel wrapper; a wrapper adds one
-where it launches its kernel and nowhere else.
+where it launches its kernel and nowhere else. ``GROUP_LAUNCHES`` splits
+the grouped wrappers' launches by the bank's expert count G.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import hashlib
 import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "dequant_matmul.cu"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -37,6 +39,10 @@ LAUNCHES: Dict[str, int] = {
     "splitk_reduce": 0,   # the K-split partials of any of the above
 }
 
+#: launches of the grouped wrappers by (wrapper, G), e.g. the 8-expert
+#: int4 bank of the speculative draft: ("grouped_q4", 8)
+GROUP_LAUNCHES: "collections.Counter[Tuple[str, int]]" = collections.Counter()
+
 #: nvcc's output (ptxas registers, shared memory, spills) of the library
 #: in use: set by the build, or read back from the log kept beside it
 BUILD_LOG = ""
@@ -47,6 +53,7 @@ _LIB: Optional[ctypes.CDLL] = None
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    GROUP_LAUNCHES.clear()
 
 
 def _nvcc() -> str:

@@ -76,6 +76,7 @@ def grouped_quantized_matmul(
     check_cuda_operands(x, wq, scales, bits=bits, n=n, out_dtype=out_dtype)
     check_cuda_shape(kdim, group_size)
     cuda_lib.LAUNCHES[f"grouped_q{bits}"] += 1
+    cuda_lib.GROUP_LAUNCHES[(f"grouped_q{bits}", g)] += 1
     return launch_dequant(x, wq, scales, bits=bits, group_size=group_size,
                           n=n)
 
@@ -109,4 +110,5 @@ def grouped_bf16_matmul(
     check_cuda_operands(x, w, None, bits=16, n=n, out_dtype=out_dtype)
     check_cuda_shape(kdim, 16)
     cuda_lib.LAUNCHES["grouped_bf16"] += 1
+    cuda_lib.GROUP_LAUNCHES[("grouped_bf16", g)] += 1
     return launch_bf16(x, w)

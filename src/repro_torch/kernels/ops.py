@@ -17,7 +17,9 @@ import torch.nn.functional as F
 from repro_torch.core.quantization import QTensor
 from repro_torch.kernels import grouped_matmul as _gk
 from repro_torch.kernels import q4_matmul as _k
-from repro_torch.kernels.cuda_lib import LAUNCHES, reset_launches  # noqa: F401
+from repro_torch.kernels.cuda_lib import (  # noqa: F401
+    GROUP_LAUNCHES, LAUNCHES, reset_launches,
+)
 
 
 def _pad_to(x: torch.Tensor, mult: int, axis: int) -> torch.Tensor:

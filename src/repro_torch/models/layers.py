@@ -65,6 +65,38 @@ def _update_cache(cache, k_new, v_new, positions):
     return cache
 
 
+def _spec_update_cache(cache, k_new, v_new, positions):
+    """Ring-buffer insert that DROPS rows tagged position < 0.
+
+    The speculative paths (draft + batched verify, DESIGN.md §17) carry
+    right-padded draft tails and idle decode slots as position -1; the
+    plain modulo write would alias them onto slot ``window - 1`` and
+    clobber a live entry. The reference drops them with a scatter
+    ``mode="drop"``, which torch lacks, and a boolean index would sync
+    the host; instead every ring slot takes the new row that targets it,
+    if a live one does, and keeps its entry otherwise (live rows of one
+    slot never share a ring index: the engine's depth clamp keeps a
+    speculative span inside the window). Writes IN PLACE."""
+    window = cache["k"].shape[1]
+    live = positions >= 0                                      # (B, S)
+    ring = torch.arange(window, device=positions.device)
+    hit = live[:, :, None] & (positions[:, :, None] % window == ring)
+    written = hit.any(dim=1)                                   # (B, W)
+    src = hit.to(torch.int64).argmax(dim=1)                    # (B, W)
+
+    def put(dst, new):
+        idx = src.reshape(src.shape + (1,) * (new.ndim - 2))
+        taken = torch.gather(new.to(dst.dtype), 1,
+                             idx.expand((-1, -1) + tuple(new.shape[2:])))
+        mask = written.reshape(written.shape + (1,) * (new.ndim - 2))
+        dst.copy_(torch.where(mask, taken, dst))
+
+    put(cache["k"], k_new)
+    put(cache["v"], v_new)
+    put(cache["pos"], positions)
+    return cache
+
+
 def _prefill_cache(cache, k_new, v_new, positions):
     """Prefill-from-empty cache contents: positions are contiguous
     0..S-1, so the ring buffer is a (rolled) slice of k/v."""
@@ -121,6 +153,7 @@ def _sdpa(q, k, v, mask) -> torch.Tensor:
 
 def attention(p: Dict[str, Any], x: torch.Tensor, acfg: AttentionConfig, *,
               positions: torch.Tensor, cache: Dict[str, torch.Tensor],
+              spec: bool = False,
               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Causal self-attention through a ring-buffer KV cache.
 
@@ -129,6 +162,9 @@ def attention(p: Dict[str, Any], x: torch.Tensor, acfg: AttentionConfig, *,
     the freshly written ring buffer.
     S == 1 -> decode: the new k/v go into the ring buffer (in place) and
     attention runs over it with position-tag masking.
+    spec -> speculative multi-token decode (DESIGN.md §17): S >= 1 new
+    tokens extend the LIVE cache in place (never the prefill rewrite), and
+    rows tagged position -1 are dropped instead of aliased by the modulo.
     """
     b, s, d = x.shape
     h, hkv, hd = acfg.num_heads, acfg.num_kv_heads, acfg.head_dim
@@ -140,7 +176,7 @@ def attention(p: Dict[str, Any], x: torch.Tensor, acfg: AttentionConfig, *,
     q = rope(q, positions, acfg.rope_theta)
     k = rope(k, positions, acfg.rope_theta)
 
-    if s > 1:
+    if s > 1 and not spec:
         new_cache = _prefill_cache(cache, k, v, positions)
         qpos = positions
         # right-padded slot prefills tag pads with pos=-1; never attended
@@ -151,7 +187,10 @@ def attention(p: Dict[str, Any], x: torch.Tensor, acfg: AttentionConfig, *,
                      < acfg.sliding_window)
         out = _sdpa(q, k, v, mask)
     else:
-        new_cache = _update_cache(cache, k, v, positions)
+        # decode (S == 1) or speculative draft/verify (spec, S >= 1): the
+        # position-tag mask below is exact for S > 1 queries too
+        writer = _spec_update_cache if spec else _update_cache
+        new_cache = writer(cache, k, v, positions)
         kpos = new_cache["pos"]                                  # (B, W)
         qpos = positions                                         # (B, S)
         valid = kpos[:, None, None, :] >= 0

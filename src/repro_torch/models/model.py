@@ -1,17 +1,20 @@
 """Parameters, caches and the serving model functions of the dense/MoE
-decoder (``repro.models.model``'s slot-cache serving surface).
+decoder (``repro.models.model``'s serving surface).
 
-``build_model(cfg)`` returns a :class:`Model` bundle with
-``prefill_into_slot``, ``decode_step_routed`` and ``reset_slot``;
-``apply_precision_plan`` converts train-layout MoE params into the N-bank
-serve layout. Parameters are nested dicts of tensors with a leading layer
-axis on every ``layers/...`` leaf, as in the reference.
+``build_model(cfg)`` returns a :class:`Model` bundle: the slot-cache hooks
+(``prefill_into_slot``, ``decode_step_routed``, ``reset_slot``), the
+per-layer decode hooks of the overlap pipeline, the paged-KV hooks and
+the speculative-decode hooks. ``apply_precision_plan`` converts
+train-layout MoE params into the N-bank serve layout. Parameters are
+nested dicts of tensors with a leading layer axis on every ``layers/...``
+leaf, as in the reference. Caches and page pools are updated in place
+(the engine holds the only reference); the reference returns new ones.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -22,7 +25,8 @@ from repro_torch.core.precision_plan import PrecisionPlan
 from repro_torch.core.quantization import QTensor
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
-from repro_torch.models.transformer import decoder_forward
+from repro_torch.models.transformer import (by_column, decoder_block,
+                                            decoder_forward, layer_slice)
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
            "float16": torch.float16}
@@ -113,6 +117,169 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
 
 
 # ---------------------------------------------------------------------------
+# Paged KV cache (DESIGN.md §13)
+# ---------------------------------------------------------------------------
+#
+# The pool holds fixed-size pages {k, v: (L, P, page, Hkv, hd), pos: (L, P,
+# page)}; each slot's page table maps its ring chunks to pages. Page 0 is
+# the reserved NULL page: all tags -1, never allocated, never written. An
+# unmapped chunk therefore gathers as an all-invalid ring segment, masked
+# to an exact 0 contribution, so decode through the pages is BIT-IDENTICAL
+# to the slot cache: the gathered ring is cut to exactly the window and
+# made contiguous, so attention sees operands of the slot cache's shape,
+# dtype and strides.
+#
+# The reference drops writes to the null page with a scatter
+# ``mode="drop"``; torch has none. The page table lives on the host (the
+# engine's PageAllocator), so the mapped chunks are listed there and only
+# those rows are written (``index_copy_``): no scratch page, no device-side
+# ``nonzero`` (a host sync per layer).
+
+@dataclasses.dataclass(frozen=True)
+class PagedKVMeta:
+    """Static layout of a paged KV pool."""
+    window: int           # logical ring width per slot (== slot-cache W)
+    page_size: int        # tokens per page
+    chunks_per_slot: int  # ceil(window / page_size)
+    num_pages: int        # physical pages incl. the reserved null page 0
+
+
+def init_paged_cache(cfg: ModelConfig, batch: int, max_len: int, *,
+                     page_size: int = 16, num_pages: Optional[int] = None,
+                     device=None) -> Tuple[Dict[str, torch.Tensor],
+                                           PagedKVMeta]:
+    """Paged decode cache: (pool, meta). ``num_pages=None`` sizes the pool
+    at worst case (every slot fully windowed) + the null page; a smaller
+    pool reclaims HBM for the frontier's residency axis (the engine caps
+    admission so allocation can never dead-end mid-flight)."""
+    if cfg.family not in ("dense", "moe"):
+        raise ValueError(f"family {cfg.family} has no paged KV path")
+    dev = resolve_device(device)
+    window = min(max_len, cfg.attention.sliding_window or max_len)
+    chunks = -(-window // page_size)
+    if num_pages is None:
+        num_pages = batch * chunks + 1
+    if num_pages < chunks + 1:
+        raise ValueError(f"pool of {num_pages} pages cannot hold even one "
+                         f"full window ({chunks} pages)")
+    dt = _DTYPES[cfg.dtype]
+    shape = (cfg.num_layers, num_pages, page_size,
+             cfg.attention.num_kv_heads, cfg.attention.head_dim)
+    pool = {"k": torch.zeros(shape, dtype=dt, device=dev),
+            "v": torch.zeros(shape, dtype=dt, device=dev),
+            "pos": torch.full(shape[:3], -1, dtype=torch.int32, device=dev)}
+    return pool, PagedKVMeta(window=window, page_size=page_size,
+                             chunks_per_slot=chunks, num_pages=num_pages)
+
+
+@dataclasses.dataclass(frozen=True)
+class PageTable:
+    """A host page table as the index tensors of the paged gathers and
+    scatters (built once per engine iteration by :func:`page_table`)."""
+    gather: torch.Tensor    # (B, nc) int64: each chunk's page, 0 = null
+    chunk: torch.Tensor     # (M,) int64: b * nc + c of each MAPPED chunk
+    page: torch.Tensor      # (M,) int64: that chunk's page (never 0)
+
+
+def _index(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host int64 index as a device tensor, copied without blocking
+    from pinned memory on a card."""
+    t = torch.from_numpy(np.ascontiguousarray(a, dtype=np.int64))
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t
+
+
+def page_table(table: np.ndarray, device) -> PageTable:
+    """The allocator's table (B, nc) — or one slot's row (nc,) — as a
+    :class:`PageTable` on ``device``."""
+    dev = torch.device(device)
+    table = np.atleast_2d(np.asarray(table))
+    flat = table.reshape(-1)
+    mapped = np.flatnonzero(flat)
+    return PageTable(gather=_index(table, dev), chunk=_index(mapped, dev),
+                     page=_index(flat[mapped], dev))
+
+
+def _pad_ring(r: torch.Tensor, pad: int, dim: int, is_pos: bool):
+    """Pad the ring axis ``dim`` to whole pages (tags -1, k/v zeros)."""
+    if not pad:
+        return r
+    shape = list(r.shape)
+    shape[dim] = pad
+    fill = r.new_full(shape, -1) if is_pos else r.new_zeros(shape)
+    return torch.cat([r, fill], dim=dim)
+
+
+def _gather_paged(pool, pt: PageTable, window: int):
+    """pool + page table -> the ring cache (L, B, W, ...) the attention
+    layers consume, cut to exactly ``window`` and contiguous."""
+    def g(a):
+        x = a[:, pt.gather]                        # (L, B, nc, ps, ...)
+        l, b, nc, ps = x.shape[:4]
+        return x.reshape((l, b, nc * ps) + x.shape[4:])[:, :, :window] \
+            .contiguous()
+
+    return {key: g(pool[key]) for key in ("k", "v", "pos")}
+
+
+def _scatter_paged(pool, pt: PageTable, ring, window: int):
+    """Write a (possibly updated) ring cache (L, B, W, ...) back into its
+    mapped pages; unmapped chunks are skipped, so the null page is never
+    dirtied. In place; returns the pool."""
+    ps = pool["pos"].shape[2]
+    nc = pt.gather.shape[1]
+    for key in ("k", "v", "pos"):
+        r = _pad_ring(ring[key], nc * ps - window, 2, key == "pos")
+        l, b = r.shape[:2]
+        rows = r.reshape((l, b * nc, ps) + r.shape[3:])
+        pool[key].index_copy_(1, pt.page, rows.index_select(1, pt.chunk))
+    return pool
+
+
+def _gather_paged_layer(pool, pt: PageTable, window: int, layer: int):
+    """Single-layer gather for the per-layer decode pipeline: the ring
+    (B, W, ...) of layer ``layer``."""
+    def g(a):
+        x = a[layer][pt.gather]                    # (B, nc, ps, ...)
+        b, nc, ps = x.shape[:3]
+        return x.reshape((b, nc * ps) + x.shape[3:])[:, :window] \
+            .contiguous()
+
+    return {key: g(pool[key]) for key in ("k", "v", "pos")}
+
+
+def _scatter_paged_layer(pool, pt: PageTable, ring, window: int,
+                         layer: int):
+    ps = pool["pos"].shape[2]
+    nc = pt.gather.shape[1]
+    for key in ("k", "v", "pos"):
+        r = _pad_ring(ring[key], nc * ps - window, 1, key == "pos")
+        rows = r.reshape((r.shape[0] * nc, ps) + r.shape[2:])
+        pool[key][layer].index_copy_(0, pt.page,
+                                     rows.index_select(0, pt.chunk))
+    return pool
+
+
+def _scatter_prefill_paged(pool, page_row: PageTable, ring, window: int):
+    """Scatter one slot's freshly prefilled ring (L, W, ...) into its
+    mapped pages (``page_row`` is the slot's one-row page table)."""
+    return _scatter_paged(pool, page_row,
+                          {key: ring[key][:, None] for key in ring}, window)
+
+
+def paged_reset_pages(pool, pages):
+    """Invalidate freed pages' position tags (tags only — k/v bytes are
+    dead once every tag is -1, same as ``reset_slot``). ``pages``: host
+    page ids; null entries (0) are skipped."""
+    pages = np.asarray(pages).reshape(-1)
+    pages = pages[pages != 0]
+    if pages.size:
+        pool["pos"].index_fill_(1, _index(pages, pool["pos"].device), -1)
+    return pool
+
+
+# ---------------------------------------------------------------------------
 # The Model bundle
 # ---------------------------------------------------------------------------
 
@@ -127,6 +294,43 @@ class Model:
     # (params, cache, tokens (B,1), positions (B,)) -> (logits, cache, ids)
     reset_slot: Callable
     # (cache, slot) -> cache with the slot's position tags invalidated
+    # Per-layer decode hooks (the overlap pipeline, DESIGN.md §12): embed
+    # -> layer^L -> logits is the same block sequence as
+    # decode_step_routed, so the two give the same bits.
+    decode_embed: Callable
+    # (params, tokens (B,1)) -> x (B,1,d)
+    decode_layer_routed: Callable
+    # (params, cache, x, positions (B,), layer) -> (x', cache, ids (B,k))
+    decode_logits: Callable
+    # (params, x (B,1,d)) -> logits (B,V)
+    # Paged KV hooks (DESIGN.md §13): the same surface over a page pool
+    # and a PageTable; bit-identical to the slot cache.
+    init_paged_cache: Callable
+    # (batch, max_len, *, page_size, num_pages, device) -> (pool, meta)
+    paged_prefill_into_slot: Callable
+    # (params, pool, page_row, tokens (1,S), positions (1,S), last_idx,
+    #  *, window) -> (logits (1,V), pool)
+    paged_decode_step_routed: Callable
+    # (params, pool, page_table, tokens, positions, *, window)
+    #   -> (logits, pool, route_ids)
+    paged_decode_layer_routed: Callable
+    # (params, pool, page_table, x, positions, layer, *, window)
+    #   -> (x', pool, route_ids (B, top_k))
+    paged_reset_pages: Callable
+    # (pool, pages) -> pool with the pages' position tags cleared
+    # Speculative decode (DESIGN.md §17): one multi-token step serves the
+    # draft pass (S=1, draft params) and the verify (S=K+1, serving
+    # params); rows tagged -1 are dropped, the MoE dispatch is drop-free.
+    spec_step_routed: Callable
+    # (params, cache, tokens (B,S), positions (B,S))
+    #   -> (logits (B,S,V), cache, route_ids (L, B*S, top_k))
+    paged_spec_step_routed: Callable
+    # (params, pool, page_table, tokens, positions, *, window)
+    #   -> (logits (B,S,V), pool, route_ids)
+    rollback_slots: Callable
+    # (cache, keep (B,)) -> cache with tags > keep[b] invalidated per slot
+    paged_rollback: Callable
+    # (pool, page_table, keep (B,)) -> pool, same contract
 
 
 def _embed_scaled(params, cfg: ModelConfig, tokens: torch.Tensor):
@@ -156,6 +360,25 @@ def build_model(cfg: ModelConfig, *, use_kernel: bool = False) -> Model:
         logits = L.unembed(params["lm_head"]["table"], y)
         return logits[:, 0], new_cache, aux.get("route_ids")
 
+    def _prefill(params, like, tokens, positions, last_idx: int,
+                 window: int):
+        """Prefill into a fresh one-slot ring of ``window``: returns
+        (next-token logits (1, V), the written ring (L, 1, W, ...)).
+        Prefill attends over the in-context k/v, so the logits do not
+        depend on the cache layout."""
+        n, hkv, hd = like["k"].shape[0], like["k"].shape[-2], \
+            like["k"].shape[-1]
+        x = _embed_scaled(params, cfg, tokens)
+        sub = {"k": like["k"].new_zeros((n, 1, window, hkv, hd)),
+               "v": like["v"].new_zeros((n, 1, window, hkv, hd)),
+               "pos": like["pos"].new_full((n, 1, window), -1)}
+        y, new_sub, _ = decoder_forward(params, cfg, x, positions,
+                                        caches=sub, use_kernel=use_kernel)
+        y_last = y[:, min(max(int(last_idx), 0), y.shape[1] - 1)][:, None]
+        y_last = L.rms_norm(y_last, params["final_norm"]["scale"])
+        logits = L.unembed(params["lm_head"]["table"], y_last)
+        return logits[:, 0], new_sub
+
     @torch.no_grad()
     def prefill_into_slot(params, cache, tokens, positions, slot: int,
                           last_idx: int):
@@ -166,19 +389,11 @@ def build_model(cfg: ModelConfig, *, use_kernel: bool = False) -> Model:
         attention mask and the ring-buffer tags treat them as invalid).
         Returns (next-token logits (1, V), cache with the slot row
         replaced in place)."""
-        n, _, window, hkv, hd = cache["k"].shape
-        x = _embed_scaled(params, cfg, tokens)
-        sub = {"k": cache["k"].new_zeros((n, 1, window, hkv, hd)),
-               "v": cache["v"].new_zeros((n, 1, window, hkv, hd)),
-               "pos": cache["pos"].new_full((n, 1, window), -1)}
-        y, new_sub, _ = decoder_forward(params, cfg, x, positions,
-                                        caches=sub, use_kernel=use_kernel)
-        y_last = y[:, min(max(int(last_idx), 0), y.shape[1] - 1)][:, None]
-        y_last = L.rms_norm(y_last, params["final_norm"]["scale"])
-        logits = L.unembed(params["lm_head"]["table"], y_last)
+        logits, new_sub = _prefill(params, cache, tokens, positions,
+                                   last_idx, cache["k"].shape[2])
         for key in ("k", "v", "pos"):
             cache[key][:, slot] = new_sub[key][:, 0]
-        return logits[:, 0], cache
+        return logits, cache
 
     def reset_slot(cache, slot: int):
         """Invalidate a retired slot's ring buffer (tags only — k/v bytes
@@ -186,13 +401,132 @@ def build_model(cfg: ModelConfig, *, use_kernel: bool = False) -> Model:
         cache["pos"][:, slot] = -1
         return cache
 
+    # -- per-layer decode (async overlap pipeline, DESIGN.md §12) --------
+    @torch.no_grad()
+    def decode_embed(params, tokens):
+        """tokens (B,1) -> embedded x (B,1,d); the pipeline's front."""
+        return _embed_scaled(params, cfg, tokens)
+
+    @torch.no_grad()
+    def decode_layer_routed(params, cache, x, positions, layer: int):
+        """Decoder block ``layer`` of the stack: the same block as
+        ``decoder_forward`` runs, so per-layer and whole-stack decode give
+        the same bits. Writes that layer's ring in place; returns (x',
+        cache, the layer's route ids (B, top_k) in bank order)."""
+        ring = {k: cache[k][layer] for k in ("k", "v", "pos")}
+        x, _, ids = decoder_block(layer_slice(params["layers"], layer),
+                                  cfg, x, positions[:, None], ring,
+                                  use_kernel=use_kernel)
+        return x, cache, ids
+
+    @torch.no_grad()
+    def decode_logits(params, x):
+        """Pipeline tail: final norm + unembed of the last block output."""
+        y = L.rms_norm(x, params["final_norm"]["scale"])
+        return L.unembed(params["lm_head"]["table"], y)[:, 0]
+
+    # -- paged KV serving hooks (DESIGN.md §13) ----------------------------
+    @torch.no_grad()
+    def paged_prefill_into_slot(params, pool, page_row: PageTable, tokens,
+                                positions, last_idx: int, *, window: int):
+        """Paged ``prefill_into_slot``: the same fresh one-slot prefill,
+        then the written ring goes into the slot's mapped pages."""
+        logits, new_sub = _prefill(params, pool, tokens, positions,
+                                   last_idx, window)
+        _scatter_prefill_paged(
+            pool, page_row, {k: new_sub[k][:, 0] for k in new_sub}, window)
+        return logits, pool
+
+    @torch.no_grad()
+    def paged_decode_step_routed(params, pool, pt: PageTable, tokens,
+                                 positions, *, window: int):
+        """Paged ``decode_step_routed``: gather the page view into the ring
+        cache, run the same decode step, scatter the ring back."""
+        ring = _gather_paged(pool, pt, window)
+        logits, ring, route_ids = decode_step_routed(params, ring, tokens,
+                                                     positions)
+        return logits, _scatter_paged(pool, pt, ring, window), route_ids
+
+    @torch.no_grad()
+    def paged_decode_layer_routed(params, pool, pt: PageTable, x,
+                                  positions, layer: int, *, window: int):
+        """Paged ``decode_layer_routed`` for the overlap pipeline: one
+        layer's page view gathered and scattered per call."""
+        ring = _gather_paged_layer(pool, pt, window, layer)
+        x, ring, ids = decoder_block(layer_slice(params["layers"], layer),
+                                     cfg, x, positions[:, None], ring,
+                                     use_kernel=use_kernel)
+        _scatter_paged_layer(pool, pt, ring, window, layer)
+        return x, pool, ids
+
+    # -- self-speculative decode hooks (DESIGN.md §17) ---------------------
+    @torch.no_grad()
+    def spec_step_routed(params, cache, tokens, positions):
+        """Multi-token cached step: tokens/positions (B, S), positions
+        RIGHT-padded with -1 past each slot's live span (idle slots all
+        -1). Returns the full (B, S, V) logits, the cache (written in
+        place) and the route ids (L, B*S, top_k), padded rows remapped to
+        the sentinel ``num_experts``."""
+        x = _embed_scaled(params, cfg, tokens)
+        y, cache, aux = decoder_forward(params, cfg, x, positions,
+                                        caches=cache, use_kernel=use_kernel,
+                                        collect_routes=True, spec=True)
+        # the head column by column too, at plain decode's shapes
+        logits = by_column(lambda yc: L.unembed(
+            params["lm_head"]["table"],
+            L.rms_norm(yc, params["final_norm"]["scale"])), y)
+        return logits, cache, aux["route_ids"]
+
+    @torch.no_grad()
+    def paged_spec_step_routed(params, pool, pt: PageTable, tokens,
+                               positions, *, window: int):
+        """Paged ``spec_step_routed``: gather, the same step, scatter."""
+        ring = _gather_paged(pool, pt, window)
+        logits, ring, route_ids = spec_step_routed(params, ring, tokens,
+                                                   positions)
+        return logits, _scatter_paged(pool, pt, ring, window), route_ids
+
+    def rollback_slots(cache, keep):
+        """Invalidate ring entries past ``keep[b]`` (the last ACCEPTED
+        absolute position per slot): rejected speculative tokens become
+        dead tags. Slots outside the speculative batch pass a large
+        ``keep``."""
+        cache["pos"].masked_fill_(cache["pos"] > keep[None, :, None], -1)
+        return cache
+
+    def paged_rollback(pool, pt: PageTable, keep):
+        """Paged ``rollback_slots``: the slots' page views' tags are
+        gathered, bounded and written back to the mapped pages."""
+        pos = pool["pos"][:, pt.gather]                  # (L, B, nc, ps)
+        pos = torch.where(pos > keep[None, :, None, None],
+                          torch.full_like(pos, -1), pos)
+        l, b, nc, ps = pos.shape
+        pool["pos"].index_copy_(
+            1, pt.page, pos.reshape(l, b * nc, ps).index_select(1, pt.chunk))
+        return pool
+
     def _init_cache(batch, max_len, *, device=None):
         return init_cache(cfg, batch, max_len, device=device)
+
+    def _init_paged_cache(batch, max_len, **kw):
+        return init_paged_cache(cfg, batch, max_len, **kw)
 
     return Model(cfg=cfg, init_cache=_init_cache,
                  prefill_into_slot=prefill_into_slot,
                  decode_step_routed=decode_step_routed,
-                 reset_slot=reset_slot)
+                 reset_slot=reset_slot,
+                 decode_embed=decode_embed,
+                 decode_layer_routed=decode_layer_routed,
+                 decode_logits=decode_logits,
+                 init_paged_cache=_init_paged_cache,
+                 paged_prefill_into_slot=paged_prefill_into_slot,
+                 paged_decode_step_routed=paged_decode_step_routed,
+                 paged_decode_layer_routed=paged_decode_layer_routed,
+                 paged_reset_pages=paged_reset_pages,
+                 spec_step_routed=spec_step_routed,
+                 paged_spec_step_routed=paged_spec_step_routed,
+                 rollback_slots=rollback_slots,
+                 paged_rollback=paged_rollback)
 
 
 # ---------------------------------------------------------------------------

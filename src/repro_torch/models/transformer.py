@@ -5,7 +5,11 @@ stacked layer params is a Python loop over the leading layer axis.
     forward(params, cfg, x, positions, caches) -> (y, new_caches, aux)
 
 through the slot KV cache: prefill (S > 1) writes fresh ring buffers,
-decode (S == 1) updates ``caches`` in place.
+decode (S == 1) and the speculative step (``spec=True``, S >= 1) update
+``caches`` in place. ``decoder_block`` is the one block body: the stack
+runs it layer by layer, and the per-layer decode hooks of
+``models/model.py`` run it one layer per call, so the two spellings give
+the same bits.
 """
 from __future__ import annotations
 
@@ -31,7 +35,17 @@ def layer_slice(tree, li: int):
     return tree[li]
 
 
-def _ffn_or_moe(p, xn, cfg: ModelConfig, use_kernel, token_valid=None):
+def by_column(fn, x: torch.Tensor, *rest: torch.Tensor) -> torch.Tensor:
+    """``fn`` on each column ``x[:, j:j+1]`` (made contiguous, so it has
+    plain decode's (B, 1, ...) shape and strides) and the same column of
+    each of ``rest``, concatenated back along the column axis."""
+    return torch.cat([fn(x[:, j:j + 1].contiguous(),
+                         *(r[:, j:j + 1].contiguous() for r in rest))
+                      for j in range(x.shape[1])], dim=1)
+
+
+def _ffn_or_moe(p, xn, cfg: ModelConfig, use_kernel, token_valid=None,
+                moe_capacity=None, spec=False):
     """Returns (y, route_ids|None) — ids are the (T, k) routed expert slots
     in BANK order (the serve layout permutes experts q4-first).
 
@@ -43,7 +57,15 @@ def _ffn_or_moe(p, xn, cfg: ModelConfig, use_kernel, token_valid=None):
         return L.mlp(p["mlp"], xn, cfg.act), None
     b, s, d = xn.shape
     x2 = xn.reshape(b * s, d)
-    weights, ids = mixed_moe.route(p["moe"]["router"], x2, cfg.moe)
+    if spec and s > 1:
+        # the router column by column, at plain decode's M = B
+        routed = [mixed_moe.route(p["moe"]["router"],
+                                  xn[:, j].contiguous(), cfg.moe)
+                  for j in range(s)]
+        weights = torch.stack([w for w, _ in routed], 1).reshape(b * s, -1)
+        ids = torch.stack([i for _, i in routed], 1).reshape(b * s, -1)
+    else:
+        weights, ids = mixed_moe.route(p["moe"]["router"], x2, cfg.moe)
     if token_valid is not None:
         v = token_valid.reshape(b * s)[:, None]
         ids = torch.where(v, ids, torch.full_like(ids, cfg.moe.num_experts))
@@ -52,36 +74,75 @@ def _ffn_or_moe(p, xn, cfg: ModelConfig, use_kernel, token_valid=None):
     if banks is None:
         banks = mixed_moe.train_banks(p["moe"])
     y = mixed_moe.moe_apply(banks, x2, weights, ids, cfg.moe, act=cfg.act,
-                            use_kernel=use_kernel)
+                            use_kernel=use_kernel, capacity=moe_capacity)
     return y.reshape(b, s, d), ids
 
 
+def decoder_block(p, cfg: ModelConfig, x, positions, cache, *,
+                  use_kernel=False, spec=False, moe_capacity=None):
+    """One decoder block on layer params ``p`` and that layer's ring
+    ``cache`` {k, v, pos}. Returns (x', the layer's new ring, route ids
+    (B*S, top_k) or None).
+
+    ``spec`` with S > 1 (the speculative verify) runs the ops whose bits
+    can depend on the row count — the norms, the projections, attention
+    and the router — column by column at plain decode's shapes, and only
+    the expert FFN once over all B*S tokens: the CUDA kernels are
+    row-invariant, cuBLAS is not (it picks its algorithm by M; see
+    ``chip_smoke.py``'s verify-row probe). Column j attends the ring after
+    columns 0..j are written, as decode at that position would, so a
+    verify row gets plain decode's bits and greedy speculation stays
+    token-identical to plain decode (DESIGN.md §17.1)."""
+    token_valid = (positions >= 0) if cfg.moe is not None else None
+    new_kv = cache           # the spec and decode writes go in place
+
+    def attend(xc, pc):
+        nonlocal new_kv
+        h, new_kv = L.attention(
+            p["attn"], L.rms_norm(xc, p["attn_norm"]["scale"]),
+            cfg.attention, positions=pc, cache=cache, spec=spec)
+        return xc + h
+
+    def norm(xc):
+        return L.rms_norm(xc, p["ffn_norm"]["scale"])
+
+    if spec and x.shape[1] > 1:
+        x = by_column(attend, x, positions)
+        xn = by_column(norm, x)
+    else:
+        x = attend(x, positions)
+        xn = norm(x)
+    h, ids = _ffn_or_moe(p, xn, cfg, use_kernel, token_valid=token_valid,
+                         moe_capacity=moe_capacity, spec=spec)
+    return x + h, new_kv, ids
+
+
 def decoder_forward(params, cfg: ModelConfig, x, positions, *,
-                    caches, use_kernel=False, collect_routes=False):
+                    caches, use_kernel=False, collect_routes=False,
+                    spec=False):
     """x: (B,S,d) embedded input. Returns (y, new_caches, aux).
 
     ``collect_routes=True`` stacks the per-layer routed expert ids into
     ``aux["route_ids"]`` (L, T, k) so the engine can drive the runtime
     expert cache. A decode step (S == 1) updates ``caches`` in place and
-    returns it; a prefill returns freshly written ring buffers."""
+    returns it; a prefill returns freshly written ring buffers.
+
+    ``spec=True`` (speculative decode, DESIGN.md §17) runs S >= 1 new
+    tokens through the live-cache attention path and pins the MoE
+    capacity at the token count B*S, so the batched verify is drop-free
+    (plain decode and verify then score the same distributions)."""
     if collect_routes and cfg.moe is None:
         raise ValueError("collect_routes needs routed experts")
-    token_valid = (positions >= 0) if cfg.moe is not None else None
+    moe_capacity = x.shape[0] * x.shape[1] if spec else None
     new_kvs, route_ids = [], []
     for li in range(cfg.num_layers):
-        p = layer_slice(params["layers"], li)
         cache = {k: caches[k][li] for k in ("k", "v", "pos")}
-        h, new_kv = L.attention(
-            p["attn"], L.rms_norm(x, p["attn_norm"]["scale"]),
-            cfg.attention, positions=positions, cache=cache)
-        x = x + h
-        xn = L.rms_norm(x, p["ffn_norm"]["scale"])
-        h, ids = _ffn_or_moe(p, xn, cfg, use_kernel,
-                             token_valid=token_valid)
-        x = x + h
+        x, new_kv, ids = decoder_block(
+            layer_slice(params["layers"], li), cfg, x, positions, cache,
+            use_kernel=use_kernel, spec=spec, moe_capacity=moe_capacity)
         new_kvs.append(new_kv)
         route_ids.append(ids)
-    if x.shape[1] == 1:
+    if x.shape[1] == 1 or spec:
         new_caches = caches              # written in place layer by layer
     else:
         new_caches = {k: torch.stack([kv[k] for kv in new_kvs])

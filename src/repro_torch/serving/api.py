@@ -6,8 +6,7 @@ loss, memory budget), each request a :class:`RequestSLO` and
 :class:`SamplingParams`; the engine picks the MoP configuration off its
 :class:`~repro_torch.core.pareto.ParetoFrontier`.
 
-    engine = build_engine(cfg, params, EngineConfig(max_slots=4,
-                                                    paged_kv=False))
+    engine = build_engine(cfg, params, EngineConfig(max_slots=4))
     engine.apply_target(QoSTarget(mem_budget_bytes=40e9))
     rid = engine.submit_request(ServeRequest(prompt, max_new_tokens=8))
     engine.step()
@@ -43,19 +42,29 @@ class EngineConfig:
     Capacity: ``max_slots`` (decode batch width), ``max_len`` (per-slot
     KV window), ``max_active_tokens`` / ``max_queue`` (admission control).
     Expert streaming: ``swap_bytes`` — device LRU swap capacity for
-    non-resident experts. Precision: ``ladder`` — the deployment's
-    precision ladder (e.g. ``(16, 8, 4)``). ``use_kernel`` runs the
-    expert FFN on the CUDA dequant-matmul kernels. ``hw`` — analytic
-    hardware model; None measures the host link on the device and uses
-    the H100 defaults otherwise.
+    non-resident experts; ``prefetch`` — the speculative prefetching
+    cache; ``overlap`` — async overlapped streaming (DESIGN.md §12):
+    transfers run on an ``AsyncExpertCache`` worker pool, each worker on
+    its own CUDA stream, and decode runs the per-layer lookahead pipeline;
+    ``overlap_efficiency`` seeds the analytic overlap window (``None`` =
+    0.85 with overlap on, 0.0 off), refined by ``calibrate_overlap()``.
+    Precision: ``ladder`` — the deployment's precision ladder (e.g.
+    ``(16, 8, 4)``). ``use_kernel`` runs the expert FFN on the CUDA
+    dequant-matmul kernels. KV cache (DESIGN.md §13): ``paged_kv`` (the
+    default) serves through fixed-size pages and a per-slot page table,
+    bit-identical to the slot cache (``paged_kv=False``); ``page_size``
+    tokens per page; ``kv_pool_pages`` — the pool size incl. the null page
+    (``None`` = worst case; a smaller pool derives an admission cap);
+    ``kv_reserve`` credits the HBM a smaller pool reclaims to the target's
+    memory budget. Speculative decode (DESIGN.md §17): ``speculate`` — the
+    draft depth K of ladder-draft speculation (every expert at the lowest
+    rung drafts, one verify at the serving plan accepts; greedy output is
+    token-identical to plain decode). ``hw`` — analytic hardware model;
+    None measures the host link on the device and uses the H100 defaults
+    otherwise.
 
-    This slice serves through the slot KV cache, synchronously, without
-    speculation, on one device; the paged cache's ``page_size``,
-    ``kv_pool_pages`` and ``kv_reserve`` arrive with it. ``paged_kv=True``
-    (the reference's default), ``overlap=True``, ``prefetch=True``,
-    ``speculate > 0`` and ``ep > 1`` raise ``NotImplementedError`` at
-    engine construction; pass ``paged_kv=False``, which the reference keeps
-    bit-identical to paged.
+    One device: ``ep > 1`` (expert parallelism) raises
+    ``NotImplementedError`` at engine construction.
     """
     max_slots: int = 8
     max_len: int = 256
@@ -69,6 +78,9 @@ class EngineConfig:
     ladder: Optional[Tuple[int, ...]] = None
     hw: Optional[HardwareModel] = None
     paged_kv: bool = True
+    page_size: int = 16
+    kv_pool_pages: Optional[int] = None
+    kv_reserve: bool = False
     ep: int = 1
     speculate: int = 0
 

@@ -1,19 +1,33 @@
 """Adaptive MoE serving engine — continuous batching over fixed decode
-slots (``repro.serving.engine``'s single-device, synchronous path).
+slots (``repro.serving.engine`` on one device).
 
   * ``ContinuousScheduler`` (serving/scheduler.py) owns requests: the
     admission queue, per-slot request state, join/retire at EVERY decode
     iteration.
-  * this engine owns the model side: one slot KV cache of ``max_slots``
-    rows, a decode step over the full slot count (idle slots ride along
-    masked by position=-1) and prefill-into-slot, so a new request joins a
-    live batch without re-padding it.
+  * this engine owns the model side: the KV cache — paged by default
+    (fixed-size pages + a per-slot page table, DESIGN.md §13), or one
+    slot row of ``max_len`` per slot (``paged_kv=False``), bit-identical
+    to each other — a decode step over the full slot count (idle slots
+    ride along masked by position=-1) and prefill-into-slot, so a new
+    request joins a live batch without re-padding it.
   * the runtime expert path: non-resident experts under the active
     ``PrecisionPlan`` are fetched through the ``ExpertCache``
     (core/expert_cache.py) from the routed expert ids of every decode
     iteration; ``metrics`` reports the MEASURED ``transfer_s`` /
     ``miss_rate_measured`` next to the analytical ``transfer_s_est`` /
-    ``miss_rate``.
+    ``miss_rate``. ``prefetch=True`` hints the previous iteration's
+    experts to a ``PrefetchingExpertCache`` before each demand.
+  * ASYNC OVERLAP (``overlap=True``, DESIGN.md §12): staging moves to an
+    ``AsyncExpertCache`` whose workers copy on CUDA streams of their own,
+    and decode runs the per-layer lookahead pipeline — while layer L
+    computes, layer L+1's predicted experts (the previous iteration's
+    routes) stage in the background; each layer's ACTUAL demand is then
+    awaited, exposing only what prediction could not hide
+    (``transfer_exposed_s`` vs ``transfer_overlapped_s``; throughput
+    charges the exposed part). ``close()`` joins the workers.
+  * ladder-draft SPECULATION (``speculate=K``, DESIGN.md §17): K draft
+    steps with every expert at the lowest rung, one verify forward at the
+    serving plan, longest-prefix acceptance, KV rollback.
 
 The train-layout master copy of the weights stays where the caller put it
 (on the card in a real deployment). ``_fetch_expert`` quantizes an expert
@@ -26,14 +40,14 @@ Reconfiguration is safe mid-flight: placement-only replans apply between
 decode iterations; a bank-split change first DRAINS the active slots, then
 rebuilds the serve-layout banks (``metrics["reconfig_s"]``).
 
-Not in this slice (each raises ``NotImplementedError`` at construction):
-the paged KV cache, the async overlap pipeline, the prefetching cache,
-speculative decoding and expert parallelism.
+Expert parallelism (``ep > 1``) is a later slice and raises
+``NotImplementedError`` at construction.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
+import threading
 import time
 import warnings
 from typing import Any, Dict, List, Optional, Tuple
@@ -45,17 +59,20 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.cost_model import (RUNG_QUALITY_COST, HardwareModel,
                                          expert_access_stats,
                                          kv_bytes_bucketed, kv_token_bytes)
-from repro_torch.core.expert_cache import ExpertCache
+from repro_torch.core.expert_cache import (AsyncExpertCache, ExpertCache,
+                                           PrefetchingExpertCache)
 from repro_torch.core.pareto import FrontierPoint, ParetoFrontier, QoSTarget
 from repro_torch.core.planner import AdaptivePlanner, PlanResult
-from repro_torch.core.precision_plan import (HOST, PrecisionPlan,
+from repro_torch.core.precision_plan import (DEVICE, HOST, PrecisionPlan,
                                              quantized_rungs)
 from repro_torch.core.quantization import quantize
 from repro_torch.device import resolve_device
-from repro_torch.models.model import Model, apply_precision_plan, build_model
+from repro_torch.models.model import (Model, apply_precision_plan,
+                                      build_model, page_table)
 from repro_torch.serving.api import EngineConfig, ServeRequest, ServeResult
 from repro_torch.serving.metrics import base_metrics
-from repro_torch.serving.sampler import sample
+from repro_torch.serving.paged_kv import PageAllocator
+from repro_torch.serving.sampler import sample, speculative_verify
 from repro_torch.serving.scheduler import (ContinuousScheduler, Request,
                                            RequestSLO, SamplingParams,
                                            SchedulerConfig)
@@ -120,20 +137,10 @@ class AdaptiveServingEngine:
             raise ValueError("the adaptive engine serves MoE models")
         self.device = resolve_device(device)
         config = config or EngineConfig()
-        for flag, later in (
-                (config.paged_kv, "paged_kv=True (the paged KV cache)"),
-                (config.overlap, "overlap=True (the async overlap "
-                                 "pipeline)"),
-                (config.prefetch, "prefetch=True (the prefetching expert "
-                                  "cache)"),
-                (config.speculate > 0, "speculate>0 (speculative "
-                                       "decoding)"),
-                (config.ep > 1, "ep>1 (expert parallelism)")):
-            if flag:
-                raise NotImplementedError(
-                    f"EngineConfig({later}) is a later slice of the "
-                    "PyTorch port; this engine serves the slot KV cache "
-                    "synchronously on one device (pass paged_kv=False)")
+        if config.ep > 1:
+            raise NotImplementedError(
+                "EngineConfig(ep>1) (expert parallelism) is a later slice "
+                "of the PyTorch port; this engine serves on one device")
         if config.ladder is not None:
             cfg = cfg.replace(mop=dataclasses.replace(
                 cfg.mop, ladder=tuple(config.ladder)))
@@ -150,25 +157,60 @@ class AdaptiveServingEngine:
                     self.hw,
                     overlap_efficiency=float(config.overlap_efficiency))
         else:
+            # overlap mode seeds the analytic overlap window (refined at
+            # run time by calibrate_overlap); sync keeps the additive model
+            eff = config.overlap_efficiency
+            if eff is None:
+                eff = 0.85 if config.overlap else 0.0
             self.hw = HardwareModel(
                 host_link_bw=measure_host_link_bw(self.device),
-                overlap_efficiency=float(config.overlap_efficiency or 0.0))
+                overlap_efficiency=float(eff))
         self.planner = AdaptivePlanner(cfg, hw=self.hw, ep=1)
         self.model: Model = build_model(cfg, use_kernel=self.use_kernel)
         self._kv_token_bytes = kv_token_bytes(cfg)
-        self.cache = self.model.init_cache(self.max_slots, self.max_len,
-                                           device=self.device)
-        self.window = int(self.cache["k"].shape[2])
+        # KV cache: paged by default (DESIGN.md §13), bit-identical to the
+        # slot cache that paged_kv=False keeps as the A/B baseline
+        self.paged = bool(config.paged_kv)
+        max_active = config.max_active_tokens
+        if self.paged:
+            self.kv_pool, self.kv_meta = self.model.init_paged_cache(
+                self.max_slots, self.max_len, page_size=config.page_size,
+                num_pages=config.kv_pool_pages, device=self.device)
+            self.window = self.kv_meta.window
+            self.kv_alloc = PageAllocator(
+                self.max_slots, self.kv_meta.chunks_per_slot,
+                self.kv_meta.num_pages, self.kv_meta.page_size)
+            self.cache = None
+            worst = self.max_slots * self.kv_meta.chunks_per_slot
+            if self.kv_meta.num_pages - 1 < worst:
+                # sub-worst-case pool: cap admitted tokens so ensure() can
+                # never dead-end mid-flight (per-slot ceil rounding costs
+                # at most one page each, hence the max_slots term)
+                derived = (self.kv_meta.num_pages - 1 - self.max_slots) \
+                    * self.kv_meta.page_size
+                max_active = derived if max_active is None \
+                    else min(max_active, derived)
+        else:
+            self.kv_pool = self.kv_meta = self.kv_alloc = None
+            self.cache = self.model.init_cache(self.max_slots, self.max_len,
+                                               device=self.device)
+            self.window = int(self.cache["k"].shape[2])
         self.scheduler = ContinuousScheduler(SchedulerConfig(
             max_slots=self.max_slots, max_len=self.max_len,
             max_prompt_len=self.window,
-            max_active_tokens=config.max_active_tokens,
+            max_active_tokens=max_active,
             max_queue=config.max_queue))
-        self.expert_cache = ExpertCache(
+        cache_cls = AsyncExpertCache if config.overlap \
+            else (PrefetchingExpertCache if config.prefetch else ExpertCache)
+        self.expert_cache = cache_cls(
             self._fetch_expert,
             capacity_bytes=config.swap_bytes
             or 4 * max(cfg.expert_param_bytes(16), 1),
             device=self.device)
+        self._prev_demanded: List[Tuple[int, int]] = []
+        #: the pipeline's per-layer prediction: the previous iteration's
+        #: demanded (non-resident) keys, layer-indexed
+        self._prev_layer_keys: Optional[List[List[Tuple[int, int]]]] = None
         #: accumulated routed-access histogram [L, E] over TRUE expert ids
         self.route_counts: np.ndarray = np.zeros(
             (cfg.num_layers, cfg.moe.num_experts), np.int64)
@@ -182,9 +224,20 @@ class AdaptiveServingEngine:
         self._target: Optional[QoSTarget] = None
         self._active_point: Optional[FrontierPoint] = None
         self._generator = torch.Generator(device=self.device).manual_seed(0)
+        # speculative draft depth (0 = plain decode); the draft params
+        # (every expert at the lowest rung) build on first use and survive
+        # replans that keep the ladder
+        self.speculate_k = max(0, int(config.speculate or 0))
+        self._draft_params = None
+        self._draft_sig: Optional[Tuple] = None
+        # the async workers run _fetch_expert concurrently: its host-store
+        # insert is per key, but the stage_s sum needs the lock
+        self._stage_lock = threading.Lock()
         self.metrics: Dict[str, Any] = base_metrics()
-        self.metrics["kv_capacity_bytes"] = kv_bytes_bucketed(
-            cfg, self.max_slots, self.window)
+        self.metrics["kv_capacity_bytes"] = (
+            (self.kv_meta.num_pages - 1) * self.kv_meta.page_size
+            * self._kv_token_bytes if self.paged
+            else kv_bytes_bucketed(cfg, self.max_slots, self.window))
 
     @property
     def queue(self):
@@ -221,10 +274,22 @@ class AdaptiveServingEngine:
         via the mid-flight replan path. Raises
         :class:`~repro_torch.core.pareto.InfeasibleTarget` when the hard
         constraints admit no configuration."""
+        if self.config.kv_reserve:
+            # HBM a sub-worst-case page pool reclaims vs the slot cache
+            # widens the expert-residency budget the frontier resolves
+            target = target.with_kv_reclaimed(self.kv_reclaimed_bytes())
         point = self.frontier.select(target)
         self._target = target
         self.apply_frontier_point(point)
         return point
+
+    def kv_reclaimed_bytes(self) -> int:
+        """HBM the paged pool reclaims vs the fully-windowed slot cache
+        (0 for the slot cache or a worst-case-sized pool)."""
+        if not self.paged:
+            return 0
+        bucketed = kv_bytes_bucketed(self.cfg, self.max_slots, self.window)
+        return max(0, bucketed - int(self.metrics["kv_capacity_bytes"]))
 
     def apply_frontier_point(self, point: FrontierPoint) -> PlanResult:
         """Apply one frontier point: the point's exact device footprint is
@@ -269,6 +334,10 @@ class AdaptiveServingEngine:
         Placement-only changes apply immediately; a bank-split change
         drains the active slots first."""
         t0 = time.perf_counter()
+        # async staging barrier: every enqueued transfer lands BEFORE the
+        # plan changes, so no stale-plan blob is admitted after the
+        # invalidate below (no-op for the sync caches)
+        self.expert_cache.drain()
         result, _ = self.planner.replan(
             mem_budget_bytes, preference, num_q_experts,
             batch_size=self.max_slots, counts=counts)
@@ -287,6 +356,9 @@ class AdaptiveServingEngine:
                     self.run_iteration(admit=False)
                 drain_s = time.perf_counter() - t_drain
                 self.metrics["drain_s"] += drain_s
+                # the drain iterations enqueued async fetches on the OLD
+                # plan: barrier again before invalidating
+                self.expert_cache.drain()
             self._serve_params = None       # free the old banks first
             self._serve_params = apply_precision_plan(
                 self.params_train, self.cfg, plan)
@@ -312,6 +384,8 @@ class AdaptiveServingEngine:
                 [k for k in self.expert_cache.resident_keys()
                  if k[:2] in newly_resident or k[:2] in rung_changed])
         self._resident = newly_resident
+        self._prev_demanded = []     # stale-plan hints must not re-stage
+        self._prev_layer_keys = None
         hit, self._miss_bytes_per_tok = expert_access_stats(self.cfg, plan)
         self.metrics["miss_rate"] = 1.0 - hit
         self.metrics["reconfig_s"] += time.perf_counter() - t0 - drain_s
@@ -362,7 +436,9 @@ class AdaptiveServingEngine:
             else:
                 blob = {k: _to_host(v) for k, v in w.items()}
             self._host_store[(li, ei)] = blob
-            self.metrics["stage_s"] += time.perf_counter() - t0
+            # locked: the async workers run this loader concurrently
+            with self._stage_lock:
+                self.metrics["stage_s"] += time.perf_counter() - t0
         return blob
 
     def _stream_experts(self, route_ids: np.ndarray, rows: List[int]):
@@ -373,6 +449,11 @@ class AdaptiveServingEngine:
         ``miss_rate_measured`` counts accesses that actually transferred."""
         st = self.expert_cache.stats
         blocked0 = st.transfer_s + st.prefetch_s
+        if self.config.prefetch and self._prev_demanded:
+            # temporal-locality prefetch BEFORE this iteration's demand:
+            # decode re-demands most of the previous iteration's experts,
+            # so anything evicted since is staged speculatively
+            self.expert_cache.hint(self._prev_demanded)
         order = self._order
         demanded = set()
         for li in range(route_ids.shape[0]):
@@ -388,13 +469,19 @@ class AdaptiveServingEngine:
                 continue
             self.expert_cache.get(key)
         self.metrics["expert_fetches"] += st.misses - misses0
+        self._prev_demanded = [k for k in sorted(demanded)
+                               if k not in self._resident]
         # serial staging blocks the critical path for every transferred
-        # second — all of it is EXPOSED
+        # second (speculative hints included) — all of it is EXPOSED
         self.metrics["transfer_exposed_s"] += \
             st.transfer_s + st.prefetch_s - blocked0
         self._finish_stream_metrics()
 
     def _finish_stream_metrics(self):
+        """Fold the cache's counters into the engine metrics:
+        ``transfer_s`` is DEMAND transfer only (speculative staging is
+        ``prefetch_s``); ``transfer_overlapped_s`` is the transferred time
+        that did not block the critical path."""
         st = self.expert_cache.stats
         self.metrics["transfer_s"] = st.transfer_s
         self.metrics["prefetch_s"] = st.prefetch_s
@@ -405,6 +492,68 @@ class AdaptiveServingEngine:
             self.metrics["miss_rate_measured"] = \
                 self.metrics["expert_fetches"] \
                 / self.metrics["expert_accesses"]
+
+    def _decode_pipelined(self, toks: np.ndarray, pos: np.ndarray,
+                          rows: List[int]) -> torch.Tensor:
+        """Per-layer lookahead pipeline (DESIGN.md §12): while layer L
+        computes, layer L+1's PREDICTED experts (the previous iteration's
+        routes for that layer) stage on the async cache's workers; each
+        layer's ACTUAL demand is then awaited, so only the transfer time
+        the prediction could not hide is exposed. Same bits as the
+        whole-stack decode step. Returns the next-token logits (B, V).
+
+        ``transfer_exposed_s`` is blocked wall-clock, so on a cold host
+        store it also covers the demand fetch's quantization that the
+        sync path books under ``stage_s``."""
+        m, params = self.model, self._serve_params
+        cache = self.expert_cache
+        st = cache.stats
+        pos_t = self._tensor(pos)
+        pt = page_table(self.kv_alloc.table, self.device) if self.paged \
+            else None
+        n_layers = self.cfg.num_layers
+        predicted = self._prev_layer_keys
+        misses0 = st.misses
+        exposed = 0.0
+        t_loop0 = time.perf_counter()
+        x = m.decode_embed(params, self._tensor(toks))
+        if predicted is not None and n_layers:
+            cache.prefetch(predicted[0])
+        new_layer_keys: List[List[Tuple[int, int]]] = []
+        for li in range(n_layers):
+            if self.paged:
+                x, self.kv_pool, ids = m.paged_decode_layer_routed(
+                    params, self.kv_pool, pt, x, pos_t, li,
+                    window=self.window)
+            else:
+                x, self.cache, ids = m.decode_layer_routed(
+                    params, self.cache, x, pos_t, li)
+            if predicted is not None and li + 1 < n_layers:
+                # lookahead: enqueue layer li+1's predicted demand BEFORE
+                # the host reads layer li's routes (that read waits for
+                # layer li's compute)
+                cache.prefetch(predicted[li + 1])
+            ids_np = ids.cpu().numpy()
+            order = self._order[li]
+            np.add.at(self.route_counts[li],
+                      order[ids_np[rows].astype(np.int64).ravel()], 1)
+            demanded = sorted({(li, int(order[int(s)]))
+                               for b in rows for s in ids_np[b]})
+            self.metrics["expert_accesses"] += len(demanded)
+            need = [k for k in demanded if k not in self._resident]
+            t0 = time.perf_counter()
+            cache.wait(need)
+            exposed += time.perf_counter() - t0
+            new_layer_keys.append(need)
+        logits = m.decode_logits(params, x)
+        _sync(self.device)
+        t_loop = time.perf_counter() - t_loop0
+        self.metrics["decode_s"] += max(t_loop - exposed, 0.0)
+        self.metrics["transfer_exposed_s"] += exposed
+        self.metrics["expert_fetches"] += st.misses - misses0
+        self._prev_layer_keys = new_layer_keys
+        self._finish_stream_metrics()
+        return logits
 
     # -- iteration-level serving ----------------------------------------
     @staticmethod
@@ -422,15 +571,27 @@ class AdaptiveServingEngine:
         """Join ``req`` into ``slot``; returns its rid if it already
         retired (max_new_tokens == 1), else None."""
         s = len(req.prompt)
+        # one bucket rule for both layouts (the reference's paged engine
+        # pads to whole pages to bound its jit compiles; eager torch has
+        # none to bound, and one padded length keeps paged prefill
+        # bit-identical to slot prefill)
         sb = _bucket(s, hi=self.window)
         toks = np.zeros((1, sb), np.int64)
         pos = np.full((1, sb), -1, np.int64)
         toks[0, :s] = req.prompt
         pos[0, :s] = np.arange(s)
         t0 = time.perf_counter()
-        logits, self.cache = self.model.prefill_into_slot(
-            self._serve_params, self.cache, self._tensor(toks),
-            self._tensor(pos), slot, s - 1)
+        if self.paged:
+            self.kv_alloc.ensure_prefix(slot, min(s, self.window))
+            logits, self.kv_pool = self.model.paged_prefill_into_slot(
+                self._serve_params, self.kv_pool,
+                page_table(self.kv_alloc.table[slot], self.device),
+                self._tensor(toks), self._tensor(pos), s - 1,
+                window=self.window)
+        else:
+            logits, self.cache = self.model.prefill_into_slot(
+                self._serve_params, self.cache, self._tensor(toks),
+                self._tensor(pos), slot, s - 1)
         _sync(self.device)
         self.metrics["prefill_s"] += time.perf_counter() - t0
         temp, top_k = self._sampling_of(req, temperature)
@@ -450,14 +611,24 @@ class AdaptiveServingEngine:
         return None
 
     def _release_slot_kv(self, slot: int):
-        """Retire a slot's KV: invalidate the row's position tags."""
-        self.cache = self.model.reset_slot(self.cache, slot)
+        """Retire a slot's KV: paged -> free its pages (their tags are
+        invalidated on the device before reuse); slot cache -> invalidate
+        the row."""
+        if self.paged:
+            self.kv_pool = self.model.paged_reset_pages(
+                self.kv_pool, self.kv_alloc.free_slot(slot))
+        else:
+            self.cache = self.model.reset_slot(self.cache, slot)
 
     def _update_kv_metrics(self, active):
+        """Per-iteration KV padding accounting (DESIGN.md §13)."""
         tb = self._kv_token_bytes
         used = sum(min(st.position + 1, self.window)
                    for _, st in active) * tb
-        alloc = self.max_slots * self.window * tb
+        if self.paged:
+            alloc = self.kv_alloc.pages_in_use * self.kv_meta.page_size * tb
+        else:
+            alloc = self.max_slots * self.window * tb
         self.metrics["kv_used_bytes"] = used
         self.metrics["kv_allocated_bytes"] = alloc
         self.metrics["kv_used_byte_iters"] += used
@@ -468,6 +639,222 @@ class AdaptiveServingEngine:
         if alloc <= 0:
             return 0.0
         return 1.0 - self.metrics["kv_used_byte_iters"] / alloc
+
+    # -- self-speculative decoding (DESIGN.md §17) ----------------------
+    def set_speculation(self, k: int) -> None:
+        """Set the draft depth of ladder-draft speculation; ``0`` is plain
+        decode. Takes effect from the next iteration, with no drain."""
+        self.speculate_k = max(0, int(k))
+
+    def _draft_serve_params(self):
+        """Serve-layout params with EVERY expert at the lowest ladder rung
+        — the all-quantized configuration, the free draft model. Cached
+        across replans: it depends only on (ladder, group size), never on
+        the serving rung assignment or placement."""
+        plan = self._plan_result.plan
+        low = quantized_rungs(plan.ladder)[0]
+        sig = (tuple(plan.ladder), plan.group_size, low)
+        if self._draft_params is None or self._draft_sig != sig:
+            draft_plan = dataclasses.replace(
+                plan, bits=np.full_like(plan.bits, low),
+                location=np.full_like(plan.location, DEVICE))
+            self._draft_params = None       # free the old draft first
+            self._draft_params = apply_precision_plan(
+                self.params_train, self.cfg, draft_plan)
+            self._draft_sig = sig
+        return self._draft_params
+
+    def _greedy_np(self, row: np.ndarray) -> int:
+        """Host-side greedy pick, the same as ``sampler.sample``'s
+        temperature<=0 branch (same -1e30 vocab-pad mask, first maximum):
+        the acceptance test must match what plain decode would emit."""
+        v = self.cfg.vocab_size
+        if v and row.shape[-1] > v:
+            row = np.where(np.arange(row.shape[-1]) >= v, -1e30, row)
+        return int(np.argmax(row))
+
+    def _probs_np(self, row: np.ndarray, temp: float, top_k: int
+                  ) -> np.ndarray:
+        """Host-side f64 mirror of ``sampler.sample_probs``: the draft
+        proposal q and the verify target p of rejection sampling."""
+        x = np.asarray(row, np.float64).copy()
+        v = self.cfg.vocab_size
+        if v and x.shape[-1] > v:
+            x[v:] = -1e30
+        x = x / temp
+        if top_k:
+            thresh = np.partition(x, -top_k)[-top_k]
+            x = np.where(x < thresh, -1e30, x)
+        x -= x.max()
+        e = np.exp(x)
+        return e / e.sum()
+
+    def _uniforms(self, shape) -> np.ndarray:
+        return torch.rand(shape, generator=self._generator,
+                          device=self.device).cpu().numpy()
+
+    def _spec_iteration(self, active, temperature: float,
+                        retired: List[int]) -> List[int]:
+        """One speculative iteration (DESIGN.md §17): up to K draft tokens
+        per slot at the lowest rung, ONE batched verify forward at the
+        serving plan scoring all K+1 positions against the KV cache,
+        longest-prefix acceptance (greedy) or chain rejection sampling
+        (temperature > 0), then rollback of the rejected tail and paged
+        truncation.
+
+        Per-slot depth is ``min(K, remaining-1, window-1-position)``: the
+        emitted count stays inside the request's claim, and speculative
+        writes stay in the unwrapped ring, so a multi-token write never
+        clobbers an entry a same-batch query still attends. Overlap mode
+        uses this step too; its expert streaming runs through the async
+        cache's synchronous interface."""
+        K = self.speculate_k
+        S = K + 1
+        B = self.max_slots
+        depth: Dict[int, int] = {}
+        for i, st in active:
+            rem = st.req.max_new_tokens - len(st.req.out_tokens)
+            depth[i] = max(0, min(K, rem - 1,
+                                  self.window - 1 - st.position))
+        pt = None
+        if self.paged:
+            # map every chunk the draft and verify writes touch up front;
+            # the admission claim already covers the full span
+            for i, st in active:
+                for j in range(depth[i] + 1):
+                    self.kv_alloc.ensure_index(
+                        i, (st.position + j) % self.window)
+            pt = page_table(self.kv_alloc.table, self.device)
+
+        def run_step(params, toks, pos):
+            # one step serves both shapes: draft (B,1), verify (B,S)
+            if self.paged:
+                logits, self.kv_pool, ids = self.model.paged_spec_step_routed(
+                    params, self.kv_pool, pt, self._tensor(toks),
+                    self._tensor(pos), window=self.window)
+            else:
+                logits, self.cache, ids = self.model.spec_step_routed(
+                    params, self.cache, self._tensor(toks),
+                    self._tensor(pos))
+            return logits, ids
+
+        u_draft = u_acc = u_res = None
+        t0 = time.perf_counter()
+        # -- draft pass: up to K single-token steps at the lowest rung --
+        draft_params = self._draft_serve_params()
+        drafts: Dict[int, List[int]] = {i: [] for i, _ in active}
+        q_rows: Dict[int, List[np.ndarray]] = {i: [] for i, _ in active}
+        prev_tok = {i: st.last_token for i, st in active}
+        for t in range(max(depth.values(), default=0)):
+            toks = np.zeros((B, 1), np.int64)
+            pos = np.full((B, 1), -1, np.int64)
+            rows = [i for i, _ in active if depth[i] > t]
+            for i in rows:
+                toks[i, 0] = prev_tok[i]
+                pos[i, 0] = self.scheduler.slots[i].position + t
+            logits, _ = run_step(draft_params, toks, pos)
+            lg = logits[:, 0].cpu().numpy()
+            for i in rows:
+                temp, top_k = self._sampling_of(
+                    self.scheduler.slots[i].req, temperature)
+                if temp <= 0.0:
+                    tok = self._greedy_np(lg[i])
+                else:
+                    if u_draft is None:
+                        u_draft = self._uniforms((max(K, 1), B))
+                    q = self._probs_np(lg[i], temp, top_k)
+                    cdf = np.cumsum(q)
+                    tok = int(min(np.searchsorted(
+                        cdf, float(u_draft[t, i]), side="right"),
+                        len(cdf) - 1))
+                    q_rows[i].append(q)
+                drafts[i].append(tok)
+                prev_tok[i] = tok
+        # -- batched verify at the serving plan (exact) -----------------
+        toks = np.zeros((B, S), np.int64)
+        pos = np.full((B, S), -1, np.int64)
+        for i, st in active:
+            toks[i, 0] = st.last_token
+            pos[i, 0] = st.position
+            for j, d in enumerate(drafts[i]):
+                toks[i, j + 1] = d
+                pos[i, j + 1] = st.position + j + 1
+        logits, route_ids = run_step(self._serve_params, toks, pos)
+        lg = logits.cpu().numpy()                     # (B, S, V)
+        self.metrics["decode_s"] += time.perf_counter() - t0
+        # only the verify's routes feed the expert stream and histogram:
+        # the draft banks are resident by construction
+        rows = [i * S + j for i, _ in active
+                for j in range(depth[i] + 1)]
+        self._stream_experts(route_ids.cpu().numpy(), rows)
+        n_tok = sum(depth[i] + 1 for i, _ in active)
+        e = self.cfg.moe.num_experts
+        d = self.cfg.moe.top_k * n_tok
+        uniq = e * (1.0 - (1.0 - 1.0 / e) ** d)
+        self.metrics["transfer_s_est"] += \
+            self._miss_bytes_per_tok * uniq / self.cfg.moe.top_k \
+            / self.hw.host_link_bw
+        # -- acceptance -------------------------------------------------
+        keep = np.full((B,), np.iinfo(np.int32).max // 2, np.int64)
+        emitted: Dict[int, List[int]] = {}
+        for i, st in active:
+            k_i = depth[i]
+            temp, top_k = self._sampling_of(st.req, temperature)
+            if temp <= 0.0:
+                targets = [self._greedy_np(lg[i, j])
+                           for j in range(k_i + 1)]
+                a = 0
+                while a < k_i and drafts[i][a] == targets[a]:
+                    a += 1
+                out = drafts[i][:a] + [targets[a]]
+            else:
+                if u_acc is None:
+                    u_acc = self._uniforms((B, max(K, 1)))
+                    u_res = self._uniforms((B, S))
+                p = np.stack([self._probs_np(lg[i, j], temp, top_k)
+                              for j in range(k_i + 1)])
+                q = np.stack(q_rows[i]) if k_i \
+                    else np.zeros((0, p.shape[1]))
+                a, final = speculative_verify(
+                    np.asarray(drafts[i][:k_i], np.int64), q, p,
+                    u_acc[i, :k_i], u_res[i, :k_i + 1])
+                out = drafts[i][:a] + [final]
+            emitted[i] = out
+            keep[i] = st.position + len(out) - 1   # last accepted position
+            self.metrics["spec_proposed"] += k_i
+            self.metrics["spec_accepted"] += len(out) - 1
+        # -- rollback of the rejected tail (tags only) ------------------
+        if any(depth[i] for i, _ in active):
+            if self.paged:
+                self.kv_pool = self.model.paged_rollback(
+                    self.kv_pool, pt, self._tensor(keep))
+            else:
+                self.cache = self.model.rollback_slots(
+                    self.cache, self._tensor(keep))
+        self._update_kv_metrics(active)
+        self.metrics["iterations"] += 1
+        if self.metrics["spec_proposed"]:
+            self.metrics["acceptance_rate"] = \
+                self.metrics["spec_accepted"] \
+                / self.metrics["spec_proposed"]
+        now = time.perf_counter()
+        for i, st in active:
+            for tok in emitted[i]:
+                st.req.out_tokens.append(int(tok))
+            self.metrics["tokens_generated"] += len(emitted[i])
+            st.position += len(emitted[i])
+            st.last_token = int(emitted[i][-1])
+            if st.req.done():
+                self.scheduler.retire(i, now=now)
+                self._release_slot_kv(i)
+                retired.append(st.req.rid)
+            elif self.paged and depth[i]:
+                # free pages that hold only rejected tokens (their tags
+                # were invalidated above); speculative spans are pre-wrap
+                # by the depth clamp, so the live ring is the prefix
+                # 0..position-1
+                self.kv_alloc.truncate(i, st.position)
+        return retired
 
     def run_iteration(self, *, admit: bool = True,
                       temperature: float = 0.0) -> List[int]:
@@ -486,17 +873,41 @@ class AdaptiveServingEngine:
         active = self.scheduler.active()
         if not active:
             return retired
+        if self.speculate_k > 0:
+            # ladder-draft speculation replaces the one-token body below
+            return self._spec_iteration(active, temperature, retired)
         toks = np.zeros((self.max_slots, 1), np.int64)
         pos = np.full((self.max_slots,), -1, np.int64)  # idle rows masked
         for i, st in active:
             toks[i, 0] = st.last_token
             pos[i] = st.position
-        t0 = time.perf_counter()
-        logits, self.cache, route_ids = self.model.decode_step_routed(
-            self._serve_params, self.cache, self._tensor(toks),
-            self._tensor(pos))
-        _sync(self.device)
-        self.metrics["decode_s"] += time.perf_counter() - t0
+        if self.paged:
+            # map the chunk each active slot's ring write lands in BEFORE
+            # the step (host-side page table, device-side pool)
+            for i, st in active:
+                self.kv_alloc.ensure_index(i, st.position % self.window)
+        route_ids = None
+        if self.config.overlap:
+            # overlap mode: the per-layer lookahead pipeline streams the
+            # experts itself
+            logits = self._decode_pipelined(toks, pos,
+                                            [i for i, _ in active])
+        else:
+            t0 = time.perf_counter()
+            if self.paged:
+                logits, self.kv_pool, route_ids = \
+                    self.model.paged_decode_step_routed(
+                        self._serve_params, self.kv_pool,
+                        page_table(self.kv_alloc.table, self.device),
+                        self._tensor(toks), self._tensor(pos),
+                        window=self.window)
+            else:
+                logits, self.cache, route_ids = \
+                    self.model.decode_step_routed(
+                        self._serve_params, self.cache, self._tensor(toks),
+                        self._tensor(pos))
+            _sync(self.device)
+            self.metrics["decode_s"] += time.perf_counter() - t0
         self._update_kv_metrics(active)
         self.metrics["iterations"] += 1
         if any(st.req.sampling is not None for _, st in active):
@@ -511,8 +922,9 @@ class AdaptiveServingEngine:
             new_toks = sample(logits, generator=self._generator,
                               temperature=temperature,
                               vocab_size=self.cfg.vocab_size).cpu().numpy()
-        self._stream_experts(route_ids.cpu().numpy(),
-                             [i for i, _ in active])
+        if route_ids is not None:     # the pipeline streams inline
+            self._stream_experts(route_ids.cpu().numpy(),
+                                 [i for i, _ in active])
         # analytical cross-check: expected UNIQUE streamed bytes of this
         # iteration under uniform routing
         e = self.cfg.moe.num_experts
@@ -552,14 +964,44 @@ class AdaptiveServingEngine:
     # ------------------------------------------------------------------
     def throughput_tokens_per_s(self, include_transfer: bool = True
                                 ) -> float:
-        """Measured tokens/s over decode time (+ exposed transfer time)."""
+        """Measured tokens/s. ``include_transfer`` charges the EXPOSED
+        transfer time only: for serial staging that is all of the blocked
+        transfer time; in overlap mode the hidden part already overlaps
+        decode and is not counted twice."""
         t = self.metrics["decode_s"]
         if include_transfer:
             t += self.metrics["transfer_exposed_s"]
         return self.metrics["tokens_generated"] / max(t, 1e-9)
 
+    def measured_overlap_efficiency(self) -> Optional[float]:
+        """Measured overlap window as a fraction of decode compute, the
+        run-time counterpart of ``HardwareModel.overlap_efficiency`` (a
+        LOWER bound when every transfer hid). None until any expert time
+        was transferred."""
+        total = self.metrics["transfer_s"] + self.metrics["prefetch_s"]
+        if total <= 0 or self.metrics["decode_s"] <= 0:
+            return None
+        eff = self.metrics["transfer_overlapped_s"] \
+            / self.metrics["decode_s"]
+        return max(0.0, min(1.0, eff))
+
+    def calibrate_overlap(self) -> Optional[float]:
+        """Fold the MEASURED overlap efficiency into the analytic hardware
+        model and drop the cached frontier, so later plans rank by the
+        transfer time this deployment exposes. Returns the efficiency, or
+        None when nothing was measured yet."""
+        eff = self.measured_overlap_efficiency()
+        if eff is None:
+            return None
+        self.hw = dataclasses.replace(self.hw, overlap_efficiency=eff)
+        self.planner.recalibrate(self.hw)
+        self._frontier = None
+        return eff
+
     def close(self):
-        """Release the transfer pipeline (no workers in the sync cache)."""
+        """Release the transfer pipeline: drain, then join the async
+        cache's workers (no-op for serial staging). Idempotent; the
+        engine must not decode afterwards."""
         self.expert_cache.close()
 
     def latency_percentiles(self, qs=(50, 95),
@@ -584,6 +1026,12 @@ class AdaptiveServingEngine:
         p = self._plan_result
         lat = self.latency_percentiles()
         m = self.metrics
+        overlap = ""
+        if self.config.overlap or m["prefetch_s"] \
+                or m["transfer_overlapped_s"]:
+            overlap = (f" xfer[prefetch={m['prefetch_s']:.3f}s"
+                       f" exposed={m['transfer_exposed_s']:.3f}s"
+                       f" hidden={m['transfer_overlapped_s']:.3f}s]")
         rungs = [b for b in p.plan.ladder if b < 16]
         if len(rungs) <= 1:
             knobs = (f"E{rungs[0] if rungs else 4}="
@@ -593,14 +1041,19 @@ class AdaptiveServingEngine:
                 f"{b}b={int((p.plan.bits == b).sum())}"
                 for b in rungs) + f"]/{p.plan.bits.size}"
         it = max(m["iterations"], 1)
-        kv = (f" kv[slots alloc={m['kv_alloc_byte_iters'] / it / 2**20:.2f}"
-              f"MiB used={m['kv_used_byte_iters'] / it / 2**20:.2f}MiB"
+        kv = (f" kv[{'paged' if self.paged else 'slots'}"
+              f" alloc={m['kv_alloc_byte_iters'] / it / 2**20:.2f}MiB"
+              f" used={m['kv_used_byte_iters'] / it / 2**20:.2f}MiB"
               f" waste={self.kv_waste_fraction():.0%}]")
+        if m["spec_proposed"]:
+            kv += (f" spec[k={self.speculate_k}"
+                   f" acc={m['acceptance_rate']:.0%}"
+                   f" {m['spec_accepted']}/{m['spec_proposed']}]")
         return (f"plan[{p.preference} {knobs}"
                 f" res={p.plan.resident_fraction():.0%}]"
                 f" gen={m['tokens_generated']}tok"
                 f" decode={m['decode_s']:.2f}s"
                 f" +transfer={m['transfer_s']:.3f}s"
-                f" (est {m['transfer_s_est']:.3f}s)" + kv +
+                f" (est {m['transfer_s_est']:.3f}s)" + overlap + kv +
                 f" -> {self.throughput_tokens_per_s():.2f} tok/s"
                 f" p50={lat['p50']*1e3:.0f}ms p95={lat['p95']*1e3:.0f}ms")

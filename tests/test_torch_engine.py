@@ -2,10 +2,15 @@
 params, the same explicit hardware model, the same frontier point (q4, q8
 and bf16 experts, some experts off the device) and the same three greedy
 requests give equal token streams, with the dequant-matmul kernels off and
-on (both engines on the slot KV cache, ``paged_kv=False``). Also: the
-port's frontier and planner copies equal the reference's, and the engine's
-error paths."""
+on. The grid covers the KV layout (paged, slot) x streaming (serial,
+async overlap) x speculation (0, 2) with kernels off, and the default
+paged config, overlap and ``speculate=2`` with kernels on (the reference's
+Pallas kernels in interpret mode); the integer metrics (KV bytes, expert
+accesses, route counts) equal the reference's too. Also: the port's
+frontier and planner copies equal the reference's, and the engine's error
+paths."""
 import dataclasses
+import threading
 
 import jax
 import numpy as np
@@ -22,6 +27,8 @@ from repro.serving.api import EngineConfig as JEngineConfig
 from repro.serving.engine import AdaptiveServingEngine as JEngine
 from repro_torch.configs import get_config, reduce_for_smoke
 from repro_torch.core.cost_model import HardwareModel
+from repro_torch.core.expert_cache import (AsyncExpertCache,
+                                           PrefetchingExpertCache)
 from repro_torch.core.pareto import ParetoFrontier
 from repro_torch.core.planner import AdaptivePlanner
 from repro_torch.models.model import params_from_numpy
@@ -90,6 +97,130 @@ def test_token_streams_equal(smoke, use_kernel):
     jeng.close()
 
 
+INT_METRICS = ("tokens_generated", "expert_accesses", "kv_allocated_bytes",
+               "kv_used_bytes", "spec_proposed", "spec_accepted")
+
+
+def pick_half(frontier, total):
+    """The most resident point with all three rungs and at least half of
+    the experts off the device."""
+    cand = [i for i, p in enumerate(frontier.points)
+            if all(c > 0 for c in p.counts_per_rung)
+            and p.resident_experts <= total // 2]
+    return max(cand, key=lambda i: frontier.points[i].resident_experts)
+
+
+def serve_both(smoke, choose=pick, **kw):
+    """The reference's and the port's engine on one config and frontier
+    point (``choose``): returns both engines after serving PROMPTS."""
+    jcfg, tcfg, jparams, tparams = smoke
+    kw = dict(max_slots=2, max_len=24, ladder=LADDER, page_size=4, **kw)
+    jeng = JEngine(jcfg, jparams, config=JEngineConfig(hw=JHW, **kw))
+    teng = build_engine(tcfg, tparams, EngineConfig(hw=HW, **kw),
+                        device="cpu")
+    i = choose(jeng.frontier, tcfg.num_layers * tcfg.moe.num_experts)
+    want = serve(jeng, jeng.frontier.points[i])
+    got = serve(teng, teng.frontier.points[i])
+    assert got == want
+    return jeng, teng
+
+
+def assert_same_metrics(jeng, teng):
+    for key in INT_METRICS:
+        assert teng.metrics[key] == jeng.metrics[key], key
+    assert teng.kv_reclaimed_bytes() == jeng.kv_reclaimed_bytes()
+    np.testing.assert_array_equal(teng.route_counts, jeng.route_counts)
+
+
+@pytest.mark.parametrize("speculate", [0, 2])
+@pytest.mark.parametrize("overlap", [False, True])
+@pytest.mark.parametrize("paged", [True, False])
+def test_grid_token_streams_equal(smoke, paged, overlap, speculate):
+    """Kernels off: every (KV layout, streaming, speculation) config gives
+    the reference's greedy tokens and integer metrics."""
+    jeng, teng = serve_both(smoke, use_kernel=False, paged_kv=paged,
+                            overlap=overlap, speculate=speculate)
+    assert_same_metrics(jeng, teng)
+    assert teng.paged == paged
+    assert ("kv[paged" in teng.summary()) == paged
+    if speculate:
+        assert teng.metrics["spec_proposed"] > 0
+        assert "spec[k=2" in teng.summary()
+    if overlap:
+        assert isinstance(teng.expert_cache, AsyncExpertCache)
+        assert "xfer[" in teng.summary()
+    teng.close()
+    jeng.close()
+    assert not [t for t in threading.enumerate()
+                if t.name.startswith("expert-xfer") and t.is_alive()]
+
+
+@pytest.mark.parametrize("kw", [{}, {"overlap": True}, {"speculate": 2}],
+                         ids=["default", "overlap", "speculate"])
+def test_kernels_on_token_streams_equal(smoke, kw):
+    """Kernels on (the reference's Pallas kernels in interpret mode, the
+    port's plain versions on the CPU): the default paged config, overlap
+    and speculation give the reference's tokens and metrics."""
+    jeng, teng = serve_both(smoke, use_kernel=True, **kw)
+    assert_same_metrics(jeng, teng)
+    teng.close()
+    jeng.close()
+
+
+def test_default_config_serves(smoke):
+    """``build_engine(cfg, params, device="cpu")`` with a default
+    ``EngineConfig()`` serves on the paged cache."""
+    _, tcfg, _, tparams = smoke
+    eng = build_engine(tcfg, tparams, EngineConfig(hw=HW), device="cpu")
+    assert eng.paged and EngineConfig().paged_kv
+    eng.apply_target(QoSTarget(mem_budget_bytes=1e12))
+    rid = eng.submit_request(ServeRequest(np.arange(1, 6), max_new_tokens=3))
+    assert eng.step() == 1
+    assert len(eng.result(rid).tokens) == 3
+    assert eng.metrics["kv_allocated_bytes"] > 0
+    eng.close()
+
+
+def test_prefetch_hints_stage_speculatively(smoke):
+    """``prefetch=True``: the previous iteration's experts are hinted to a
+    PrefetchingExpertCache before each demand; speculative traffic stays
+    out of the demand counters, and tokens do not change."""
+    tcfg = smoke[1]
+    # half of the experts off the device and a swap cache of one int4
+    # expert: the hinted experts keep re-staging
+    jeng, teng = serve_both(smoke, choose=pick_half, use_kernel=False,
+                            prefetch=True,
+                            swap_bytes=tcfg.expert_param_bytes(4))
+    assert isinstance(teng.expert_cache, PrefetchingExpertCache)
+    st = teng.expert_cache.stats
+    assert st.prefetch_bytes > 0
+    assert teng.metrics["prefetch_s"] == st.prefetch_s
+    assert teng.metrics["transfer_exposed_s"] == pytest.approx(
+        st.transfer_s + st.prefetch_s)
+    assert_same_metrics(jeng, teng)
+    assert teng.metrics["expert_fetches"] == jeng.metrics["expert_fetches"]
+
+
+def test_overlap_metrics_and_calibration(smoke):
+    """The pipeline splits blocked from hidden transfer time, throughput
+    charges only the exposed part, and calibrate_overlap folds the
+    measured window into the hardware model (dropping the frontier)."""
+    _, teng = serve_both(smoke, use_kernel=False, overlap=True)
+    m = teng.metrics
+    assert m["expert_fetches"] > 0
+    assert m["transfer_overlapped_s"] == pytest.approx(max(
+        m["transfer_s"] + m["prefetch_s"] - m["transfer_exposed_s"], 0.0))
+    assert teng.throughput_tokens_per_s() == pytest.approx(
+        m["tokens_generated"] / (m["decode_s"] + m["transfer_exposed_s"]))
+    eff = teng.measured_overlap_efficiency()
+    assert eff is not None and 0.0 <= eff <= 1.0
+    teng.frontier
+    assert teng.calibrate_overlap() == eff
+    assert teng.hw.overlap_efficiency == eff and teng._frontier is None
+    teng.close()
+    teng.close()                                # idempotent
+
+
 def test_frontier_and_planner_copies_equal():
     for arch in ("mixtral-8x7b", "mixtral-mop"):
         jcfg = jget_config(arch)
@@ -132,11 +263,14 @@ def test_engine_error_paths(smoke, monkeypatch):
         eng.submit(np.arange(1, 30), max_new_tokens=2)
     eng.apply_target(QoSTarget(mem_budget_bytes=1e12))
     assert eng.active_point is not None and eng.target is not None
-    for bad in (dict(paged_kv=True), dict(overlap=True),
-                dict(prefetch=True), dict(speculate=2), dict(ep=2)):
-        with pytest.raises(NotImplementedError, match="later slice"):
-            build_engine(tcfg, tparams, dataclasses.replace(cfg, **bad),
-                         device="cpu")
+    # every single-device config builds; only expert parallelism raises
+    for ok in (dict(paged_kv=True), dict(overlap=True),
+               dict(prefetch=True), dict(speculate=2)):
+        build_engine(tcfg, tparams, dataclasses.replace(cfg, **ok),
+                     device="cpu").close()
+    with pytest.raises(NotImplementedError, match="later slice"):
+        build_engine(tcfg, tparams, dataclasses.replace(cfg, ep=2),
+                     device="cpu")
     # no device= means the card; without one the engine refuses to start
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
