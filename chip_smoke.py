@@ -33,6 +33,36 @@ Phases (each raises on failure, and the script then exits non-zero):
                tokens equal to plain decode's, the G = 8 int4 draft bank
                launched, the acceptance rate printed, and a per-op probe
                of whether a verify row is bit-equal to the decode row;
+     3f. calibrate — ``calibrate_sensitivity`` on the full-width model
+               twice with one seed: byte-identical profiles, seconds of
+               each run; the card's per-rung quantize of one expert
+               bit-equal to the CPU's (runs before 3e, which uses it);
+     3e. qos + dynamic — one default engine under a ``QoSController``
+               (window 2, dwell 4) with a ``DynamicPrecisionController``
+               on the calibrated profile, 8 requests x 16 prompt tokens x
+               24 new tokens: a best-effort target adopted at the serve
+               point walks toward the fast end; after 12 iterations one
+               direct ``apply_bits_update`` (int4 <-> int8, one placement,
+               layer 0; banks equal to a fresh build) and a budget drop to
+               the midpoint between the smallest footprint and the active
+               point: exactly one replan, the final plan inside the
+               budget, B3/B4 launched at each bank-split plan's G per
+               rung; each replan's kind, reconfig_s, drain_s and peak
+               memory printed; serving params, prefill and first-decode
+               logits bit-equal and greedy tokens equal to a fresh engine
+               at the final (point, bits);
+     3g. multi-tenant — two full-width tenants (seeds 0 and 1) under one
+               ``MultiTenantEngine`` sharing an ``AsyncExpertCache`` of two
+               bf16 experts through ``ScopedExpertCache`` views, overlap
+               on; budget 0.6x the summed bf16 footprint, then 0.45x:
+               exactly one joint re-arbitration, allocations inside the
+               budget, each tenant's greedy tokens equal to a standalone
+               engine's at its final point, replan reports and tokens/s
+               printed, no ``expert-xfer`` thread alive after ``close()``;
+     3h. cli — ``repro_torch.launch.serve.main`` in process at ``--smoke``:
+               ``--calibrate``, then ``--ladder 16,8,4 --profile <it>
+               --dynamic-precision --temperature 0``, then a two-tenant
+               ``--tenants`` spec; each prints its target and summary;
   4. parity  — the smoke-size model's prefill + decode logits on the card
                (kernels) agree with the same model on the CPU (the
                kernels' plain versions);
@@ -605,6 +635,621 @@ def _spec_row_probe(torch, engine, seed: int):
     return out
 
 
+# --------------------------------------------------------------------------
+# phase 3e-3h: the adaptive control loop (QoS walk, budget drop, dynamic
+# precision, calibration, multi-tenant arbitration, the serve CLI)
+# --------------------------------------------------------------------------
+
+#: device of the control-loop phases (a CPU rehearsal of the script sets
+#: "cpu" together with a smoke-size ``ctx``)
+DEVICE = "cuda"
+#: controller traffic of phase 3e: requests x new tokens, drop after this
+#: many engine iterations (drain iterations of bank-split replans count)
+QOS_REQUESTS, QOS_NEW, QOS_DROP_AT = 8, 24, 12
+
+
+def _on_card() -> bool:
+    return DEVICE == "cuda"
+
+
+def _peak_reset(torch):
+    if _on_card():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+
+
+def _mem_gb(torch):
+    """(allocated, peak allocated) GB on the card since the last reset;
+    zeros on the CPU."""
+    if not _on_card():
+        return 0.0, 0.0
+    torch.cuda.synchronize()
+    return (torch.cuda.memory_allocated() / 1e9,
+            torch.cuda.max_memory_allocated() / 1e9)
+
+
+def _release(torch):
+    import gc
+    gc.collect()
+    if _on_card():
+        torch.cuda.empty_cache()
+
+
+def _bank_keys(plan):
+    """The (wrapper, G) launch keys a plan's serve banks give: one per
+    non-empty rung bank, G its expert count per layer."""
+    names = {4: "grouped_q4", 8: "grouped_q8", 16: "grouped_bf16"}
+    return [(names[b], g) for b, g in zip(sorted(plan.ladder),
+                                          plan.bank_sizes()) if g]
+
+
+def _plan_kind(old, new) -> str:
+    if old is None:
+        return "first"
+    same = (old.bank_sizes() == new.bank_sizes() and old.seed == new.seed)
+    return "placement-only" if same else "bank-split"
+
+
+class _Tracker:
+    """Wraps one engine's ``run_iteration`` and ``apply_frontier_point``:
+    each iteration's grouped launches are booked under the plan it ran on
+    (a bank-split replan's drain iterations run on the OLD plan, inside
+    the apply, and are booked to it), and each replan records its kind,
+    ``reconfig_s``, ``drain_s`` and the card's peak memory during it."""
+
+    def __init__(self, torch, engine):
+        from repro_torch.kernels import ops
+        self.torch, self.engine, self.ops = torch, engine, ops
+        self.plans = []          # [(plan, Counter of (wrapper, G))]
+        self.replans = []
+        self._iterate = engine.run_iteration
+        self._apply = engine.apply_frontier_point
+        engine.run_iteration = self.run_iteration
+        engine.apply_frontier_point = self.apply_frontier_point
+
+    def run_iteration(self, **kw):
+        import collections
+        before = collections.Counter(self.ops.GROUP_LAUNCHES)
+        out = self._iterate(**kw)
+        delta = collections.Counter(self.ops.GROUP_LAUNCHES)
+        delta.subtract(before)
+        if self.plans:
+            self.plans[-1][1].update(+delta)
+        return out
+
+    def apply_frontier_point(self, point):
+        import collections
+        eng, m = self.engine, self.engine.metrics
+        old = eng.current_plan
+        r0, d0, it0 = m["reconfig_s"], m["drain_s"], m["iterations"]
+        alloc0, _ = _mem_gb(self.torch)
+        _peak_reset(self.torch)
+        t0 = time.perf_counter()
+        out = self._apply(point)
+        wall = time.perf_counter() - t0
+        alloc1, peak = _mem_gb(self.torch)
+        rec = {"kind": _plan_kind(old, eng.current_plan),
+               "point": point.summary(),
+               "bank_sizes": list(eng.current_plan.bank_sizes()),
+               "reconfig_s": m["reconfig_s"] - r0,
+               "drain_s": m["drain_s"] - d0,
+               "drain_iterations": m["iterations"] - it0,
+               "wall_s": wall, "alloc_before_gb": alloc0,
+               "alloc_after_gb": alloc1, "peak_gb": peak}
+        self.replans.append(rec)
+        self.plans.append((eng.current_plan, collections.Counter()))
+        log(f"    replan {len(self.replans)}: {rec['kind']} -> "
+            f"{rec['point']} banks {rec['bank_sizes']}; reconfig_s "
+            f"{rec['reconfig_s']:.3f}, drain_s {rec['drain_s']:.3f} "
+            f"({rec['drain_iterations']} drain iterations), peak "
+            f"{peak:.2f} GB (allocated {alloc0:.2f} -> {alloc1:.2f} GB)")
+        return out
+
+    def unwrap(self):
+        del self.engine.run_iteration, self.engine.apply_frontier_point
+
+    def require_bank_launches(self):
+        """Every bank-split plan launched B3/B4 at its new G per rung
+        while it served (on the CPU: no kernels, nothing to require)."""
+        if not _on_card():
+            return
+        for (plan, launches), rec in zip(self.plans, self.replans):
+            if rec["kind"] == "placement-only":
+                continue
+            missing = [k for k in _bank_keys(plan) if launches[k] <= 0]
+            if missing:
+                raise AssertionError(
+                    f"plan {rec['point']} ({rec['kind']}): no launch of "
+                    f"{missing} while it served: {dict(launches)}")
+
+
+def _swap_pair(plan, layer: int = 0):
+    """(e_lo, e_hi): an int4 and an int8 expert at the same placement in
+    ``layer`` (None when the layer has no such pair)."""
+    bits, loc = plan.bits[layer], plan.location[layer]
+    for e_lo in range(bits.size):
+        for e_hi in range(bits.size):
+            if bits[e_lo] == 4 and bits[e_hi] == 8 \
+                    and loc[e_lo] == loc[e_hi]:
+                return e_lo, e_hi
+    return None
+
+
+def _params_equal(torch, a, b) -> bool:
+    la, lb = list(_leaves(a)), list(_leaves(b))
+    return len(la) == len(lb) and all(
+        x.dtype == y.dtype and x.shape == y.shape
+        and bool(torch.equal(x.contiguous().view(torch.uint8),
+                             y.contiguous().view(torch.uint8)))
+        for x, y in zip(la, lb))
+
+
+def _hook_logits(torch, engine, prompts):
+    """Prefill logits of each prompt and the first decode step's logits
+    through the slot-cache model hooks on the engine's serving params."""
+    m, p = engine.model, engine._serve_params
+    cache = m.init_cache(len(prompts), engine.max_len, device=DEVICE)
+    out, first = [], []
+    for i, pr in enumerate(prompts):
+        lg, cache = m.prefill_into_slot(
+            p, cache, torch.as_tensor(pr[None], device=DEVICE),
+            torch.arange(len(pr), device=DEVICE)[None], i, len(pr) - 1)
+        out.append(lg)
+        first.append(int(torch.argmax(lg[0])))
+    lg, _, _ = m.decode_step_routed(
+        p, cache, torch.tensor(first, device=DEVICE)[:, None],
+        torch.tensor([len(pr) for pr in prompts], device=DEVICE))
+    out.append(lg)
+    return out
+
+
+def _same_as_fresh(torch, engine, point, cfg, params, prompts, what):
+    """A fresh engine at the adapted engine's final (point, bits): its
+    serving params are bit-equal, the prefill and first-decode logits
+    through the model hooks bit-equal, and the greedy tokens equal."""
+    from repro_torch.serving.api import EngineConfig, build_engine
+    fresh = build_engine(cfg, params, EngineConfig(**engine_config()),
+                         device=DEVICE)
+    fresh.apply_frontier_point(point)
+    bits = engine.current_plan.bits
+    if (fresh.current_plan.bits != bits).any():
+        fresh.apply_bits_update(bits.copy())
+    if not np_equal(fresh.current_plan.bits, bits):
+        raise AssertionError(f"{what}: the fresh engine planned other bits")
+    if not _params_equal(torch, fresh._serve_params, engine._serve_params):
+        raise AssertionError(f"{what}: serving params differ from a fresh "
+                             "engine's at the same (point, bits)")
+    for j, (a, b) in enumerate(zip(_hook_logits(torch, engine, prompts),
+                                   _hook_logits(torch, fresh, prompts))):
+        if not bool(torch.equal(a, b)):
+            raise AssertionError(f"{what}: logits {j} differ from a fresh "
+                                 "engine's")
+    got = serve_pass(torch, engine, prompts)
+    want = serve_pass(torch, fresh, prompts)
+    fresh.close()
+    del fresh
+    _release(torch)
+    if got["tokens"] != want["tokens"]:
+        raise AssertionError(f"{what}: tokens {got['tokens']} != fresh "
+                             f"engine's {want['tokens']}")
+    log(f"  {what}: serving params, prefill and first-decode logits "
+        "bit-equal to a fresh engine at the final (point, bits); greedy "
+        "tokens equal")
+    return got
+
+
+def np_equal(a, b) -> bool:
+    return a.shape == b.shape and bool((a == b).all())
+
+
+def engine_config():
+    """The serve phase's engine config on the control-loop phases'
+    device (the kernels only on the card)."""
+    return dict(SERVE_CFG, use_kernel=_on_card())
+
+
+def phase_calibrate(torch, np, ctx):
+    """3f: ``calibrate_sensitivity`` on the full-width model, twice with
+    one seed: byte-identical ``to_json_bytes()``. Per-rung quantize runs
+    on the card, so one expert's codes and scales are first checked
+    bit-equal to the CPU's."""
+    from repro_torch.core.quantization import quantize
+    from repro_torch.core.sensitivity import calibrate_sensitivity
+    cfg, params = ctx["cfg"], ctx["params"]
+    ladder = SERVE_CFG["ladder"]
+    moe = params["layers"]["moe"]
+    for k in ("w_gate", "w_up", "w_down"):
+        w = moe[k][0, 0].to(torch.float32)
+        for b in (4, 8):
+            dev, cpu = quantize(w, b, cfg.mop.group_size), \
+                quantize(w.cpu(), b, cfg.mop.group_size)
+            if not (torch.equal(dev.q.cpu(), cpu.q) and torch.equal(
+                    dev.scales.cpu().view(torch.int16),
+                    cpu.scales.view(torch.int16))):
+                raise AssertionError(f"card quantize of layer 0 expert 0 "
+                                     f"{k} at {b} bits differs from the "
+                                     "CPU's")
+    log("calibrate: card quantize of layer 0 expert 0 (w_gate, w_up, "
+        "w_down at 4 and 8 bits) bit-equal to the CPU's")
+    # what quantize guards against: on the card, a division by a Python
+    # scalar multiplies by its reciprocal (reported, not asserted)
+    w = moe["w_gate"][0, 0].to(torch.float32)
+    wg = w.reshape(-1, cfg.mop.group_size, w.shape[-1])
+    absmax = wg.abs().amax(1)
+    for qmax in (7.0, 127.0):
+        by_scalar = absmax / qmax
+        true_div = absmax / torch.tensor(qmax, device=absmax.device)
+
+        def codes(sc):
+            inv = torch.where(sc > 0, 1.0 / sc, torch.zeros_like(sc))
+            return torch.clamp(torch.round(wg * inv[:, None]), -qmax - 1,
+                               qmax)
+
+        n_f32 = int((by_scalar != true_div).sum())
+        n_bf16 = int((by_scalar.bfloat16() != true_div.bfloat16()).sum())
+        n_codes = int((codes(by_scalar) != codes(true_div)).sum())
+        log(f"  absmax / {qmax:g} on the card, layer 0 expert 0 w_gate, a "
+            "Python-scalar divisor against a tensor divisor: "
+            f"{n_f32} of {absmax.numel()} f32 scales, {n_bf16} bf16 scales "
+            f"and {n_codes} of {wg.numel()} codes differ")
+    runs, secs = [], []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        runs.append(calibrate_sensitivity(cfg, params, seed=0,
+                                          ladder=ladder))
+        secs.append(time.perf_counter() - t0)
+    a, b = (r.to_json_bytes() for r in runs)
+    if a != b:
+        raise AssertionError("two calibrations with one seed gave other "
+                             "bytes")
+    prof = runs[0]
+    if not all(np.isfinite(s).all() for s in prof.sens.values()):
+        raise AssertionError("calibrated sensitivities are not finite")
+    log(f"calibrate: {cfg.num_layers}x{cfg.moe.num_experts} experts, rungs "
+        f"{sorted(prof.sens)}, seed 0, 2x32 tokens: {secs[0]:.2f} s and "
+        f"{secs[1]:.2f} s; profiles byte-identical ({len(a)} bytes); mean "
+        + ", ".join(f"sens[{b}] {prof.sens[b].mean():.4f}"
+                    for b in sorted(prof.sens)))
+    ctx["profile"] = prof
+    return {"seconds": secs, "bytes": len(a),
+            "sens_mean": {str(b): float(s.mean())
+                          for b, s in prof.sens.items()}}
+
+
+def phase_qos_dynamic(torch, np, ctx, card: str, seed: int):
+    """3e: a QoSController (window 2, dwell 4) with a DynamicPrecision
+    controller on the calibrated profile drives one default engine:
+    a best-effort target adopted at the serve phase's point walks toward
+    the fast end, then the budget drops to the midpoint between the
+    frontier's smallest footprint and the active point's, and the engine
+    replans exactly once. Just before the drop one direct
+    ``apply_bits_update`` swaps an int4 and an int8 expert of layer 0 at
+    the same placement (the banks then equal a fresh build), so the drop
+    replans from a swapped plan; at the end the adapted engine is
+    bit-equal to a fresh engine at its final (point, bits)."""
+    import math
+    from repro_torch.core.dynamic_precision import DynamicPrecisionController
+    from repro_torch.core.pareto import QoSTarget
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import apply_precision_plan
+    from repro_torch.serving.api import EngineConfig, ServeRequest, \
+        build_engine
+    from repro_torch.serving.qos import QoSController, QoSControllerConfig
+    from repro_torch.serving.simulator import budget_shock
+    cfg, params = ctx["cfg"], ctx["params"]
+    engine = build_engine(cfg, params, EngineConfig(**engine_config()),
+                          device=DEVICE)
+    fr = engine.frontier
+    start = fr.points[ctx["engine"].frontier.points.index(ctx["point"])]
+    if start.summary() != ctx["point"].summary():
+        raise AssertionError("the engine's frontier differs from the serve "
+                             "phase's")
+    dyn = DynamicPrecisionController(engine, ctx["profile"])
+    ctl = QoSController(engine, config=QoSControllerConfig(
+        window_iterations=2, min_dwell_iterations=4), dynamic=dyn)
+    track = _Tracker(torch, engine)
+    target = QoSTarget(min_tokens_per_s=math.inf, mem_budget_bytes=max(
+        p.qos.device_bytes for p in fr.points))
+    _peak_reset(torch)
+    log(f"qos+dynamic: adopt [{target.describe()}] at {start.summary()}")
+    ctl.adopt(target, start)
+    rng = np.random.default_rng(seed + 1)
+    prompts = [rng.integers(1, cfg.vocab_size, size=16)
+               for _ in range(QOS_REQUESTS)]
+    engine.reset_counters()
+    ops.reset_launches()
+    rids = [engine.submit_request(ServeRequest(p, max_new_tokens=QOS_NEW))
+            for p in prompts]
+    shock = {}
+    t0 = time.perf_counter()
+    while engine.has_work():
+        if not shock and engine.metrics["iterations"] >= QOS_DROP_AT:
+            shock.update(_bits_update_then_drop(
+                torch, np, engine, ctl, params, cfg, apply_precision_plan,
+                budget_shock))
+        engine.run_iteration()
+        ctl.step()
+    wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    iters = engine.metrics["iterations"]
+    tokens = [engine.result(r).tokens for r in rids]
+    if not shock:
+        raise AssertionError("the traffic ended before the budget drop")
+    if any(len(t) != QOS_NEW for t in tokens):
+        raise AssertionError(f"bad token counts {[len(t) for t in tokens]}")
+    walks = shock["replans_before"] - 1
+    if walks < 1:
+        raise AssertionError("no walk step before the budget drop")
+    after = ctl.metrics["replans"] - shock["replans_before"]
+    if after != 1:
+        raise AssertionError(f"the budget drop cost {after} replans, not 1")
+    if ctl.point.qos.device_bytes > shock["budget"]:
+        raise AssertionError("the final plan is over the dropped budget")
+    if not np_equal(engine.current_plan.location, ctl.point.plan.location):
+        raise AssertionError("the engine's placement is not the "
+                             "controller's point")
+    _, peak = _mem_gb(torch)
+    log(f"  {QOS_REQUESTS} requests x {QOS_NEW} tokens in {wall:.2f} s "
+        f"({iters} iterations); controller {ctl.summary()}; "
+        f"{walks} walk step(s) before the drop, 1 replan for it; dynamic "
+        f"{dyn.metrics}; launches {launches}; peak over the run "
+        f"{peak:.2f} GB")
+    if _on_card():
+        require_launches(launches, "qos+dynamic")
+    final = _same_as_fresh(torch, engine, ctl.point, cfg, params,
+                           ctx["prompts"], "qos+dynamic")
+    track.require_bank_launches()
+    track.unwrap()
+    engine.close()
+    del engine
+    _release(torch)
+    return {"launches": launches,
+            "launches_per_decode_iter": {k: v / max(iters, 1)
+                                         for k, v in launches.items()},
+            "replans": track.replans,
+            "bank_launches": [{f"{k}@G={g}": v for (k, g), v in c.items()}
+                              for _, c in track.plans],
+            "walk_steps": walks, "drop": shock,
+            "controller": dict(ctl.metrics), "dynamic": dict(dyn.metrics),
+            "wall_s": wall, "iterations": iters, "peak_gb": peak,
+            "final_tokens": final["tokens"]}
+
+
+def _bits_update_then_drop(torch, np, engine, ctl, params, cfg,
+                           apply_precision_plan, budget_shock):
+    """Between iterations, with requests in flight: one direct
+    ``apply_bits_update`` (an int4 <-> int8 swap at one placement in
+    layer 0; its serve banks must equal a fresh build of the swapped
+    plan), then the budget drop."""
+    plan = engine.current_plan
+    pair = _swap_pair(plan)
+    if pair is None:
+        raise AssertionError(f"layer 0 of {plan.bank_sizes()} has no int4 "
+                             "and int8 expert at one placement")
+    e_lo, e_hi = pair
+    bits = plan.bits.copy()
+    bits[0, e_lo], bits[0, e_hi] = plan.bits[0, e_hi], plan.bits[0, e_lo]
+    r0 = engine.metrics["reconfig_s"]
+    _peak_reset(torch)
+    report = engine.apply_bits_update(bits)
+    secs = engine.metrics["reconfig_s"] - r0
+    _, peak = _mem_gb(torch)
+    if report["flipped"] != 2 or report["promotions"] != 1:
+        raise AssertionError(f"bits update report {report}")
+    rebuilt = apply_precision_plan(params, cfg, engine.current_plan)
+    if not _params_equal(torch, rebuilt, engine._serve_params):
+        raise AssertionError("banks after apply_bits_update differ from a "
+                             "fresh build of the swapped plan")
+    del rebuilt
+    _release(torch)
+    log(f"    apply_bits_update: layer 0 experts {e_lo} (int4) <-> {e_hi} "
+        f"(int8) at {'device' if plan.location[0, e_lo] else 'host'}; "
+        f"report {report}; {secs:.3f} s, peak {peak:.2f} GB; banks equal "
+        "a fresh build of the swapped plan")
+    smallest = min(p.qos.device_bytes for p in engine.frontier.points)
+    budget = 0.5 * (smallest + ctl.point.qos.device_bytes)
+    replans = ctl.metrics["replans"]
+    log(f"    budget drop at iteration {engine.metrics['iterations']}: "
+        f"{ctl.target.mem_budget_bytes / 1e9:.3f} -> {budget / 1e9:.3f} GB "
+        f"(active point {ctl.point.qos.device_bytes / 1e9:.3f} GB, "
+        f"smallest {smallest / 1e9:.3f} GB)")
+    budget_shock(ctl, budget)()
+    return {"budget": budget, "replans_before": replans,
+            "bits_update": report, "bits_update_s": secs,
+            "bits_update_peak_gb": peak}
+
+
+def phase_multi(torch, np, ctx, card: str):
+    """3g: two full-width tenants (params from seeds 0 and 1) under one
+    MultiTenantEngine, sharing an AsyncExpertCache of two bf16 experts
+    through ScopedExpertCache views, overlap on. Budget 0.6x the summed
+    bf16 footprint, then ``set_budget`` to 0.45x: exactly one joint
+    re-arbitration, allocations inside the budget, each tenant's greedy
+    tokens equal to a standalone engine's at its final point, no
+    ``expert-xfer`` thread alive after ``close()``."""
+    import math
+    from repro_torch.core.expert_cache import AsyncExpertCache
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import init_params
+    from repro_torch.serving.api import (EngineConfig, MultiTenantEngine,
+                                         QoSTarget, ServeRequest,
+                                         TenantSpec, build_engine)
+    from repro_torch.serving.qos import QoSControllerConfig
+    cfg, prompts = ctx["cfg"], ctx["prompts"]
+    total = cfg.num_layers * cfg.moe.num_experts
+    full16 = cfg.non_expert_bytes() + total * cfg.expert_param_bytes(16)
+    params = {"chat": ctx["params"],
+              "batch": init_params(cfg, seed=1, device=DEVICE)}
+    shared = AsyncExpertCache(capacity_bytes=2 * cfg.expert_param_bytes(16),
+                              device=DEVICE)
+    mt = MultiTenantEngine(0.6 * 2 * full16, expert_cache=shared,
+                           controller_config=QoSControllerConfig(
+                               min_dwell_iterations=4, window_iterations=2))
+    specs = [TenantSpec("chat", QoSTarget(min_tokens_per_s=math.inf),
+                        weight=2.0),
+             TenantSpec("batch", QoSTarget(min_tokens_per_s=math.inf,
+                                           max_quality_loss=0.0))]
+    for spec in specs:
+        mt.add_tenant(spec, build_engine(
+            cfg, params[spec.name], EngineConfig(**engine_config(),
+                                                 overlap=True),
+            device=DEVICE, expert_cache=shared.scoped(spec.name)))
+    ops.reset_launches()
+    out = {"phases": []}
+    t_all = time.perf_counter()
+    for phase, frac in enumerate((0.6, 0.45)):
+        if phase == 0:
+            mt.arbitrate()
+        else:
+            arb0 = mt.metrics["arbitrations"]
+            _peak_reset(torch)
+            t0 = time.perf_counter()
+            mt.set_budget(frac * 2 * full16)
+            shift_s = time.perf_counter() - t0
+            if mt.metrics["arbitrations"] != arb0 + 1:
+                raise AssertionError("the budget shift did not cost exactly "
+                                     "one joint re-arbitration")
+            out["shift_s"] = shift_s
+            out["shift_peak_gb"] = _mem_gb(torch)[1]
+        alloc = sum(t.allocated_bytes for t in mt.tenants.values())
+        used = sum(t.point.qos.device_bytes for t in mt.tenants.values())
+        if alloc > mt.budget_bytes * (1 + 1e-9) or used > mt.budget_bytes:
+            raise AssertionError(f"allocations {alloc} / footprints {used} "
+                                 f"over the budget {mt.budget_bytes}")
+        log(f"multi-tenant phase {phase}: budget {frac}x summed bf16 = "
+            f"{mt.budget_bytes / 1e9:.3f} GB, allocated {alloc / 1e9:.3f} "
+            f"GB, footprints {used / 1e9:.3f} GB, "
+            f"{mt.metrics['arbitrations']:.0f} arbitrations")
+        for name, t in mt.tenants.items():
+            log(f"  [{name}] alloc {t.allocated_bytes / 1e9:.3f} GB -> "
+                f"{t.point.summary()}")
+            for pr in prompts:
+                t.engine.submit_request(ServeRequest(pr, max_new_tokens=8))
+        t0 = time.perf_counter()
+        iters0 = {n: t.engine.metrics["iterations"]
+                  for n, t in mt.tenants.items()}
+        while mt.has_work():
+            mt.run_iteration(temperature=0.0)
+        wall = time.perf_counter() - t0
+        rec = {"budget_gb": mt.budget_bytes / 1e9, "wall_s": wall,
+               "tenants": {}}
+        for name, t in mt.tenants.items():
+            m = t.engine.metrics
+            rec["tenants"][name] = {
+                "point": t.point.summary(),
+                "alloc_gb": t.allocated_bytes / 1e9,
+                "tokens_per_s": t.engine.throughput_tokens_per_s(),
+                "iterations": m["iterations"] - iters0[name],
+                "transfer_s": m["transfer_s"],
+                "transfer_exposed_s": m["transfer_exposed_s"],
+                "expert_fetches": m["expert_fetches"]}
+            log(f"  [{name}] {t.engine.summary()}")
+        out["phases"].append(rec)
+    wall_all = time.perf_counter() - t_all
+    launches = dict(ops.LAUNCHES)
+    iters = sum(t.engine.metrics["iterations"] for t in mt.tenants.values())
+    for r in mt.reports:
+        log(f"  {r.summary()}")
+    out["reports"] = [r.__dict__ for r in mt.reports]
+    out["metrics"] = dict(mt.metrics)
+    if _on_card():
+        require_launches(launches, "multi-tenant",
+                         sorted({k for t in mt.tenants.values()
+                                 for k, _ in _bank_keys(t.engine
+                                                        .current_plan)}))
+    # each tenant's greedy tokens against a standalone engine at its
+    # final point (its own cache, no controller)
+    for name, t in mt.tenants.items():
+        got = serve_pass(torch, t.engine, prompts)
+        solo = build_engine(cfg, params[name], EngineConfig(
+            **engine_config()), device=DEVICE)
+        solo.apply_frontier_point(t.point)
+        if not (np_equal(solo.current_plan.bits, t.engine.current_plan.bits)
+                and np_equal(solo.current_plan.location,
+                             t.engine.current_plan.location)):
+            raise AssertionError(f"tenant {name}: the standalone engine "
+                                 "planned another placement or rungs")
+        want = serve_pass(torch, solo, prompts)
+        solo.close()
+        del solo
+        _release(torch)
+        if got["tokens"] != want["tokens"]:
+            raise AssertionError(f"tenant {name}: tokens {got['tokens']} != "
+                                 f"standalone {want['tokens']}")
+        out["phases"][-1]["tenants"][name]["verify_tokens"] = got["tokens"]
+    stats = {v.owner: dict(v.stats.__dict__) for v in
+             (t.cache_view for t in mt.tenants.values())}
+    mt.close()
+    alive = _xfer_threads()
+    if alive:
+        raise AssertionError(f"expert-xfer threads alive after close: "
+                             f"{alive}")
+    log(f"multi-tenant: {mt.summary()}; shared swap per tenant {stats}; "
+        f"{wall_all:.2f} s; launches {launches}; tokens equal to standalone "
+        "engines; no expert-xfer thread alive after close()")
+    out.update(launches=launches, cache_views=stats,
+               launches_per_decode_iter={k: v / max(iters, 1)
+                                         for k, v in launches.items()})
+    del mt, params
+    _release(torch)
+    return out
+
+
+def phase_cli(torch, np, card: str):
+    """3h: ``repro_torch.launch.serve.main`` in process at ``--smoke``:
+    ``--calibrate``; serving with that profile, ``--ladder 16,8,4`` and
+    ``--dynamic-precision``; a two-tenant ``--tenants`` spec. Each run
+    returns normally and prints its target and summary lines."""
+    import contextlib
+    import io
+    from repro_torch.launch import serve
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    prof = out_dir / "sensitivity_profile_smoke.json"
+    spec = out_dir / "tenants_smoke.json"
+    spec.write_text(json.dumps({"budget_fracs": [0.6, 0.45], "tenants": [
+        {"name": "chat", "min_tps": None, "weight": 2.0, "priority": 1,
+         "deadline_s": 30.0, "requests": 2},
+        {"name": "batch", "max_ppl_x": 1.1, "requests": 2}]}))
+    dev = ["--device", DEVICE]
+    runs = [
+        ("calibrate", dev + ["--ladder", "16,8,4", "--calibrate",
+                             "--calibrate-out", str(prof)],
+         ["[serve] sensitivity profile ->"]),
+        ("profile+dynamic", dev + [
+            "--ladder", "16,8,4", "--profile", str(prof),
+            "--dynamic-precision", "--temperature", "0", "--requests", "4",
+            "--max-new-tokens", "8"],
+         ["[serve] ep=1 dp=1 target[", "[serve] plan[",
+          "[serve] dynamic precision:", "tokens=["]),
+        ("tenants", dev + ["--tenants", str(spec), "--temperature", "0",
+                           "--max-new-tokens", "4", "--overlap", "on"],
+         ["[serve] phase 0", "[serve] phase 1", "[serve] multi-tenant:"]),
+    ]
+    out = {}
+    for name, argv, need in runs:
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            serve.main(argv)
+        secs = time.perf_counter() - t0
+        text = buf.getvalue()
+        missing = [n for n in need if n not in text]
+        if missing:
+            raise AssertionError(f"serve CLI {name}: no {missing} line in:\n"
+                                 f"{text}")
+        log(f"cli {name} ({secs:.2f} s): python -m repro_torch.launch.serve "
+            f"{' '.join(argv)}")
+        for ln in text.splitlines():
+            log(f"    {ln}")
+        out[name] = {"seconds": secs, "lines": text.splitlines()}
+    alive = _xfer_threads()
+    if alive:
+        raise AssertionError(f"expert-xfer threads alive after the CLI: "
+                             f"{alive}")
+    return out
+
+
 def _profiler(torch):
     from torch.profiler import ProfilerActivity, profile
     return profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
@@ -1121,9 +1766,24 @@ def main(argv=None) -> int:
             if r is not None:
                 paths[name] = r.get("cold", r)
             serve[name] = r
+        # the control loop: 3e needs 3f's calibrated profile, so 3f runs
+        # first; 3e is not run (and counts as failed) without it
+        serve["calibrate"] = run("calibrate", phase_calibrate, torch, np,
+                                 ctx)
+        if serve["calibrate"] is not None:
+            serve["qos+dynamic"] = run("qos+dynamic", phase_qos_dynamic,
+                                       torch, np, ctx, smi, args.seed)
+        else:
+            failures.append("qos+dynamic (no calibrated profile)")
+        serve["multi-tenant"] = run("multi-tenant", phase_multi, torch, np,
+                                    ctx, smi)
+        for name in ("qos+dynamic", "multi-tenant"):
+            if serve.get(name) is not None:
+                paths[name] = serve[name]
         ctx["engine"].close()
         del ctx
         torch.cuda.empty_cache()
+    cli = run("cli", phase_cli, torch, np, smi)
     parity_err = run("parity", phase_parity, torch, np, args.seed) \
         if built else None
     kern = run("kernels", phase_kernels, torch, np, sizes, args.seed,
@@ -1143,7 +1803,7 @@ def main(argv=None) -> int:
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps({
         "nvidia_smi": smi, "device": torch.cuda.get_device_name(0),
-        "build_s": build_s, "ptxas": ptxas, "serve": serve,
+        "build_s": build_s, "ptxas": ptxas, "serve": serve, "cli": cli,
         "parity_max_abs_diff": parity_err, "kernels": records,
         "kernel_shapes": extra, "failures": failures,
         "total_s": total_s}, indent=1, default=str))

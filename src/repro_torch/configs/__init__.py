@@ -14,6 +14,7 @@ _MODULES = {
     "mixtral-8x7b": "mixtral_8x7b",
     "mixtral-mop": "mixtral_mop",
 }
+ARCH_IDS = tuple(_MODULES)
 
 
 def get_config(arch_id: str) -> ModelConfig:

@@ -17,8 +17,15 @@ Demand traffic (``bytes_in``/``transfer_s``) and speculative traffic
 (``prefetch_bytes``/``prefetch_s``) are accounted apart.
 :class:`PrefetchingExpertCache` is the synchronous ``hint`` variant.
 
-Ported from ``repro.core.expert_cache`` except ``ScopedExpertCache`` (the
-multi-tenant view), which belongs with ``serving/multi.py``.
+Multi-tenant serving (DESIGN.md §10) shares ONE swap space between N
+engines through :meth:`ExpertCache.scoped` views: a
+:class:`ScopedExpertCache` namespaces every key with its owner, keeps
+per-owner hit/miss/eviction accounting (the parent's LRU and byte budget
+stay GLOBAL; an eviction is credited to the owner who lost the entry) and
+routes misses to the owner's own host loader. Over an
+:class:`AsyncExpertCache` the views share its worker pool.
+
+Ported from ``repro.core.expert_cache``.
 """
 from __future__ import annotations
 
@@ -78,13 +85,17 @@ def _to_device(tree, device: torch.device):
 
 class ExpertCache:
     """LRU cache of expert weight trees (dicts of tensors) under a byte
-    budget, staged synchronously: every transfer blocks the caller."""
+    budget, staged synchronously: every transfer blocks the caller.
+
+    Used directly (one owner, ``fetch`` bound at construction) or as the
+    shared store behind :meth:`scoped` views (``fetch`` may then be None:
+    each view brings its own loader)."""
 
     #: staging discipline: False = every transfer blocks the caller (the
     #: paper's serial swap); AsyncExpertCache overrides (DESIGN.md §12).
     is_async = False
 
-    def __init__(self, fetch: Callable[[Hashable], object],
+    def __init__(self, fetch: Optional[Callable[[Hashable], object]] = None,
                  capacity_bytes: int = 0, device=None):
         if int(capacity_bytes) <= 0:
             raise ValueError("ExpertCache needs a positive capacity_bytes "
@@ -96,12 +107,19 @@ class ExpertCache:
             = collections.OrderedDict()
         self._used = 0
         self.stats = CacheStats()
+        #: owner -> view registry, so evictions of namespaced entries are
+        #: credited to the view that loses them (cross-tenant accounting)
+        self._views: Dict[str, "ScopedExpertCache"] = {}
 
     def get(self, key: Hashable):
         if key in self._cache:
             self._cache.move_to_end(key)
             self.stats.hits += 1
             return self._cache[key][0]
+        if self._fetch is None:
+            raise RuntimeError(
+                "shared ExpertCache has no fetch of its own — access it "
+                "through a scoped() view (DESIGN.md §10)")
         self.stats.misses += 1
         host = self._fetch(key)
         self._admit(key, host)
@@ -146,9 +164,11 @@ class ExpertCache:
         return dev, time.perf_counter() - t0
 
     def _credit_eviction(self, key: Hashable):
-        """Eviction accounting (the reference also credits the owner of a
-        namespaced key here; its multi-tenant views are a later slice)."""
+        """Per-owner eviction accounting for namespaced entries."""
         self.stats.evictions += 1
+        if isinstance(key, tuple) and len(key) == 2 \
+                and isinstance(key[0], str) and key[0] in self._views:
+            self._views[key[0]].stats.evictions += 1
 
     def _evict_until(self, need: int):
         while self._cache and self._used + need > self.capacity:
@@ -168,6 +188,19 @@ class ExpertCache:
             self._used -= old_nb
         nb, _ = self._admit(key, host)
         return nb - old_nb
+
+    # -- namespacing (multi-tenant shared swap, DESIGN.md §10) --------------
+    def scoped(self, owner: str,
+               fetch: Optional[Callable[[Hashable], object]] = None
+               ) -> "ScopedExpertCache":
+        """A namespaced view for ``owner``: same LRU, same byte budget,
+        keys prefixed with the owner so identical (layer, expert) ids of
+        different tenants never collide. One view per owner."""
+        if owner in self._views:
+            raise ValueError(f"owner {owner!r} already has a scoped view")
+        view = ScopedExpertCache(self, owner, fetch)
+        self._views[owner] = view
+        return view
 
     def pin(self, keys):
         """Pre-load keys (the planner's resident set), most-priority last."""
@@ -205,6 +238,183 @@ class ExpertCache:
     def resident_keys(self):
         return list(self._cache.keys())
 
+    def owner_used_bytes(self, owner: str) -> int:
+        return sum(nb for k, (_, nb) in self._cache.items()
+                   if isinstance(k, tuple) and len(k) == 2 and k[0] == owner)
+
+
+class ScopedExpertCache:
+    """One owner's view of a shared :class:`ExpertCache` (DESIGN.md §10).
+
+    Presents the single-owner cache interface (``get``/``invalidate``/
+    ``resident_keys``/``stats``) over namespaced keys ``(owner, key)``.
+    Capacity and LRU order are the PARENT's — the byte budget is jointly
+    shared, so this view's misses may evict another owner's entries (and
+    vice versa; each eviction is credited to the owner losing the
+    entry)."""
+
+    def __init__(self, parent: ExpertCache, owner: str,
+                 fetch: Optional[Callable[[Hashable], object]] = None):
+        self.parent = parent
+        self.owner = owner
+        self._fetch = fetch
+        self.stats = CacheStats()
+
+    def bind_fetch(self, fetch: Callable[[Hashable], object]):
+        """Late-bind the host loader (the serving engine constructs its
+        loader after the view exists)."""
+        self._fetch = fetch
+
+    def _full(self, key: Hashable) -> Tuple[str, Hashable]:
+        return (self.owner, key)
+
+    # -- single-owner cache interface ---------------------------------------
+    def get(self, key: Hashable):
+        if self.is_async:
+            return self._get_async(key)
+        full = self._full(key)
+        hit = self.parent._peek(full)
+        if hit is not None:
+            self.stats.hits += 1
+            self.parent.stats.hits += 1
+            return hit
+        if self._fetch is None:
+            raise RuntimeError(f"scoped cache {self.owner!r}: no fetch "
+                               "bound (bind_fetch first)")
+        self.stats.misses += 1
+        self.parent.stats.misses += 1
+        host = self._fetch(key)
+        nb, dt = self.parent._admit(full, host)
+        self.stats.bytes_in += nb
+        self.stats.transfer_s += dt
+        return self.parent._cache[full][0]
+
+    def pin(self, keys):
+        for k in keys:
+            self.get(k)
+
+    # -- async transfer-engine delegation (DESIGN.md §12) -------------------
+    # Per-owner DEMAND accounting is delta-based over the parent's stats:
+    # safe because each tenant engine drives its cache view from the one
+    # serving thread (workers only touch the speculative counters, which
+    # stay parent-global).
+    @property
+    def is_async(self) -> bool:
+        return bool(getattr(self.parent, "is_async", False))
+
+    def _async_parent(self) -> "AsyncExpertCache":
+        if not self.is_async:
+            raise RuntimeError(
+                f"scoped cache {self.owner!r}: the shared swap space is "
+                "synchronous — build it as AsyncExpertCache for overlap "
+                "serving (DESIGN.md §12)")
+        return self.parent
+
+    def _scoped_fetch(self, full_key):
+        if self._fetch is None:
+            raise RuntimeError(f"scoped cache {self.owner!r}: no fetch "
+                               "bound (bind_fetch first)")
+        return self._fetch(full_key[1])
+
+    def _get_async(self, key: Hashable):
+        p = self._async_parent()
+        with p._lock:
+            h0, m0 = p.stats.hits, p.stats.misses
+            b0, t0 = p.stats.bytes_in, p.stats.transfer_s
+        val = p.get(self._full(key), fetch=self._scoped_fetch)
+        with p._lock:
+            self.stats.hits += p.stats.hits - h0
+            self.stats.misses += p.stats.misses - m0
+            self.stats.bytes_in += p.stats.bytes_in - b0
+            self.stats.transfer_s += p.stats.transfer_s - t0
+        return val
+
+    def prefetch(self, keys) -> int:
+        """Non-blocking speculative enqueue through the async parent
+        (speculative traffic is accounted parent-globally)."""
+        return self._async_parent().prefetch(
+            [self._full(k) for k in keys], fetch=self._scoped_fetch)
+
+    def hint(self, keys):
+        """Speculative staging for this namespace: non-blocking enqueue
+        on an async parent, inline speculative admit on a sync one (the
+        blocking staging time is mirrored into THIS view's stats so the
+        engine's exposed-time accounting sees it)."""
+        if self.is_async:
+            self.prefetch(keys)
+            return
+        for k in keys:
+            full = self._full(k)
+            if self.parent._peek(full) is None:
+                nb, dt = self.parent._admit(full, self._scoped_fetch(full),
+                                            speculative=True)
+                self.stats.prefetch_bytes += nb
+                self.stats.prefetch_s += dt
+
+    def wait(self, keys) -> int:
+        """Demand-wait through the async parent; per-owner demand stats
+        mirror the parent's deltas. Returns the demand-fetch count."""
+        p = self._async_parent()
+        keys = list(keys)
+        with p._lock:
+            b0, t0 = p.stats.bytes_in, p.stats.transfer_s
+        n = p.wait([self._full(k) for k in keys],
+                   fetch=self._scoped_fetch)
+        with p._lock:
+            self.stats.bytes_in += p.stats.bytes_in - b0
+            self.stats.transfer_s += p.stats.transfer_s - t0
+        self.stats.misses += n
+        self.stats.hits += len(keys) - n
+        return n
+
+    def drain(self):
+        self.parent.drain()
+
+    def close(self):
+        """Drain this view's traffic but leave the SHARED space open — it
+        is closed by whoever owns it (e.g. MultiTenantEngine)."""
+        self.parent.drain()
+
+    def update(self, key: Hashable, host) -> int:
+        """In-place rung promote/demote of this owner's entry (see
+        :meth:`ExpertCache.update`); returns the byte delta. On an async
+        parent the whole read-update-read runs under its (re-entrant)
+        lock so concurrent workers can't skew the deltas."""
+        lock = getattr(self.parent, "_lock", None)
+        with lock if lock is not None else contextlib.nullcontext():
+            bytes_before = self.parent.stats.bytes_in
+            time_before = self.parent.stats.transfer_s
+            delta = self.parent.update(self._full(key), host)
+            self.stats.bytes_in += \
+                self.parent.stats.bytes_in - bytes_before
+            self.stats.transfer_s += \
+                self.parent.stats.transfer_s - time_before
+        return delta
+
+    def invalidate(self, keys=None):
+        """Drop this owner's entries only — other namespaces are
+        untouched."""
+        if keys is None:
+            full = [k for k in self.parent.resident_keys()
+                    if isinstance(k, tuple) and len(k) == 2
+                    and k[0] == self.owner]
+        else:
+            full = [self._full(k) for k in keys]
+        self.parent.invalidate(full)
+
+    def resident_keys(self) -> List[Hashable]:
+        return [k[1] for k in self.parent.resident_keys()
+                if isinstance(k, tuple) and len(k) == 2
+                and k[0] == self.owner]
+
+    @property
+    def used_bytes(self) -> int:
+        return self.parent.owner_used_bytes(self.owner)
+
+    @property
+    def capacity(self) -> int:
+        return self.parent.capacity
+
 
 class PrefetchingExpertCache(ExpertCache):
     """Gate-ahead speculative prefetch: the engine calls ``hint(keys)``
@@ -235,7 +445,10 @@ class AsyncExpertCache(ExpertCache):
       resident nor in flight are fetched as DEMAND (``misses``/
       ``bytes_in``/``transfer_s``); a key whose speculative fetch is in
       flight blocks only for the remainder of it.
-    * ``drain()`` — barrier: every enqueued transfer lands.
+    * ``drain()`` — barrier: every enqueued transfer lands. A worker's
+      future resolves only after the event recorded behind its copy has
+      completed, so waiting on the futures waits on the side-stream
+      copies too.
     * ``close()`` — drain, then join the ``expert-xfer`` workers;
       idempotent.
 
@@ -405,6 +618,11 @@ class AsyncExpertCache(ExpertCache):
                 return self._cache[key][0]
             fut = self._inflight.get(key)
             if fut is None:
+                if fetch is None and self._fetch is None:
+                    raise RuntimeError(
+                        "shared AsyncExpertCache has no fetch of its own "
+                        "— access it through a scoped() view "
+                        "(DESIGN.md §10)")
                 self.stats.misses += 1
                 fut = self._submit(key, False, fetch)
             else:
@@ -439,6 +657,10 @@ class AsyncExpertCache(ExpertCache):
     def resident_keys(self):
         with self._lock:
             return super().resident_keys()
+
+    def owner_used_bytes(self, owner: str) -> int:
+        with self._lock:
+            return super().owner_used_bytes(owner)
 
     @property
     def used_bytes(self) -> int:

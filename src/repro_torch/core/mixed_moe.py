@@ -42,16 +42,46 @@ class capture_routing:
         _TRACE.ids = None
 
 
-def route(router_w: torch.Tensor, x: torch.Tensor, moe: MoEConfig
+class capture_moe_inputs:
+    """Collect each MoE layer's router inputs from the forwards run inside
+    the ``with`` block: one ``(x (T,d) f32, probs (T,E) f32)`` pair of
+    host numpy arrays per layer, in layer order. The sensitivity
+    calibration (core/sensitivity.py, DESIGN.md §15) replays the captured
+    tokens through each expert's FFN at every ladder rung."""
+
+    def __enter__(self):
+        _TRACE.moe = []
+        return _TRACE.moe
+
+    def __exit__(self, *exc):
+        _TRACE.moe = None
+
+
+def route(router_w: torch.Tensor, x: torch.Tensor, moe: MoEConfig, *,
+          aux: Optional[Dict[str, torch.Tensor]] = None
           ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: (T, d) -> (weights (T,k) f32, ids (T,k) int64). Serving only
-    (no auxiliary losses)."""
+    """x: (T, d) -> (weights (T,k) f32, ids (T,k) int64). ``aux`` (the
+    training forward) accumulates the Switch-style load-balance and
+    router-z losses into the given dict."""
     logits = x.to(torch.float32) @ router_w.to(torch.float32)
     probs = torch.softmax(logits, dim=-1)
     top_p, ids = torch.topk(probs, moe.top_k, dim=-1)
     trace = getattr(_TRACE, "ids", None)
     if trace is not None:
         trace.append(ids.cpu().numpy().astype(np.int32))
+    moe_trace = getattr(_TRACE, "moe", None)
+    if moe_trace is not None:
+        moe_trace.append((x.to(torch.float32).cpu().numpy(),
+                          probs.cpu().numpy()))
+    if aux is not None:
+        e = moe.num_experts
+        dispatch = F.one_hot(ids, e).to(torch.float32).sum(1)     # (T,E)
+        lb = moe.load_balance_loss * e * torch.sum(
+            dispatch.mean(0) * probs.mean(0))
+        lse = torch.logsumexp(logits, dim=-1)
+        z = moe.router_z_loss * torch.mean(lse ** 2)
+        aux["load_balance"] = aux.get("load_balance", 0.0) + lb
+        aux["router_z"] = aux.get("router_z", 0.0) + z
     weights = top_p / torch.clamp(top_p.sum(-1, keepdim=True), min=1e-9)
     return weights, ids
 
@@ -158,12 +188,21 @@ def _act(act: str, up: torch.Tensor, gate_fn) -> torch.Tensor:
     return torch.square(F.relu(up))
 
 
+def _matmul_promoted(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``torch.matmul`` with the reference einsum's dtype promotion: f32
+    activations times bf16 weights run in f32 (bf16 x bf16 is unchanged,
+    no copies)."""
+    t = torch.promote_types(a.dtype, b.dtype)
+    return torch.matmul(a.to(t), b.to(t))
+
+
 def _ffn_bf16(bank, xb, act, use_kernel: bool = False):
     """(E, C, d) x (E, d, f) -> (E, C, d).
 
     ``use_kernel=True`` runs the grouped bf16 CUDA kernel (B4, one launch
-    for the whole f16 bank); otherwise a bf16 batched matmul."""
-    mm = ops.grouped_bf16_matmul if use_kernel else torch.matmul
+    for the whole f16 bank); otherwise a batched matmul in the promoted
+    dtype of activations and weights (bf16 on the serving path)."""
+    mm = ops.grouped_bf16_matmul if use_kernel else _matmul_promoted
     up = mm(xb, bank["w_up"])
     h = _act(act, up, lambda: mm(xb, bank["w_gate"]))
     return mm(h, bank["w_down"])
@@ -262,9 +301,6 @@ def build_ladder_banks(moe_params: Dict[str, torch.Tensor], bits_row,
     order = np.concatenate(
         [np.where(bits_row == b)[0] for b in rungs]).astype(np.int32)
     dev = moe_params["w_up"].device
-    idx = torch.as_tensor(order, dtype=torch.long, device=dev)
-    perm = {k: moe_params[k].index_select(0, idx)
-            for k in ("w_gate", "w_up", "w_down")}
     banks: Dict[str, Any] = {}
     off = 0
     for b in rungs:
@@ -273,11 +309,26 @@ def build_ladder_banks(moe_params: Dict[str, torch.Tensor], bits_row,
         if cnt == 0:
             banks[name] = None
             continue
-        sl = {k: v[off:off + cnt] for k, v in perm.items()}
-        banks[name] = sl if b >= 16 else \
-            {k: quantize(v, b, group_size) for k, v in sl.items()}
+        experts = order[off:off + cnt]
+        if b >= 16:
+            idx = torch.as_tensor(experts, dtype=torch.long, device=dev)
+            banks[name] = {k: moe_params[k].index_select(0, idx)
+                           for k in ("w_gate", "w_up", "w_down")}
+        else:
+            # one expert at a time: the f32 temporaries of quantize stay
+            # one expert's size, and no permuted bf16 copy is made
+            banks[name] = {k: _stack_q([quantize(moe_params[k][int(e)], b,
+                                                 group_size)
+                                        for e in experts])
+                           for k in ("w_gate", "w_up", "w_down")}
         off += cnt
     return banks, order
+
+
+def _stack_q(qts) -> QTensor:
+    return QTensor(q=torch.stack([t.q for t in qts]),
+                   scales=torch.stack([t.scales for t in qts]),
+                   bits=qts[0].bits, group_size=qts[0].group_size)
 
 
 def moe_dense_ref(moe_params, x, moe: MoEConfig, act: str = "swiglu"):

@@ -73,7 +73,11 @@ def quantize(w: torch.Tensor, bits: int = 4, group_size: int = 64) -> QTensor:
     wf = w.to(torch.float32).reshape(*b, k // group_size, group_size, n)
     qmax = 7.0 if bits == 4 else 127.0
     absmax = wf.abs().amax(dim=-2)                              # (..., K/G, N)
-    scales = absmax / qmax
+    # divide by a device tensor: PyTorch's CUDA division by a Python
+    # scalar multiplies by its reciprocal, which can move a scale by one
+    # ulp off the CPU's (and the reference's) true quotient
+    scales = absmax / torch.tensor(qmax, dtype=torch.float32,
+                                   device=absmax.device)
     inv = torch.where(scales > 0, 1.0 / scales, torch.zeros_like(scales))
     q = torch.clamp(torch.round(wf * inv[..., None, :]), -qmax - 1, qmax)
     q = q.to(torch.int8).reshape(*b, k, n)

@@ -14,7 +14,7 @@ spelling on meshes is the same computation).
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -152,12 +152,15 @@ def _sdpa(q, k, v, mask) -> torch.Tensor:
 
 
 def attention(p: Dict[str, Any], x: torch.Tensor, acfg: AttentionConfig, *,
-              positions: torch.Tensor, cache: Dict[str, torch.Tensor],
+              positions: torch.Tensor,
+              cache: Optional[Dict[str, torch.Tensor]],
               spec: bool = False,
-              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+              ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
     """Causal self-attention through a ring-buffer KV cache.
 
     x: (B, S, d); positions: (B, S) absolute positions of x (-1 = pad).
+    cache=None -> full causal attention over x, no cache (the no-cache
+    forward of ``Model.loss_fn``); returns ``None`` as the new cache.
     S > 1 -> prefill-from-empty: attend over the in-context k/v and return
     the freshly written ring buffer.
     S == 1 -> decode: the new k/v go into the ring buffer (in place) and
@@ -176,7 +179,17 @@ def attention(p: Dict[str, Any], x: torch.Tensor, acfg: AttentionConfig, *,
     q = rope(q, positions, acfg.rope_theta)
     k = rope(k, positions, acfg.rope_theta)
 
-    if s > 1 and not spec:
+    if cache is None:
+        new_cache = None
+        qpos = positions
+        mask = qpos[:, None, :, None] >= qpos[:, None, None, :] \
+            if acfg.causal else torch.ones((b, 1, s, s), dtype=torch.bool,
+                                           device=x.device)
+        if acfg.causal and acfg.sliding_window:
+            mask &= (qpos[:, None, :, None] - qpos[:, None, None, :]
+                     < acfg.sliding_window)
+        out = _sdpa(q, k, v, mask)
+    elif s > 1 and not spec:
         new_cache = _prefill_cache(cache, k, v, positions)
         qpos = positions
         # right-padded slot prefills tag pads with pos=-1; never attended
@@ -223,3 +236,19 @@ def unembed(table: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     like the reference's ``preferred_element_type=f32``)."""
     return torch.einsum("bsd,vd->bsv", x.to(torch.float32),
                         table.to(torch.float32))
+
+
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
+                 vocab_size: int) -> torch.Tensor:
+    """Mean NLL with padded-vocab masking (positions with label < 0 are
+    ignored), in f32."""
+    v_pad = logits.shape[-1]
+    logits = logits.to(torch.float32)
+    if v_pad > vocab_size:
+        pad = torch.arange(v_pad, device=logits.device) >= vocab_size
+        logits = torch.where(pad, torch.full_like(logits, -1e30), logits)
+    logp = torch.log_softmax(logits, dim=-1)
+    valid = labels >= 0
+    safe = torch.clamp(labels, min=0).to(torch.long)
+    nll = -torch.gather(logp, -1, safe[..., None])[..., 0]
+    return (nll * valid).sum() / torch.clamp(valid.sum(), min=1)

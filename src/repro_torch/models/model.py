@@ -331,6 +331,10 @@ class Model:
     # (cache, keep (B,)) -> cache with tags > keep[b] invalidated per slot
     paged_rollback: Callable
     # (pool, page_table, keep (B,)) -> pool, same contract
+    loss_fn: Callable
+    # (params, {"tokens": (B,S), "labels": (B,S)}) -> (loss, metrics):
+    # the no-cache full-sequence forward over the train banks, forward
+    # only (the gradient comes with the training slice)
 
 
 def _embed_scaled(params, cfg: ModelConfig, tokens: torch.Tensor):
@@ -505,6 +509,28 @@ def build_model(cfg: ModelConfig, *, use_kernel: bool = False) -> Model:
             1, pt.page, pos.reshape(l, b * nc, ps).index_select(1, pt.chunk))
         return pool
 
+    @torch.no_grad()
+    def loss_fn(params, batch):
+        """The reference's ``loss_fn`` forward: embed, the whole sequence
+        through every layer with no cache (MoE on the train-layout
+        experts, router losses on), final norm, unembed, mean NLL plus
+        the router losses. Returns (loss, metrics)."""
+        tok = batch["tokens"]
+        x = _embed_scaled(params, cfg, tok)
+        positions = torch.arange(tok.shape[1], device=tok.device)[
+            None].expand(tok.shape)
+        y, _, aux = decoder_forward(params, cfg, x, positions, caches=None,
+                                    train=True)
+        y = L.rms_norm(y, params["final_norm"]["scale"])
+        logits = L.unembed(params["lm_head"]["table"], y)
+        loss = L.softmax_xent(logits, batch["labels"], cfg.vocab_size)
+        metrics = {"nll": loss}
+        for k, v in aux.items():
+            loss = loss + v
+            metrics[k] = v
+        metrics["loss"] = loss
+        return loss, metrics
+
     def _init_cache(batch, max_len, *, device=None):
         return init_cache(cfg, batch, max_len, device=device)
 
@@ -526,21 +552,34 @@ def build_model(cfg: ModelConfig, *, use_kernel: bool = False) -> Model:
                  spec_step_routed=spec_step_routed,
                  paged_spec_step_routed=paged_spec_step_routed,
                  rollback_slots=rollback_slots,
-                 paged_rollback=paged_rollback)
+                 paged_rollback=paged_rollback,
+                 loss_fn=loss_fn)
 
 
 # ---------------------------------------------------------------------------
 # Applying a MoP PrecisionPlan to trained params (serve layout)
 # ---------------------------------------------------------------------------
 
-def _stack(items):
-    if isinstance(items[0], QTensor):
-        return QTensor(q=torch.stack([i.q for i in items]),
-                       scales=torch.stack([i.scales for i in items]),
-                       bits=items[0].bits, group_size=items[0].group_size)
-    if isinstance(items[0], dict):
-        return {k: _stack([i[k] for i in items]) for k in items[0]}
-    return torch.stack(items)
+def _stack_like(tree, n: int):
+    """Uninitialized storage for ``n`` stacked copies of ``tree`` (dicts of
+    tensors and QTensors)."""
+    if isinstance(tree, QTensor):
+        return tree.map(lambda t: t.new_empty((n,) + tuple(t.shape)))
+    if isinstance(tree, dict):
+        return {k: _stack_like(v, n) for k, v in tree.items()}
+    return tree.new_empty((n,) + tuple(tree.shape))
+
+
+def _put(dst, src, i: int) -> None:
+    """Copy ``src`` into slot ``i`` of the stacked ``dst``."""
+    if isinstance(dst, QTensor):
+        dst.q[i].copy_(src.q)
+        dst.scales[i].copy_(src.scales)
+    elif isinstance(dst, dict):
+        for k in dst:
+            _put(dst[k], src[k], i)
+    else:
+        dst[i].copy_(src)
 
 
 @torch.no_grad()
@@ -548,27 +587,30 @@ def apply_precision_plan(params, cfg: ModelConfig, plan: PrecisionPlan):
     """Convert train-layout MoE params into N-bank serve layout: one bank
     per ladder rung (ascending-bits order, e.g. [q4 | q8 | f16]) + router
     column permutation. Per-layer rung counts are equal by construction
-    (balanced plan), so the banks stack over layers. Quantization runs on
-    the params' device."""
+    (balanced plan), so the banks stack over layers: each layer's banks
+    are built and copied into preallocated stacked storage before the
+    next layer's, so the build holds one layer's banks beside the result.
+    Quantization runs on the params' device."""
     assert cfg.moe is not None
     moe_p = params["layers"]["moe"]
-    banks_per_layer = []
+    stacked = None
     routers = []
     for li in range(cfg.num_layers):
         layer_p = {k: moe_p[k][li] for k in ("w_gate", "w_up", "w_down")}
         banks, order = mixed_moe.build_ladder_banks(
             layer_p, plan.bits[li], ladder=plan.ladder,
             group_size=plan.group_size)
-        banks_per_layer.append(banks)
+        if stacked is None:
+            stacked = {k: None if v is None else
+                       _stack_like(v, cfg.num_layers)
+                       for k, v in banks.items()}
+        for k, v in banks.items():
+            if v is not None:
+                _put(stacked[k], v, li)
+        del banks
         idx = torch.as_tensor(order, dtype=torch.long,
                               device=moe_p["router"].device)
         routers.append(moe_p["router"][li].index_select(1, idx))
-    stacked = {}
-    for bank in banks_per_layer[0]:
-        if banks_per_layer[0][bank] is None:
-            stacked[bank] = None
-        else:
-            stacked[bank] = _stack([b[bank] for b in banks_per_layer])
     new_params = dict(params)
     new_params["layers"] = dict(params["layers"])
     new_params["layers"]["moe"] = {

@@ -45,7 +45,7 @@ def by_column(fn, x: torch.Tensor, *rest: torch.Tensor) -> torch.Tensor:
 
 
 def _ffn_or_moe(p, xn, cfg: ModelConfig, use_kernel, token_valid=None,
-                moe_capacity=None, spec=False):
+                moe_capacity=None, spec=False, aux=None):
     """Returns (y, route_ids|None) — ids are the (T, k) routed expert slots
     in BANK order (the serve layout permutes experts q4-first).
 
@@ -65,7 +65,8 @@ def _ffn_or_moe(p, xn, cfg: ModelConfig, use_kernel, token_valid=None,
         weights = torch.stack([w for w, _ in routed], 1).reshape(b * s, -1)
         ids = torch.stack([i for _, i in routed], 1).reshape(b * s, -1)
     else:
-        weights, ids = mixed_moe.route(p["moe"]["router"], x2, cfg.moe)
+        weights, ids = mixed_moe.route(p["moe"]["router"], x2, cfg.moe,
+                                       aux=aux)
     if token_valid is not None:
         v = token_valid.reshape(b * s)[:, None]
         ids = torch.where(v, ids, torch.full_like(ids, cfg.moe.num_experts))
@@ -79,10 +80,12 @@ def _ffn_or_moe(p, xn, cfg: ModelConfig, use_kernel, token_valid=None,
 
 
 def decoder_block(p, cfg: ModelConfig, x, positions, cache, *,
-                  use_kernel=False, spec=False, moe_capacity=None):
+                  use_kernel=False, spec=False, moe_capacity=None,
+                  aux=None):
     """One decoder block on layer params ``p`` and that layer's ring
-    ``cache`` {k, v, pos}. Returns (x', the layer's new ring, route ids
-    (B*S, top_k) or None).
+    ``cache`` {k, v, pos} (``None``: the no-cache training forward, whose
+    router losses accumulate into ``aux``). Returns (x', the layer's new
+    ring, route ids (B*S, top_k) or None).
 
     ``spec`` with S > 1 (the speculative verify) runs the ops whose bits
     can depend on the row count — the norms, the projections, attention
@@ -93,7 +96,8 @@ def decoder_block(p, cfg: ModelConfig, x, positions, cache, *,
     columns 0..j are written, as decode at that position would, so a
     verify row gets plain decode's bits and greedy speculation stays
     token-identical to plain decode (DESIGN.md §17.1)."""
-    token_valid = (positions >= 0) if cfg.moe is not None else None
+    token_valid = (positions >= 0) \
+        if cfg.moe is not None and cache is not None else None
     new_kv = cache           # the spec and decode writes go in place
 
     def attend(xc, pc):
@@ -113,14 +117,18 @@ def decoder_block(p, cfg: ModelConfig, x, positions, cache, *,
         x = attend(x, positions)
         xn = norm(x)
     h, ids = _ffn_or_moe(p, xn, cfg, use_kernel, token_valid=token_valid,
-                         moe_capacity=moe_capacity, spec=spec)
+                         moe_capacity=moe_capacity, spec=spec, aux=aux)
     return x + h, new_kv, ids
 
 
 def decoder_forward(params, cfg: ModelConfig, x, positions, *,
                     caches, use_kernel=False, collect_routes=False,
-                    spec=False):
+                    spec=False, train=False):
     """x: (B,S,d) embedded input. Returns (y, new_caches, aux).
+
+    ``caches=None`` is the no-cache full-sequence forward (``Model.
+    loss_fn``); ``train=True`` adds the router's load-balance and router-z
+    losses to ``aux``.
 
     ``collect_routes=True`` stacks the per-layer routed expert ids into
     ``aux["route_ids"]`` (L, T, k) so the engine can drive the runtime
@@ -134,20 +142,27 @@ def decoder_forward(params, cfg: ModelConfig, x, positions, *,
     if collect_routes and cfg.moe is None:
         raise ValueError("collect_routes needs routed experts")
     moe_capacity = x.shape[0] * x.shape[1] if spec else None
+    aux: Dict[str, Any] = {}
+    if train and cfg.moe is not None:
+        zero = torch.zeros((), dtype=torch.float32, device=x.device)
+        aux.update(load_balance=zero, router_z=zero)
     new_kvs, route_ids = [], []
     for li in range(cfg.num_layers):
-        cache = {k: caches[k][li] for k in ("k", "v", "pos")}
+        cache = None if caches is None else \
+            {k: caches[k][li] for k in ("k", "v", "pos")}
         x, new_kv, ids = decoder_block(
             layer_slice(params["layers"], li), cfg, x, positions, cache,
-            use_kernel=use_kernel, spec=spec, moe_capacity=moe_capacity)
+            use_kernel=use_kernel, spec=spec, moe_capacity=moe_capacity,
+            aux=aux if train else None)
         new_kvs.append(new_kv)
         route_ids.append(ids)
-    if x.shape[1] == 1 or spec:
+    if caches is None:
+        new_caches = None
+    elif x.shape[1] == 1 or spec:
         new_caches = caches              # written in place layer by layer
     else:
         new_caches = {k: torch.stack([kv[k] for kv in new_kvs])
                       for k in ("k", "v", "pos")}
-    aux: Dict[str, Any] = {}
     if collect_routes:
         aux["route_ids"] = torch.stack(route_ids)
     return x, new_caches, aux

@@ -23,6 +23,9 @@ from repro_torch.core.cost_model import HardwareModel
 from repro_torch.core.pareto import (  # noqa: F401  (public re-exports)
     FrontierPoint, InfeasibleTarget, ParetoFrontier, QoSTarget,
 )
+from repro_torch.serving.multi import (  # noqa: F401  (public re-exports)
+    MultiTenantEngine, ReplanReport, ResourceArbiter, TenantSpec,
+)
 from repro_torch.serving.scheduler import (  # noqa: F401  (public re-exports)
     Request, RequestSLO, SamplingParams,
 )
@@ -31,6 +34,7 @@ __all__ = [
     "EngineConfig", "SamplingParams", "RequestSLO", "ServeRequest",
     "ServeResult", "QoSTarget", "FrontierPoint", "ParetoFrontier",
     "InfeasibleTarget", "build_engine",
+    "MultiTenantEngine", "TenantSpec", "ResourceArbiter", "ReplanReport",
 ]
 
 
@@ -124,11 +128,13 @@ class ServeResult:
 
 
 def build_engine(cfg, params, config: Optional[EngineConfig] = None, *,
-                 device=None):
+                 device=None, expert_cache=None):
     """Construct an :class:`~repro_torch.serving.engine.
     AdaptiveServingEngine` from an :class:`EngineConfig` on ``device``
     (default: the card; raises on a host without one unless
-    ``device="cpu"``)."""
+    ``device="cpu"``). ``expert_cache`` attaches a tenant-scoped view of
+    a shared swap space (:meth:`~repro_torch.core.expert_cache.
+    ExpertCache.scoped`) for multi-tenant deployments (DESIGN.md §10)."""
     from repro_torch.serving.engine import AdaptiveServingEngine
     return AdaptiveServingEngine(cfg, params, config=config or EngineConfig(),
-                                 device=device)
+                                 device=device, expert_cache=expert_cache)

@@ -38,7 +38,13 @@ transfers are measured but not consumed by the matmuls.
 
 Reconfiguration is safe mid-flight: placement-only replans apply between
 decode iterations; a bank-split change first DRAINS the active slots, then
-rebuilds the serve-layout banks (``metrics["reconfig_s"]``).
+rebuilds the serve-layout banks (``metrics["reconfig_s"]``). The old banks
+are released before the new ones are built, so a replan's peak holds one
+set of banks. ``apply_bits_update`` is the dynamic-precision path
+(DESIGN.md §15): in-place rung swaps at fixed bank shapes, with flipped
+swap-cache entries re-staged at their new rung. A multi-tenant deployment
+passes ``expert_cache=`` (a scoped view of one shared swap space,
+``serving/multi.py``).
 
 Expert parallelism (``ep > 1``) is a later slice and raises
 ``NotImplementedError`` at construction.
@@ -57,7 +63,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.cost_model import (RUNG_QUALITY_COST, HardwareModel,
-                                         expert_access_stats,
+                                         estimate_qos, expert_access_stats,
                                          kv_bytes_bucketed, kv_token_bytes)
 from repro_torch.core.expert_cache import (AsyncExpertCache, ExpertCache,
                                            PrefetchingExpertCache)
@@ -81,6 +87,11 @@ __all__ = ["AdaptiveServingEngine", "Request", "RequestSLO",
            "SamplingParams", "measure_host_link_bw"]
 
 _HOST_LINK_BW_CACHE: Dict[Tuple[str, int], float] = {}
+
+#: what serving over more than one device raises (engine and CLI)
+EP_NOT_IMPLEMENTED = ("EngineConfig(ep>1) (expert parallelism) is a later "
+                      "slice of the PyTorch port; this engine serves on one "
+                      "device")
 
 
 def _sync(device: torch.device) -> None:
@@ -129,18 +140,19 @@ class AdaptiveServingEngine:
 
     Construct through :func:`repro_torch.serving.api.build_engine` or
     ``AdaptiveServingEngine(cfg, params, config=EngineConfig(...))``;
-    ``device=None`` means the card."""
+    ``device=None`` means the card. ``expert_cache`` attaches a
+    tenant-scoped view of a shared swap space instead of the engine's own
+    cache (DESIGN.md §10)."""
 
     def __init__(self, cfg: ModelConfig, params, *,
-                 config: Optional[EngineConfig] = None, device=None):
+                 config: Optional[EngineConfig] = None, device=None,
+                 expert_cache=None):
         if cfg.moe is None:
             raise ValueError("the adaptive engine serves MoE models")
         self.device = resolve_device(device)
         config = config or EngineConfig()
         if config.ep > 1:
-            raise NotImplementedError(
-                "EngineConfig(ep>1) (expert parallelism) is a later slice "
-                "of the PyTorch port; this engine serves on one device")
+            raise NotImplementedError(EP_NOT_IMPLEMENTED)
         if config.ladder is not None:
             cfg = cfg.replace(mop=dataclasses.replace(
                 cfg.mop, ladder=tuple(config.ladder)))
@@ -200,13 +212,35 @@ class AdaptiveServingEngine:
             max_prompt_len=self.window,
             max_active_tokens=max_active,
             max_queue=config.max_queue))
-        cache_cls = AsyncExpertCache if config.overlap \
-            else (PrefetchingExpertCache if config.prefetch else ExpertCache)
-        self.expert_cache = cache_cls(
-            self._fetch_expert,
-            capacity_bytes=config.swap_bytes
-            or 4 * max(cfg.expert_param_bytes(16), 1),
-            device=self.device)
+        # runtime expert streaming: the engine's own swap cache, or a
+        # tenant-scoped VIEW of a shared swap space (same interface,
+        # namespaced keys, jointly shared byte budget)
+        self._owns_cache = expert_cache is None
+        if expert_cache is not None:
+            if config.prefetch and not hasattr(expert_cache, "hint"):
+                raise ValueError(
+                    "EngineConfig(prefetch=True) needs an expert cache "
+                    "with hint() support; the provided shared view has "
+                    "none")
+            if config.overlap and not getattr(expert_cache, "is_async",
+                                              False):
+                raise ValueError(
+                    "EngineConfig(overlap=True) needs an async expert "
+                    "cache (AsyncExpertCache, or a scoped view of one — "
+                    "DESIGN.md §12); the provided cache stages "
+                    "synchronously")
+            self.expert_cache = expert_cache
+            if hasattr(expert_cache, "bind_fetch"):
+                expert_cache.bind_fetch(self._fetch_expert)
+        else:
+            cache_cls = AsyncExpertCache if config.overlap \
+                else (PrefetchingExpertCache if config.prefetch
+                      else ExpertCache)
+            self.expert_cache = cache_cls(
+                self._fetch_expert,
+                capacity_bytes=config.swap_bytes
+                or 4 * max(cfg.expert_param_bytes(16), 1),
+                device=self.device)
         self._prev_demanded: List[Tuple[int, int]] = []
         #: the pipeline's per-layer prediction: the previous iteration's
         #: demanded (non-resident) keys, layer-indexed
@@ -243,6 +277,14 @@ class AdaptiveServingEngine:
     def queue(self):
         """The scheduler's admission queue."""
         return self.scheduler.queue
+
+    @property
+    def done(self) -> Dict[int, Request]:
+        """Completed requests by rid."""
+        return self.scheduler.done
+
+    def has_work(self) -> bool:
+        return self.scheduler.has_work()
 
     # ------------------------------------------------------------------
     # Planner integration / mid-flight reconfiguration
@@ -338,7 +380,7 @@ class AdaptiveServingEngine:
         # plan changes, so no stale-plan blob is admitted after the
         # invalidate below (no-op for the sync caches)
         self.expert_cache.drain()
-        result, _ = self.planner.replan(
+        result, delta = self.planner.replan(
             mem_budget_bytes, preference, num_q_experts,
             batch_size=self.max_slots, counts=counts)
         plan = result.plan
@@ -372,6 +414,10 @@ class AdaptiveServingEngine:
             # same bank shapes can still assign different rungs to experts
             rung_changed = set()
             if (prev_plan.bits != plan.bits).any():
+                # an earlier apply_bits_update may have swapped rungs
+                # between experts; the fresh plan carries the canonical
+                # assignment, so the banks follow it
+                self._serve_params = None   # free the old banks first
                 self._serve_params = apply_precision_plan(
                     self.params_train, self.cfg, plan)
                 rung_changed = {
@@ -388,9 +434,102 @@ class AdaptiveServingEngine:
         self._prev_layer_keys = None
         hit, self._miss_bytes_per_tok = expert_access_stats(self.cfg, plan)
         self.metrics["miss_rate"] = 1.0 - hit
-        self.metrics["reconfig_s"] += time.perf_counter() - t0 - drain_s
+        downtime = time.perf_counter() - t0 - drain_s
+        self.metrics["reconfig_s"] += downtime
         self.metrics["reconfigs"] += 1
+        if delta is not None:
+            # partial-reconfiguration report (DESIGN.md §10.3): only the
+            # diffed experts migrate
+            self.metrics["last_delta_traffic_gib"] = \
+                delta["traffic_bytes"] / 2**30
+            self.metrics["last_migrated_experts"] = len(delta["migrated"])
+            self.metrics["last_migrated_bytes"] = delta["traffic_bytes"]
+            self.metrics["last_reconfig_downtime_s"] = downtime
+            self.metrics["migrated_bytes_total"] = \
+                self.metrics.get("migrated_bytes_total", 0) \
+                + delta["traffic_bytes"]
         return result
+
+    # ------------------------------------------------------------------
+    # Dynamic precision (DESIGN.md §15)
+    # ------------------------------------------------------------------
+    def reset_route_counts(self) -> None:
+        """Zero the accumulated routing histogram (callers that window
+        it, like the dynamic controller, snapshot instead)."""
+        self.route_counts[...] = 0
+
+    def apply_bits_update(self, new_bits: np.ndarray) -> Dict[str, Any]:
+        """In-place rung flips (DESIGN.md §15): same expert locations,
+        same per-layer rung counts, only the bits[L, E] ASSIGNMENT
+        changes — the :class:`DynamicPrecisionController`'s apply path.
+        Diff-only: no planner replan, no drain; the bank shapes are
+        unchanged, only the serve-layout banks and the router permutation
+        rebuild (the old banks are released first), and flipped experts
+        resident in the swap cache are re-staged at their new rung
+        through ``ExpertCache.update()``, which charges exactly the byte
+        delta. In-flight async copies land before anything changes.
+
+        Returns a report dict: flipped/promotions/demotions counts, the
+        summed cache byte delta, and the number of re-staged entries."""
+        assert self._plan_result is not None, "no active plan"
+        old_plan = self._plan_result.plan
+        new_bits = np.asarray(new_bits, old_plan.bits.dtype)
+        if new_bits.shape != old_plan.bits.shape:
+            raise ValueError(f"bits shape {new_bits.shape} != "
+                             f"{old_plan.bits.shape}")
+        for b in np.unique(new_bits).tolist():
+            if int(b) not in old_plan.ladder:
+                raise ValueError(f"rung {b} not on ladder "
+                                 f"{old_plan.ladder}")
+        for li in range(new_bits.shape[0]):
+            for b in old_plan.ladder:
+                if int((new_bits[li] == b).sum()) \
+                        != int((old_plan.bits[li] == b).sum()):
+                    raise ValueError(
+                        "apply_bits_update must preserve per-layer rung "
+                        f"counts (layer {li}, rung {b}): a count change "
+                        "is a bank split — use apply_frontier_point")
+        flipped = new_bits != old_plan.bits
+        report: Dict[str, Any] = {
+            "flipped": int(flipped.sum()),
+            "promotions": int((new_bits > old_plan.bits).sum()),
+            "demotions": int((new_bits < old_plan.bits).sum()),
+            "cache_bytes_delta": 0, "restaged": 0,
+        }
+        if not report["flipped"]:
+            return report
+        t0 = time.perf_counter()
+        # async staging barrier: in-flight transfers carry OLD-rung blobs
+        self.expert_cache.drain()
+        new_plan = dataclasses.replace(old_plan, bits=new_bits)
+        self._serve_params = None           # free the old banks first
+        self._serve_params = apply_precision_plan(
+            self.params_train, self.cfg, new_plan)
+        self._plan_result = dataclasses.replace(
+            self._plan_result, plan=new_plan,
+            qos=estimate_qos(self.cfg, new_plan, self.planner.hw,
+                             self.max_slots, self.planner.profile))
+        # keep the planner's replan diffing anchored on the live plan
+        self.planner.current = self._plan_result
+        self._order = new_plan.expert_order()
+        flipped_keys = {(int(l), int(e)) for l, e in np.argwhere(flipped)}
+        for k in list(self._host_store):
+            if (k[0], k[1]) in flipped_keys:
+                del self._host_store[k]     # re-quantize at the new rung
+        for key in list(self.expert_cache.resident_keys()):
+            if (key[0], key[1]) in flipped_keys:
+                report["cache_bytes_delta"] += \
+                    self.expert_cache.update(key, self._fetch_expert(key))
+                report["restaged"] += 1
+        hit, self._miss_bytes_per_tok = expert_access_stats(self.cfg,
+                                                            new_plan)
+        self.metrics["miss_rate"] = 1.0 - hit
+        self.metrics["reconfig_s"] += time.perf_counter() - t0
+        self.metrics["bits_updates"] = \
+            self.metrics.get("bits_updates", 0) + 1
+        self.metrics["rung_flips"] = \
+            self.metrics.get("rung_flips", 0) + report["flipped"]
+        return report
 
     # ------------------------------------------------------------------
     # Request lifecycle
@@ -1000,9 +1139,13 @@ class AdaptiveServingEngine:
 
     def close(self):
         """Release the transfer pipeline: drain, then join the async
-        cache's workers (no-op for serial staging). Idempotent; the
-        engine must not decode afterwards."""
-        self.expert_cache.close()
+        cache's workers (no-op for serial staging). A SHARED scoped view
+        is only drained — its owner (e.g. the MultiTenantEngine) closes
+        the space. Idempotent; the engine must not decode afterwards."""
+        if self._owns_cache:
+            self.expert_cache.close()
+        else:
+            self.expert_cache.drain()
 
     def latency_percentiles(self, qs=(50, 95),
                             last_n: Optional[int] = None
