@@ -50,7 +50,13 @@ Phases (each raises on failure, and the script then exits non-zero):
                rung; each replan's kind, reconfig_s, drain_s and peak
                memory printed; serving params, prefill and first-decode
                logits bit-equal and greedy tokens equal to a fresh engine
-               at the final (point, bits);
+               at the final (point, bits); then ``apply_bits_update`` on
+               an overlap engine with requests in flight, an int4 and an
+               int8 expert off the card swapping rungs while one of them
+               is in the swap cache and a prefetch copy is in flight:
+               restaged 1, cache byte delta +-(int8 - int4 expert bytes),
+               B3/B4 launched after it, bit-equal to a fresh engine, no
+               ``expert-xfer`` thread alive after ``close()``;
      3g. multi-tenant — two full-width tenants (seeds 0 and 1) under one
                ``MultiTenantEngine`` sharing an ``AsyncExpertCache`` of two
                bf16 experts through ``ScopedExpertCache`` views, overlap
@@ -62,7 +68,10 @@ Phases (each raises on failure, and the script then exits non-zero):
      3h. cli — ``repro_torch.launch.serve.main`` in process at ``--smoke``:
                ``--calibrate``, then ``--ladder 16,8,4 --profile <it>
                --dynamic-precision --temperature 0``, then a two-tenant
-               ``--tenants`` spec; each prints its target and summary;
+               ``--tenants`` spec; each prints its target and summary,
+               every engine it builds runs the kernels, and the launch
+               counters (zeroed before each run) show each rung bank of
+               its final plans launched;
   4. parity  — the smoke-size model's prefill + decode logits on the card
                (kernels) agree with the same model on the CPU (the
                kernels' plain versions);
@@ -640,29 +649,18 @@ def _spec_row_probe(torch, engine, seed: int):
 # precision, calibration, multi-tenant arbitration, the serve CLI)
 # --------------------------------------------------------------------------
 
-#: device of the control-loop phases (a CPU rehearsal of the script sets
-#: "cpu" together with a smoke-size ``ctx``)
-DEVICE = "cuda"
 #: controller traffic of phase 3e: requests x new tokens, drop after this
 #: many engine iterations (drain iterations of bank-split replans count)
 QOS_REQUESTS, QOS_NEW, QOS_DROP_AT = 8, 24, 12
 
 
-def _on_card() -> bool:
-    return DEVICE == "cuda"
-
-
 def _peak_reset(torch):
-    if _on_card():
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
 
 
 def _mem_gb(torch):
-    """(allocated, peak allocated) GB on the card since the last reset;
-    zeros on the CPU."""
-    if not _on_card():
-        return 0.0, 0.0
+    """(allocated, peak allocated) GB on the card since the last reset."""
     torch.cuda.synchronize()
     return (torch.cuda.memory_allocated() / 1e9,
             torch.cuda.max_memory_allocated() / 1e9)
@@ -671,8 +669,7 @@ def _mem_gb(torch):
 def _release(torch):
     import gc
     gc.collect()
-    if _on_card():
-        torch.cuda.empty_cache()
+    torch.cuda.empty_cache()
 
 
 def _bank_keys(plan):
@@ -750,9 +747,7 @@ class _Tracker:
 
     def require_bank_launches(self):
         """Every bank-split plan launched B3/B4 at its new G per rung
-        while it served (on the CPU: no kernels, nothing to require)."""
-        if not _on_card():
-            return
+        while it served."""
         for (plan, launches), rec in zip(self.plans, self.replans):
             if rec["kind"] == "placement-only":
                 continue
@@ -788,17 +783,17 @@ def _hook_logits(torch, engine, prompts):
     """Prefill logits of each prompt and the first decode step's logits
     through the slot-cache model hooks on the engine's serving params."""
     m, p = engine.model, engine._serve_params
-    cache = m.init_cache(len(prompts), engine.max_len, device=DEVICE)
+    cache = m.init_cache(len(prompts), engine.max_len, device="cuda")
     out, first = [], []
     for i, pr in enumerate(prompts):
         lg, cache = m.prefill_into_slot(
-            p, cache, torch.as_tensor(pr[None], device=DEVICE),
-            torch.arange(len(pr), device=DEVICE)[None], i, len(pr) - 1)
+            p, cache, torch.as_tensor(pr[None], device="cuda"),
+            torch.arange(len(pr), device="cuda")[None], i, len(pr) - 1)
         out.append(lg)
         first.append(int(torch.argmax(lg[0])))
     lg, _, _ = m.decode_step_routed(
-        p, cache, torch.tensor(first, device=DEVICE)[:, None],
-        torch.tensor([len(pr) for pr in prompts], device=DEVICE))
+        p, cache, torch.tensor(first, device="cuda")[:, None],
+        torch.tensor([len(pr) for pr in prompts], device="cuda"))
     out.append(lg)
     return out
 
@@ -808,8 +803,8 @@ def _same_as_fresh(torch, engine, point, cfg, params, prompts, what):
     serving params are bit-equal, the prefill and first-decode logits
     through the model hooks bit-equal, and the greedy tokens equal."""
     from repro_torch.serving.api import EngineConfig, build_engine
-    fresh = build_engine(cfg, params, EngineConfig(**engine_config()),
-                         device=DEVICE)
+    fresh = build_engine(cfg, params, EngineConfig(**SERVE_CFG),
+                         device="cuda")
     fresh.apply_frontier_point(point)
     bits = engine.current_plan.bits
     if (fresh.current_plan.bits != bits).any():
@@ -840,12 +835,6 @@ def _same_as_fresh(torch, engine, point, cfg, params, prompts, what):
 
 def np_equal(a, b) -> bool:
     return a.shape == b.shape and bool((a == b).all())
-
-
-def engine_config():
-    """The serve phase's engine config on the control-loop phases'
-    device (the kernels only on the card)."""
-    return dict(SERVE_CFG, use_kernel=_on_card())
 
 
 def phase_calibrate(torch, np, ctx):
@@ -937,8 +926,8 @@ def phase_qos_dynamic(torch, np, ctx, card: str, seed: int):
     from repro_torch.serving.qos import QoSController, QoSControllerConfig
     from repro_torch.serving.simulator import budget_shock
     cfg, params = ctx["cfg"], ctx["params"]
-    engine = build_engine(cfg, params, EngineConfig(**engine_config()),
-                          device=DEVICE)
+    engine = build_engine(cfg, params, EngineConfig(**SERVE_CFG),
+                          device="cuda")
     fr = engine.frontier
     start = fr.points[ctx["engine"].frontier.points.index(ctx["point"])]
     if start.summary() != ctx["point"].summary():
@@ -994,8 +983,7 @@ def phase_qos_dynamic(torch, np, ctx, card: str, seed: int):
         f"{walks} walk step(s) before the drop, 1 replan for it; dynamic "
         f"{dyn.metrics}; launches {launches}; peak over the run "
         f"{peak:.2f} GB")
-    if _on_card():
-        require_launches(launches, "qos+dynamic")
+    require_launches(launches, "qos+dynamic")
     final = _same_as_fresh(torch, engine, ctl.point, cfg, params,
                            ctx["prompts"], "qos+dynamic")
     track.require_bank_launches()
@@ -1003,7 +991,8 @@ def phase_qos_dynamic(torch, np, ctx, card: str, seed: int):
     engine.close()
     del engine
     _release(torch)
-    return {"launches": launches,
+    restage = _bits_update_restage(torch, np, ctx)
+    return {"restage": restage, "launches": launches,
             "launches_per_decode_iter": {k: v / max(iters, 1)
                                          for k, v in launches.items()},
             "replans": track.replans,
@@ -1059,6 +1048,112 @@ def _bits_update_then_drop(torch, np, engine, ctl, params, cfg,
             "bits_update_peak_gb": peak}
 
 
+def _host_pairs(plan):
+    """Every (layer, int4 expert, int8 expert) with both experts off the
+    card, layer 0 first."""
+    from repro_torch.core.precision_plan import HOST
+    host = plan.location == HOST
+    return [(li, e_lo, e_hi) for li in range(plan.bits.shape[0])
+            for e_lo in range(plan.bits.shape[1])
+            for e_hi in range(plan.bits.shape[1])
+            if host[li, e_lo] and host[li, e_hi]
+            and plan.bits[li, e_lo] == 4 and plan.bits[li, e_hi] == 8]
+
+
+def _bits_update_restage(torch, np, ctx):
+    """``apply_bits_update`` on an overlap engine (async swap cache, copies
+    on side streams) with requests in flight: an int4 and an int8 expert
+    of one layer, both off the card, swap rungs while exactly one of them
+    is in the swap cache and a prefetch of another expert is enqueued.
+    The update drains the copies, re-stages the cached one at its new
+    rung through ``ExpertCache.update()`` (restaged 1, a cache byte delta
+    of +-(int8 - int4 expert bytes)); the engine then finishes its
+    requests on the kernels and is bit-equal to a fresh engine at its
+    (point, bits); no ``expert-xfer`` thread outlives ``close()``."""
+    from repro_torch.core.precision_plan import HOST
+    from repro_torch.kernels import ops
+    from repro_torch.serving.api import EngineConfig, ServeRequest, \
+        build_engine
+    cfg, params, prompts = ctx["cfg"], ctx["params"], ctx["prompts"]
+    swap = 2 * cfg.expert_param_bytes(16)
+    engine = build_engine(cfg, params, EngineConfig(
+        **SERVE_CFG, overlap=True, swap_bytes=swap), device="cuda")
+    cand = [pt for pt in engine.frontier.points if _host_pairs(pt.plan)
+            and (pt.plan.location == HOST).sum() >= 3]
+    if not cand:
+        raise AssertionError("no frontier point with an int4 and an int8 "
+                             "expert and a third expert off the card")
+    point = max(cand, key=lambda pt: pt.resident_experts)
+    engine.apply_frontier_point(point)
+    engine.reset_counters()
+    ops.reset_launches()
+    rids = [engine.submit_request(ServeRequest(pr, max_new_tokens=MAX_NEW))
+            for pr in prompts]
+    for _ in range(3):
+        engine.run_iteration()
+    cache = engine.expert_cache
+    resident = {k[:2] for k in cache.resident_keys()}
+    pairs = _host_pairs(engine.current_plan)
+    one = [(li, lo, hi) for li, lo, hi in pairs
+           if ((li, lo) in resident) != ((li, hi) in resident)]
+    staged = not one
+    li, e_lo, e_hi = one[0] if one else pairs[0]
+    lo_cached = staged or (li, e_lo) in resident
+    if staged:                   # the traffic cached both or neither
+        cache.invalidate([(li, e_hi)])
+    # the cached one is touched last in the LRU: the prefetch below (at
+    # most one bf16 expert) cannot evict it from two bf16 experts' room
+    cache.get((li, e_lo if lo_cached else e_hi))
+    other = next((int(l), int(e)) for l, e in np.argwhere(
+        engine.current_plan.location == HOST)
+        if (int(l), int(e)) not in {(li, e_lo), (li, e_hi)})
+    cache.invalidate([other])
+    cache.prefetch([other])
+    in_flight = len(cache._inflight)
+    bits = engine.current_plan.bits.copy()
+    bits[li, e_lo], bits[li, e_hi] = bits[li, e_hi], bits[li, e_lo]
+    _peak_reset(torch)
+    t0 = time.perf_counter()
+    report = engine.apply_bits_update(bits)
+    secs = time.perf_counter() - t0
+    _, peak = _mem_gb(torch)
+    step = cfg.expert_param_bytes(8) - cfg.expert_param_bytes(4)
+    want = step if lo_cached else -step
+    if report["restaged"] != 1 or report["cache_bytes_delta"] != want \
+            or cache._inflight:
+        raise AssertionError(f"bits update on the overlap engine: report "
+                             f"{report}, expected restaged 1 and a cache "
+                             f"byte delta of {want}; in flight after it "
+                             f"{list(cache._inflight)}")
+    log(f"  apply_bits_update on an overlap engine at {point.summary()} "
+        f"with {len(prompts)} requests in flight: layer {li} experts "
+        f"{e_lo} (int4) <-> {e_hi} (int8), both off the card, "
+        f"{'int4' if lo_cached else 'int8'} one cached"
+        f"{' (staged by the script)' if staged else ' by the traffic'}, "
+        f"{in_flight} copy(ies) in flight at the call; report {report}; "
+        f"{secs:.3f} s, peak {peak:.2f} GB")
+    engine.step()
+    launches = dict(ops.LAUNCHES)
+    require_launches(launches, "bits update (overlap)",
+                     [k for k, _ in _bank_keys(engine.current_plan)])
+    tokens = [engine.result(r).tokens for r in rids]
+    if any(len(t) != MAX_NEW for t in tokens):
+        raise AssertionError(f"bad token counts {[len(t) for t in tokens]}")
+    _same_as_fresh(torch, engine, point, cfg, params, prompts,
+                   "bits update (overlap)")
+    engine.close()
+    alive = _xfer_threads()
+    if alive:
+        raise AssertionError(f"expert-xfer threads alive after close: "
+                             f"{alive}")
+    del engine
+    _release(torch)
+    return {"point": point.summary(), "pair": [li, e_lo, e_hi],
+            "staged_by_script": staged, "in_flight_at_call": in_flight,
+            "report": report, "expected_delta": want, "seconds": secs,
+            "peak_gb": peak, "launches": launches}
+
+
 def phase_multi(torch, np, ctx, card: str):
     """3g: two full-width tenants (params from seeds 0 and 1) under one
     MultiTenantEngine, sharing an AsyncExpertCache of two bf16 experts
@@ -1079,9 +1174,9 @@ def phase_multi(torch, np, ctx, card: str):
     total = cfg.num_layers * cfg.moe.num_experts
     full16 = cfg.non_expert_bytes() + total * cfg.expert_param_bytes(16)
     params = {"chat": ctx["params"],
-              "batch": init_params(cfg, seed=1, device=DEVICE)}
+              "batch": init_params(cfg, seed=1, device="cuda")}
     shared = AsyncExpertCache(capacity_bytes=2 * cfg.expert_param_bytes(16),
-                              device=DEVICE)
+                              device="cuda")
     mt = MultiTenantEngine(0.6 * 2 * full16, expert_cache=shared,
                            controller_config=QoSControllerConfig(
                                min_dwell_iterations=4, window_iterations=2))
@@ -1091,9 +1186,8 @@ def phase_multi(torch, np, ctx, card: str):
                                            max_quality_loss=0.0))]
     for spec in specs:
         mt.add_tenant(spec, build_engine(
-            cfg, params[spec.name], EngineConfig(**engine_config(),
-                                                 overlap=True),
-            device=DEVICE, expert_cache=shared.scoped(spec.name)))
+            cfg, params[spec.name], EngineConfig(**SERVE_CFG, overlap=True),
+            device="cuda", expert_cache=shared.scoped(spec.name)))
     ops.reset_launches()
     out = {"phases": []}
     t_all = time.perf_counter()
@@ -1152,17 +1246,15 @@ def phase_multi(torch, np, ctx, card: str):
         log(f"  {r.summary()}")
     out["reports"] = [r.__dict__ for r in mt.reports]
     out["metrics"] = dict(mt.metrics)
-    if _on_card():
-        require_launches(launches, "multi-tenant",
-                         sorted({k for t in mt.tenants.values()
-                                 for k, _ in _bank_keys(t.engine
-                                                        .current_plan)}))
+    require_launches(launches, "multi-tenant",
+                     sorted({k for t in mt.tenants.values()
+                             for k, _ in _bank_keys(t.engine.current_plan)}))
     # each tenant's greedy tokens against a standalone engine at its
     # final point (its own cache, no controller)
     for name, t in mt.tenants.items():
         got = serve_pass(torch, t.engine, prompts)
-        solo = build_engine(cfg, params[name], EngineConfig(
-            **engine_config()), device=DEVICE)
+        solo = build_engine(cfg, params[name], EngineConfig(**SERVE_CFG),
+                            device="cuda")
         solo.apply_frontier_point(t.point)
         if not (np_equal(solo.current_plan.bits, t.engine.current_plan.bits)
                 and np_equal(solo.current_plan.location,
@@ -1199,9 +1291,13 @@ def phase_cli(torch, np, card: str):
     """3h: ``repro_torch.launch.serve.main`` in process at ``--smoke``:
     ``--calibrate``; serving with that profile, ``--ladder 16,8,4`` and
     ``--dynamic-precision``; a two-tenant ``--tenants`` spec. Each run
-    returns normally and prints its target and summary lines."""
+    returns normally and prints its target and summary lines. The
+    kernels' launch counters are zeroed just before each run and read
+    just after it: every engine the CLI built runs the kernels, and each
+    rung bank of its final plan was launched."""
     import contextlib
     import io
+    from repro_torch.kernels import ops
     from repro_torch.launch import serve
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -1211,7 +1307,7 @@ def phase_cli(torch, np, card: str):
         {"name": "chat", "min_tps": None, "weight": 2.0, "priority": 1,
          "deadline_s": 30.0, "requests": 2},
         {"name": "batch", "max_ppl_x": 1.1, "requests": 2}]}))
-    dev = ["--device", DEVICE]
+    dev = ["--device", "cuda"]
     runs = [
         ("calibrate", dev + ["--ladder", "16,8,4", "--calibrate",
                              "--calibrate-out", str(prof)],
@@ -1227,22 +1323,46 @@ def phase_cli(torch, np, card: str):
          ["[serve] phase 0", "[serve] phase 1", "[serve] multi-tenant:"]),
     ]
     out = {}
-    for name, argv, need in runs:
-        buf = io.StringIO()
-        t0 = time.perf_counter()
-        with contextlib.redirect_stdout(buf):
-            serve.main(argv)
-        secs = time.perf_counter() - t0
-        text = buf.getvalue()
-        missing = [n for n in need if n not in text]
-        if missing:
-            raise AssertionError(f"serve CLI {name}: no {missing} line in:\n"
-                                 f"{text}")
-        log(f"cli {name} ({secs:.2f} s): python -m repro_torch.launch.serve "
-            f"{' '.join(argv)}")
-        for ln in text.splitlines():
-            log(f"    {ln}")
-        out[name] = {"seconds": secs, "lines": text.splitlines()}
+    built = []
+    build_engine = serve.build_engine
+
+    def build_and_keep(*a, **kw):
+        built.append(build_engine(*a, **kw))
+        return built[-1]
+
+    serve.build_engine = build_and_keep
+    try:
+        for name, argv, need in runs:
+            buf = io.StringIO()
+            built.clear()
+            ops.reset_launches()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                serve.main(argv)
+            secs = time.perf_counter() - t0
+            launches = dict(ops.LAUNCHES)
+            text = buf.getvalue()
+            missing = [n for n in need if n not in text]
+            if missing:
+                raise AssertionError(f"serve CLI {name}: no {missing} line "
+                                     f"in:\n{text}")
+            log(f"cli {name} ({secs:.2f} s): python -m "
+                f"repro_torch.launch.serve {' '.join(argv)}")
+            for ln in text.splitlines():
+                log(f"    {ln}")
+            if not all(e.use_kernel for e in built):
+                raise AssertionError(f"serve CLI {name}: an engine on the "
+                                     "card runs without the kernels")
+            banks = sorted({k for e in built
+                            for k, _ in _bank_keys(e.current_plan)})
+            if built:
+                require_launches(launches, f"cli {name}", banks)
+            log(f"    {len(built)} engine(s), kernels on; launches "
+                f"{launches}")
+            out[name] = {"seconds": secs, "lines": text.splitlines(),
+                         "engines": len(built), "launches": launches}
+    finally:
+        serve.build_engine = build_engine
     alive = _xfer_threads()
     if alive:
         raise AssertionError(f"expert-xfer threads alive after the CLI: "

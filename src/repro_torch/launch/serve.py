@@ -1,6 +1,8 @@
 """Serving launcher — the paper's adaptive MoE deployment as a CLI, on the
 declarative QoS surface (``repro.launch.serve``, DESIGN.md §9), running
 on the card (``--device cpu`` for the plain PyTorch versions on the CPU).
+On the card every engine runs its expert banks through the CUDA
+dequant-matmul kernels (``EngineConfig.use_kernel``).
 
 Declare TARGETS, not knobs: the engine resolves them on its Pareto
 frontier and the QoSController keeps the deployment on target while
@@ -129,7 +131,7 @@ def _serve_tenants(args, cfg, params0, device, profile=None):
         engine = build_engine(
             cfg, params,
             EngineConfig(max_slots=2, max_len=16 + args.max_new_tokens,
-                         overlap=overlap),
+                         overlap=overlap, use_kernel=device.type == "cuda"),
             device=device, expert_cache=shared.scoped(t["name"]))
         if profile is not None:
             engine.planner.set_profile(profile)
@@ -310,7 +312,7 @@ def main(argv=None) -> None:
 
     engine = build_engine(cfg, params, EngineConfig(
         max_slots=4, max_len=32 + args.max_new_tokens,
-        overlap=args.overlap == "on",
+        overlap=args.overlap == "on", use_kernel=device.type == "cuda",
         speculate=max(0, args.speculate)), device=device)
     if args.overlap == "on":
         print("[serve] async overlapped expert streaming ON "

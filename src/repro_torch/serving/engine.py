@@ -253,6 +253,8 @@ class AdaptiveServingEngine:
         self._miss_bytes_per_tok = 0.0
         self._order: Optional[np.ndarray] = None   # bank slot -> expert id
         self._serve_params = None
+        #: why the engine cannot serve (a failed bank rebuild), else None
+        self._unusable: Optional[str] = None
         self._plan_result: Optional[PlanResult] = None
         self._frontier: Optional[ParetoFrontier] = None
         self._target: Optional[QoSTarget] = None
@@ -375,6 +377,7 @@ class AdaptiveServingEngine:
         """Replan under new constraints; safe with requests in flight.
         Placement-only changes apply immediately; a bank-split change
         drains the active slots first."""
+        self._require_usable()
         t0 = time.perf_counter()
         # async staging barrier: every enqueued transfer lands BEFORE the
         # plan changes, so no stale-plan blob is admitted after the
@@ -401,9 +404,7 @@ class AdaptiveServingEngine:
                 # the drain iterations enqueued async fetches on the OLD
                 # plan: barrier again before invalidating
                 self.expert_cache.drain()
-            self._serve_params = None       # free the old banks first
-            self._serve_params = apply_precision_plan(
-                self.params_train, self.cfg, plan)
+            self._rebuild_banks(plan)
             self._host_store.clear()
             self.expert_cache.invalidate()
         self._plan_result = result
@@ -417,9 +418,7 @@ class AdaptiveServingEngine:
                 # an earlier apply_bits_update may have swapped rungs
                 # between experts; the fresh plan carries the canonical
                 # assignment, so the banks follow it
-                self._serve_params = None   # free the old banks first
-                self._serve_params = apply_precision_plan(
-                    self.params_train, self.cfg, plan)
+                self._rebuild_banks(plan)
                 rung_changed = {
                     (int(l), int(e)) for l, e in
                     np.argwhere(prev_plan.bits != plan.bits)}
@@ -450,6 +449,26 @@ class AdaptiveServingEngine:
                 + delta["traffic_bytes"]
         return result
 
+    def _rebuild_banks(self, plan: PrecisionPlan) -> None:
+        """Build ``plan``'s serve-layout banks. The old banks are released
+        first, so the peak never holds both sets; a build that fails (out
+        of memory at full width) therefore leaves no banks to serve on,
+        and the engine refuses every later iteration and replan."""
+        self._serve_params = None
+        try:
+            self._serve_params = apply_precision_plan(
+                self.params_train, self.cfg, plan)
+        except BaseException as e:
+            self._unusable = (
+                f"rebuilding the serve banks failed ({type(e).__name__}: "
+                f"{e}); the old banks were released before the rebuild, "
+                "so this engine cannot serve: build a new one")
+            raise
+
+    def _require_usable(self) -> None:
+        if self._unusable is not None:
+            raise RuntimeError(self._unusable)
+
     # ------------------------------------------------------------------
     # Dynamic precision (DESIGN.md §15)
     # ------------------------------------------------------------------
@@ -472,6 +491,7 @@ class AdaptiveServingEngine:
         Returns a report dict: flipped/promotions/demotions counts, the
         summed cache byte delta, and the number of re-staged entries."""
         assert self._plan_result is not None, "no active plan"
+        self._require_usable()
         old_plan = self._plan_result.plan
         new_bits = np.asarray(new_bits, old_plan.bits.dtype)
         if new_bits.shape != old_plan.bits.shape:
@@ -502,9 +522,7 @@ class AdaptiveServingEngine:
         # async staging barrier: in-flight transfers carry OLD-rung blobs
         self.expert_cache.drain()
         new_plan = dataclasses.replace(old_plan, bits=new_bits)
-        self._serve_params = None           # free the old banks first
-        self._serve_params = apply_precision_plan(
-            self.params_train, self.cfg, new_plan)
+        self._rebuild_banks(new_plan)
         self._plan_result = dataclasses.replace(
             self._plan_result, plan=new_plan,
             qos=estimate_qos(self.cfg, new_plan, self.planner.hw,
@@ -1003,6 +1021,7 @@ class AdaptiveServingEngine:
         if self._plan_result is None:
             raise RuntimeError(
                 "no active plan: apply_target() or configure() first")
+        self._require_usable()
         retired: List[int] = []
         if admit:
             for slot, req in self.scheduler.admit():

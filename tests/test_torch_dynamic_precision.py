@@ -335,3 +335,44 @@ def test_bits_update_guards_and_stale_blobs(smoke):
     assert rung == int(old.bits[li, e_lo])
     assert eng.expert_cache.used_bytes == tcfg.expert_param_bytes(rung)
     eng.close()
+
+
+@pytest.mark.parametrize("path", ["bits_update", "bank_split"])
+def test_failed_bank_rebuild_refuses_later_work(smoke, monkeypatch, path):
+    """A rebuild releases the old banks before it builds the new ones, so
+    one that fails (out of memory at full width) leaves nothing to serve
+    on: the error propagates, and every later iteration, replan and bits
+    update raises a RuntimeError that says so instead of serving on
+    missing banks."""
+    import repro_torch.serving.engine as tengine
+    _, tcfg, _, tparams = smoke
+    eng = build_engine(tcfg, tparams, EngineConfig(
+        max_slots=2, max_len=24, ladder=(16, 8, 4), hw=HW), device="cpu")
+    i = pick_pair_point(eng.frontier)
+    point = eng.frontier.all_points[i]
+    eng.apply_frontier_point(point)
+    eng.submit(np.arange(1, 9), max_new_tokens=4)
+    eng.run_iteration()
+
+    def out_of_memory(*a, **k):
+        raise MemoryError("no room for the new banks")
+
+    monkeypatch.setattr(tengine, "apply_precision_plan", out_of_memory)
+    if path == "bits_update":
+        li, e_lo, e_hi = offloaded_pair(point.plan)
+        bits = point.plan.bits.copy()
+        bits[li, e_lo], bits[li, e_hi] = bits[li, e_hi], bits[li, e_lo]
+        with pytest.raises(MemoryError):
+            eng.apply_bits_update(bits)
+    else:
+        other = next(p for p in eng.frontier.points
+                     if p.plan.bank_sizes() != point.plan.bank_sizes())
+        with pytest.raises(MemoryError):
+            eng.apply_frontier_point(other)
+    assert eng._serve_params is None
+    monkeypatch.undo()
+    for call in (eng.run_iteration, lambda: eng.apply_frontier_point(point),
+                 lambda: eng.apply_bits_update(point.plan.bits.copy())):
+        with pytest.raises(RuntimeError, match="cannot serve: build a new"):
+            call()
+    eng.close()

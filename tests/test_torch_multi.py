@@ -18,7 +18,8 @@ shared swap space (``ScopedExpertCache`` views of one ``ExpertCache`` /
   one layer, enough to flip an expert at a router near-tie, which random
   weights hit within a few hundred routed tokens; in float32 they differ
   by 2.1e-7, so the comparison tests the control loop, not bf16
-  rounding.
+  rounding. The same flow in bf16 must give the reference's points,
+  reports and arbitrations, which no near-tie can move.
 """
 import dataclasses
 import math
@@ -388,16 +389,19 @@ def test_shared_swap_equal(scenario):
 # Two real tenants
 # ---------------------------------------------------------------------------
 
-@pytest.fixture(scope="module")
-def two_models():
-    jcfg = jreduce(jget_config("mixtral-8x7b")).replace(dtype="float32")
-    tcfg = reduce_for_smoke(get_config("mixtral-8x7b")).replace(
-        dtype="float32")
+def _two_models(dtype):
+    jcfg = jreduce(jget_config("mixtral-8x7b")).replace(dtype=dtype)
+    tcfg = reduce_for_smoke(get_config("mixtral-8x7b")).replace(dtype=dtype)
     jmodel = jbuild_model(jcfg)
     jparams = [jmodel.init(jax.random.key(i)) for i in (0, 1)]
     tparams = [params_from_numpy(jax.tree_util.tree_map(np.asarray, p),
                                  "cpu") for p in jparams]
     return jcfg, tcfg, jparams, tparams
+
+
+@pytest.fixture(scope="module")
+def two_models():
+    return _two_models("float32")
 
 
 #: router near-tie screen: the smallest gap between the 2nd and 3rd
@@ -430,9 +434,10 @@ def route_margin(engine, prompts_and_tokens):
     return gap
 
 
-def serve_tenants(pkg, cfg, params, overlap, prompts):
+def serve_tenants(pkg, cfg, params, overlap, prompts, fracs=(0.6, 0.45)):
     """The CLI's ``--tenants`` flow on one package: two tenants under one
-    budget (0.6x the summed bf16 footprint), one ``set_budget`` to 0.45x,
+    budget (``fracs[0]``, default 0.6x the summed bf16 footprint), one
+    ``set_budget`` to ``fracs[1]`` (default 0.45x),
     ``prompts[(phase, tenant)]`` served greedily per tenant per phase."""
     real = pkg.name == "port"
     total = cfg.num_layers * cfg.moe.num_experts
@@ -460,7 +465,7 @@ def serve_tenants(pkg, cfg, params, overlap, prompts):
         mt.add_tenant(spec, eng)
     req = api.ServeRequest if real else JServeRequest
     tokens, points, margin = {}, [], math.inf
-    for phase, frac in enumerate((0.6, 0.45)):
+    for phase, frac in enumerate(fracs):
         if phase == 0:
             mt.arbitrate()
         else:
@@ -511,6 +516,31 @@ def test_two_real_tenants_match_reference(two_models, overlap):
     assert got["arbitrations"] == 2
     assert not [t for t in threading.enumerate()
                 if t.name.startswith("expert-xfer") and t.is_alive()]
+
+
+@pytest.mark.parametrize("overlap", [False, True])
+def test_two_real_bf16_tenants_points_match_reference(overlap):
+    """The served dtype, bf16: the outputs that no router near-tie can
+    move — each phase's per-tenant points, the ``ReplanReport``\\ s and
+    the arbitration count — equal the reference's across one budget
+    shift, from 0.9x to 0.35x the summed bf16 footprint, which moves
+    the chat tenant's point (tolerance: none). Tokens and route counts
+    are held to the reference in float32 above: in bf16 the frameworks'
+    router probabilities differ by up to 2.6e-3."""
+    jcfg, tcfg, jparams, tparams = _two_models("bfloat16")
+    rng = np.random.default_rng(0)
+    prompts = {(ph, n): [rng.integers(1, tcfg.vocab_size, 8)
+                         for _ in range(2)]
+               for ph in (0, 1) for n in ("chat", "batch")}
+    fracs = (0.9, 0.35)
+    got, _ = serve_tenants(PORT, tcfg, tparams, overlap, prompts, fracs)
+    want, _ = serve_tenants(REF, jcfg, jparams, overlap, prompts, fracs)
+    keys = ("points", "reports", "arbitrations")
+    assert {k: got[k] for k in keys} == {k: want[k] for k in keys}
+    assert got["arbitrations"] == 2
+    assert got["points"][0] != got["points"][1] and got["reports"]
+    assert {n: len(t) for n, t in got["tokens"].items()} \
+        == {n: len(t) for n, t in want["tokens"].items()}
 
 
 def test_engine_expert_cache_checks(two_models):

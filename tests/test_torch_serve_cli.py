@@ -13,7 +13,9 @@ reference's (``repro.launch.serve``), both run in process on the CPU
   engine's measured link), so the frontier points are equal;
 * the smoke model runs in float32 in both: in bf16 the two frameworks'
   router probabilities differ by up to 2.6e-3, which flips an expert at
-  a router near-tie, while in float32 they differ by 2.1e-7.
+  a router near-tie, while in float32 they differ by 2.1e-7;
+* in bf16, the served dtype, the lines no near-tie can move (targets,
+  plans, phases, per-tenant points, the arbiter summary) must agree.
 
 Printed times, tokens/s and latency percentiles are measurements and are
 not compared."""
@@ -39,15 +41,14 @@ from repro_torch.models.model import params_from_numpy
 LINK_BW = 24e9
 
 
-@pytest.fixture()
-def clis(monkeypatch, capsys):
-    """Both CLIs on one float32 smoke model, one hardware model and the
-    reference's weights; returns run(package, argv) -> stdout lines."""
+def _clis(monkeypatch, capsys, dtype):
+    """Both CLIs on one smoke model in ``dtype``, one hardware model and
+    the reference's weights; returns run(package, argv) -> stdout lines."""
     jget, tget = jserve.get_config, tserve.get_config
     monkeypatch.setattr(jserve, "get_config",
-                        lambda a: jget(a).replace(dtype="float32"))
+                        lambda a: jget(a).replace(dtype=dtype))
     monkeypatch.setattr(tserve, "get_config",
-                        lambda a: tget(a).replace(dtype="float32"))
+                        lambda a: tget(a).replace(dtype=dtype))
     monkeypatch.setattr(jengine, "measure_host_link_bw",
                         lambda *a, **k: LINK_BW)
     monkeypatch.setattr(tengine, "measure_host_link_bw",
@@ -59,7 +60,7 @@ def clis(monkeypatch, capsys):
     def port_init(cfg, seed=0, *, device=None):
         from repro.configs import get_config, reduce_for_smoke
         jcfg = reduce_for_smoke(get_config(cfg.arch_id)).replace(
-            dtype="float32", mop=dataclasses.replace(
+            dtype=dtype, mop=dataclasses.replace(
                 get_config(cfg.arch_id).mop, ladder=cfg.mop.ladder))
         p = jbuild_model(jcfg).init(jax.random.key(seed))
         return params_from_numpy(jax.tree_util.tree_map(np.asarray, p),
@@ -77,6 +78,16 @@ def clis(monkeypatch, capsys):
         return capsys.readouterr().out.splitlines()
 
     return run
+
+
+@pytest.fixture()
+def clis(monkeypatch, capsys):
+    return _clis(monkeypatch, capsys, "float32")
+
+
+@pytest.fixture()
+def clis_bf16(monkeypatch, capsys):
+    return _clis(monkeypatch, capsys, "bfloat16")
 
 
 _TIMED = [(re.compile(r"tok in \d+ ms"), "tok in _ ms"),
@@ -157,6 +168,50 @@ def test_tenants_match_reference(clis, tmp_path):
     assert sum(ln.startswith("[serve] phase") for ln in got) == 2
     assert not [t for t in __import__("threading").enumerate()
                 if t.name.startswith("expert-xfer") and t.is_alive()]
+
+
+def plan_lines(lines):
+    """The compared lines that no router near-tie can move: targets,
+    plans, phases, per-tenant points and the arbiter summary (no tokens,
+    no per-tenant request counts)."""
+    return [ln for ln in compared(lines)
+            if not ln.startswith("  req ") and " done, " not in ln]
+
+
+def test_trace_and_ladder_bf16_plans_match_reference(clis_bf16, tmp_path):
+    """The served dtype, bf16, on the trace of the float32 test above:
+    the same target and plan lines (tolerance: none). Tokens are held to
+    the reference in float32 only."""
+    trace = tmp_path / "trace.csv"
+    trace.write_text("0.0003, throughput\n0.00025, quality, 8\n"
+                     "0.0003, quality, , 1000\n")
+    argv = ["--ladder", "16,8,4", "--trace", str(trace), "--temperature",
+            "0", "--requests", "2", "--max-new-tokens", "4"]
+    got = plan_lines(clis_bf16("port", argv))
+    want = plan_lines(clis_bf16("ref", argv))
+    assert got == want
+    assert sum(ln.startswith("[serve] ep=1 dp=1 target[") for ln in got) \
+        == 1
+    assert sum(ln.startswith("[serve] ep=1 dp=1 [") for ln in got) == 2
+
+
+def test_tenants_bf16_points_match_reference(clis_bf16, tmp_path):
+    """bf16 tenants across a budget shift from 0.9x to 0.35x the summed
+    bf16 footprint, which moves the chat tenant's point: the same phases,
+    per-tenant points and arbiter summary (tolerance: none)."""
+    spec = tmp_path / "tenants.json"
+    spec.write_text(
+        '{"budget_fracs": [0.9, 0.35], "tenants": ['
+        '{"name": "chat", "min_tps": null, "weight": 2.0, "priority": 1,'
+        ' "deadline_s": 30.0, "requests": 2},'
+        '{"name": "batch", "max_ppl_x": 1.1, "requests": 2}]}')
+    argv = ["--tenants", str(spec), "--temperature", "0",
+            "--max-new-tokens", "4"]
+    got = plan_lines(clis_bf16("port", argv))
+    want = plan_lines(clis_bf16("ref", argv))
+    assert got == want
+    chat = [ln for ln in got if ln.startswith("[serve]   chat: slo")]
+    assert len(chat) == 2 and chat[0].split("->")[1] != chat[1].split("->")[1]
 
 
 def test_ep_dp_raise_the_engine_message(clis):
