@@ -72,6 +72,31 @@ Phases (each raises on failure, and the script then exits non-zero):
                every engine it builds runs the kernels, and the launch
                counters (zeroed before each run) show each rung bank of
                its final plans launched;
+  6. train   — after the serve phases release their params (card memory
+               printed before and after):
+     6a. train step — the full-width 2-layer Mixtral (3.17 B params) from
+               seeded params: AdamW, 2 microbatches, batches of 4 x 128
+               from ``DataPipeline``; 3 steps, then the same 3 steps from
+               the same seed again with params, moments and step
+               bit-equal; 5 steps on one fixed batch with the nll falling;
+               each step's ms, tokens/s and peak GB; the smoke model's
+               float32 loss and gradients on the card against the CPU's
+               (1e-5 relative, 1e-4 x max|g|); one Adafactor step; two
+               int8-compressed steps (Adafactor), the codes, scales and
+               residuals of one corrected gradient byte-equal to the CPU's;
+     6b. ckpt -> serve — the trained params saved by
+               ``CheckpointManager`` (seconds, GB/s), then
+               ``repro_torch.launch.serve.main --ckpt-dir`` in process on
+               the 2-layer full-width config at ``--ladder 16,8,4
+               --max-ppl-x 1.04``: its restore timed and bit-equal to the
+               saved params, launch counters zeroed before and each rung
+               bank of its final plan launched after, and the same greedy
+               tokens as the same CLI run on the in-memory params;
+     6c. train cli — ``repro_torch.launch.train.main`` in process at
+               ``--smoke`` (SmolLM-360M), 6 steps with a checkpoint every
+               3, then a restart with ``--resume`` from step 3: equal step
+               lines and a step-6 checkpoint bit-equal to the straight
+               run's;
   4. parity  — the smoke-size model's prefill + decode logits on the card
                (kernels) agree with the same model on the CPU (the
                kernels' plain versions);
@@ -773,10 +798,7 @@ def _swap_pair(plan, layer: int = 0):
 def _params_equal(torch, a, b) -> bool:
     la, lb = list(_leaves(a)), list(_leaves(b))
     return len(la) == len(lb) and all(
-        x.dtype == y.dtype and x.shape == y.shape
-        and bool(torch.equal(x.contiguous().view(torch.uint8),
-                             y.contiguous().view(torch.uint8)))
-        for x, y in zip(la, lb))
+        _bits_equal(torch, x, y) for x, y in zip(la, lb))
 
 
 def _hook_logits(torch, engine, prompts):
@@ -1399,15 +1421,421 @@ def _profile_report(prof, wall_s: float):
 
 
 def _leaves(tree):
+    """Tensors of a tree (QTensors as codes and scales), keys sorted."""
     from repro_torch.core.quantization import QTensor
     if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
+        for k in sorted(tree):
+            yield from _leaves(tree[k])
     elif isinstance(tree, QTensor):
         yield tree.q
         yield tree.scales
     elif tree is not None:
         yield tree
+
+
+# --------------------------------------------------------------------------
+# phase 6: training on the card, checkpoint -> serve, the train CLI
+# --------------------------------------------------------------------------
+
+TRAIN_BATCH, TRAIN_SEQ = 4, 128          # 6a: batches from DataPipeline
+CKPT_DIR = ROOT / "build" / "chip_smoke_ckpt"   # gitignored, removed after
+
+
+def _train_config(torch, optimizer="adamw", compression=None):
+    from repro_torch.training.optimizer import OptConfig
+    from repro_torch.training.train_loop import TrainConfig
+    return TrainConfig(opt=OptConfig(lr=1e-3, warmup_steps=1),
+                       optimizer=optimizer, num_microbatches=2,
+                       grad_dtype=torch.bfloat16,
+                       grad_compression=compression)
+
+
+def _train_steps(torch, step_fn, params, state, batches, what, card):
+    """Run ``step_fn`` over ``batches`` on the card; each step's ms,
+    tokens/s, nll and grad norm, and the peak memory since the reset."""
+    from repro_torch.launch.train import batch_to
+    recs = []
+    for i, b in enumerate(batches):
+        t0 = time.perf_counter()
+        params, state, m = step_fn(params, state, batch_to(b, "cuda"))
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        rec = {"ms": dt * 1e3, "tokens_per_s": b["tokens"].size / dt,
+               "nll": float(m["nll"]), "grad_norm": float(m["grad_norm"]),
+               "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        if not math.isfinite(rec["nll"]):
+            raise AssertionError(f"{what} step {i}: nll {rec['nll']}")
+        recs.append(rec)
+        log(f"  {what} step {i} on {card}: {rec['ms']:.1f} ms, "
+            f"{rec['tokens_per_s']:.1f} tokens/s, nll {rec['nll']:.4f}, "
+            f"grad norm {rec['grad_norm']:.3f}, peak {rec['peak_gb']:.2f} "
+            "GB")
+    return params, state, recs
+
+
+def _state_leaves(params, state):
+    from repro_torch.training.optimizer import tree_leaves
+    return dict(tree_leaves({"params": params, "opt": state}))
+
+
+
+
+def _grads_card_vs_cpu(torch, np, seed: int):
+    """The smoke model at float32: loss and every gradient leaf of
+    ``value_and_grad`` on the card against the CPU's, at the CPU tests'
+    bars (loss 1e-5 relative, each leaf 1e-4 x max|g_cpu|)."""
+    from repro_torch.configs import get_config, reduce_for_smoke
+    from repro_torch.models.model import build_model, init_params
+    from repro_torch.training.optimizer import tree_leaves
+    from repro_torch.training.train_loop import value_and_grad
+    cfg = reduce_for_smoke(get_config("mixtral-8x7b")).replace(
+        dtype="float32")
+    params = init_params(cfg, seed, device="cpu")
+    rng = np.random.default_rng(seed)
+    batch = {k: torch.as_tensor(rng.integers(0, cfg.vocab_size, (4, 16)))
+             for k in ("tokens", "labels")}
+    fn = build_model(cfg).loss_fn
+    out = {dev: value_and_grad(fn, _to(params, torch, dev),
+                               _to(batch, torch, dev))
+           for dev in ("cpu", "cuda")}
+    (lc, _, gc), (lg, _, gg) = out["cpu"], out["cuda"]
+    rel = abs(float(lg) - float(lc)) / abs(float(lc))
+    worst = 0.0
+    cpu = dict(tree_leaves(gc))
+    for path, g in tree_leaves(gg):
+        ref = cpu[path]
+        bar = 1e-4 * float(ref.abs().max())
+        err = float((g.cpu() - ref).abs().max())
+        if err > bar:
+            raise AssertionError(f"gradient {'/'.join(path)}: card vs CPU "
+                                 f"{err:.3e} > bar {bar:.3e}")
+        worst = max(worst, err / max(float(ref.abs().max()), 1e-30))
+    if rel > 1e-5:
+        raise AssertionError(f"smoke loss card {float(lg)} vs CPU "
+                             f"{float(lc)}: {rel:.2e} relative > 1e-5")
+    log(f"  card vs CPU (smoke, float32): loss {float(lg):.6f} vs "
+        f"{float(lc):.6f} ({rel:.2e} relative, bar 1e-5); largest "
+        f"gradient leaf difference {worst:.2e} of its max|g| (bar 1e-4)")
+    return {"loss_rel": rel, "grad_worst_rel": worst}
+
+
+def _codes_card_vs_cpu(torch, grads, ef):
+    """``quantize_grad`` of each leaf's corrected gradient g + ef on the
+    card and on the CPU from the same f32 bytes: codes, scales and the
+    residual byte-equal (a Python-scalar divisor on the card would not
+    give the CPU's scale)."""
+    from repro_torch.training.compression import quantize_grad
+    from repro_torch.training.optimizer import tree_leaves
+    ef = dict(tree_leaves(ef))
+    n = 0
+    for path, g in tree_leaves(grads):
+        corrected = g.to(torch.float32) + ef[path]
+        out = {}
+        for dev, x in (("cuda", corrected), ("cpu", corrected.cpu())):
+            q, s = quantize_grad(x)
+            out[dev] = [q.cpu(), s.cpu(), (x - q.to(torch.float32) * s)
+                        .cpu()]
+        for name, a, b in zip(("codes", "scale", "residual"), out["cuda"],
+                              out["cpu"]):
+            if not _bits_equal(torch, a, b):
+                raise AssertionError(f"int8 {name} of {'/'.join(path)} on "
+                                     "the card differ from the CPU's")
+        n += corrected.numel()
+        del corrected, out
+    log(f"  int8 compression: codes, scales and residuals of {n:,} "
+        "gradient values byte-equal to the CPU's on the same f32 inputs")
+    return n
+
+
+def _step_split(torch, loss_fn, tcfg, params, state, batch, card):
+    """Where an AdamW step's time goes: the forward and backward of one
+    microbatch, and the optimizer update, each timed alone."""
+    from repro_torch.launch.train import batch_to
+    from repro_torch.training.optimizer import adamw_update
+    from repro_torch.training.train_loop import value_and_grad
+    micro = {k: v[:TRAIN_BATCH // 2] for k, v in
+             batch_to(batch, "cuda").items()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, _, grads = value_and_grad(loss_fn, params, micro)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    adamw_update(params, grads, state, tcfg.opt)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    out = {"fwd_bwd_ms_per_microbatch": (t1 - t0) * 1e3,
+           "adamw_update_ms": (t2 - t1) * 1e3}
+    log(f"  step split on {card}: forward + backward of one microbatch "
+        f"{out['fwd_bwd_ms_per_microbatch']:.1f} ms, AdamW update "
+        f"{out['adamw_update_ms']:.1f} ms")
+    return out
+
+
+def phase_train(torch, np, seed: int, card: str):
+    """6a: the full-width 2-layer Mixtral trains on the card: AdamW with 2
+    microbatches, 3 steps from seeded params, twice (bit-equal params and
+    moments), 5 more steps on one fixed batch (nll falls); smoke-size
+    gradients against the CPU's; one Adafactor step; two int8-compressed
+    steps with the codes held against the CPU's. Returns the record and
+    the trained params (for 6b)."""
+    from repro_torch.data.pipeline import (DataPipeline, SyntheticCorpus,
+                                           SyntheticCorpusConfig)
+    from repro_torch.launch.train import batch_to
+    from repro_torch.models.model import build_model, init_params
+    from repro_torch.training.train_loop import (init_train_state,
+                                                 make_train_step,
+                                                 value_and_grad)
+    cfg = serving_config()
+    alloc, _ = _mem_gb(torch)
+    _peak_reset(torch)
+    log(f"train: {cfg.arch_id} full width, num_layers 32 -> "
+        f"{cfg.num_layers}, {cfg.param_count() / 1e9:.2f} B params; "
+        f"AdamW, 2 microbatches, batches {TRAIN_BATCH} x {TRAIN_SEQ}; "
+        f"card memory before: {alloc:.2f} GB allocated")
+    pipe = DataPipeline(SyntheticCorpus(SyntheticCorpusConfig(
+        vocab_size=cfg.vocab_size)), batch=TRAIN_BATCH, seq=TRAIN_SEQ)
+    batches = [pipe.next_batch() for _ in range(5)]
+    loss_fn = build_model(cfg).loss_fn
+    tcfg = _train_config(torch)
+    step_fn = make_train_step(loss_fn, tcfg)
+    recs = {}
+    for run in (1, 2):
+        params = init_params(cfg, seed, device="cuda")
+        state = init_train_state(params, tcfg)
+        params, state, recs[run] = _train_steps(
+            torch, step_fn, params, state, batches[:3], f"AdamW run {run}",
+            card)
+        if run == 1:                  # held on the host while run 2 runs
+            first = {k: v.cpu() for k, v in
+                     _state_leaves(params, state).items()}
+            del params, state
+            _release(torch)
+    diff = [k for k, v in _state_leaves(params, state).items()
+            if not _bits_equal(torch, v.cpu(), first[k])]
+    del first
+    if diff:
+        raise AssertionError(f"two identical AdamW runs differ in {diff}")
+    log(f"  determinism: params, moments and step of the two runs "
+        f"bit-equal ({len(_state_leaves(params, state))} leaves)")
+    fixed = [batches[3]] * 5
+    params, state, fixed_recs = _train_steps(
+        torch, step_fn, params, state, fixed, "AdamW fixed batch", card)
+    nlls = [r["nll"] for r in fixed_recs]
+    if not nlls[-1] < nlls[0]:
+        raise AssertionError(f"nll does not fall on a fixed batch: {nlls}")
+    split = _step_split(torch, loss_fn, tcfg, params, state, batches[3],
+                        card)
+    del state
+    _release(torch)
+    grads_rec = _grads_card_vs_cpu(torch, np, seed)
+    af = _train_config(torch, "adafactor")
+    params, _, af_recs = _train_steps(
+        torch, make_train_step(loss_fn, af), params,
+        init_train_state(params, af), [batches[4]], "Adafactor", card)
+    _release(torch)
+    q8 = _train_config(torch, "adafactor", "int8")
+    q8_state = init_train_state(params, q8)
+    q8_step = make_train_step(loss_fn, q8)
+    params, q8_state, q8_recs = _train_steps(
+        torch, q8_step, params, q8_state, [batches[0]], "int8 + Adafactor",
+        card)
+    micro = {k: v[:TRAIN_BATCH // 2] for k, v in
+             batch_to(batches[1], "cuda").items()}
+    _, _, grads = value_and_grad(loss_fn, params, micro)
+    n_codes = _codes_card_vs_cpu(torch, grads, q8_state["ef"])
+    del grads
+    params, q8_state, more = _train_steps(
+        torch, q8_step, params, q8_state, [batches[1]], "int8 + Adafactor",
+        card)
+    del q8_state
+    _release(torch)
+    alloc, peak = _mem_gb(torch)
+    log(f"  card memory after: {alloc:.2f} GB allocated (the trained "
+        f"params), peak {peak:.2f} GB during the phase")
+    adamw = recs[2]
+    out = {"adamw": adamw, "adamw_run1": recs[1], "fixed_batch": fixed_recs,
+           "adafactor": af_recs, "int8": q8_recs + more,
+           "card_vs_cpu": grads_rec, "int8_values_checked": n_codes,
+           "step_split": split,
+           "peak_gb": peak, "card": card,
+           "step_ms": [r["ms"] for r in adamw],
+           "tokens_per_s": [r["tokens_per_s"] for r in adamw]}
+    return out, {"cfg": cfg, "params": params, "steps": 3 + 5 + 1 + 2}
+
+
+def _cli_tokens(engines):
+    """Every request's tokens of the engines a CLI run built, by id."""
+    return [(rid, list(e.result(rid).tokens)) for e in engines
+            for rid in sorted(e.done)]
+
+
+def phase_ckpt_serve(torch, np, trained, card: str):
+    """6b: 6a's trained params saved by the port's ``CheckpointManager``,
+    then ``repro_torch.launch.serve.main`` in process with ``--ckpt-dir``
+    on the full-width 2-layer config at ``--ladder 16,8,4 --max-ppl-x
+    1.04``: its restore timed and held bit-equal to the saved params, B3/
+    B4 launched for each rung bank of its final plan, and the same greedy
+    tokens as the same CLI run on the in-memory trained params."""
+    import contextlib
+    import io
+    import shutil
+    from repro_torch.ft.checkpoint import CheckpointManager
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    cfg, params = trained["cfg"], trained["params"]
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    nbytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    t0 = time.perf_counter()
+    CheckpointManager(str(CKPT_DIR), keep=1).save(
+        trained["steps"], {"params": params},
+        extra={"step": trained["steps"]}, block=True)
+    save_s = time.perf_counter() - t0
+    size = (CKPT_DIR / f"step_{trained['steps']}" / "tree.msgpack.zst") \
+        .stat().st_size
+    log(f"ckpt: {nbytes / 1e9:.2f} GB of trained params -> {size / 1e9:.2f}"
+        f" GB file; save {save_s:.2f} s ({nbytes / 1e9 / save_s:.3f} GB/s: "
+        f"host snapshot, parallel zlib, write) on {card}")
+    argv = ["--device", "cuda", "--no-smoke", "--ladder", "16,8,4",
+            "--max-ppl-x", "1.04", "--temperature", "0", "--requests", "4",
+            "--max-new-tokens", str(MAX_NEW)]
+    built, restores = [], []
+    real = (serve.get_config, serve.build_engine, serve.init_params,
+            CheckpointManager.restore)
+
+    def build_and_keep(*a, **kw):
+        built.append(real[1](*a, **kw))
+        return built[-1]
+
+    def timed_restore(self, *a, **kw):
+        t0 = time.perf_counter()
+        tree, manifest = real[3](self, *a, **kw)
+        torch.cuda.synchronize()
+        restores.append(time.perf_counter() - t0)
+        if not _params_equal(torch, tree["params"], params):
+            raise AssertionError("restored params differ from the saved")
+        return tree, manifest
+
+    serve.get_config = lambda arch: cfg          # depth cut to 2 layers
+    serve.build_engine = build_and_keep
+    CheckpointManager.restore = timed_restore
+    runs = {}
+    try:
+        for name, extra in (("--ckpt-dir", ["--ckpt-dir", str(CKPT_DIR)]),
+                            ("in-memory params", [])):
+            if not extra:
+                serve.init_params = lambda *a, **kw: params
+            buf = io.StringIO()
+            built.clear()
+            ops.reset_launches()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                serve.main(argv + extra)
+            secs = time.perf_counter() - t0
+            launches = dict(ops.LAUNCHES)
+            text = buf.getvalue()
+            if extra and f"[serve] restored params from {CKPT_DIR}" \
+                    not in text:
+                raise AssertionError(f"serve CLI did not restore: {text}")
+            if not all(e.use_kernel for e in built):
+                raise AssertionError("a CLI engine runs without the kernels")
+            banks = sorted({k for e in built
+                            for k, _ in _bank_keys(e.current_plan)})
+            require_launches(launches, f"cli {name}", banks)
+            runs[name] = {"seconds": secs, "launches": launches,
+                          "banks": banks, "tokens": _cli_tokens(built),
+                          "lines": text.splitlines()}
+            log(f"  cli {name} ({secs:.2f} s): python -m "
+                f"repro_torch.launch.serve {' '.join(argv + extra)}")
+            for ln in text.splitlines():
+                log(f"    {ln}")
+            log(f"    launches {launches} (rung banks {banks})")
+    finally:
+        (serve.get_config, serve.build_engine, serve.init_params,
+         CheckpointManager.restore) = real
+        built.clear()
+        shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    if len(restores) != 1:
+        raise AssertionError(f"{len(restores)} restores, expected 1")
+    restore_s = restores[0]
+    rate = nbytes / 1e9 / restore_s
+    log(f"  the CLI's restore: {restore_s:.2f} s ({rate:.3f} GB/s: read, "
+        "one inflate thread, decode, copy to the card); restored params "
+        "bit-equal to the saved ones")
+    got, want = runs["--ckpt-dir"]["tokens"], \
+        runs["in-memory params"]["tokens"]
+    if got != want or len(got) != 4:
+        raise AssertionError(f"--ckpt-dir tokens {got} != in-memory "
+                             f"params' {want}")
+    log("  --ckpt-dir serves the trained params: greedy tokens of all 4 "
+        "requests equal to the in-memory params' run")
+    return {"params_gb": nbytes / 1e9, "file_gb": size / 1e9,
+            "save_s": save_s, "restore_s": restore_s,
+            "save_gb_per_s": nbytes / 1e9 / save_s,
+            "restore_gb_per_s": rate, "cli": runs, "card": card}
+
+
+def _ckpt_trees_equal(torch, a_dir, b_dir, step):
+    from repro_torch.ft.checkpoint import CheckpointManager
+    a, ma = CheckpointManager(str(a_dir)).restore(step)
+    b, mb = CheckpointManager(str(b_dir)).restore(step)
+    return _params_equal(torch, a, b) and ma["extra"] == mb["extra"], \
+        sum(1 for _ in _leaves(a))
+
+
+def phase_train_cli(torch, np, card: str):
+    """6c: ``repro_torch.launch.train.main`` in process on the card, 6
+    steps with a checkpoint every 3; then a restart from the step-3
+    checkpoint with ``--resume``: the same step lines, and the final
+    params, optimizer state and pipeline cursor bit-equal to the straight
+    run's."""
+    import contextlib
+    import io
+    import re
+    import shutil
+    from repro_torch.launch import train
+    base = CKPT_DIR / "train_cli"
+    shutil.rmtree(base, ignore_errors=True)
+    argv = ["--device", "cuda", "--arch", "smollm-360m", "--smoke",
+            "--steps", "6", "--ckpt-every", "3", "--batch", "8", "--seq",
+            "128", "--log-every", "1"]
+    step_re = re.compile(r"step\s+(\d+) nll=([0-9.]+) gnorm=([0-9.]+)")
+    out = {}
+    try:
+        for name, extra in (("straight", ["--ckpt-dir", str(base / "a")]),
+                            ("resumed", ["--resume", "--ckpt-dir",
+                                         str(base / "b")])):
+            if name == "resumed":
+                (base / "b").mkdir(parents=True)
+                shutil.copytree(base / "a" / "step_3",
+                                base / "b" / "step_3")
+                (base / "b" / "step_3.COMMITTED").touch()
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                train.main(argv + extra)
+            secs = time.perf_counter() - t0
+            text = buf.getvalue()
+            out[name] = {"seconds": secs, "lines": text.splitlines(),
+                         "steps": step_re.findall(text)}
+            log(f"train cli {name} ({secs:.2f} s): python -m "
+                f"repro_torch.launch.train {' '.join(argv + extra)}")
+            for ln in text.splitlines():
+                log(f"    {ln}")
+        if "[train] resumed from step 3" not in out["resumed"]["lines"]:
+            raise AssertionError("the restart did not resume from step 3")
+        if out["resumed"]["steps"] != out["straight"]["steps"][3:]:
+            raise AssertionError("resumed step lines differ: "
+                                 f"{out['resumed']['steps']} vs "
+                                 f"{out['straight']['steps'][3:]}")
+        same, n = _ckpt_trees_equal(torch, base / "a", base / "b", 6)
+        if not same:
+            raise AssertionError("the resumed run's step-6 checkpoint "
+                                 "differs from the straight run's")
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    log(f"  resume: step lines 3-5 equal, step-6 params, optimizer state "
+        f"and pipeline cursor bit-equal ({n} leaves), on {card}")
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -1532,8 +1960,10 @@ def _close(torch, got, want):
 
 
 def _bits_equal(torch, a, b) -> bool:
-    return a.dtype == b.dtype and bool(torch.equal(
-        a.contiguous().view(torch.int16), b.contiguous().view(torch.int16)))
+    """Same dtype, shape and bytes (any dtype, 0-d included)."""
+    return a.dtype == b.dtype and a.shape == b.shape and bool(torch.equal(
+        a.contiguous().reshape(-1).view(torch.uint8),
+        b.contiguous().reshape(-1).view(torch.uint8)))
 
 
 def _bound_ms(nbytes: float, flops: float):
@@ -1901,9 +2331,19 @@ def main(argv=None) -> int:
             if serve.get(name) is not None:
                 paths[name] = serve[name]
         ctx["engine"].close()
-        del ctx
+        del ctx, served          # the tuple held the params and engine too
         torch.cuda.empty_cache()
     cli = run("cli", phase_cli, torch, np, smi)
+    # training runs once the serve phases have released their params
+    _release(torch)
+    trained = run("train", phase_train, torch, np, args.seed, smi)
+    train = {"train": trained[0] if trained else None}
+    if trained and built:
+        train["ckpt serve"] = run("ckpt serve", phase_ckpt_serve, torch,
+                                  np, trained[1], smi)
+    del trained
+    _release(torch)
+    train["train cli"] = run("train cli", phase_train_cli, torch, np, smi)
     parity_err = run("parity", phase_parity, torch, np, args.seed) \
         if built else None
     kern = run("kernels", phase_kernels, torch, np, sizes, args.seed,
@@ -1916,6 +2356,10 @@ def main(argv=None) -> int:
             for path, r in paths.items()}
         rec["launches_by_path"] = {path: r["launches"][rec["name"]]
                                    for path, r in paths.items()}
+        if train.get("ckpt serve"):
+            for name, r in train["ckpt serve"]["cli"].items():
+                rec["launches_by_path"][f"cli {name}"] = \
+                    r["launches"][rec["name"]]
         rec["on_main_path"] = rec["launches"] > 0
     total_s = time.perf_counter() - t_start
     log(f"total: {total_s:.1f} s")
@@ -1924,6 +2368,7 @@ def main(argv=None) -> int:
     out.write_text(json.dumps({
         "nvidia_smi": smi, "device": torch.cuda.get_device_name(0),
         "build_s": build_s, "ptxas": ptxas, "serve": serve, "cli": cli,
+        "train": train,
         "parity_max_abs_diff": parity_err, "kernels": records,
         "kernel_shapes": extra, "failures": failures,
         "total_s": total_s}, indent=1, default=str))

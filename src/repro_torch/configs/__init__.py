@@ -1,7 +1,7 @@
 """Architecture registry of the port: ``get_config("<arch-id>")``.
 
-This slice serves Mixtral-8x7B only (plain and with the paper's MoP
-serving defaults)."""
+Mixtral-8x7B (plain and with the paper's MoP serving defaults) and the
+dense SmolLM-360M that the training examples use."""
 from __future__ import annotations
 
 import importlib
@@ -13,6 +13,7 @@ from repro_torch.configs.base import (  # noqa: F401
 _MODULES = {
     "mixtral-8x7b": "mixtral_8x7b",
     "mixtral-mop": "mixtral_mop",
+    "smollm-360m": "smollm_360m",
 }
 ARCH_IDS = tuple(_MODULES)
 

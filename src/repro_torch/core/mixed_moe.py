@@ -71,8 +71,8 @@ def route(router_w: torch.Tensor, x: torch.Tensor, moe: MoEConfig, *,
         trace.append(ids.cpu().numpy().astype(np.int32))
     moe_trace = getattr(_TRACE, "moe", None)
     if moe_trace is not None:
-        moe_trace.append((x.to(torch.float32).cpu().numpy(),
-                          probs.cpu().numpy()))
+        moe_trace.append((x.detach().to(torch.float32).cpu().numpy(),
+                          probs.detach().cpu().numpy()))
     if aux is not None:
         e = moe.num_experts
         dispatch = F.one_hot(ids, e).to(torch.float32).sum(1)     # (T,E)
@@ -150,9 +150,12 @@ def _dispatch_local(x, ids, weights, *, rank, totals, locs, capacity):
     drop = e_loc * capacity
     dest = torch.where(valid, sorted_e * capacity + pos,
                        torch.full_like(pos, drop))
-    tok = order // k
+    # x[order // k], spelled as a permutation of the k copies of each row
+    # so that the backward adds no two rows into one (a scatter-add of
+    # repeated rows has no fixed order; the sum over the copies does)
+    rows = x[:, None].expand(t, k, d).reshape(t * k, d)[order]
     xbuf = torch.zeros((drop + 1, d), dtype=x.dtype, device=x.device)
-    xbuf[dest] = x[tok]
+    xbuf[dest] = rows
     return xbuf[:drop].reshape(e_loc, capacity, d), dest, order, \
         flat_w[order]
 

@@ -261,7 +261,7 @@ def calibrate_sensitivity(cfg: ModelConfig, params, *, seed: int = 0,
              "labels": torch.from_numpy(labels.astype(np.int64)).to(dev)}
 
     model = build_model(cfg)
-    with mixed_moe.capture_moe_inputs() as captured:
+    with mixed_moe.capture_moe_inputs() as captured, torch.no_grad():
         model.loss_fn(params, batch)
     if len(captured) != num_layers:
         raise RuntimeError(

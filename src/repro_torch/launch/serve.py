@@ -48,8 +48,12 @@ footprint of all tenants):
        {"name": "batch", "max_ppl_x": 1.0, "requests": 3}]}
 
 Tenant ``i``'s params are ``init_params(cfg, seed=i)``. ``--ep``/``--dp``
-above 1 raise ``NotImplementedError`` (one device in this port), and
-restoring trained params from a checkpoint is not ported yet.
+above 1 raise ``NotImplementedError`` (one device in this port).
+
+``--ckpt-dir DIR`` serves trained params: the latest committed checkpoint
+in DIR (the reference's layout, written by either package's trainer) is
+restored onto the device; its ``params`` subtree is served in place of
+``init_params(cfg, seed=0)`` (tenant 0's params in ``--tenants`` mode).
 """
 from __future__ import annotations
 
@@ -67,6 +71,7 @@ from repro_torch.core.expert_cache import AsyncExpertCache, ExpertCache
 from repro_torch.core.sensitivity import (SensitivityProfile,
                                           calibrate_sensitivity)
 from repro_torch.device import resolve_device
+from repro_torch.ft.checkpoint import CheckpointManager
 from repro_torch.models.model import init_params
 from repro_torch.serving.api import (EngineConfig, MultiTenantEngine,
                                      QoSTarget, RequestSLO, ServeRequest,
@@ -251,6 +256,10 @@ def build_parser() -> argparse.ArgumentParser:
                          "deadline, exercising SLO-aware admission")
     ap.add_argument("--smoke", action=argparse.BooleanOptionalAction,
                     default=True)
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="serve the params of the latest checkpoint in "
+                         "this directory (written by a trainer of either "
+                         "package)")
     ap.add_argument("--trace", default=None,
                     help="CSV of budget_gb,preference[,num_q[,min_tps]] "
                          "to replay (4th column = SLO)")
@@ -286,7 +295,13 @@ def main(argv=None) -> None:
     if args.ep > 1 or args.dp > 1:
         raise NotImplementedError(EP_NOT_IMPLEMENTED)
     device = resolve_device(args.device)
-    params = init_params(cfg, seed=0, device=device)
+    mgr = CheckpointManager(args.ckpt_dir) if args.ckpt_dir else None
+    if mgr is not None and mgr.latest_step():
+        tree, _ = mgr.restore(shardings=device)
+        params = tree.get("params", tree)
+        print(f"[serve] restored params from {args.ckpt_dir}")
+    else:
+        params = init_params(cfg, seed=0, device=device)
 
     if args.calibrate:
         prof = calibrate_sensitivity(cfg, params,

@@ -227,8 +227,28 @@ def mlp(p: Dict[str, Any], x: torch.Tensor, act: str) -> torch.Tensor:
     raise ValueError(act)
 
 
+class _Embed(torch.autograd.Function):
+    """``table[ids]`` whose backward sums the rows of repeated ids as a
+    product with the one-hot matrix of ``ids`` (in cuBLAS's fixed order),
+    not as an index backward's scatter-add, whose order of adds PyTorch
+    does not fix: two identical train steps give the same bits."""
+
+    @staticmethod
+    def forward(ctx, table, ids):
+        ctx.save_for_backward(ids)
+        ctx.rows = table.shape[0]
+        return table[ids]
+
+    @staticmethod
+    def backward(ctx, grad):
+        ids, = ctx.saved_tensors
+        grad = grad.reshape(-1, grad.shape[-1])
+        onehot = F.one_hot(ids.reshape(-1).long(), ctx.rows).to(grad.dtype)
+        return onehot.t() @ grad, None
+
+
 def embed(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-    return table[ids]
+    return _Embed.apply(table, ids)
 
 
 def unembed(table: torch.Tensor, x: torch.Tensor) -> torch.Tensor:

@@ -333,8 +333,8 @@ class Model:
     # (pool, page_table, keep (B,)) -> pool, same contract
     loss_fn: Callable
     # (params, {"tokens": (B,S), "labels": (B,S)}) -> (loss, metrics):
-    # the no-cache full-sequence forward over the train banks, forward
-    # only (the gradient comes with the training slice)
+    # the no-cache full-sequence forward over the train banks;
+    # differentiable (training/train_loop.py takes its gradient)
 
 
 def _embed_scaled(params, cfg: ModelConfig, tokens: torch.Tensor):
@@ -509,12 +509,14 @@ def build_model(cfg: ModelConfig, *, use_kernel: bool = False) -> Model:
             1, pt.page, pos.reshape(l, b * nc, ps).index_select(1, pt.chunk))
         return pool
 
-    @torch.no_grad()
     def loss_fn(params, batch):
-        """The reference's ``loss_fn`` forward: embed, the whole sequence
-        through every layer with no cache (MoE on the train-layout
-        experts, router losses on), final norm, unembed, mean NLL plus
-        the router losses. Returns (loss, metrics)."""
+        """The reference's ``loss_fn``: embed, the whole sequence through
+        every layer with no cache (MoE on the train-layout experts, router
+        losses on, ``cfg.remat`` honoured), final norm, unembed, mean NLL
+        plus the router losses. Returns (loss, metrics). Records a graph
+        when grad mode is on and a param requires grad; the train step's
+        backward is deterministic on the card (``layers.embed``,
+        ``mixed_moe._dispatch_local``)."""
         tok = batch["tokens"]
         x = _embed_scaled(params, cfg, tok)
         positions = torch.arange(tok.shape[1], device=tok.device)[

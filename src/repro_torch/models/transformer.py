@@ -13,6 +13,7 @@ the same bits.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict
 
 import torch
@@ -121,6 +122,27 @@ def decoder_block(p, cfg: ModelConfig, x, positions, cache, *,
     return x + h, new_kv, ids
 
 
+def _maybe_remat(fn, cfg: ModelConfig):
+    """``cfg.remat`` as activation checkpointing of a block while a graph
+    is recorded: "full" recomputes the whole block in the backward
+    (``jax.checkpoint``), "dots" saves the matmul outputs and recomputes
+    the rest (``jax.checkpoint_policies.checkpoint_dots``)."""
+    if cfg.remat == "none" or not torch.is_grad_enabled():
+        return fn
+    from torch.utils import checkpoint as ckpt
+    if cfg.remat == "full":
+        return functools.partial(ckpt.checkpoint, fn, use_reentrant=False)
+    if cfg.remat == "dots":
+        aten = torch.ops.aten
+        dots = [aten.mm.default, aten.bmm.default, aten.addmm.default,
+                aten.baddbmm.default]
+        return functools.partial(
+            ckpt.checkpoint, fn, use_reentrant=False,
+            context_fn=functools.partial(
+                ckpt.create_selective_checkpoint_contexts, dots))
+    raise ValueError(f"unknown remat policy {cfg.remat!r}")
+
+
 def decoder_forward(params, cfg: ModelConfig, x, positions, *,
                     caches, use_kernel=False, collect_routes=False,
                     spec=False, train=False):
@@ -139,21 +161,34 @@ def decoder_forward(params, cfg: ModelConfig, x, positions, *,
     tokens through the live-cache attention path and pins the MoE
     capacity at the token count B*S, so the batched verify is drop-free
     (plain decode and verify then score the same distributions)."""
-    if collect_routes and cfg.moe is None:
-        raise ValueError("collect_routes needs routed experts")
+    if collect_routes and (cfg.moe is None or caches is None):
+        raise ValueError("collect_routes needs routed experts and a cache")
     moe_capacity = x.shape[0] * x.shape[1] if spec else None
     aux: Dict[str, Any] = {}
     if train and cfg.moe is not None:
         zero = torch.zeros((), dtype=torch.float32, device=x.device)
         aux.update(load_balance=zero, router_z=zero)
     new_kvs, route_ids = [], []
+
+    def train_block(x, p):
+        layer_aux: Dict[str, Any] = {}
+        x, _, _ = decoder_block(p, cfg, x, positions, None,
+                                use_kernel=use_kernel,
+                                aux=layer_aux if train else None)
+        return x, layer_aux
+
+    train_body = _maybe_remat(train_block, cfg)
     for li in range(cfg.num_layers):
-        cache = None if caches is None else \
-            {k: caches[k][li] for k in ("k", "v", "pos")}
+        p = layer_slice(params["layers"], li)
+        if caches is None:                  # the no-cache train forward
+            x, layer_aux = train_body(x, p)
+            for k, v in layer_aux.items():
+                aux[k] = aux[k] + v
+            continue
+        cache = {k: caches[k][li] for k in ("k", "v", "pos")}
         x, new_kv, ids = decoder_block(
-            layer_slice(params["layers"], li), cfg, x, positions, cache,
-            use_kernel=use_kernel, spec=spec, moe_capacity=moe_capacity,
-            aux=aux if train else None)
+            p, cfg, x, positions, cache, use_kernel=use_kernel, spec=spec,
+            moe_capacity=moe_capacity)
         new_kvs.append(new_kv)
         route_ids.append(ids)
     if caches is None:

@@ -1,7 +1,10 @@
 """The PyTorch port stands alone: no module of ``repro_torch`` (and not
-``chip_smoke.py`` or a script in ``tools/``) imports JAX, ml_dtypes or
-the JAX package ``repro``, and every module imports on a host without
-nvcc or a GPU."""
+``chip_smoke.py`` or a script in ``tools/``) imports JAX, ml_dtypes,
+msgpack or the JAX package ``repro``, and every module imports on a host
+without nvcc or a GPU. The card's host has no msgpack, zstandard or
+ml_dtypes wheel: the only import of ``zstandard`` is the checkpoint
+reader's one optional import, inside a function, guarded by an
+``except ImportError``."""
 import ast
 import os
 import subprocess
@@ -12,7 +15,8 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "src" / "repro_torch"
-FORBIDDEN = ("jax", "jaxlib", "ml_dtypes", "repro")
+FORBIDDEN = ("jax", "jaxlib", "ml_dtypes", "msgpack", "repro")
+OPTIONAL = "zstandard"          # read zstd checkpoint frames if present
 
 
 def sources():
@@ -47,12 +51,34 @@ def test_no_jax_or_reference_imports(path):
     assert not bad, f"{path} imports {bad}"
 
 
+def _guarded_by_import_error(node: ast.Try) -> bool:
+    return any(isinstance(h.type, ast.Name) and h.type.id in (
+        "ImportError", "ModuleNotFoundError") for h in node.handlers)
+
+
+def test_zstandard_only_as_one_guarded_optional_import():
+    """One import in all, in the checkpoint reader, under a ``try`` that
+    catches ``ImportError``; that it runs only inside a function shows in
+    the next test (importing every module leaves ``zstandard`` out of
+    ``sys.modules``)."""
+    guarded, total = [], 0
+    for path in sources():
+        tree = ast.parse(path.read_text())
+        total += sum(n.split(".")[0] == OPTIONAL for n in imported(tree))
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Try) and _guarded_by_import_error(node):
+                guarded += [path.name for stmt in node.body
+                            for n in imported(stmt)
+                            if n.split(".")[0] == OPTIONAL]
+    assert guarded == ["checkpoint.py"] and total == 1
+
+
 def test_every_module_imports_without_jax():
     code = ("import importlib, sys\n"
             f"for m in {module_names()!r}:\n"
             "    importlib.import_module(m)\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
-            f"{FORBIDDEN!r}]\n"
+            f"{FORBIDDEN + (OPTIONAL,)!r}]\n"
             "assert not bad, bad\n"
             "print(len(sys.modules))\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))

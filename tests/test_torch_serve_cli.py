@@ -15,7 +15,9 @@ reference's (``repro.launch.serve``), both run in process on the CPU
   router probabilities differ by up to 2.6e-3, which flips an expert at
   a router near-tie, while in float32 they differ by 2.1e-7;
 * in bf16, the served dtype, the lines no near-tie can move (targets,
-  plans, phases, per-tenant points, the arbiter summary) must agree.
+  plans, phases, per-tenant points, the arbiter summary) must agree;
+* ``--ckpt-dir`` on one float32 checkpoint (written by either package):
+  the same restore, target, plan and token lines.
 
 Printed times, tokens/s and latency percentiles are measurements and are
 not compared."""
@@ -221,3 +223,38 @@ def test_ep_dp_raise_the_engine_message(clis):
             clis("port", [flag, "2"])
     with pytest.raises(SystemExit):
         clis("port", ["--ep", "0"])
+
+
+@pytest.mark.parametrize("writer", ["reference", "port"])
+def test_ckpt_dir_serves_the_checkpoint_like_the_reference(clis, tmp_path,
+                                                           writer):
+    """Both CLIs serve one float32 checkpoint of trained-layout params
+    (seed 7, not the CLIs' own seed 0) through ``--ckpt-dir``: the same
+    restore, target, plan and token lines, and other tokens than the
+    seed-0 params give. The reference's manager writes the checkpoint as
+    ``{"params": ...}``, the port's as the bare params tree; the CLI
+    serves ``tree.get("params", tree)`` of either."""
+    from repro.configs import get_config, reduce_for_smoke
+    from repro.ft.checkpoint import CheckpointManager as JManager
+    from repro_torch.ft.checkpoint import CheckpointManager
+    cfg = reduce_for_smoke(get_config("mixtral-8x7b")).replace(
+        dtype="float32")
+    params = jax.tree_util.tree_map(
+        np.asarray, jbuild_model(cfg).init(jax.random.key(7)))
+    if writer == "reference":
+        JManager(str(tmp_path), async_save=False).save(
+            3, {"params": params, "opt": {"step": np.asarray(3)}})
+    else:
+        CheckpointManager(str(tmp_path), async_save=False).save(
+            3, params_from_numpy(params, "cpu"))
+    argv = ["--ladder", "16,8,4", "--temperature", "0", "--requests", "2",
+            "--max-new-tokens", "4"]
+    got = clis("port", argv + ["--ckpt-dir", str(tmp_path)])
+    want = clis("ref", argv + ["--ckpt-dir", str(tmp_path)])
+    restored = f"[serve] restored params from {tmp_path}"
+    assert restored in got and restored in want
+    assert compared(got) == compared(want)
+    tokens = [ln for ln in compared(got) if "tokens=[" in ln]
+    assert len(tokens) == 2
+    fresh = [ln for ln in compared(clis("port", argv)) if "tokens=[" in ln]
+    assert fresh != tokens
