@@ -72,6 +72,22 @@ Phases (each raises on failure, and the script then exits non-zero):
                every engine it builds runs the kernels, and the launch
                counters (zeroed before each run) show each rung bank of
                its final plans launched;
+     7a. poisson — the paper's serving under load, on the serve phase's
+               params: ``drive_poisson`` submits 16 requests (8-32 prompt
+               tokens, 8-24 new tokens, priorities 0 and 1) on exponential
+               arrival clocks with a mean gap of 0.01 s (about one warm
+               decode iteration) to the default paged engine with the
+               kernels on, a ``QoSController`` stepped between decode
+               iterations (best effort from the serve phase's point),
+               ``drain=False``; then a lower memory budget that splits
+               the banks with requests in flight, then a drain: every
+               request finishes with its ``max_new_tokens``, each rung
+               bank of the final plan launched, each replan's kind,
+               ``reconfig_s`` and ``drain_s`` printed with tokens/s, p50
+               and p95 request latency and launches per bank; then the
+               same traffic on a fixed plan without the controller gives
+               the greedy tokens of the same prompts submitted all at
+               once to a fresh engine;
   6. train   — after the serve phases release their params (card memory
                printed before and after):
      6a. train step — the full-width 2-layer Mixtral (3.17 B params) from
@@ -97,6 +113,21 @@ Phases (each raises on failure, and the script then exits non-zero):
                3, then a restart with ``--resume`` from step 3: equal step
                lines and a step-6 checkpoint bit-equal to the straight
                run's;
+     7b. kimi  — full-width Kimi-K2 (d_model 7168, 64/8 heads of 112,
+               384 experts top-8, d_ff_expert 2048, vocab 163840), depth
+               cut 61 -> 1, weights drawn on the card (38.8 GB): the
+               planner's point for a 16 GB budget and a quality ceiling
+               (int4 bank of >= 320 experts beside int8 and bf16 banks)
+               applied through ``apply_frontier_point``; 4 requests x 16
+               prompt x 8 new tokens with the kernels on, each bank
+               launched at its G; a ``use_kernel=False`` engine at the
+               same plan: logits within 2e-2 of max |logit|, the first
+               token divergence (if any) with its logit margins; peak
+               memory;
+     7c. qwen3 — full-width Qwen3-8B (qk-norm), depth cut 36 -> 2: one
+               forward and backward of ``Model.loss_fn``, finite loss,
+               nonzero q/k-norm gradients; the smoke Qwen3 at float32 on
+               the card against the CPU at 6a's bars (no kernel: dense);
   4. parity  — the smoke-size model's prefill + decode logits on the card
                (kernels) agree with the same model on the CPU (the
                kernels' plain versions);
@@ -113,7 +144,10 @@ Phases (each raises on failure, and the script then exits non-zero):
                G = 8 draft bank at C = 12; device times (CUDA graphs)
                beside the plain version, the bound and a library yardstick
                (``torch.bmm`` on the dequantized bf16 weights, which the
-               port never calls).
+               port never calls); B3 (int4 and int8) at Kimi-K2's widths
+               and G = 384, C = 8 (up: K 7168, N 2048; down: K 2048, N
+               7168), held against its plain version on the first, a
+               middle and the last expert of the bank.
 
 A failed phase is reported and the phases that do not need its result
 still run; the script then exits 1 and prints no result. Otherwise the
@@ -1309,6 +1343,219 @@ def phase_multi(torch, np, ctx, card: str):
     return out
 
 
+# --------------------------------------------------------------------------
+# phase 7a: the paper's serving under load (Poisson arrivals, QoS loop)
+# --------------------------------------------------------------------------
+
+POISSON_REQUESTS, POISSON_GAP_S = 16, 0.01   # ~one warm decode iteration
+POISSON_CFG = dict(SERVE_CFG, max_len=64)    # 32 prompt + 24 new tokens
+
+
+def _poisson_traffic(slo_cls):
+    """drive_poisson's samplers: prompts of 8-32 tokens, 8-24 new
+    tokens, two priorities."""
+    return dict(n_requests=POISSON_REQUESTS, mean_gap_s=POISSON_GAP_S,
+                prompt_len=lambda r: int(r.integers(8, 33)),
+                max_new_tokens=lambda r: int(r.integers(8, 25)),
+                slo=lambda r: slo_cls(priority=int(r.integers(2)),
+                                      deadline_s=30.0))
+
+
+def _record_submits(engine):
+    """Wrap ``engine.submit``: the (rid, prompt, max_new_tokens, slo) of
+    every submission, in order."""
+    subs = []
+    submit = engine.submit
+
+    def spy(prompt, **kw):
+        rid = submit(prompt, **kw)
+        subs.append((rid, prompt, kw["max_new_tokens"], kw.get("slo")))
+        return rid
+    engine.submit = spy
+    return subs
+
+
+def _split_target(fr, target, plan):
+    """The largest lower budget whose selected point splits the banks
+    otherwise than ``plan``: (target, point)."""
+    import dataclasses
+    for b in sorted({p.qos.device_bytes for p in fr.points
+                     if p.qos.device_bytes < target.mem_budget_bytes},
+                    reverse=True):
+        t = dataclasses.replace(target, mem_budget_bytes=b)
+        p = fr.select(t)
+        if p.plan.bank_sizes() != plan.bank_sizes():
+            return t, p
+    raise RuntimeError("no lower budget splits the banks otherwise")
+
+
+def _all_finished(engine, subs, what):
+    for rid, _, n, _ in subs:
+        req = engine.done.get(rid)
+        if req is None or len(req.out_tokens) != n:
+            raise AssertionError(f"{what}: request {rid} did not finish "
+                                 f"with its {n} tokens")
+
+
+def phase_poisson(torch, np, ctx, card: str, seed: int):
+    """7a: ``drive_poisson`` against the default paged engine with the
+    kernels on and a QoSController stepped between decode iterations:
+    16 open-loop requests on exponential arrival clocks, the tail left in
+    flight (``drain=False``), then a lower memory budget that splits the
+    banks with requests in flight, then a drain. Every submitted request
+    finishes with its ``max_new_tokens``, each rung bank of the final plan
+    launched, the replans' ``reconfig_s`` and ``drain_s`` recorded. Then
+    a fixed-plan pass (no controller) whose greedy tokens equal those of
+    the same prompts submitted all at once to a fresh engine."""
+    import math
+    from repro_torch.core.pareto import QoSTarget
+    from repro_torch.kernels import ops
+    from repro_torch.serving.api import (EngineConfig, RequestSLO,
+                                         build_engine)
+    from repro_torch.serving.driver import drive_poisson
+    from repro_torch.serving.qos import QoSController, QoSControllerConfig
+    cfg, params = ctx["cfg"], ctx["params"]
+    total = cfg.num_layers * cfg.moe.num_experts
+    engine = build_engine(cfg, params, EngineConfig(**POISSON_CFG),
+                          device="cuda")
+    fr = engine.frontier
+    start = pick_point(fr, total)
+    ctl = QoSController(engine, config=QoSControllerConfig(
+        window_iterations=2, min_dwell_iterations=4))
+    track = _Tracker(torch, engine)
+    target = QoSTarget(min_tokens_per_s=math.inf,
+                       mem_budget_bytes=start.qos.device_bytes)
+    log(f"poisson: {POISSON_REQUESTS} requests, mean gap {POISSON_GAP_S} "
+        f"s, prompts 8-32, 8-24 new tokens, priorities 0/1; "
+        f"EngineConfig({POISSON_CFG}); adopt [{target.describe()}] at "
+        f"{start.summary()}")
+    ctl.adopt(target, start)
+    subs = _record_submits(engine)
+    engine.reset_counters()
+    ops.reset_launches()
+    rng = np.random.default_rng(seed + 2)
+    traffic = _poisson_traffic(RequestSLO)
+    t0 = time.perf_counter()
+    rids = drive_poisson(engine, rng, **traffic, on_iteration=ctl.step,
+                         drain=False)
+    # the last arrivals may still wait in the queue with every slot
+    # free: admit them, so that the drop finds requests in their slots
+    while not engine.scheduler.num_active and engine.has_work():
+        engine.run_iteration()
+        ctl.step()
+    in_flight = engine.scheduler.num_active
+    if in_flight == 0:
+        raise AssertionError("no request in flight at the budget drop")
+    queued = len(engine.queue)
+    drop, point = _split_target(fr, ctl.target, engine.current_plan)
+    replans0 = ctl.metrics["replans"]
+    ctl.set_target(drop)
+    rec = track.replans[-1]
+    if rec["kind"] != "bank-split" or rec["drain_s"] <= 0:
+        raise AssertionError(f"the budget drop did not drain into a bank "
+                             f"split: {rec}")
+    log(f"  budget drop to {drop.mem_budget_bytes / 1e9:.3f} GB with "
+        f"{in_flight} request(s) decoding and {queued} queued "
+        f"-> {point.summary()}")
+    drive_poisson(engine, rng, **dict(traffic, n_requests=0),
+                  on_iteration=ctl.step, drain=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    track.unwrap()
+    del engine.submit
+    if [s[0] for s in subs] != rids or len(rids) != POISSON_REQUESTS:
+        raise AssertionError(f"submitted {len(rids)} rids, recorded "
+                             f"{len(subs)}")
+    _all_finished(engine, subs, "poisson")
+    if ctl.metrics["replans"] != replans0 + 1:
+        raise AssertionError("the controller replanned after the drop")
+    final = _bank_keys(engine.current_plan)
+    served = track.plans[-1][1]
+    missing = [k for k in final if served[k] <= 0]
+    if missing:
+        raise AssertionError(f"final plan banks {missing} never launched")
+    track.require_bank_launches()
+    m = engine.metrics
+    lat = engine.latency_percentiles()
+    out = {"wall_s": wall, "tokens": m["tokens_generated"],
+           "iterations": m["iterations"],
+           "tokens_per_s": engine.throughput_tokens_per_s(),
+           "wall_tokens_per_s": m["tokens_generated"] / wall,
+           "latency_p50_s": lat["p50"], "latency_p95_s": lat["p95"],
+           "replans": track.replans, "controller": dict(ctl.metrics),
+           "in_flight_at_drop": in_flight, "queued_at_drop": queued,
+           "launches": dict(ops.LAUNCHES),
+           "launches_per_decode_iter": {
+               k: v / max(m["iterations"], 1)
+               for k, v in ops.LAUNCHES.items()},
+           "bank_launches": [{f"{k}@G={g}": v for (k, g), v in c.items()}
+                             for _, c in track.plans]}
+    log(f"  {len(rids)} requests, {m['tokens_generated']} tokens in "
+        f"{wall:.2f} s ({m['iterations']} iterations): "
+        f"{out['tokens_per_s']:.2f} tok/s over decode, "
+        f"{out['wall_tokens_per_s']:.2f} tok/s over the wall; latency "
+        f"p50 {lat['p50'] * 1e3:.1f} ms, p95 {lat['p95'] * 1e3:.1f} ms; "
+        f"{ctl.metrics['replans']} replans ({len(track.replans)} applied "
+        f"plans); launches by plan {out['bank_launches']}")
+    fixed = ctl.point
+    engine.close()
+    del engine, ctl, track
+    _release(torch)
+    out["fixed_plan"] = _poisson_vs_all_at_once(torch, np, cfg, params,
+                                                fixed, seed)
+    return out
+
+
+def _poisson_vs_all_at_once(torch, np, cfg, params, point, seed: int):
+    """The same Poisson traffic on a fixed plan (no controller), and its
+    prompts submitted all at once to a fresh engine: equal greedy
+    tokens, request by request (decode rows do not depend on which other
+    requests share the batch)."""
+    from repro_torch.kernels import ops
+    from repro_torch.serving.api import (EngineConfig, RequestSLO,
+                                         build_engine)
+    from repro_torch.serving.driver import drive_poisson
+    engine = build_engine(cfg, params, EngineConfig(**POISSON_CFG),
+                          device="cuda")
+    engine.apply_frontier_point(point)
+    subs = _record_submits(engine)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    drive_poisson(engine, np.random.default_rng(seed + 3),
+                  **_poisson_traffic(RequestSLO), on_iteration=None)
+    wall = time.perf_counter() - t0
+    _all_finished(engine, subs, "fixed-plan poisson")
+    require_launches(ops.LAUNCHES, "fixed-plan poisson",
+                     [k for k, _ in _bank_keys(engine.current_plan)])
+    got = [engine.done[rid].out_tokens for rid, *_ in subs]
+    iters = engine.metrics["iterations"]
+    engine.close()
+    del engine
+    _release(torch)
+    batch = build_engine(cfg, params, EngineConfig(**POISSON_CFG),
+                         device="cuda")
+    batch.apply_frontier_point(point)
+    rids = [batch.submit(p, max_new_tokens=n, slo=slo)
+            for _, p, n, slo in subs]
+    batch.step()
+    want = [batch.result(r).tokens for r in rids]
+    b_iters = batch.metrics["iterations"]
+    batch.close()
+    del batch
+    _release(torch)
+    diff = [i for i, (a, b) in enumerate(zip(got, want)) if a != b]
+    if diff:
+        raise AssertionError(f"fixed-plan Poisson tokens differ from the "
+                             f"all-at-once run for requests {diff}: "
+                             f"{[got[i] for i in diff]} vs "
+                             f"{[want[i] for i in diff]}")
+    log(f"  fixed plan {point.summary()}: {len(subs)} Poisson requests in "
+        f"{wall:.2f} s ({iters} iterations) and the same prompts all at "
+        f"once ({b_iters} iterations) give equal greedy tokens")
+    return {"wall_s": wall, "iterations": iters,
+            "all_at_once_iterations": b_iters, "tokens": got}
+
+
 def phase_cli(torch, np, card: str):
     """3h: ``repro_torch.launch.serve.main`` in process at ``--smoke``:
     ``--calibrate``; serving with that profile, ``--ladder 16,8,4`` and
@@ -1480,16 +1727,15 @@ def _state_leaves(params, state):
 
 
 
-def _grads_card_vs_cpu(torch, np, seed: int):
-    """The smoke model at float32: loss and every gradient leaf of
-    ``value_and_grad`` on the card against the CPU's, at the CPU tests'
-    bars (loss 1e-5 relative, each leaf 1e-4 x max|g_cpu|)."""
+def _grads_card_vs_cpu(torch, np, seed: int, arch: str = "mixtral-8x7b"):
+    """The smoke model of ``arch`` at float32: loss and every gradient
+    leaf of ``value_and_grad`` on the card against the CPU's, at the CPU
+    tests' bars (loss 1e-5 relative, each leaf 1e-4 x max|g_cpu|)."""
     from repro_torch.configs import get_config, reduce_for_smoke
     from repro_torch.models.model import build_model, init_params
     from repro_torch.training.optimizer import tree_leaves
     from repro_torch.training.train_loop import value_and_grad
-    cfg = reduce_for_smoke(get_config("mixtral-8x7b")).replace(
-        dtype="float32")
+    cfg = reduce_for_smoke(get_config(arch)).replace(dtype="float32")
     params = init_params(cfg, seed, device="cpu")
     rng = np.random.default_rng(seed)
     batch = {k: torch.as_tensor(rng.integers(0, cfg.vocab_size, (4, 16)))
@@ -1513,7 +1759,7 @@ def _grads_card_vs_cpu(torch, np, seed: int):
     if rel > 1e-5:
         raise AssertionError(f"smoke loss card {float(lg)} vs CPU "
                              f"{float(lc)}: {rel:.2e} relative > 1e-5")
-    log(f"  card vs CPU (smoke, float32): loss {float(lg):.6f} vs "
+    log(f"  card vs CPU ({arch} smoke, float32): loss {float(lg):.6f} vs "
         f"{float(lc):.6f} ({rel:.2e} relative, bar 1e-5); largest "
         f"gradient leaf difference {worst:.2e} of its max|g| (bar 1e-4)")
     return {"loss_rel": rel, "grad_worst_rel": worst}
@@ -1842,6 +2088,233 @@ def phase_train_cli(torch, np, card: str):
 # phase 4: parity of the card with the CPU on a small input
 # --------------------------------------------------------------------------
 
+# --------------------------------------------------------------------------
+# phase 7b: Kimi-K2's 384-expert layer on B3 (G >= 320), full width
+# --------------------------------------------------------------------------
+
+KIMI_CFG = dict(max_slots=4, max_len=32, ladder=(16, 8, 4))
+KIMI_BUDGET = 16e9      # all-bf16 is ~38.8 GB: the plan must mix rungs
+KIMI_MAX_LOSS = 0.062   # quality ceiling: ~5/6 of the experts at int4
+KIMI_LOGIT_BAR = 2e-2   # of max |logit|: f32 vs bf16-rounded dequant
+
+
+def kimi_config():
+    from repro_torch.configs import get_config
+    return get_config("kimi-k2-1t-a32b").replace(num_layers=1)
+
+
+def _kimi_point(engine):
+    """The planner's point for a 16 GB budget and a quality ceiling on a
+    frontier whose residency axis is all-or-nothing, so the count axes
+    get a fine grid (levels every 7 experts at one layer): the fastest
+    such point, which the assertions below hold to q4 >= 320 with q8 and
+    bf16 banks beside it."""
+    import math
+    from repro_torch.core.pareto import ParetoFrontier, QoSTarget
+    cfg = engine.cfg
+    total = cfg.num_layers * cfg.moe.num_experts
+    fr = ParetoFrontier(cfg, engine.hw, batch_size=engine.max_slots,
+                        residency_step=total)
+    target = QoSTarget(min_tokens_per_s=math.inf,
+                       mem_budget_bytes=KIMI_BUDGET,
+                       max_quality_loss=KIMI_MAX_LOSS)
+    return target, fr.select(target)
+
+
+def _first_divergence(torch, np, runs, prompts, toks):
+    """The first (request, step) where two runs' greedy tokens differ,
+    and the logit margin there under each run's (model, serving params):
+    the first run's token's logit minus the second's, from one prefill of
+    the prompt and the shared prefix through the slot-cache hooks (the
+    prefill path, not the decode step the engines took, so a margin near
+    zero under both says the step was a near-tie)."""
+    for r, (a, b) in enumerate(zip(*toks)):
+        j = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if j is None:
+            continue
+        seq = np.concatenate([prompts[r], a[:j]])[None]
+        margins = []
+        for m, p in runs:
+            cache = m.init_cache(1, seq.shape[1] + 1, device="cuda")
+            lg, _ = m.prefill_into_slot(
+                p, cache, torch.as_tensor(seq, device="cuda"),
+                torch.arange(seq.shape[1], device="cuda")[None], 0,
+                seq.shape[1] - 1)
+            margins.append(float(lg[0, a[j]] - lg[0, b[j]]))
+        return {"request": r, "step": j, "kernel_token": int(a[j]),
+                "plain_token": int(b[j]), "margins": margins}
+    return None
+
+
+def phase_kimi(torch, np, seed: int, card: str):
+    """7b: full-width Kimi-K2 (d_model 7168, 64/8 heads of 112, 384
+    experts top-8, d_ff_expert 2048, vocab 163840), depth cut 61 -> 1,
+    weights drawn on the card. The default paged engine with the kernels
+    on applies the planner's mixed point (B3-q4 at G >= 320 beside q8
+    and bf16 banks, every expert on the card) through
+    ``apply_frontier_point`` and serves 4 requests x 16 prompt x 8 new
+    tokens: each bank launches its kernel at its G. Then a
+    ``use_kernel=False`` engine at the same plan: prefill and first-decode
+    logits (through the hooks) within 2e-2 of max |logit| of the kernel
+    engine's, and where the greedy tokens differ, the first divergence is
+    reported with both logit margins. Peak memory is recorded. The two
+    engines run one after the other, and the bf16 masters (33.8 GB) move
+    to the host once the plain engine's banks are built, so that its
+    whole-bank dequantize (~33 GB of temporaries for the q4 bank) fits."""
+    from repro_torch.models.model import build_model, init_params
+    from repro_torch.serving.api import EngineConfig, build_engine
+    cfg = kimi_config()
+    a, m = cfg.attention, cfg.moe
+    total = cfg.num_layers * m.num_experts
+    log(f"kimi: {cfg.arch_id} d_model={cfg.d_model} heads={a.num_heads}/"
+        f"{a.num_kv_heads}x{a.head_dim} experts={m.num_experts} top"
+        f"{m.top_k} d_ff_expert={m.d_ff_expert} capacity {m.capacity_factor}"
+        f" vocab={cfg.vocab_size}; reduced: num_layers 61 -> "
+        f"{cfg.num_layers}")
+    _peak_reset(torch)
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed, device="cuda")
+    torch.cuda.synchronize()
+    n_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    log(f"  init_params on the card: {n_bytes / 1e9:.2f} GB in "
+        f"{time.perf_counter() - t0:.2f} s")
+    rng = np.random.default_rng(seed + 4)
+    prompts = [rng.integers(1, cfg.vocab_size, size=16) for _ in range(4)]
+    out, logits, toks = {}, {}, {}
+    for name, uk in (("kernel", True), ("plain", False)):
+        eng = build_engine(cfg, params, EngineConfig(**KIMI_CFG,
+                                                     use_kernel=uk),
+                           device="cuda")
+        if name == "kernel":
+            target, point = _kimi_point(eng)
+        _peak_reset(torch)
+        t0 = time.perf_counter()
+        eng.apply_frontier_point(point)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        plan = eng.current_plan
+        sizes = dict(zip(sorted(plan.ladder), plan.bank_sizes()))
+        log(f"  {name} engine: [{target.describe()}] -> {point.summary()}: "
+            f"banks {sizes} per layer built in {build_s:.2f} s; allocated "
+            f"{_mem_gb(torch)[0]:.2f} GB, build peak {_mem_gb(torch)[1]:.2f}"
+            " GB")
+        if not (sizes[4] >= 320 and sizes[8] > 0 and sizes[16] > 0
+                and point.resident_experts == total):
+            raise AssertionError(f"planned banks {sizes}, resident "
+                                 f"{point.resident_experts}: not q4 >= 320 "
+                                 "beside q8 and bf16, all on the card")
+        if name == "plain":
+            moe = params["layers"]["moe"]
+            t0 = time.perf_counter()
+            for k in ("w_gate", "w_up", "w_down"):
+                moe[k] = moe[k].cpu()
+            _release(torch)
+            log(f"  bf16 expert masters moved to the host in "
+                f"{time.perf_counter() - t0:.2f} s; allocated "
+                f"{_mem_gb(torch)[0]:.2f} GB")
+        _peak_reset(torch)
+        r = serve_pass(torch, eng, prompts)
+        r.update(peak_gb=_mem_gb(torch)[1], build_s=build_s)
+        toks[name] = r["tokens"]
+        logits[name] = [t.float() for t in _hook_logits(torch, eng, prompts)]
+        out[name] = r
+        log_pass(f"{name} engine", card, r)
+        log(f"    serve peak {r['peak_gb']:.2f} GB; grouped launches "
+            f"{r['group_launches']}")
+        if name == "kernel":
+            want = {f"{k}@G={g}" for k, g in _bank_keys(plan)}
+            missing = want - set(r["group_launches"])
+            if missing:
+                raise AssertionError(f"banks {sorted(missing)} never "
+                                     f"launched: {r['group_launches']}")
+            q4 = eng._serve_params["layers"]["moe"]["banks"]["q4"]
+            out["q4_bank_bytes"] = sum(
+                t.numel() * t.element_size() for t in _leaves(q4))
+            eng.close()
+            del eng, q4
+            _release(torch)
+        elif sum(r["launches"].values()):
+            raise AssertionError("the use_kernel=False engine launched "
+                                 "kernels")
+    out.update(point=point.summary(), bank_sizes={
+        str(k): v for k, v in sizes.items()})
+    worst = 0.0
+    for a_, b_ in zip(logits["kernel"], logits["plain"]):
+        if not bool(torch.isfinite(a_).all()):
+            raise AssertionError("non-finite kernel-engine logits")
+        worst = max(worst, float((a_ - b_).abs().max())
+                    / float(b_.abs().max()))
+    if worst > KIMI_LOGIT_BAR:
+        raise AssertionError(f"kernel vs plain logits differ by {worst:.3e}"
+                             f" of max |logit| (bar {KIMI_LOGIT_BAR})")
+    runs = [(build_model(eng.cfg, use_kernel=True), eng._serve_params),
+            (eng.model, eng._serve_params)]
+    div = _first_divergence(torch, np, runs, prompts,
+                            [toks["kernel"], toks["plain"]])
+    out.update(logit_rel_diff=worst, first_divergence=div)
+    log(f"  kernel vs plain engine: logits within {worst:.3e} of max "
+        f"|logit| (bar {KIMI_LOGIT_BAR}); q4 bank "
+        f"{out['q4_bank_bytes'] / 2**30:.2f} GiB; greedy tokens "
+        + ("equal" if div is None else f"first differ at {div}"))
+    eng.close()
+    del eng, runs, params, moe
+    _release(torch)
+    return out
+
+
+# --------------------------------------------------------------------------
+# phase 7c: qwen3-8b (qk-norm) forward and backward on the card
+# --------------------------------------------------------------------------
+
+def phase_qwen3(torch, np, seed: int, card: str):
+    """7c: full-width Qwen3-8B (d_model 4096, 32/8 heads of 128 with
+    qk-norm, d_ff 12288, vocab 151936), depth cut 36 -> 2, one forward and
+    backward of ``Model.loss_fn`` on 2 x 64 tokens: the loss finite and
+    every q/k norm gradient nonzero and finite. Then the smoke-size
+    Qwen3 at float32 on the card against the CPU at phase 6a's bars. The
+    model is dense: its products are ``torch.matmul``, as they are
+    einsums outside any Pallas kernel in the reference, so this phase
+    launches no kernel; it runs the qk-norm attention on the card."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model, init_params
+    from repro_torch.training.train_loop import value_and_grad
+    cfg = get_config("qwen3-8b").replace(num_layers=2)
+    a = cfg.attention
+    log(f"qwen3: {cfg.arch_id} d_model={cfg.d_model} heads={a.num_heads}/"
+        f"{a.num_kv_heads}x{a.head_dim} qk_norm={a.qk_norm} d_ff={cfg.d_ff}"
+        f" vocab={cfg.vocab_size}; reduced: num_layers 36 -> "
+        f"{cfg.num_layers}")
+    _peak_reset(torch)
+    params = init_params(cfg, seed, device="cuda")
+    n = sum(t.numel() for t in _leaves(params))
+    rng = np.random.default_rng(seed + 5)
+    batch = {k: torch.as_tensor(rng.integers(0, cfg.vocab_size, (2, 64)),
+                                device="cuda")
+             for k in ("tokens", "labels")}
+    t0 = time.perf_counter()
+    loss, _, grads = value_and_grad(build_model(cfg).loss_fn, params, batch)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    if not math.isfinite(float(loss)):
+        raise AssertionError(f"qwen3 loss {float(loss)}")
+    norms = {}
+    for k in ("q_norm", "k_norm"):
+        g = grads["layers"]["attn"][k].float()
+        norms[k] = float(g.abs().max())
+        if not (bool(torch.isfinite(g).all()) and norms[k] > 0):
+            raise AssertionError(f"qwen3 {k} gradient {norms[k]}")
+    peak = _mem_gb(torch)[1]
+    log(f"  {n / 1e9:.2f} B params; forward + backward on {card}: "
+        f"{ms:.1f} ms, loss {float(loss):.4f}, max |grad| q_norm "
+        f"{norms['q_norm']:.3e} k_norm {norms['k_norm']:.3e}, peak "
+        f"{peak:.2f} GB")
+    del params, grads, batch
+    _release(torch)
+    smoke = _grads_card_vs_cpu(torch, np, seed, "qwen3-8b")
+    return {"params": n, "loss": float(loss), "ms": ms, "peak_gb": peak,
+            "norm_grad_max": norms, "smoke_card_vs_cpu": smoke}
+
+
 def phase_parity(torch, np, seed: int):
     """The smoke-size model (2 layers, d_model 64) with a 3-rung plan: the
     same params on the card (CUDA kernels) and on the CPU (the kernels'
@@ -1982,6 +2455,106 @@ def _make_bank(torch, gen, g, c, k, n, bits):
     return x, quantize(w, bits, GROUP)
 
 
+#: Kimi-K2's expert bank at full width: G = 384 experts, the decode C = 8
+#: (4 slots x top-8 x 1.25 / 384 rounds up to the minimum capacity 4,
+#: padded to 8), up/gate (K 7168, N 2048) and down (K 2048, N 7168); the
+#: int4 bank of one matrix is 2.82 GB, past 2^31 bytes in one launch
+KIMI_G = 384
+KIMI_SHAPES = {
+    "kimi_up": (C_DECODE, 7168, 2048),
+    "kimi_down": (C_DECODE, 2048, 7168),
+}
+
+
+def _kimi_bank(torch, gen, g, k, n, bits):
+    """A G-expert bank quantized 32 experts at a time (the f32 weights of
+    the whole bank would take 22.5 GB) and its dequantized bf16 copy for
+    the ``torch.bmm`` yardstick."""
+    from repro_torch.core.quantization import QTensor, dequantize, quantize
+    q = torch.empty((g, k // 2 if bits == 4 else k, n),
+                    dtype=torch.uint8 if bits == 4 else torch.int8,
+                    device="cuda")
+    scales = torch.empty((g, k // GROUP, n), dtype=torch.bfloat16,
+                         device="cuda")
+    deq = torch.empty((g, k, n), dtype=torch.bfloat16, device="cuda")
+    for e0 in range(0, g, 32):
+        e1 = min(e0 + 32, g)
+        w = torch.randn((e1 - e0, k, n), generator=gen, device="cuda") \
+            / math.sqrt(k)
+        qt = quantize(w, bits, GROUP)
+        q[e0:e1].copy_(qt.q)
+        scales[e0:e1].copy_(qt.scales)
+        deq[e0:e1].copy_(dequantize(qt))
+    return QTensor(q=q, scales=scales, bits=bits, group_size=GROUP), deq
+
+
+def _kimi_rows(torch, gen, gk, ops, qk, reps):
+    """B3 (``dequant_matmul<4|8>``) at G = 384 on Kimi's widths: held
+    against its plain version on the first, a middle and the last expert
+    (the last one's codes lie past 2 GiB into the bank), two launches
+    bit-equal, device time in a CUDA graph beside the bound, the plain
+    version on the whole bank and ``torch.bmm`` on the dequantized bank;
+    the split-K partials' bytes are recorded."""
+    out = {}
+    for bits in (4, 8):
+        for label, (c, k, n) in KIMI_SHAPES.items():
+            g = KIMI_G
+            qt, deq = _kimi_bank(torch, gen, g, k, n, bits)
+            x = torch.randn((g, c, k), generator=gen, device="cuda").to(
+                torch.bfloat16)
+            got = ops.grouped_q_matmul(x, qt)
+            again = ops.grouped_q_matmul(x, qt)
+            if not bool(torch.isfinite(got.float()).all()) \
+                    or not _bits_equal(torch, got, again):
+                raise AssertionError(f"q{bits} {label} at G={g}: non-finite"
+                                     " or differs between two launches")
+            err = 0.0
+            for e in (0, g // 2, g - 1):
+                want = gk.grouped_quantized_matmul_plain(
+                    x[e:e + 1], qt.q[e:e + 1], qt.scales[e:e + 1],
+                    bits=bits, group_size=GROUP)
+                e_err, ok = _close(torch, got[e:e + 1], want)
+                if not ok:
+                    raise AssertionError(
+                        f"q{bits} {label} at G={g}, expert {e}: max |diff| "
+                        f"{e_err} from its plain version")
+                err = max(err, e_err)
+            plan = qk.launch_plan(c, k, n, bits)
+            w_bytes = g * k * n * bits // 8
+            sb = g * (k // GROUP) * n * 2
+            row = {"G": g, "C": c, "K": k, "N": n, "copies": 1,
+                   "plan": plan._asdict(), "max_abs_err": err,
+                   "checked_experts": [0, g // 2, g - 1],
+                   "w_bytes": w_bytes,
+                   "partial_bytes": (plan.splits * g * c * n * 4
+                                     if plan.splits > 1 else 0)}
+            row["ms"] = _graph_ms(torch, [lambda: ops.grouped_q_matmul(
+                x, qt)], reps)
+            row["library_ms"] = _graph_ms(torch, [lambda: torch.bmm(x, deq)],
+                                          reps)
+            del deq
+            torch.cuda.empty_cache()
+            row["plain_ms"] = _time_ms(torch, [
+                lambda: gk.grouped_quantized_matmul_plain(
+                    x, qt.q, qt.scales, bits=bits, group_size=GROUP)],
+                2, warmup=1)
+            nbytes = g * c * k * 2 + w_bytes + sb + g * c * n * 2
+            row["bound_ms"], row["bound_by"] = _bound_ms(
+                nbytes, 2.0 * g * c * k * n)
+            log(f"  grouped_q{bits}    {label:10s} G={g} C={c:3d} K={k:5d} "
+                f"N={n:5d} splits {plan.splits} (f32 partials "
+                f"{row['partial_bytes'] / 1e6:.1f} MB): {row['ms']:.4f} ms "
+                f"(bound {row['bound_ms']:.4f} ms by {row['bound_by']}, "
+                f"{row['bound_ms'] / row['ms']:.1%} of bound), plain "
+                f"{row['plain_ms']:.4f} ms, bmm {row['library_ms']:.4f} ms "
+                f"({row['library_ms'] / row['ms']:.2f}x), max|err| "
+                f"{err:.2e} on experts {row['checked_experts']}")
+            out[(f"grouped_q{bits}", label)] = row
+            del qt, x, got, again
+            torch.cuda.empty_cache()
+    return out
+
+
 def phase_kernels(torch, np, sizes, seed: int, reps: int):
     from repro_torch.core.quantization import QTensor, dequantize
     from repro_torch.kernels import grouped_matmul as gk
@@ -2107,6 +2680,10 @@ def phase_kernels(torch, np, sizes, seed: int, reps: int):
     records.append(_reduce_record(torch, gen, qk, sizes, reps, extra))
     _exact_checks(torch, gen, gk, ops, QTensor)
     _row_invariance(torch, gen, ops, sizes)
+    log(f"kernels: B3 at Kimi-K2's widths, G = {KIMI_G}")
+    for (name, label), row in _kimi_rows(torch, gen, gk, ops, qk,
+                                         reps).items():
+        next(e for e in extra if e["name"] == name)[label] = row
     return records, extra
 
 
@@ -2327,7 +2904,9 @@ def main(argv=None) -> int:
             failures.append("qos+dynamic (no calibrated profile)")
         serve["multi-tenant"] = run("multi-tenant", phase_multi, torch, np,
                                     ctx, smi)
-        for name in ("qos+dynamic", "multi-tenant"):
+        serve["poisson"] = run("poisson", phase_poisson, torch, np, ctx,
+                               smi, args.seed)
+        for name in ("qos+dynamic", "multi-tenant", "poisson"):
             if serve.get(name) is not None:
                 paths[name] = serve[name]
         ctx["engine"].close()
@@ -2344,6 +2923,14 @@ def main(argv=None) -> int:
     del trained
     _release(torch)
     train["train cli"] = run("train cli", phase_train_cli, torch, np, smi)
+    _release(torch)
+    kimi = run("kimi", phase_kimi, torch, np, args.seed, smi) \
+        if built else None
+    if kimi is not None:
+        paths["kimi"] = kimi["kernel"]
+    _release(torch)
+    qwen3 = run("qwen3", phase_qwen3, torch, np, args.seed, smi)
+    _release(torch)
     parity_err = run("parity", phase_parity, torch, np, args.seed) \
         if built else None
     kern = run("kernels", phase_kernels, torch, np, sizes, args.seed,
@@ -2368,7 +2955,7 @@ def main(argv=None) -> int:
     out.write_text(json.dumps({
         "nvidia_smi": smi, "device": torch.cuda.get_device_name(0),
         "build_s": build_s, "ptxas": ptxas, "serve": serve, "cli": cli,
-        "train": train,
+        "train": train, "kimi": kimi, "qwen3": qwen3,
         "parity_max_abs_diff": parity_err, "kernels": records,
         "kernel_shapes": extra, "failures": failures,
         "total_s": total_s}, indent=1, default=str))

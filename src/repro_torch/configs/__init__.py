@@ -1,7 +1,9 @@
 """Architecture registry of the port: ``get_config("<arch-id>")``.
 
-Mixtral-8x7B (plain and with the paper's MoP serving defaults) and the
-dense SmolLM-360M that the training examples use."""
+Mixtral-8x7B (plain and with the paper's MoP serving defaults), Kimi-K2
+(384 experts, top-8) and the dense Qwen3-8B (qk-norm), Granite-3-2B,
+Minitron-4B and SmolLM-360M. The SSM, hybrid, enc-dec and VLM families
+are not ported yet."""
 from __future__ import annotations
 
 import importlib
@@ -11,9 +13,13 @@ from repro_torch.configs.base import (  # noqa: F401
 )
 
 _MODULES = {
+    "qwen3-8b": "qwen3_8b",
+    "minitron-4b": "minitron_4b",
+    "granite-3-2b": "granite_3_2b",
+    "smollm-360m": "smollm_360m",
+    "kimi-k2-1t-a32b": "kimi_k2_1t_a32b",
     "mixtral-8x7b": "mixtral_8x7b",
     "mixtral-mop": "mixtral_mop",
-    "smollm-360m": "smollm_360m",
 }
 ARCH_IDS = tuple(_MODULES)
 

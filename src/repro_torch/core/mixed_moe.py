@@ -162,20 +162,27 @@ def _dispatch_local(x, ids, weights, *, rank, totals, locs, capacity):
 
 def _combine_local(ybuf, dest, order, w_sorted, t, d, k):
     """Weighted combine. The reference scatter-adds the (T*k) sorted
-    contributions into zeros; here they are put back in (T, k) order and
-    summed in a fixed order (deterministic on CUDA, where ``index_add_``
-    is atomic). With top-2, ``0 + a + b`` in bf16 does not depend on the
-    order, so this is bit-equal to the reference."""
+    contributions into zeros one after another, so each token's sum runs
+    in sorted (expert) order. Here each token's k contributions are
+    gathered into that order and summed in it (deterministic on CUDA,
+    where ``index_add_`` is atomic), so the bf16 sums are bit-equal to
+    the reference's at any top-k."""
     flat = ybuf.reshape(-1, ybuf.shape[-1])
     flat = torch.cat([flat, flat.new_zeros((1, flat.shape[-1]))])
     contrib = flat[dest]                       # dropped -> the zero row
     contrib = contrib * w_sorted[:, None].to(contrib.dtype)
-    unsorted = torch.empty_like(contrib)
-    unsorted[order] = contrib                  # back to (token, choice)
-    unsorted = unsorted.reshape(t, k, d)
+    # token-major, sorted order within a token: a stable sort of the
+    # sorted entries by token; ``grouped[slot] = contrib`` (not a gather
+    # by ``by_token``) keeps the backward a gather
+    by_token = torch.argsort(order // k, stable=True)
+    slot = torch.empty_like(by_token)
+    slot[by_token] = torch.arange(t * k, device=by_token.device)
+    grouped = torch.empty_like(contrib)
+    grouped[slot] = contrib
+    grouped = grouped.reshape(t, k, d)
     y = torch.zeros((t, d), dtype=ybuf.dtype, device=ybuf.device)
     for j in range(k):
-        y = y + unsorted[:, j]
+        y = y + grouped[:, j]
     return y
 
 
@@ -216,11 +223,15 @@ def _ffn_q(bank, xb, act, use_kernel: bool):
     dequant inside the kernel) or the dequant-to-bf16 reference path."""
     if use_kernel:
         mm = ops.q_expert_matmul
-        up = mm(xb, bank["w_up"])
-        h = _act(act, up, lambda: mm(xb, bank["w_gate"]))
-        return mm(h, bank["w_down"])
-    deq = {k: dequantize(v) for k, v in bank.items()}
-    return _ffn_bf16(deq, xb, act)
+    else:
+        # each matrix is dequantized just before its product and dropped
+        # after it, so a bank of hundreds of experts holds one bf16 copy
+        # at a time (the products and their order are _ffn_bf16's)
+        def mm(a, qt):
+            return _matmul_promoted(a, dequantize(qt))
+    up = mm(xb, bank["w_up"])
+    h = _act(act, up, lambda: mm(xb, bank["w_gate"]))
+    return mm(h, bank["w_down"])
 
 
 def _expert_ffn(banks, xb, act, use_kernel):
@@ -326,6 +337,16 @@ def build_ladder_banks(moe_params: Dict[str, torch.Tensor], bits_row,
                            for k in ("w_gate", "w_up", "w_down")}
         off += cnt
     return banks, order
+
+
+def build_mixed_banks(moe_params: Dict[str, torch.Tensor], quant_mask,
+                      *, bits: int = 4, group_size: int = 64):
+    """Legacy binary spelling of :func:`build_ladder_banks`:
+    quant_mask (E,) bool -> [q4 | f16] banks, quantized first."""
+    quant_mask = np.asarray(quant_mask).astype(bool)
+    bits_row = np.where(quant_mask, bits, 16)
+    return build_ladder_banks(moe_params, bits_row, ladder=(16, bits),
+                              group_size=group_size)
 
 
 def _stack_q(qts) -> QTensor:

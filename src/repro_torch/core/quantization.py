@@ -7,13 +7,26 @@ stored +8). Codes and scales are byte-equal to the reference
 ``repro.core.quantization`` (``torch.round`` and ``jnp.round`` both round
 half to even). Dequantization fuses into the CUDA dequant-matmul kernels
 (:mod:`repro_torch.kernels`).
+
+The NF4 codebook path (the paper's bitsandbytes format) is kept for
+quality comparison only, as in the reference: it is gather-based and not
+used in the compute path.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Tuple
 
+import numpy as np
 import torch
+
+# NF4 quantile codebook (bitsandbytes), for the quality-comparison path only.
+NF4_CODE = np.array(
+    [-1.0, -0.6961928009986877, -0.5250730514526367, -0.39491748809814453,
+     -0.28444138169288635, -0.18477343022823334, -0.09105003625154495, 0.0,
+     0.07958029955625534, 0.16093020141124725, 0.24611230194568634,
+     0.33791524171829224, 0.44070982933044434, 0.5626170039176941,
+     0.7229568362236023, 1.0], dtype=np.float32)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -94,10 +107,105 @@ def dequantize_f32(qt: QTensor) -> torch.Tensor:
     *b, k, n = q.shape
     g = qt.group_size
     wf = q.to(torch.float32).reshape(*b, k // g, g, n)
-    wf = wf * qt.scales.to(torch.float32)[..., None, :]
+    wf.mul_(qt.scales.to(torch.float32)[..., None, :])  # wf is a fresh copy
     return wf.reshape(*b, k, n)
 
 
 def dequantize(qt: QTensor) -> torch.Tensor:
     """QTensor -> bf16 weight (..., K, N) (the reference's oracle)."""
     return dequantize_f32(qt).to(torch.bfloat16)
+
+
+def quantize_nf4(w: torch.Tensor, group_size: int = 64
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """NF4 codebook quantization (quality-comparison path, not compute path).
+
+    Returns (codes uint8 (..., K, N), absmax f32 (..., K/G, N))."""
+    *b, k, n = w.shape
+    wf = w.to(torch.float32).reshape(*b, k // group_size, group_size, n)
+    absmax = wf.abs().amax(dim=-2) + 1e-12
+    norm = wf / absmax[..., None, :]
+    code = torch.from_numpy(NF4_CODE).to(w.device)
+    idx = torch.argmin(torch.abs(norm[..., None] - code), dim=-1)
+    return idx.reshape(*b, k, n).to(torch.uint8), absmax
+
+
+def dequantize_nf4(codes: torch.Tensor, absmax: torch.Tensor,
+                   group_size: int = 64) -> torch.Tensor:
+    *b, k, n = codes.shape
+    code = torch.from_numpy(NF4_CODE).to(codes.device)
+    wf = code[codes.to(torch.long)].reshape(*b, k // group_size, group_size,
+                                             n)
+    return (wf * absmax[..., None, :]).reshape(*b, k, n).to(torch.bfloat16)
+
+
+def quantization_rmse(w: torch.Tensor, bits: int = 4, group_size: int = 64,
+                      nf4: bool = False) -> float:
+    """Relative RMSE of one quantize/dequantize round trip."""
+    if nf4:
+        deq = dequantize_nf4(*quantize_nf4(w, group_size), group_size)
+    else:
+        deq = dequantize(quantize(w, bits, group_size))
+    wf = w.to(torch.float32)
+    err = torch.sqrt(torch.mean((wf - deq.to(torch.float32)) ** 2))
+    return float(err / (torch.sqrt(torch.mean(wf ** 2)) + 1e-12))
+
+
+# ----- whole-model homogeneous quantization (paper's Table-1 baselines) -----
+
+def _map_tree(fn, tree):
+    """``fn`` over the leaves of nested dicts, lists and tuples (a QTensor
+    is a leaf)."""
+    if isinstance(tree, dict):
+        return {k: _map_tree(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_tree(fn, v) for v in tree)
+    return fn(tree)
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _leaves(tree[k])
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _leaves(v)
+    elif tree is not None:
+        yield tree
+
+
+def quantize_tree(params, bits: int, group_size: int = 64,
+                  min_dims: int = 2, min_k: int = 128):
+    """Quantize every eligible weight matrix in a param tree (homogeneous
+    baseline: '4-bit everything' / '8-bit everything' rows of Table 1).
+
+    Tensors with fewer than ``min_dims`` dims, a reduction dim smaller
+    than ``min_k``, or K not divisible by the group are left untouched
+    (norm scales, biases, small heads); so is any leaf that is not a
+    tensor or a numpy array."""
+    def _q(x):
+        if not isinstance(x, (torch.Tensor, np.ndarray)):
+            return x
+        if x.ndim < min_dims or x.shape[-2] < min_k or \
+                x.shape[-2] % group_size:
+            return x
+        return quantize(torch.as_tensor(x), bits, group_size)
+    return _map_tree(_q, params)
+
+
+def dequantize_tree(params):
+    return _map_tree(
+        lambda x: dequantize(x) if isinstance(x, QTensor) else x, params)
+
+
+def tree_nbytes(params) -> int:
+    """Model size in bytes, QTensor-aware (paper's Model Size column)."""
+    total = 0
+    for leaf in _leaves(params):
+        if isinstance(leaf, QTensor):
+            total += leaf.nbytes()
+        elif isinstance(leaf, torch.Tensor):
+            total += leaf.numel() * leaf.element_size()
+        else:
+            total += leaf.size * leaf.dtype.itemsize
+    return total

@@ -176,6 +176,10 @@ def attention(p: Dict[str, Any], x: torch.Tensor, acfg: AttentionConfig, *,
     k = (x @ p["wk"]).reshape(b, s, hkv, hd)
     v = (x @ p["wv"]).reshape(b, s, hkv, hd)
 
+    if acfg.qk_norm:
+        q = rms_norm(q, p["q_norm"])
+        k = rms_norm(k, p["k_norm"])
+
     q = rope(q, positions, acfg.rope_theta)
     k = rope(k, positions, acfg.rope_theta)
 

@@ -43,7 +43,9 @@ def _init_one(gen: torch.Generator, name: str, shape, dtype, device):
         return torch.ones(shape, dtype=dtype, device=device)
     w = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
     fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
-    return (w * (1.0 / math.sqrt(max(fan_in, 1)))).to(dtype)
+    # scaled in place: one f32 copy of the leaf at a time (Kimi-K2's
+    # 384 experts are 22.5 GB per matrix in f32)
+    return w.mul_(1.0 / math.sqrt(max(fan_in, 1))).to(dtype)
 
 
 def nest(flat: Dict[str, Any]) -> Dict[str, Any]:

@@ -15,7 +15,7 @@ loss, memory budget), each request a :class:`RequestSLO` and
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -125,6 +125,11 @@ class ServeResult:
         return (f"req {self.rid} prio={self.priority}: "
                 f"{len(self.tokens)} tok in {self.latency_s * 1e3:.0f} ms"
                 + dl)
+
+
+def results_of(requests: Sequence[Request]) -> List[ServeResult]:
+    """Batch conversion helper for completed scheduler requests."""
+    return [ServeResult.from_request(r) for r in requests]
 
 
 def build_engine(cfg, params, config: Optional[EngineConfig] = None, *,

@@ -140,17 +140,32 @@ class AdaptiveServingEngine:
 
     Construct through :func:`repro_torch.serving.api.build_engine` or
     ``AdaptiveServingEngine(cfg, params, config=EngineConfig(...))``;
-    ``device=None`` means the card. ``expert_cache`` attaches a
+    ``device=None`` means the card. The flat keyword arguments
+    (``max_batch`` — the number of decode slots —, ``max_len``, ...) are
+    the reference's backward-compatible spelling and populate an
+    ``EngineConfig`` when ``config`` is None. ``expert_cache`` attaches a
     tenant-scoped view of a shared swap space instead of the engine's own
     cache (DESIGN.md §10)."""
 
     def __init__(self, cfg: ModelConfig, params, *,
                  config: Optional[EngineConfig] = None, device=None,
+                 hw: Optional[HardwareModel] = None,
+                 max_batch: int = 8, max_len: int = 256,
+                 use_kernel: bool = False,
+                 max_active_tokens: Optional[int] = None,
+                 max_queue: Optional[int] = None,
+                 swap_bytes: Optional[int] = None,
+                 prefetch: bool = False,
                  expert_cache=None):
         if cfg.moe is None:
             raise ValueError("the adaptive engine serves MoE models")
         self.device = resolve_device(device)
-        config = config or EngineConfig()
+        if config is None:
+            config = EngineConfig(
+                max_slots=max_batch, max_len=max_len,
+                use_kernel=use_kernel,
+                max_active_tokens=max_active_tokens, max_queue=max_queue,
+                swap_bytes=swap_bytes, prefetch=prefetch, hw=hw)
         if config.ep > 1:
             raise NotImplementedError(EP_NOT_IMPLEMENTED)
         if config.ladder is not None:
@@ -284,6 +299,11 @@ class AdaptiveServingEngine:
     def done(self) -> Dict[int, Request]:
         """Completed requests by rid."""
         return self.scheduler.done
+
+    @property
+    def max_batch(self) -> int:
+        """The number of decode slots (the flat spelling's name)."""
+        return self.max_slots
 
     def has_work(self) -> bool:
         return self.scheduler.has_work()

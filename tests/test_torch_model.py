@@ -53,7 +53,7 @@ def test_configs_equal():
     assert str(reduce_for_smoke(get_config("mixtral-8x7b"))) \
         == str(jreduce(jget_config("mixtral-8x7b")))
     with pytest.raises(KeyError):
-        get_config("qwen3-8b")
+        get_config("rwkv6-3b")
 
 
 def test_params_from_numpy_round_trip(smoke):

@@ -1,0 +1,83 @@
+#!/usr/bin/env python3
+"""Run chosen phases of ``chip_smoke.py`` alone on one NVIDIA card, to
+iterate on a phase without the whole script:
+
+    python3 tools/chip_phases.py poisson kimi qwen3 kimi-rows
+
+``poisson`` first runs the serve phase (3), whose params and point it
+drives; ``kimi`` is 7b, ``qwen3`` 7c and ``kimi-rows`` the kernel
+phase's B3 rows at Kimi-K2's widths. It builds the kernels first, prints
+what the phases print, writes their records to ``--out`` and exits 1 if
+a phase failed. ``chip_smoke.py`` stays the check of record: it runs
+every phase and prints the result lines.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+import time
+import traceback
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+PHASES = ("poisson", "kimi", "qwen3", "kimi-rows")
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("phases", nargs="*", choices=PHASES,
+                    help=f"phases to run (default: all of {PHASES})")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--out", default=str(ROOT / "chiprun_out"
+                                         / "chip_phases.json"))
+    args = ap.parse_args(argv)
+    phases = args.phases or PHASES
+    sys.path[:0] = [str(ROOT), str(ROOT / "src")]
+    import numpy as np
+    import torch
+
+    import chip_smoke as cs
+    card = cs.phase_device(torch)
+    cs.phase_build()
+    out, failed = {}, []
+
+    def run(name, fn, *a):
+        t0 = time.perf_counter()
+        try:
+            out[name] = fn(*a)
+        except Exception:                       # noqa: BLE001 (reported)
+            failed.append(name)
+            cs.log(f"PHASE FAILED: {name}\n{traceback.format_exc()}")
+        cs.log(f"== {name}: {time.perf_counter() - t0:.1f} s")
+        cs._release(torch)
+
+    if "poisson" in phases:
+        served = cs.phase_serve(torch, np, args.seed, card)
+        ctx = served[2]
+        run("poisson", cs.phase_poisson, torch, np, ctx, card, args.seed)
+        ctx["engine"].close()
+        del ctx, served
+        cs._release(torch)
+    if "kimi" in phases:
+        run("kimi", cs.phase_kimi, torch, np, args.seed, card)
+    if "qwen3" in phases:
+        run("qwen3", cs.phase_qwen3, torch, np, args.seed, card)
+    if "kimi-rows" in phases:
+        from repro_torch.kernels import grouped_matmul as gk
+        from repro_torch.kernels import ops
+        from repro_torch.kernels import q4_matmul as qk
+        gen = torch.Generator(device="cuda").manual_seed(args.seed)
+        run("kimi-rows", lambda: {
+            f"{name}/{label}": row for (name, label), row in
+            cs._kimi_rows(torch, gen, gk, ops, qk, args.reps).items()})
+    path = Path(args.out)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_text(json.dumps(out, indent=1, default=str))
+    cs.log(f"chip_phases: failed {failed}")
+    return 1 if failed else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
