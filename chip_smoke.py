@@ -128,6 +128,32 @@ Phases (each raises on failure, and the script then exits non-zero):
                forward and backward of ``Model.loss_fn``, finite loss,
                nonzero q/k-norm gradients; the smoke Qwen3 at float32 on
                the card against the CPU at 6a's bars (no kernel: dense);
+     7d. families — RWKV6-3B, Zamba2-7B, SeamlessM4T-medium and
+               PaliGemma-3B at full width and full depth in bf16, weights
+               drawn on the card by ``init_params``, one model at a time:
+               ``Model.prefill`` of B = 2 prompts (300 tokens for the SSM
+               and the hybrid, which pads both chunk sizes; 1024 encoder
+               frames + 32 tokens; 256 patches + 32 tokens), then 16
+               greedy ``Model.decode_step``s: params GB, prefill ms per
+               batch, ms per decode step, decode tokens/s and peak GB
+               (CUDA events after one warm-up); finite logits, two
+               prefills bit-equal, decode == prefill (S-1 tokens + one
+               step vs S) within 5e-2 of max |logit|, each decode step
+               against a prefill of its prefix (first greedy divergence
+               and margins); the same at float32 with depth cut to 2
+               (Zamba2 7) within 1e-3; the chunked SSM cores against their
+               per-token oracles at full-width head shapes in f32 (S =
+               300, with and without an initial state, 1e-4 of max |y|);
+               each smoke config at float32 on the card against the CPU
+               (logits 1e-5 of max |logit|; loss and gradients at 6a's
+               bars). No kernel: these families' products are plain
+               ``matmul``/``einsum``, as plain ``jnp`` in the reference;
+     7e. families-train — ``Model.loss_fn`` forward and backward at full
+               width, RWKV6 depth 32 -> 4 and Zamba2 81 -> 7, on 2 x 256
+               tokens, twice: gradients bit-equal, loss within 0.5 of
+               ln(vocab), nonzero gradients on ``A_log``, ``dt_bias``,
+               ``conv``, ``decay_lora_a/b``, ``bonus``, ``mix`` and the
+               shared attention block; ms and peak GB;
   4. parity  — the smoke-size model's prefill + decode logits on the card
                (kernels) agree with the same model on the CPU (the
                kernels' plain versions);
@@ -143,8 +169,9 @@ Phases (each raises on failure, and the script then exits non-zero):
                C = 12 verify launch bit-equal to a C = 8 launch), the
                G = 8 draft bank at C = 12; device times (CUDA graphs)
                beside the plain version, the bound and a library yardstick
-               (``torch.bmm`` on the dequantized bf16 weights, which the
-               port never calls); B3 (int4 and int8) at Kimi-K2's widths
+               (``torch.bmm`` on the dequantized bf16 weights, and
+               ``torch.sum`` over the split axis for the reduction, which
+               the port never calls); B3 (int4 and int8) at Kimi-K2's widths
                and G = 384, C = 8 (up: K 7168, N 2048; down: K 2048, N
                7168), held against its plain version on the first, a
                middle and the last expert of the bank.
@@ -1737,9 +1764,7 @@ def _grads_card_vs_cpu(torch, np, seed: int, arch: str = "mixtral-8x7b"):
     from repro_torch.training.train_loop import value_and_grad
     cfg = reduce_for_smoke(get_config(arch)).replace(dtype="float32")
     params = init_params(cfg, seed, device="cpu")
-    rng = np.random.default_rng(seed)
-    batch = {k: torch.as_tensor(rng.integers(0, cfg.vocab_size, (4, 16)))
-             for k in ("tokens", "labels")}
+    batch = _smoke_batch(torch, np, cfg, np.random.default_rng(seed), 4, 16)
     fn = build_model(cfg).loss_fn
     out = {dev: value_and_grad(fn, _to(params, torch, dev),
                                _to(batch, torch, dev))
@@ -1763,6 +1788,24 @@ def _grads_card_vs_cpu(torch, np, seed: int, arch: str = "mixtral-8x7b"):
         f"{float(lc):.6f} ({rel:.2e} relative, bar 1e-5); largest "
         f"gradient leaf difference {worst:.2e} of its max|g| (bar 1e-4)")
     return {"loss_rel": rel, "grad_worst_rel": worst}
+
+
+def _smoke_batch(torch, np, cfg, rng, b: int, s: int):
+    """A CPU batch of ``s`` positions from ``rng``: text tokens and labels
+    (after a vision frontend's ``frontend_len`` patches, which count), and
+    the frontend's patches or an enc-dec ``src`` of ``frontend_len``
+    frames, in the model's dtype."""
+    vision = cfg.frontend == "vision"
+    n_text = s - (cfg.frontend_len if vision else 0)
+    batch = {k: torch.as_tensor(rng.integers(0, cfg.vocab_size, (b, n_text)))
+             for k in ("tokens", "labels")}
+    dtype = getattr(torch, cfg.dtype)
+    for key, on in (("frontend", vision), ("src", cfg.family == "encdec")):
+        if on:
+            batch[key] = torch.as_tensor(rng.standard_normal(
+                (b, cfg.frontend_len, cfg.d_model)).astype(np.float32)).to(
+                dtype)
+    return batch
 
 
 def _codes_card_vs_cpu(torch, grads, ef):
@@ -2315,6 +2358,385 @@ def phase_qwen3(torch, np, seed: int, card: str):
             "norm_grad_max": norms, "smoke_card_vs_cpu": smoke}
 
 
+# --------------------------------------------------------------------------
+# phases 7d-7e: the SSM, hybrid, enc-dec and VLM families
+# --------------------------------------------------------------------------
+
+#: each family's traffic at full width and full depth: B = 2 prompts of
+#: ``text`` tokens, behind ``src`` encoder frames (enc-dec) or ``frontend``
+#: patches (VLM); 300 pads both SSM chunk sizes (32 and 128)
+FAMILIES = {
+    "rwkv6-3b": {"text": 300},
+    "zamba2-7b": {"text": 300},
+    "seamless-m4t-medium": {"text": 32},
+    "paligemma-3b": {"text": 32},
+}
+FAM_BATCH, FAM_STEPS = 2, 16
+FAM_BF16_BAR = 5e-2       # decode == prefill, of max |logit|, bf16
+FAM_F32_BAR = 1e-3        # the same at float32, depth cut
+FAM_F32_DEPTH = {"zamba2-7b": 7}     # one group of 6 and the tail
+SSM_CORE_BAR = 1e-4       # chunked == recurrent, of max |y|, f32
+SMOKE_BAR = 1e-5          # card vs CPU (6a's bars)
+
+
+def family_config(arch: str):
+    from repro_torch.configs import get_config
+    return get_config(arch)
+
+
+def _family_batch(torch, np, cfg, n_text: int, seed: int, dev):
+    """``n_text`` text tokens per prompt (plus the frontend's patches or
+    the encoder's source frames, ``frontend_len`` of them) on ``dev``."""
+    rng = np.random.default_rng(seed)
+    batch = _smoke_batch(torch, np, cfg, rng, FAM_BATCH, n_text + (
+        cfg.frontend_len if cfg.frontend == "vision" else 0))
+    return _to(batch, torch, dev)
+
+
+def _positions(cfg, batch) -> int:
+    """Positions the decoder holds after ``batch``: the text tokens plus a
+    vision frontend's patches (an encoder's frames are not positions)."""
+    return batch["tokens"].shape[1] + (
+        cfg.frontend_len if cfg.frontend == "vision" else 0)
+
+
+def _greedy(cfg, logits):
+    return logits[:, :cfg.vocab_size].argmax(-1)[:, None]
+
+
+def _decode_vs_prefill(torch, model, params, batch, max_len, full):
+    """Prefill of S-1 text tokens plus one ``decode_step`` against
+    ``full``, the prefill of all S: (gap of max |logit|, the greedy
+    tokens of both, each one's top-2 logit margin)."""
+    short = dict(batch, tokens=batch["tokens"][:, :-1])
+    _, cache = model.prefill(params, short, model.init_cache(
+        FAM_BATCH, max_len, device="cuda"))
+    pos = _positions(model.cfg, batch) - 1
+    step, _ = model.decode_step(params, cache, batch["tokens"][:, -1:],
+                                torch.full((FAM_BATCH,), pos,
+                                           device="cuda"))
+    gap = float((step - full).abs().max() / full.abs().max())
+
+    def margin(lg):
+        top = lg[:, :model.cfg.vocab_size].float().topk(2, dim=-1).values
+        return [round(float(v), 5) for v in top[:, 0] - top[:, 1]]
+
+    return gap, {"decode": _greedy(model.cfg, step)[:, 0].tolist(),
+                 "prefill": _greedy(model.cfg, full)[:, 0].tolist(),
+                 "decode_margin": margin(step),
+                 "prefill_margin": margin(full)}
+
+
+def _family_serve(torch, np, arch: str, seed: int, card: str):
+    """One family at full width and full depth in bf16: init on the card,
+    a warm-up prefill and decode step, then a timed prefill and 16 greedy
+    decode steps (CUDA events), two prefills bit-equal, decode == prefill
+    within FAM_BF16_BAR of max |logit|, and each decode step's logits
+    against a prefill of the same prefix (the first greedy divergence and
+    its margins)."""
+    from repro_torch.models.model import build_model
+    cfg = family_config(arch)
+    traffic = FAMILIES[arch]
+    _peak_reset(torch)
+    model = build_model(cfg)
+    params = model.init(seed, device="cuda")
+    n = sum(t.numel() for t in _leaves(params))
+    gb = sum(t.numel() * t.element_size() for t in _leaves(params)) / 1e9
+    batch = _family_batch(torch, np, cfg, traffic["text"], seed, "cuda")
+    seq = _positions(cfg, batch)
+    max_len = seq + FAM_STEPS + 1
+
+    def fresh():
+        return model.init_cache(FAM_BATCH, max_len, device="cuda")
+
+    warm, cache = model.prefill(params, batch, fresh())
+    model.decode_step(params, cache, _greedy(cfg, warm),
+                      torch.full((FAM_BATCH,), seq, device="cuda"))
+    cache = fresh()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    ev[0].record()
+    full, cache = model.prefill(params, batch, cache)
+    ev[1].record()
+    tok = _greedy(cfg, full)
+    gen, steps = [tok], []
+    for i in range(FAM_STEPS):
+        lg, cache = model.decode_step(
+            params, cache, tok, torch.full((FAM_BATCH,), seq + i,
+                                           device="cuda"))
+        tok = _greedy(cfg, lg)
+        gen.append(tok)
+        steps.append(lg)
+    ev[2].record()
+    torch.cuda.synchronize()
+    prefill_ms = ev[0].elapsed_time(ev[1])
+    step_ms = ev[1].elapsed_time(ev[2]) / FAM_STEPS
+    finite = bool(torch.isfinite(full).all()) and all(
+        bool(torch.isfinite(lg).all()) for lg in steps)
+    bad = []
+    if not finite:
+        bad.append("logits not finite")
+    if not _bits_equal(torch, warm, full):
+        bad.append("two prefills of one batch differ")
+    gap, greedy = _decode_vs_prefill(torch, model, params, batch, max_len,
+                                     full)
+    if not gap <= FAM_BF16_BAR:
+        bad.append(f"decode vs prefill gap {gap:.3e} of max |logit| > "
+                   f"{FAM_BF16_BAR}")
+    # each decode step against a prefill of its prefix (the tokens so far)
+    div, worst = None, 0.0
+    for j in range(1, FAM_STEPS + 1):
+        ext = dict(batch, tokens=torch.cat([batch["tokens"]] + gen[:j], 1))
+        ref, _ = model.prefill(params, ext, fresh())
+        worst = max(worst, float((steps[j - 1] - ref).abs().max()
+                                 / ref.abs().max()))
+        want = _greedy(cfg, ref)
+        if div is None and not torch.equal(want, gen[j]):
+            r = int((want != gen[j]).nonzero()[0, 0])
+            a, b = int(gen[j][r, 0]), int(want[r, 0])
+            div = {"step": j, "row": r, "decode_token": a,
+                   "prefill_token": b,
+                   "prefill_margin": float(ref[r, b] - ref[r, a]),
+                   "decode_margin": float(steps[j - 1][r, a]
+                                          - steps[j - 1][r, b])}
+    peak = _mem_gb(torch)[1]
+    rec = {"params": n, "params_gb": gb, "seq": seq,
+           "prefill_ms": prefill_ms, "ms_per_decode_step": step_ms,
+           "decode_tokens_per_s": FAM_BATCH / (step_ms / 1e3),
+           "peak_gb": peak, "prefill_bit_equal": _bits_equal(torch, warm,
+                                                             full),
+           "decode_vs_prefill_gap": gap, "greedy": greedy,
+           "steps_vs_prefix_prefill_worst_gap": worst,
+           "first_divergence": div}
+    unit = "frames" if cfg.family == "encdec" else "patches"
+    extra = f"{cfg.frontend_len} {unit} + " if cfg.frontend != "none" \
+        else ""
+    log(f"  {arch} on {card}: {n / 1e9:.2f} B params ({gb:.2f} GB), "
+        f"depth {cfg.num_layers}; B={FAM_BATCH} x ({extra}"
+        f"{traffic['text']} tokens): prefill {prefill_ms:.3f} ms per "
+        f"batch, {step_ms:.3f} ms per decode step, "
+        f"{rec['decode_tokens_per_s']:.1f} decode tokens/s, peak "
+        f"{peak:.2f} GB; two prefills bit-equal: "
+        f"{rec['prefill_bit_equal']}")
+    log(f"    decode == prefill (S-1 + 1 step vs S): gap {gap:.3e} of max "
+        f"|logit| (bar {FAM_BF16_BAR}); greedy {greedy}; 16 steps vs "
+        f"prefills of their prefixes: worst gap {worst:.3e}, first "
+        f"greedy divergence {div}")
+    del params, cache, model
+    _release(torch)
+    rec["float32"] = _family_f32(torch, np, arch, seed)
+    if bad:
+        raise AssertionError(f"{arch}: {'; '.join(bad)}")
+    return rec
+
+
+def _family_f32(torch, np, arch: str, seed: int):
+    """Decode == prefill at float32, full width, depth cut to 2 (Zamba2
+    to 7: one group and the tail; SeamlessM4T's encoder to 2 as well):
+    gap within FAM_F32_BAR of max |logit|."""
+    from repro_torch.models.model import build_model
+    depth = FAM_F32_DEPTH.get(arch, 2)
+    full_cfg = family_config(arch)
+    cut = {"num_layers": depth, "dtype": "float32"}
+    if full_cfg.num_encoder_layers:
+        cut["num_encoder_layers"] = 2
+    cfg = full_cfg.replace(**cut)
+    model = build_model(cfg)
+    params = model.init(seed, device="cuda")
+    batch = _family_batch(torch, np, cfg, FAMILIES[arch]["text"], seed,
+                          "cuda")
+    max_len = _positions(cfg, batch) + 1
+    full, _ = model.prefill(params, batch, model.init_cache(
+        FAM_BATCH, max_len, device="cuda"))
+    gap, greedy = _decode_vs_prefill(torch, model, params, batch, max_len,
+                                     full)
+    if not (torch.isfinite(full).all() and gap <= FAM_F32_BAR):
+        raise AssertionError(f"{arch} float32 depth {depth}: decode vs "
+                             f"prefill gap {gap:.3e} > {FAM_F32_BAR}")
+    log(f"    float32, depth {depth}: decode == prefill gap {gap:.3e} of "
+        f"max |logit| (bar {FAM_F32_BAR}); greedy {greedy}")
+    del params, model
+    _release(torch)
+    return {"depth": depth, "gap": gap, "greedy": greedy}
+
+
+def _ssm_cores(torch, seed: int):
+    """The chunked SSM cores against their per-token oracles at the full
+    configs' head shapes, f32 on the card, S = 300 (a padded tail), with
+    and without an initial state: within SSM_CORE_BAR of max |y|."""
+    from repro_torch.models import ssm
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    s = 300
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device="cuda") * scale
+
+    out = {}
+    h, p, n = 112, 64, 64                        # Zamba2: 7168 / 64 heads
+    u, b, c = randn(2, s, h, p), randn(2, s, n, scale=0.125), \
+        randn(2, s, n, scale=0.125)
+    ld = -torch.rand((2, s, h), generator=gen, device="cuda") * 0.5
+    for s0 in (None, randn(2, h, p, n)):
+        y, _ = ssm.ssd_chunked(u, ld, b, c, 128, s0=s0)
+        ref = ssm.ssd_recurrent_ref(u, ld, b, c, s0=s0)
+        out[f"ssd{'' if s0 is None else '+s0'}"] = \
+            float((y - ref).abs().max() / ref.abs().max())
+    h, k = 40, 64                                # RWKV6: 2560 / 64 heads
+    r, kk, v = (randn(2, s, h, k, scale=0.5) for _ in range(3))
+    lw = -ssm.DECAY_CLAMP * torch.rand((2, s, h, k), generator=gen,
+                                       device="cuda")
+    bonus = randn(h, k, scale=0.1)
+    for s0 in (None, randn(2, h, k, k)):
+        y, _ = ssm.rwkv_chunked(r, kk, v, lw, bonus, 32, s0=s0)
+        ref = ssm.rwkv_recurrent_ref(r, kk, v, lw, bonus, s0=s0)
+        out[f"rwkv{'' if s0 is None else '+s0'}"] = \
+            float((y - ref).abs().max() / ref.abs().max())
+    log(f"  SSM cores, f32, S={s}, chunked vs recurrent (of max |y|, bar "
+        f"{SSM_CORE_BAR}): ssd H=112 P=64 N=64 chunk 128, rwkv H=40 "
+        f"K=V=64 chunk 32: {out}")
+    bad = {k: v for k, v in out.items() if not v <= SSM_CORE_BAR}
+    if bad:
+        raise AssertionError(f"chunked vs recurrent over the bar: {bad}")
+    return out
+
+
+def _family_smoke_card_vs_cpu(torch, np, arch: str, seed: int):
+    """The smoke config at float32 on the card against the CPU: prefill
+    and three decode steps' logits within SMOKE_BAR of max |logit|, and
+    ``loss_fn`` and its gradients at 6a's bars."""
+    from repro_torch.configs import reduce_for_smoke
+    from repro_torch.models.model import build_model, init_params
+    cfg = reduce_for_smoke(family_config(arch)).replace(dtype="float32")
+    model = build_model(cfg)
+    params = init_params(cfg, seed, device="cpu")
+    batch = _smoke_batch(torch, np, cfg, np.random.default_rng(seed),
+                         FAM_BATCH, 16)
+    seq = _positions(cfg, batch)
+    runs, fed = [], None         # the card is fed the CPU's greedy tokens
+    for dev in ("cpu", "cuda"):
+        p, b = _to(params, torch, dev), _to(batch, torch, dev)
+        lg, cache = model.prefill(p, b, model.init_cache(
+            FAM_BATCH, seq + 4, device=dev))
+        out = [lg]
+        for i in range(3):
+            tok = _greedy(cfg, lg).cpu() if fed is None else fed[i]
+            lg, cache = model.decode_step(p, cache, tok.to(dev), torch.full(
+                (FAM_BATCH,), seq + i, device=dev))
+            out.append(lg)
+        fed = fed or [_greedy(cfg, x).cpu() for x in out]
+        runs.append(torch.stack(out).cpu())
+    want, got = runs
+    gap = float((got - want).abs().max() / want.abs().max())
+    if gap > SMOKE_BAR:
+        raise AssertionError(f"{arch} smoke: card vs CPU logits {gap:.3e} "
+                             f"of max |logit| > {SMOKE_BAR}")
+    log(f"  card vs CPU ({arch} smoke, float32): prefill + 3 decode steps' "
+        f"logits {gap:.2e} of max |logit| (bar {SMOKE_BAR})")
+    grads = _grads_card_vs_cpu(torch, np, seed, arch)
+    return {"logits_gap": gap, **grads}
+
+
+def phase_families(torch, np, seed: int, card: str):
+    """7d: RWKV6-3B, Zamba2-7B, SeamlessM4T-medium and PaliGemma-3B at
+    full width and full depth through ``Model.prefill`` and
+    ``Model.decode_step`` (each model released before the next), the SSM
+    cores at full-width head shapes, and each smoke config on the card
+    against the CPU. None of these families reaches a kernel: their
+    products are ``torch.matmul``/``einsum``, as they are plain ``jnp``
+    in the reference."""
+    log("families: full width, full depth, bf16, weights from "
+        f"init_params on the card; B={FAM_BATCH}, {FAM_STEPS} greedy "
+        "decode steps; times are CUDA events after one warm-up")
+    out, failed = {}, []
+    for name, fn in [(arch, lambda a=arch: _family_serve(
+            torch, np, a, seed, card)) for arch in FAMILIES] + [
+            ("ssm_cores", lambda: _ssm_cores(torch, seed))] + [
+            (f"smoke {arch}", lambda a=arch: _family_smoke_card_vs_cpu(
+                torch, np, a, seed)) for arch in FAMILIES]:
+        try:                 # every model runs; a failure fails the phase
+            out[name] = fn()
+        except AssertionError as e:
+            failed.append(str(e))
+            log(f"  FAILED: {e}")
+        _release(torch)
+    if failed:
+        raise AssertionError(f"families: {failed}")
+    return out
+
+
+#: 7e's depth cuts at full width (RWKV6 32 -> 4, Zamba2 81 -> 7: one
+#: group of six and the tail) and its batch of B x S tokens
+FAM_TRAIN = {"rwkv6-3b": 4, "zamba2-7b": 7}
+FAM_TRAIN_BATCH, FAM_TRAIN_SEQ = 2, 256
+#: the leaves whose gradients must be nonzero, per family (``shared``:
+#: every leaf of Zamba2's one shared attention block)
+FAM_TRAIN_LEAVES = {
+    "rwkv6-3b": [("layers", "rwkv", k) for k in
+                 ("decay_lora_a", "decay_lora_b", "bonus", "mix")],
+    "zamba2-7b": [("layers", "mamba", k) for k in
+                  ("A_log", "dt_bias", "conv")] + [("shared",)],
+}
+
+
+def phase_families_train(torch, np, seed: int, card: str):
+    """7e: one forward and backward of ``Model.loss_fn`` at full width and
+    cut depth for RWKV6 and Zamba2, twice: gradients bit-equal between
+    the runs, a finite loss within 0.5 of ln(vocab) (random weights), and
+    nonzero, finite gradients on the SSM leaves and the shared block."""
+    from repro_torch.models.model import build_model
+    from repro_torch.training.optimizer import tree_leaves
+    from repro_torch.training.train_loop import value_and_grad
+    out = {}
+    for arch, depth in FAM_TRAIN.items():
+        cfg = family_config(arch).replace(num_layers=depth)
+        _peak_reset(torch)
+        model = build_model(cfg)
+        params = model.init(seed, device="cuda")
+        rng = np.random.default_rng(seed)
+        batch = {k: torch.as_tensor(rng.integers(
+            0, cfg.vocab_size, (FAM_TRAIN_BATCH, FAM_TRAIN_SEQ)),
+            device="cuda") for k in ("tokens", "labels")}
+        runs = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            loss, _, grads = value_and_grad(model.loss_fn, params, batch)
+            torch.cuda.synchronize()
+            runs.append(((time.perf_counter() - t0) * 1e3, loss, grads))
+        (ms0, loss, g0), (ms1, loss1, g1) = runs
+        a, b = dict(tree_leaves(g0)), dict(tree_leaves(g1))
+        same = _bits_equal(torch, loss, loss1) and all(
+            _bits_equal(torch, a[k], b[k]) for k in a)
+        if not same:
+            raise AssertionError(f"{arch}: two backward passes differ")
+        expect = math.log(cfg.vocab_size)
+        if not (math.isfinite(float(loss))
+                and abs(float(loss) - expect) < 0.5):
+            raise AssertionError(f"{arch}: loss {float(loss)} vs ln(vocab) "
+                                 f"{expect:.2f}")
+        norms = {}
+        for want in FAM_TRAIN_LEAVES[arch]:
+            for path, g in a.items():
+                if path[:len(want)] == want:
+                    m = float(g.float().abs().max())
+                    norms["/".join(path)] = m
+                    if not (m > 0 and bool(torch.isfinite(g).all())):
+                        raise AssertionError(f"{arch}: gradient of "
+                                             f"{'/'.join(path)} is {m}")
+        peak = _mem_gb(torch)[1]
+        out[arch] = {"depth": depth, "loss": float(loss), "ln_vocab": expect,
+                     "ms": [ms0, ms1], "peak_gb": peak,
+                     "grad_max": norms}
+        log(f"  {arch} (depth {cfg.num_layers}, full width) on {card}: "
+            f"forward + backward of {FAM_TRAIN_BATCH} x {FAM_TRAIN_SEQ} "
+            f"tokens {ms0:.1f} / {ms1:.1f} ms, loss {float(loss):.4f} "
+            f"(ln vocab {expect:.2f}), peak {peak:.2f} GB; gradients of "
+            "the two runs bit-equal; max |grad| "
+            + ", ".join(f"{k} {v:.2e}"
+                        for k, v in norms.items()))
+        del params, grads, g0, g1, a, b, runs, model
+        _release(torch)
+    return out
+
+
 def phase_parity(torch, np, seed: int):
     """The smoke-size model (2 layers, d_model 64) with a 3-rung plan: the
     same params on the card (CUDA kernels) and on the CPU (the kernels'
@@ -2752,14 +3174,19 @@ def _reduce_record(torch, gen, qk, sizes, reps, extra):
                                for w in cases], reps)
         plain_ms = _time_ms(torch, [lambda w=w: qk.splitk_reduce_plain(w)
                                     for w in cases], reps)
+        # the library's one call for the sum (f32 out, no bf16 cast)
+        library_ms = _graph_ms(torch, [lambda w=w: torch.sum(w, dim=0)
+                                       for w in cases], reps)
         # bytes dominate: (splits - 1) f32 adds per output at 67 TFLOP/s
         bound, by = _bound_ms(splits * count * 4 + count * 2, 0.0)
         rows[label] = {"G": g, "C": c, "N": n, "splits": splits, "ms": ms,
-                       "plain_ms": plain_ms, "bound_ms": bound,
-                       "bound_by": by, "max_abs_err": err}
+                       "plain_ms": plain_ms, "library_ms": library_ms,
+                       "bound_ms": bound, "bound_by": by,
+                       "max_abs_err": err}
         log(f"  splitk_reduce {label:10s} G={g} C={c} N={n} splits "
             f"{splits}: {ms:.4f} ms (bound {bound:.4f} ms by {by}, "
             f"{bound / ms:.1%} of bound), plain {plain_ms:.4f} ms, "
+            f"torch.sum {library_ms:.4f} ms ({library_ms / ms:.2f}x), "
             "bit-equal")
         torch.cuda.empty_cache()
     extra.append({"name": "splitk_reduce", "tag": "split-K", **rows})
@@ -2771,7 +3198,7 @@ def _reduce_record(torch, gen, qk, sizes, reps, extra):
             "max_abs_err": max(r["max_abs_err"] for r in rows.values()),
             "ms": up["ms"],
             "plain_ms": up["plain_ms"], "bound_ms": up["bound_ms"],
-            "bound_by": up["bound_by"], "library_ms": None,
+            "bound_by": up["bound_by"], "library_ms": up["library_ms"],
             "shape": {"splits": up["splits"], "G": up["G"], "C": up["C"],
                       "N": up["N"]}}
 
@@ -2931,6 +3358,11 @@ def main(argv=None) -> int:
     _release(torch)
     qwen3 = run("qwen3", phase_qwen3, torch, np, args.seed, smi)
     _release(torch)
+    families = run("families", phase_families, torch, np, args.seed, smi)
+    _release(torch)
+    families_train = run("families-train", phase_families_train, torch,
+                         np, args.seed, smi)
+    _release(torch)
     parity_err = run("parity", phase_parity, torch, np, args.seed) \
         if built else None
     kern = run("kernels", phase_kernels, torch, np, sizes, args.seed,
@@ -2956,6 +3388,7 @@ def main(argv=None) -> int:
         "nvidia_smi": smi, "device": torch.cuda.get_device_name(0),
         "build_s": build_s, "ptxas": ptxas, "serve": serve, "cli": cli,
         "train": train, "kimi": kimi, "qwen3": qwen3,
+        "families": families, "families_train": families_train,
         "parity_max_abs_diff": parity_err, "kernels": records,
         "kernel_shapes": extra, "failures": failures,
         "total_s": total_s}, indent=1, default=str))

@@ -1,25 +1,31 @@
 """Architecture registry of the port: ``get_config("<arch-id>")``.
 
 Mixtral-8x7B (plain and with the paper's MoP serving defaults), Kimi-K2
-(384 experts, top-8) and the dense Qwen3-8B (qk-norm), Granite-3-2B,
-Minitron-4B and SmolLM-360M. The SSM, hybrid, enc-dec and VLM families
-are not ported yet."""
+(384 experts, top-8), the dense Qwen3-8B (qk-norm), Granite-3-2B,
+Minitron-4B and SmolLM-360M, the RWKV6-3B SSM, the Zamba2-7B hybrid, the
+SeamlessM4T-medium encoder-decoder and the PaliGemma-3B VLM: every
+architecture of the reference's registry."""
 from __future__ import annotations
 
 import importlib
 
 from repro_torch.configs.base import (  # noqa: F401
-    AttentionConfig, ModelConfig, MoEConfig, MoPConfig, reduce_for_smoke,
+    AttentionConfig, ModelConfig, MoEConfig, MoPConfig, SSMConfig,
+    reduce_for_smoke,
 )
 
 _MODULES = {
+    "seamless-m4t-medium": "seamless_m4t_medium",
     "qwen3-8b": "qwen3_8b",
     "minitron-4b": "minitron_4b",
     "granite-3-2b": "granite_3_2b",
     "smollm-360m": "smollm_360m",
+    "zamba2-7b": "zamba2_7b",
+    "rwkv6-3b": "rwkv6_3b",
     "kimi-k2-1t-a32b": "kimi_k2_1t_a32b",
     "mixtral-8x7b": "mixtral_8x7b",
     "mixtral-mop": "mixtral_mop",
+    "paligemma-3b": "paligemma_3b",
 }
 ARCH_IDS = tuple(_MODULES)
 

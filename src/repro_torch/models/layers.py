@@ -3,9 +3,10 @@
 Conventions (as in ``repro.models.layers``):
   * params are nested dicts keyed by the names in ModelConfig.param_shapes()
   * activations are bf16, reductions/norms/softmax in f32
-  * attention supports GQA (kv < heads) and sliding-window ring-buffer KV
+  * attention supports GQA (kv < heads), sliding-window ring-buffer KV
     caches whose entries carry absolute-position tags (-1 = empty), so
-    sliding-window masks stay exact after the ring wraps
+    sliding-window masks stay exact after the ring wraps, causal and
+    bidirectional self-attention, and cross-attention
 
 Attention has the reference's cached branches (prefill-from-empty and
 decode over the ring buffer) and always contracts grouped-query attention
@@ -131,7 +132,10 @@ def _sdpa_grouped_block(q, k, v, mask, scale) -> torch.Tensor:
     logits = torch.where(mask[:, :, None], logits,
                          torch.full_like(logits, -1e30))
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
-    out = torch.einsum("bcgqk,bkcd->bqcgd", probs, v)
+    # probs rounded to the model dtype as in the reference, then its
+    # f32-accumulated product with v, rounded once
+    out = torch.einsum("bcgqk,bkcd->bqcgd", probs.to(torch.float32),
+                       v.to(torch.float32)).to(q.dtype)
     return out.reshape(b, sq, h, hd)
 
 
@@ -154,12 +158,17 @@ def _sdpa(q, k, v, mask) -> torch.Tensor:
 def attention(p: Dict[str, Any], x: torch.Tensor, acfg: AttentionConfig, *,
               positions: torch.Tensor,
               cache: Optional[Dict[str, torch.Tensor]],
+              kv_x: Optional[torch.Tensor] = None,
               spec: bool = False,
               ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
-    """Causal self-attention through a ring-buffer KV cache.
+    """Self- or cross-attention, through a ring-buffer KV cache or none.
 
     x: (B, S, d); positions: (B, S) absolute positions of x (-1 = pad).
-    cache=None -> full causal attention over x, no cache (the no-cache
+    kv_x (B, S_src, d) -> cross-attention: K and V from ``kv_x``, no rope
+    on q or k (qk-norm still applies), every source position attended, no
+    cache written.
+    cache=None -> full attention over x with the causal/SWA mask (or none
+    where ``acfg.causal`` is false: the encoder), no cache (the no-cache
     forward of ``Model.loss_fn``); returns ``None`` as the new cache.
     S > 1 -> prefill-from-empty: attend over the in-context k/v and return
     the freshly written ring buffer.
@@ -171,19 +180,27 @@ def attention(p: Dict[str, Any], x: torch.Tensor, acfg: AttentionConfig, *,
     """
     b, s, d = x.shape
     h, hkv, hd = acfg.num_heads, acfg.num_kv_heads, acfg.head_dim
+    src = kv_x if kv_x is not None else x
 
     q = (x @ p["wq"]).reshape(b, s, h, hd)
-    k = (x @ p["wk"]).reshape(b, s, hkv, hd)
-    v = (x @ p["wv"]).reshape(b, s, hkv, hd)
+    k = (src @ p["wk"]).reshape(b, src.shape[1], hkv, hd)
+    v = (src @ p["wv"]).reshape(b, src.shape[1], hkv, hd)
 
     if acfg.qk_norm:
         q = rms_norm(q, p["q_norm"])
         k = rms_norm(k, p["k_norm"])
 
-    q = rope(q, positions, acfg.rope_theta)
-    k = rope(k, positions, acfg.rope_theta)
+    cross = kv_x is not None
+    if not cross:
+        q = rope(q, positions, acfg.rope_theta)
+        k = rope(k, positions, acfg.rope_theta)
 
-    if cache is None:
+    if cross:
+        new_cache = None
+        mask = torch.ones((b, 1, s, src.shape[1]), dtype=torch.bool,
+                          device=x.device)
+        out = _sdpa(q, k, v, mask)
+    elif cache is None:
         new_cache = None
         qpos = positions
         mask = qpos[:, None, :, None] >= qpos[:, None, None, :] \

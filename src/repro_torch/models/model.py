@@ -1,18 +1,24 @@
-"""Parameters, caches and the serving model functions of the dense/MoE
-decoder (``repro.models.model``'s serving surface).
+"""Parameters, caches and the model functions of every family
+(``repro.models.model``).
 
-``build_model(cfg)`` returns a :class:`Model` bundle: the slot-cache hooks
-(``prefill_into_slot``, ``decode_step_routed``, ``reset_slot``), the
-per-layer decode hooks of the overlap pipeline, the paged-KV hooks and
-the speculative-decode hooks. ``apply_precision_plan`` converts
-train-layout MoE params into the N-bank serve layout. Parameters are
-nested dicts of tensors with a leading layer axis on every ``layers/...``
-leaf, as in the reference. Caches and page pools are updated in place
-(the engine holds the only reference); the reference returns new ones.
+``build_model(cfg)`` returns a :class:`Model` bundle: the whole-batch
+entry points of every family (``init``, ``loss_fn``, ``prefill``,
+``decode_step``, ``init_cache``) and, for the dense/MoE decoder (and a
+VLM without a frontend), the slot-cache hooks (``prefill_into_slot``,
+``decode_step_routed``, ``reset_slot``), the per-layer decode hooks of
+the overlap pipeline, the paged-KV hooks and the speculative-decode
+hooks; those are ``None`` for the SSM, hybrid and enc-dec families and a
+VLM with a vision frontend, as in the reference. ``apply_precision_plan``
+converts train-layout MoE params into the N-bank serve layout.
+Parameters are nested dicts of tensors with a leading layer axis on every
+``layers/...`` leaf, as in the reference. Caches and page pools are
+updated in place (the engine holds the only reference); the reference
+returns new ones.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, Callable, Dict, Optional, Tuple
 
@@ -25,7 +31,9 @@ from repro_torch.core.precision_plan import PrecisionPlan
 from repro_torch.core.quantization import QTensor
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
-from repro_torch.models.transformer import (by_column, decoder_block,
+from repro_torch.models.encdec import encdec_forward
+from repro_torch.models.transformer import (FORWARDS, _hybrid_layout,
+                                            by_column, decoder_block,
                                             decoder_forward, layer_slice)
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
@@ -37,10 +45,32 @@ _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
 # ---------------------------------------------------------------------------
 
 def _init_one(gen: torch.Generator, name: str, shape, dtype, device):
-    """The reference's rules for the dense/MoE families: norm scales are
-    ones, every other weight is N(0, 1/fan_in)."""
-    if name.rsplit("/", 1)[-1] == "scale":
+    """The reference's rules: norm scales, ``norm``, ``ln_x`` and ``D``
+    are ones; Mamba2's ``A_log`` is log(linspace(1, 16, H)) (made on the
+    host, so every device gets the same bits) and ``dt_bias`` the inverse
+    softplus of a log-uniform dt in [1e-3, 0.1]; RWKV's token-shift
+    ``mix``/``ffn_mix`` are 0.5, ``decay_base`` 0 and ``bonus``
+    N(0, 0.01); every other weight is N(0, 1/fan_in). The deterministic
+    leaves draw nothing from ``gen``."""
+    last = name.rsplit("/", 1)[-1]
+    if last in ("scale", "norm", "ln_x", "D"):
         return torch.ones(shape, dtype=dtype, device=device)
+    if last == "A_log":
+        return torch.log(torch.linspace(1.0, 16.0, shape[0])).to(
+            dtype).to(device)
+    if last in ("mix", "ffn_mix"):
+        return torch.full(shape, 0.5, dtype=dtype, device=device)
+    if last == "decay_base":
+        return torch.zeros(shape, dtype=dtype, device=device)
+    if last == "dt_bias":
+        u = torch.rand(shape, generator=gen, dtype=torch.float32,
+                       device=device)
+        dt = torch.exp(u * (math.log(0.1) - math.log(1e-3))
+                       + math.log(1e-3))
+        return (dt + torch.log(-torch.expm1(-dt))).to(dtype)  # inv softplus
+    if last == "bonus":
+        return (torch.randn(shape, generator=gen, dtype=torch.float32,
+                            device=device) * 0.1).to(dtype)
     w = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
     fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
     # scaled in place: one f32 copy of the leaf at a time (Kimi-K2's
@@ -103,19 +133,54 @@ def params_from_numpy(tree, device=None):
 # ---------------------------------------------------------------------------
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
-               device=None) -> Dict[str, torch.Tensor]:
-    """Slot KV cache of the dense/MoE family: (L, B, W, Hkv, hd) k/v and
-    (L, B, W) int32 position tags (-1 = empty)."""
-    if cfg.family not in ("dense", "moe"):
-        raise ValueError(f"family {cfg.family} is not in this slice")
+               device=None) -> Dict[str, Any]:
+    """Decode caches of every family. Ring KV: (L, B, W, Hkv, hd) k/v and
+    (L, B, W) int32 position tags (-1 = empty). RWKV: per layer an f32
+    state (B, H, K, V) and the model-dtype token-shift rows ``x_att``,
+    ``x_ffn`` (B, d). Hybrid: per Mamba2 layer an f32 state (B, H, P, N)
+    and the conv rows (B, 3, C), and ``full + 1`` ring KV rows for the
+    shared attention. Enc-dec: the decoder's ring KV and ``enc_out``."""
     dev = resolve_device(device)
     dt = _DTYPES[cfg.dtype]
-    a = cfg.attention
-    window = min(max_len, a.sliding_window or max_len)
-    shape = (cfg.num_layers, batch, window, a.num_kv_heads, a.head_dim)
-    return {"k": torch.zeros(shape, dtype=dt, device=dev),
-            "v": torch.zeros(shape, dtype=dt, device=dev),
-            "pos": torch.full(shape[:3], -1, dtype=torch.int32, device=dev)}
+
+    def zeros(shape, dtype=dt):
+        return torch.zeros(shape, dtype=dtype, device=dev)
+
+    def kv(n, window):
+        a = cfg.attention
+        shape = (n, batch, window, a.num_kv_heads, a.head_dim)
+        return {"k": zeros(shape), "v": zeros(shape),
+                "pos": torch.full(shape[:3], -1, dtype=torch.int32,
+                                  device=dev)}
+
+    fam = cfg.family
+    if fam in ("dense", "moe", "vlm"):
+        return kv(cfg.num_layers,
+                  min(max_len, cfg.attention.sliding_window or max_len))
+    if fam == "encdec":
+        return {"self": kv(cfg.num_layers, max_len),
+                "enc_out": zeros((batch, cfg.frontend_len, cfg.d_model))}
+    if fam == "ssm":   # rwkv6
+        h = cfg.d_model // cfg.ssm.head_dim
+        n = cfg.num_layers
+        return {"state": zeros((n, batch, h, cfg.ssm.head_dim,
+                                cfg.ssm.head_dim), torch.float32),
+                "x_att": zeros((n, batch, cfg.d_model)),
+                "x_ffn": zeros((n, batch, cfg.d_model))}
+    if fam == "hybrid":
+        di = cfg.ssm.expand * cfg.d_model
+        h = di // cfg.ssm.head_dim
+        n = cfg.num_layers
+        full, _, _ = _hybrid_layout(cfg)
+        window = min(max_len, cfg.attention.sliding_window or max_len)
+        conv_ch = di + 2 * cfg.ssm.state_dim
+        return {
+            "mamba": {"state": zeros((n, batch, h, cfg.ssm.head_dim,
+                                      cfg.ssm.state_dim), torch.float32),
+                      "conv": zeros((n, batch, 3, conv_ch))},
+            "attn": kv(full + 1, window),
+        }
+    raise ValueError(fam)
 
 
 # ---------------------------------------------------------------------------
@@ -154,7 +219,7 @@ def init_paged_cache(cfg: ModelConfig, batch: int, max_len: int, *,
     at worst case (every slot fully windowed) + the null page; a smaller
     pool reclaims HBM for the frontier's residency axis (the engine caps
     admission so allocation can never dead-end mid-flight)."""
-    if cfg.family not in ("dense", "moe"):
+    if cfg.family not in ("dense", "moe", "vlm"):
         raise ValueError(f"family {cfg.family} has no paged KV path")
     dev = resolve_device(device)
     window = min(max_len, cfg.attention.sliding_window or max_len)
@@ -288,55 +353,66 @@ def paged_reset_pages(pool, pages):
 @dataclasses.dataclass(frozen=True)
 class Model:
     cfg: ModelConfig
+    init: Callable
+    # (seed=0, *, device=None, generator=None) -> params
+    loss_fn: Callable
+    # (params, batch) -> (loss, metrics): the no-cache full-sequence
+    # forward (MoE on the train-layout experts, router losses on);
+    # differentiable (training/train_loop.py takes its gradient). batch:
+    # tokens, labels (B,S), plus src (B,S_src,d) for enc-dec and frontend
+    # (B,frontend_len,d) for a vision VLM (the loss is over the text tail)
+    prefill: Callable
+    # (params, batch, cache) -> (last-position logits (B,V) f32, cache)
+    decode_step: Callable
+    # (params, cache, tokens (B,1), positions (B,)) -> (logits (B,V), cache)
     init_cache: Callable
-    prefill_into_slot: Callable
+    # (batch, max_len, *, device) -> the family's decode cache
+    # Slot-based serving API (continuous batching, DESIGN.md §3); None for
+    # families whose decode cache is not the plain ring-buffer KV dict.
+    prefill_into_slot: Optional[Callable] = None
     # (params, cache, tokens (1,S), positions (1,S), slot, last_idx)
     #   -> (last-token logits (1,V), cache with slot row replaced)
-    decode_step_routed: Callable
+    decode_step_routed: Optional[Callable] = None
     # (params, cache, tokens (B,1), positions (B,)) -> (logits, cache, ids)
-    reset_slot: Callable
+    reset_slot: Optional[Callable] = None
     # (cache, slot) -> cache with the slot's position tags invalidated
     # Per-layer decode hooks (the overlap pipeline, DESIGN.md §12): embed
     # -> layer^L -> logits is the same block sequence as
     # decode_step_routed, so the two give the same bits.
-    decode_embed: Callable
+    decode_embed: Optional[Callable] = None
     # (params, tokens (B,1)) -> x (B,1,d)
-    decode_layer_routed: Callable
+    decode_layer_routed: Optional[Callable] = None
     # (params, cache, x, positions (B,), layer) -> (x', cache, ids (B,k))
-    decode_logits: Callable
+    decode_logits: Optional[Callable] = None
     # (params, x (B,1,d)) -> logits (B,V)
     # Paged KV hooks (DESIGN.md §13): the same surface over a page pool
     # and a PageTable; bit-identical to the slot cache.
-    init_paged_cache: Callable
+    init_paged_cache: Optional[Callable] = None
     # (batch, max_len, *, page_size, num_pages, device) -> (pool, meta)
-    paged_prefill_into_slot: Callable
+    paged_prefill_into_slot: Optional[Callable] = None
     # (params, pool, page_row, tokens (1,S), positions (1,S), last_idx,
     #  *, window) -> (logits (1,V), pool)
-    paged_decode_step_routed: Callable
+    paged_decode_step_routed: Optional[Callable] = None
     # (params, pool, page_table, tokens, positions, *, window)
     #   -> (logits, pool, route_ids)
-    paged_decode_layer_routed: Callable
+    paged_decode_layer_routed: Optional[Callable] = None
     # (params, pool, page_table, x, positions, layer, *, window)
     #   -> (x', pool, route_ids (B, top_k))
-    paged_reset_pages: Callable
+    paged_reset_pages: Optional[Callable] = None
     # (pool, pages) -> pool with the pages' position tags cleared
     # Speculative decode (DESIGN.md §17): one multi-token step serves the
     # draft pass (S=1, draft params) and the verify (S=K+1, serving
     # params); rows tagged -1 are dropped, the MoE dispatch is drop-free.
-    spec_step_routed: Callable
+    spec_step_routed: Optional[Callable] = None
     # (params, cache, tokens (B,S), positions (B,S))
     #   -> (logits (B,S,V), cache, route_ids (L, B*S, top_k))
-    paged_spec_step_routed: Callable
+    paged_spec_step_routed: Optional[Callable] = None
     # (params, pool, page_table, tokens, positions, *, window)
     #   -> (logits (B,S,V), pool, route_ids)
-    rollback_slots: Callable
+    rollback_slots: Optional[Callable] = None
     # (cache, keep (B,)) -> cache with tags > keep[b] invalidated per slot
-    paged_rollback: Callable
+    paged_rollback: Optional[Callable] = None
     # (pool, page_table, keep (B,)) -> pool, same contract
-    loss_fn: Callable
-    # (params, {"tokens": (B,S), "labels": (B,S)}) -> (loss, metrics):
-    # the no-cache full-sequence forward over the train banks;
-    # differentiable (training/train_loop.py takes its gradient)
 
 
 def _embed_scaled(params, cfg: ModelConfig, tokens: torch.Tensor):
@@ -345,12 +421,79 @@ def _embed_scaled(params, cfg: ModelConfig, tokens: torch.Tensor):
         math.sqrt(cfg.d_model), dtype=table.dtype, device=table.device)
 
 
+def _embed_inputs(params, cfg: ModelConfig, batch):
+    """tokens (+ frontend embeddings) -> (x (B,S,d), positions (B,S)): a
+    vision frontend is prepended unscaled, after the token embeddings are
+    scaled by sqrt(d_model)."""
+    x = _embed_scaled(params, cfg, batch["tokens"])
+    if cfg.frontend == "vision":
+        x = torch.cat([batch["frontend"].to(x.dtype), x], dim=1)
+    positions = torch.arange(x.shape[1], device=x.device)[None].expand(
+        x.shape[:2])
+    return x, positions
+
+
 def build_model(cfg: ModelConfig, *, use_kernel: bool = False) -> Model:
-    """The slot-cache serving functions for a dense/MoE config. Caches are
-    updated in place (the engine holds the only reference)."""
-    if cfg.family not in ("dense", "moe") or cfg.frontend != "none":
-        raise ValueError(f"{cfg.arch_id}: family {cfg.family} is not in "
-                         "this slice")
+    """The model functions of ``cfg``'s family. Caches are updated in
+    place (the engine holds the only reference)."""
+    fwd = encdec_forward if cfg.family == "encdec" else FORWARDS[cfg.family]
+
+    def _head(params, y):
+        y = L.rms_norm(y, params["final_norm"]["scale"])
+        return L.unembed(params["lm_head"]["table"], y)
+
+    def loss_fn(params, batch):
+        """The reference's ``loss_fn``: embed (+ frontend), the whole
+        sequence through every layer with no cache (MoE on the
+        train-layout experts, router losses on, ``cfg.remat`` honoured),
+        final norm, unembed (the text tail only behind a vision
+        frontend), mean NLL plus the router losses. Returns (loss,
+        metrics). Records a graph when grad mode is on and a param
+        requires grad; the train step's backward is deterministic on the
+        card (``layers.embed``, ``mixed_moe._dispatch_local``)."""
+        x, positions = _embed_inputs(params, cfg, batch)
+        kw = {"src": batch["src"]} if cfg.family == "encdec" else {}
+        y, _, aux = fwd(params, cfg, x, positions, caches=None, train=True,
+                        **kw)
+        if cfg.frontend == "vision":       # loss over the text tail only
+            y = y[:, cfg.frontend_len:]
+        logits = _head(params, y)
+        loss = L.softmax_xent(logits, batch["labels"], cfg.vocab_size)
+        metrics = {"nll": loss}
+        for k, v in aux.items():
+            loss = loss + v
+            metrics[k] = v
+        metrics["loss"] = loss
+        return loss, metrics
+
+    @torch.no_grad()
+    def prefill(params, batch, cache):
+        """The whole batch's prompts (+ ``src`` / ``frontend``) into a
+        fresh cache from ``init_cache``: (the last position's logits
+        (B, V) f32, the cache)."""
+        x, positions = _embed_inputs(params, cfg, batch)
+        kw = {"src": batch["src"]} if cfg.family == "encdec" else {}
+        y, new_cache, _ = fwd(params, cfg, x, positions, caches=cache,
+                              use_kernel=use_kernel, **kw)
+        return _head(params, y[:, -1:])[:, 0], new_cache
+
+    @torch.no_grad()
+    def decode_step(params, cache, tokens, positions):
+        """tokens (B,1); positions (B,) absolute position of the token
+        (behind a vision frontend it counts the frontend's positions).
+        Returns (logits (B,V) f32, cache)."""
+        x = _embed_scaled(params, cfg, tokens)
+        kw = {"enc_out": cache["enc_out"]} if cfg.family == "encdec" \
+            else {}
+        y, new_cache, _ = fwd(params, cfg, x, positions[:, None],
+                              caches=cache, use_kernel=use_kernel, **kw)
+        return _head(params, y)[:, 0], new_cache
+
+    entry = dict(cfg=cfg, init=functools.partial(init_params, cfg),
+                 loss_fn=loss_fn, prefill=prefill, decode_step=decode_step,
+                 init_cache=functools.partial(init_cache, cfg))
+    if cfg.family not in ("dense", "moe", "vlm") or cfg.frontend != "none":
+        return Model(**entry)
 
     @torch.no_grad()
     def decode_step_routed(params, cache, tokens, positions):
@@ -511,44 +654,14 @@ def build_model(cfg: ModelConfig, *, use_kernel: bool = False) -> Model:
             1, pt.page, pos.reshape(l, b * nc, ps).index_select(1, pt.chunk))
         return pool
 
-    def loss_fn(params, batch):
-        """The reference's ``loss_fn``: embed, the whole sequence through
-        every layer with no cache (MoE on the train-layout experts, router
-        losses on, ``cfg.remat`` honoured), final norm, unembed, mean NLL
-        plus the router losses. Returns (loss, metrics). Records a graph
-        when grad mode is on and a param requires grad; the train step's
-        backward is deterministic on the card (``layers.embed``,
-        ``mixed_moe._dispatch_local``)."""
-        tok = batch["tokens"]
-        x = _embed_scaled(params, cfg, tok)
-        positions = torch.arange(tok.shape[1], device=tok.device)[
-            None].expand(tok.shape)
-        y, _, aux = decoder_forward(params, cfg, x, positions, caches=None,
-                                    train=True)
-        y = L.rms_norm(y, params["final_norm"]["scale"])
-        logits = L.unembed(params["lm_head"]["table"], y)
-        loss = L.softmax_xent(logits, batch["labels"], cfg.vocab_size)
-        metrics = {"nll": loss}
-        for k, v in aux.items():
-            loss = loss + v
-            metrics[k] = v
-        metrics["loss"] = loss
-        return loss, metrics
-
-    def _init_cache(batch, max_len, *, device=None):
-        return init_cache(cfg, batch, max_len, device=device)
-
-    def _init_paged_cache(batch, max_len, **kw):
-        return init_paged_cache(cfg, batch, max_len, **kw)
-
-    return Model(cfg=cfg, init_cache=_init_cache,
+    return Model(**entry,
                  prefill_into_slot=prefill_into_slot,
                  decode_step_routed=decode_step_routed,
                  reset_slot=reset_slot,
                  decode_embed=decode_embed,
                  decode_layer_routed=decode_layer_routed,
                  decode_logits=decode_logits,
-                 init_paged_cache=_init_paged_cache,
+                 init_paged_cache=functools.partial(init_paged_cache, cfg),
                  paged_prefill_into_slot=paged_prefill_into_slot,
                  paged_decode_step_routed=paged_decode_step_routed,
                  paged_decode_layer_routed=paged_decode_layer_routed,
@@ -556,8 +669,7 @@ def build_model(cfg: ModelConfig, *, use_kernel: bool = False) -> Model:
                  spec_step_routed=spec_step_routed,
                  paged_spec_step_routed=paged_spec_step_routed,
                  rollback_slots=rollback_slots,
-                 paged_rollback=paged_rollback,
-                 loss_fn=loss_fn)
+                 paged_rollback=paged_rollback)
 
 
 # ---------------------------------------------------------------------------

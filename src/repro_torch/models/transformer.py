@@ -1,20 +1,25 @@
-"""Dense / MoE decoder stack (``repro.models.transformer``'s
-``decoder_forward``). PyTorch runs eagerly, so the reference's scan over
-stacked layer params is a Python loop over the leading layer axis.
+"""Decoder stacks (``repro.models.transformer``): the dense/MoE
+transformer (with cross-attention for the enc-dec family), RWKV6 and the
+Zamba2 hybrid. PyTorch runs eagerly, so the reference's scan over stacked
+layer params is a Python loop over the leading layer axis. Every stack
+shares the reference's cache protocol:
 
     forward(params, cfg, x, positions, caches) -> (y, new_caches, aux)
 
-through the slot KV cache: prefill (S > 1) writes fresh ring buffers,
-decode (S == 1) and the speculative step (``spec=True``, S >= 1) update
-``caches`` in place. ``decoder_block`` is the one block body: the stack
-runs it layer by layer, and the per-layer decode hooks of
+``caches=None`` is the full-sequence forward (``Model.loss_fn``). With a
+cache, the dense/MoE stack's prefill (S > 1) writes fresh ring buffers,
+and its decode (S == 1) and speculative step (``spec=True``, S >= 1)
+update ``caches`` in place; the RWKV and hybrid stacks write every layer's
+new state into ``caches`` in place, prefill and decode alike, and return
+it. ``decoder_block`` is the one block body of the dense/MoE stack: the
+stack runs it layer by layer, and the per-layer decode hooks of
 ``models/model.py`` run it one layer per call, so the two spellings give
 the same bits.
 """
 from __future__ import annotations
 
 import functools
-from typing import Any, Dict
+from typing import Any, Dict, Tuple
 
 import torch
 
@@ -22,6 +27,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import mixed_moe
 from repro_torch.core.quantization import QTensor
 from repro_torch.models import layers as L
+from repro_torch.models import ssm as S
 
 
 def layer_slice(tree, li: int):
@@ -82,7 +88,7 @@ def _ffn_or_moe(p, xn, cfg: ModelConfig, use_kernel, token_valid=None,
 
 def decoder_block(p, cfg: ModelConfig, x, positions, cache, *,
                   use_kernel=False, spec=False, moe_capacity=None,
-                  aux=None):
+                  aux=None, enc_out=None):
     """One decoder block on layer params ``p`` and that layer's ring
     ``cache`` {k, v, pos} (``None``: the no-cache training forward, whose
     router losses accumulate into ``aux``). Returns (x', the layer's new
@@ -96,7 +102,10 @@ def decoder_block(p, cfg: ModelConfig, x, positions, cache, *,
     ``chip_smoke.py``'s verify-row probe). Column j attends the ring after
     columns 0..j are written, as decode at that position would, so a
     verify row gets plain decode's bits and greedy speculation stays
-    token-identical to plain decode (DESIGN.md §17.1)."""
+    token-identical to plain decode (DESIGN.md §17.1).
+
+    ``enc_out`` (the enc-dec family) adds cross-attention to it after the
+    self-attention, under ``cross_attn_norm``."""
     token_valid = (positions >= 0) \
         if cfg.moe is not None and cache is not None else None
     new_kv = cache           # the spec and decode writes go in place
@@ -116,6 +125,13 @@ def decoder_block(p, cfg: ModelConfig, x, positions, cache, *,
         xn = by_column(norm, x)
     else:
         x = attend(x, positions)
+        if enc_out is not None:
+            h, _ = L.attention(
+                p["cross_attn"],
+                L.rms_norm(x, p["cross_attn_norm"]["scale"]),
+                cfg.attention, positions=positions, cache=None,
+                kv_x=enc_out)
+            x = x + h
         xn = norm(x)
     h, ids = _ffn_or_moe(p, xn, cfg, use_kernel, token_valid=token_valid,
                          moe_capacity=moe_capacity, spec=spec, aux=aux)
@@ -145,7 +161,7 @@ def _maybe_remat(fn, cfg: ModelConfig):
 
 def decoder_forward(params, cfg: ModelConfig, x, positions, *,
                     caches, use_kernel=False, collect_routes=False,
-                    spec=False, train=False):
+                    spec=False, train=False, enc_out=None):
     """x: (B,S,d) embedded input. Returns (y, new_caches, aux).
 
     ``caches=None`` is the no-cache full-sequence forward (``Model.
@@ -174,7 +190,8 @@ def decoder_forward(params, cfg: ModelConfig, x, positions, *,
         layer_aux: Dict[str, Any] = {}
         x, _, _ = decoder_block(p, cfg, x, positions, None,
                                 use_kernel=use_kernel,
-                                aux=layer_aux if train else None)
+                                aux=layer_aux if train else None,
+                                enc_out=enc_out)
         return x, layer_aux
 
     train_body = _maybe_remat(train_block, cfg)
@@ -188,7 +205,7 @@ def decoder_forward(params, cfg: ModelConfig, x, positions, *,
         cache = {k: caches[k][li] for k in ("k", "v", "pos")}
         x, new_kv, ids = decoder_block(
             p, cfg, x, positions, cache, use_kernel=use_kernel, spec=spec,
-            moe_capacity=moe_capacity)
+            moe_capacity=moe_capacity, enc_out=enc_out)
         new_kvs.append(new_kv)
         route_ids.append(ids)
     if caches is None:
@@ -201,3 +218,117 @@ def decoder_forward(params, cfg: ModelConfig, x, positions, *,
     if collect_routes:
         aux["route_ids"] = torch.stack(route_ids)
     return x, new_caches, aux
+
+
+def _write_layer(caches, li: int, new) -> None:
+    """Copy a layer's new cache entries into row ``li`` of the stacked
+    ``caches`` (a decode write that already went in place is skipped)."""
+    for k, v in new.items():
+        if v is not None and caches[k][li].data_ptr() != v.data_ptr():
+            caches[k][li].copy_(v)
+
+
+# ---------------------------------------------------------------------------
+# RWKV6 stack
+# ---------------------------------------------------------------------------
+
+def rwkv_forward(params, cfg: ModelConfig, x, positions, *, caches=None,
+                 **_):
+    """caches: {state (L,B,H,K,V) f32, x_att, x_ffn (L,B,d)}, written in
+    place."""
+    def block(x, p, cache):
+        tm_cache = None if cache is None else \
+            {"state": cache["state"], "x_att": cache["x_att"]}
+        h, tm_new = S.rwkv6_timemix(
+            p["rwkv"], L.rms_norm(x, p["attn_norm"]["scale"]), cfg.ssm,
+            tm_cache)
+        x = x + h
+        cm_cache = None if cache is None else {"x_ffn": cache["x_ffn"]}
+        h, cm_new = S.rwkv6_channelmix(
+            p["rwkv"], L.rms_norm(x, p["ffn_norm"]["scale"]), cm_cache)
+        return x + h, {**tm_new, **cm_new}
+
+    train_body = _maybe_remat(lambda x, p: block(x, p, None)[0], cfg)
+    for li in range(cfg.num_layers):
+        p = layer_slice(params["layers"], li)
+        if caches is None:
+            x = train_body(x, p)
+            continue
+        x, new = block(x, p, {k: v[li] for k, v in caches.items()})
+        _write_layer(caches, li, new)
+    return x, caches, {}
+
+
+# ---------------------------------------------------------------------------
+# Zamba2 hybrid: [shared-attn, 6x mamba2] x 13 + [shared-attn, 3x mamba2]
+# ---------------------------------------------------------------------------
+
+def _hybrid_layout(cfg: ModelConfig) -> Tuple[int, int, int]:
+    """(num_full_groups, group_size, remainder_layers)."""
+    g = cfg.attn_every
+    full = cfg.num_layers // g
+    rem = cfg.num_layers - full * g
+    if rem == 0:           # keep >=1 layer in the tail for the final attn
+        full -= 1
+        rem = g
+    return full, g, rem
+
+
+def _shared_attn_block(shared, cfg, x, positions, cache):
+    h, new_kv = L.attention(
+        shared["attn"], L.rms_norm(x, shared["attn_norm"]["scale"]),
+        cfg.attention, positions=positions, cache=cache)
+    x = x + h
+    x = x + L.mlp(shared["mlp"],
+                  L.rms_norm(x, shared["ffn_norm"]["scale"]), cfg.act)
+    return x, new_kv
+
+
+def hybrid_forward(params, cfg: ModelConfig, x, positions, *, caches=None,
+                   **_):
+    """``full`` groups of [shared attention, ``g`` Mamba2 layers], then a
+    tail of [shared attention, ``rem`` Mamba2 layers]; the one shared
+    block's params serve all ``full + 1`` attention applications (their
+    gradients sum over the uses). caches: {mamba: {state (L,B,H,P,N) f32,
+    conv (L,B,3,C)}, attn: {k, v, pos} with ``full + 1`` rows: row ``i``
+    is group ``i``'s, row ``full`` the tail's}, written in place. With
+    ``num_layers % attn_every == 0`` the last group is the tail, so the
+    smoke config (2 layers, ``attn_every`` 2) has no full group."""
+    full, g, rem = _hybrid_layout(cfg)
+    shared = params["shared"]
+
+    def mamba(x, p, cache):
+        h, new = S.mamba2_block(
+            p["mamba"], L.rms_norm(x, p["attn_norm"]["scale"]), cfg.ssm,
+            cache)
+        return x + h, new
+
+    train_body = _maybe_remat(lambda x, p: mamba(x, p, None)[0], cfg)
+    li = 0
+    for row in range(full + 1):
+        if caches is None:
+            x, _ = _shared_attn_block(shared, cfg, x, positions, None)
+        else:
+            a_cache = {k: v[row] for k, v in caches["attn"].items()}
+            x, new_kv = _shared_attn_block(shared, cfg, x, positions,
+                                           a_cache)
+            _write_layer(caches["attn"], row, new_kv)
+        for _ in range(g if row < full else rem):
+            p = layer_slice(params["layers"], li)
+            if caches is None:
+                x = train_body(x, p)
+            else:
+                x, new = mamba(x, p, {k: v[li] for k, v
+                                      in caches["mamba"].items()})
+                _write_layer(caches["mamba"], li, new)
+            li += 1
+    return x, caches, {}
+
+
+FORWARDS = {
+    "dense": decoder_forward,
+    "moe": decoder_forward,
+    "vlm": decoder_forward,
+    "ssm": rwkv_forward,
+    "hybrid": hybrid_forward,
+}

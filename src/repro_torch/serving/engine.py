@@ -194,6 +194,9 @@ class AdaptiveServingEngine:
                 overlap_efficiency=float(eff))
         self.planner = AdaptivePlanner(cfg, hw=self.hw, ep=1)
         self.model: Model = build_model(cfg, use_kernel=self.use_kernel)
+        if self.model.prefill_into_slot is None:
+            raise ValueError(f"{cfg.arch_id}: family {cfg.family} has no "
+                             "slot-cache decode path")
         self._kv_token_bytes = kv_token_bytes(cfg)
         # KV cache: paged by default (DESIGN.md §13), bit-identical to the
         # slot cache that paged_kv=False keeps as the A/B baseline

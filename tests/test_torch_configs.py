@@ -1,8 +1,9 @@
 """The port's configs of this slice against the reference's: every field
 (the dataclass repr), ``param_shapes`` (names and shapes, in order),
 the parameter and byte counts, and the smoke-reduced configs are equal.
-The registry names the same ids for what it has, and an arch the port
-does not have yet raises the reference's ``KeyError``.
+The registry names the same ids as the reference's, the SSM, hybrid,
+enc-dec and VLM families included, and an unknown arch raises the
+reference's ``KeyError``.
 
 The dense configs run through ``Model.loss_fn`` (smoke size, float32,
 the reference's params crossed by ``params_from_numpy``: within 1e-5
@@ -16,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs import ARCH_IDS as JARCH_IDS
 from repro.configs import get_config as jget_config
 from repro.configs import reduce_for_smoke as jreduce
 from repro.models import model as jmodel
@@ -49,8 +51,12 @@ def test_registry():
             kimi.attention.head_dim) == (384, 8, 7168, 2048, 64, 112)
     for arch in ("rwkv6-3b", "zamba2-7b", "seamless-m4t-medium",
                  "paligemma-3b"):
+        assert arch in ARCH_IDS
+        assert str(get_config(arch)) == str(jget_config(arch))
+    assert set(ARCH_IDS) == set(JARCH_IDS) | {"mixtral-mop"}
+    for reg in (get_config, jget_config):
         with pytest.raises(KeyError, match="unknown arch"):
-            get_config(arch)
+            reg("rwkv7-3b")
 
 
 DENSE = ("qwen3-8b", "granite-3-2b", "minitron-4b")

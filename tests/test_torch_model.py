@@ -52,8 +52,9 @@ def test_configs_equal():
         assert str(get_config(arch)) == str(jget_config(arch))
     assert str(reduce_for_smoke(get_config("mixtral-8x7b"))) \
         == str(jreduce(jget_config("mixtral-8x7b")))
+    assert str(get_config("rwkv6-3b")) == str(jget_config("rwkv6-3b"))
     with pytest.raises(KeyError):
-        get_config("rwkv6-3b")
+        get_config("rwkv7-3b")
 
 
 def test_params_from_numpy_round_trip(smoke):

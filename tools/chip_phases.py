@@ -3,13 +3,15 @@
 iterate on a phase without the whole script:
 
     python3 tools/chip_phases.py poisson kimi qwen3 kimi-rows
+    python3 tools/chip_phases.py families families-train
 
 ``poisson`` first runs the serve phase (3), whose params and point it
-drives; ``kimi`` is 7b, ``qwen3`` 7c and ``kimi-rows`` the kernel
-phase's B3 rows at Kimi-K2's widths. It builds the kernels first, prints
-what the phases print, writes their records to ``--out`` and exits 1 if
-a phase failed. ``chip_smoke.py`` stays the check of record: it runs
-every phase and prints the result lines.
+drives; ``kimi`` is 7b, ``qwen3`` 7c, ``families`` 7d, ``families-train``
+7e and ``kimi-rows`` the kernel phase's B3 rows at Kimi-K2's widths. It
+builds the kernels first, prints what the phases print, writes their
+records to ``--out`` and exits 1 if a phase failed. ``chip_smoke.py``
+stays the check of record: it runs every phase and prints the result
+lines.
 """
 from __future__ import annotations
 
@@ -21,7 +23,8 @@ import traceback
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
-PHASES = ("poisson", "kimi", "qwen3", "kimi-rows")
+PHASES = ("poisson", "kimi", "qwen3", "families", "families-train",
+          "kimi-rows")
 
 
 def main(argv=None) -> int:
@@ -64,6 +67,11 @@ def main(argv=None) -> int:
         run("kimi", cs.phase_kimi, torch, np, args.seed, card)
     if "qwen3" in phases:
         run("qwen3", cs.phase_qwen3, torch, np, args.seed, card)
+    if "families" in phases:
+        run("families", cs.phase_families, torch, np, args.seed, card)
+    if "families-train" in phases:
+        run("families-train", cs.phase_families_train, torch, np,
+            args.seed, card)
     if "kimi-rows" in phases:
         from repro_torch.kernels import grouped_matmul as gk
         from repro_torch.kernels import ops
