@@ -88,6 +88,27 @@ Phases (each raises on failure, and the script then exits non-zero):
                same traffic on a fixed plan without the controller gives
                the greedy tokens of the same prompts submitted all at
                once to a fresh engine;
+  8. ep      — expert- and data-parallel serving on the serve phase's
+               params, every rank on ``cuda:0`` (a repeated device list):
+     8a. model — per ep, a plan whose banks split over it (ep 2: int4 4,
+               int8 2, bf16 2 experts per layer; ep 4: int4 4, bf16 4):
+               ``Model.prefill`` of 2 x 8 tokens + 4 greedy decode steps
+               with the kernels on, logits bytes equal to ep 1; each rank
+               launches each of its bank shards at G = bank / ep (3
+               matrices x 2 layers x 5 forwards) and the split-K
+               reduction, booked per rank;
+     8b. engine — default paged engines at ep 1, 2, 4: a three-rung point
+               A of the ep 2 frontier, 4 requests, a replan to a point B
+               of the ep 4 frontier that moves experts between the ranks
+               of ep 2, 4 more requests: greedy tokens equal to ep 1's;
+               then ms per decode iteration, decode tokens/s and peak GB
+               per ep (readings: the ranks serialize on one card);
+     8c. group + cli — ``make_dp_group(dp=2, ep=2)`` over four ``cuda:0``
+               under the autoscaler, one scale-down draining a replica
+               with a request in flight, every request retired with its
+               tokens; the serve CLI at ``--smoke --ep 2 --dp 2 --device
+               cuda:0,cuda:0,cuda:0,cuda:0``; ``--ep 2 --device cuda`` on
+               a one-card host raises the devices error;
   6. train   — after the serve phases release their params (card memory
                printed before and after):
      6a. train step — the full-width 2-layer Mixtral (3.17 B params) from
@@ -1367,6 +1388,403 @@ def phase_multi(torch, np, ctx, card: str):
                                          for k, v in launches.items()})
     del mt, params
     _release(torch)
+    return out
+
+
+# --------------------------------------------------------------------------
+# phase 8: expert- and data-parallel serving on repeated cuda:0
+# --------------------------------------------------------------------------
+
+#: 8a's plans: per-layer counts per rung (every bank a multiple of ep)
+EP_PLANS = {2: ({4: 4, 8: 2}, (16, 8, 4)), 4: ({4: 4}, (16, 4))}
+EP_FORWARDS = 5                 # 8a: one prefill + 4 decode steps
+GROUPED = {4: "grouped_q4", 8: "grouped_q8", 16: "grouped_bf16"}
+
+
+class _RankLaunches:
+    """Books the kernels' launches by EP rank while a model or engine
+    runs: ``mixed_moe._dispatch_local`` is given each rank's index just
+    before that rank's ``_expert_ffn``, so the launches an FFN call makes
+    belong to the rank dispatched last. ``by_rank[r]`` counts
+    ``(wrapper, G)`` and ``("splitk_reduce", 0)``."""
+
+    def __enter__(self):
+        import collections
+        from repro_torch.core import mixed_moe
+        from repro_torch.kernels import ops
+        self.mm, rank = mixed_moe, {"r": None}
+        self.by_rank = collections.defaultdict(collections.Counter)
+        self._dispatch, self._ffn = mixed_moe._dispatch_local, \
+            mixed_moe._expert_ffn
+
+        def dispatch(*a, **kw):
+            rank["r"] = kw["rank"]
+            return self._dispatch(*a, **kw)
+
+        def ffn(*a, **kw):
+            before = collections.Counter(ops.GROUP_LAUNCHES)
+            s0 = ops.LAUNCHES["splitk_reduce"]
+            out = self._ffn(*a, **kw)
+            delta = collections.Counter(ops.GROUP_LAUNCHES)
+            delta.subtract(before)
+            book = self.by_rank[rank["r"]]
+            book.update(+delta)
+            book[("splitk_reduce", 0)] += ops.LAUNCHES["splitk_reduce"] - s0
+            return out
+
+        mixed_moe._dispatch_local, mixed_moe._expert_ffn = dispatch, ffn
+        return self
+
+    def __exit__(self, *exc):
+        self.mm._dispatch_local, self.mm._expert_ffn = \
+            self._dispatch, self._ffn
+
+
+def _shard_keys(plan, ep: int):
+    """The (wrapper, G) launch keys of one rank's bank shards."""
+    return sorted((GROUPED[b], g // ep) for b, g in
+                  zip(sorted(plan.ladder), plan.bank_sizes()) if g)
+
+
+def _require_rank_launches(by_rank, plan, ep: int, what: str,
+                           per_bank=None):
+    """Every rank launched each of its bank shards at G = bank / ep (and
+    nothing at another G), ``per_bank`` times where given, and the split-K
+    reduction."""
+    if sorted(by_rank) != list(range(ep)):
+        raise AssertionError(f"{what}: launches by rank {sorted(by_rank)}, "
+                             f"want ranks 0..{ep - 1}")
+    want = _shard_keys(plan, ep)
+    for r in range(ep):
+        book = by_rank[r]
+        got = sorted(k for k, v in book.items()
+                     if k[0] != "splitk_reduce" and v)
+        if got != want or (per_bank is not None
+                           and any(book[k] != per_bank for k in want)):
+            raise AssertionError(f"{what}: rank {r} launched {dict(book)}, "
+                                 f"want {want} x {per_bank}")
+        if book[("splitk_reduce", 0)] <= 0:
+            raise AssertionError(f"{what}: rank {r} never launched "
+                                 f"splitk_reduce: {dict(book)}")
+
+
+def _ep_decode(torch, cfg, params, mesh, tokens):
+    """``Model.prefill`` of ``tokens`` (B, S) and 4 greedy
+    ``decode_step``s with the kernels on: the logits' bytes."""
+    from repro_torch.models.model import build_model
+    model = build_model(cfg, mesh, use_kernel=True)
+    cache = model.init_cache(tokens.shape[0], 24, device="cuda")
+    logits, cache = model.prefill(params, {"tokens": tokens}, cache)
+    chunks = [logits.float().cpu().numpy().tobytes()]
+    pos = torch.full((tokens.shape[0],), tokens.shape[1], device="cuda")
+    for step in range(EP_FORWARDS - 1):
+        cur = logits.argmax(-1)[:, None]
+        logits, cache = model.decode_step(params, cache, cur, pos + step)
+        chunks.append(logits.float().cpu().numpy().tobytes())
+    return b"".join(chunks)
+
+
+def _ep_devices(torch, ep: int, distinct: bool):
+    """The mesh's device list: ``cuda:0`` repeated, or distinct cards."""
+    if distinct and torch.cuda.device_count() < ep:
+        raise RuntimeError(f"distinct cards: need {ep}, have "
+                           f"{torch.cuda.device_count()}")
+    return [f"cuda:{i}" for i in range(ep)] if distinct \
+        else ["cuda:0"] * ep
+
+
+def _ep_model_level(torch, np, ctx, seed: int, distinct: bool = False):
+    """8a: per ep, a plan whose every bank splits over ep; prefill of
+    2 x 8 tokens + 4 greedy decode steps over ``["cuda:0"] * ep`` (or
+    distinct cards) give the logits bytes of one device, with each rank
+    launching its bank shards at G = bank / ep (3 matrices x layers x 5
+    forwards each)."""
+    from repro_torch.core.precision_plan import balanced_ladder_plan
+    from repro_torch.launch.mesh import make_ep_mesh
+    from repro_torch.models.model import apply_precision_plan
+    cfg, params = ctx["cfg"], ctx["params"]
+    L, E = cfg.num_layers, cfg.moe.num_experts
+    tok = torch.from_numpy(np.random.default_rng(seed).integers(
+        1, cfg.vocab_size, (2, 8))).to("cuda")
+    out = {}
+    for ep, (per_layer, ladder) in EP_PLANS.items():
+        plan = balanced_ladder_plan(
+            L, E, {b: n * L for b, n in per_layer.items()}, ladder=ladder,
+            group_size=cfg.mop.group_size)
+        sp = apply_precision_plan(params, cfg, plan)
+        with _RankLaunches() as one:
+            ref = _ep_decode(torch, cfg, sp, None, tok)
+        del sp
+        _require_rank_launches(one.by_rank, plan, 1, f"ep {ep}: ep=1 run",
+                               3 * L * EP_FORWARDS)
+        mesh = make_ep_mesh(ep, devices=_ep_devices(torch, ep, distinct))
+        _peak_reset(torch)
+        t0 = time.perf_counter()
+        placed = apply_precision_plan(params, cfg, plan, mesh=mesh)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        with _RankLaunches() as ranks:
+            got = _ep_decode(torch, cfg, placed, mesh, tok)
+        _, peak = _mem_gb(torch)
+        del placed
+        if got != ref:
+            raise AssertionError(f"8a: ep={ep} logits bytes differ from "
+                                 "ep=1")
+        _require_rank_launches(ranks.by_rank, plan, ep, f"8a ep={ep}",
+                               3 * L * EP_FORWARDS)
+        per_rank = {r: {f"{k}@G={g}" if k != "splitk_reduce" else k: v
+                        for (k, g), v in sorted(b.items())}
+                    for r, b in sorted(ranks.by_rank.items())}
+        log(f"  8a ep={ep}: plan per layer {per_layer} (ladder {ladder}), "
+            f"banks per layer {dict(zip(sorted(ladder), plan.bank_sizes()))}"
+            f"; shards placed in {build_s:.2f} s; prefill 2x8 + 4 decode "
+            f"steps, logits bytes equal to ep=1; peak {peak:.2f} GB")
+        for r, book in per_rank.items():
+            log(f"    rank {r} launches: {book}")
+        out[str(ep)] = {"per_layer": {str(b): n for b, n in
+                                      per_layer.items()},
+                        "ladder": list(ladder), "bytes_equal": True,
+                        "launches_by_rank": per_rank,
+                        "place_s": build_s, "peak_gb": peak}
+    return out
+
+
+def _ep_points(engines, total):
+    """A: the serve phase's rule on the ep=2 frontier (all three rungs,
+    some experts off the card); B: of the ep=4 frontier's points whose
+    banks differ from A's and move experts between the ranks of ep=2, one
+    with the most non-empty banks, then the most resident."""
+    a = pick_point(engines[2].frontier, total)
+    moves = [p for p in engines[4].frontier.points
+             if p.plan.bank_sizes() != a.plan.bank_sizes()
+             and (p.plan.device_assignment(2)
+                  != a.plan.device_assignment(2)).any()]
+    if not moves:
+        raise AssertionError("no ep=4 frontier point migrates experts")
+    return a, max(moves, key=lambda p: (
+        sum(g > 0 for g in p.plan.bank_sizes()), p.resident_experts,
+        -p.num_q_experts))
+
+
+def _ep_engine_level(torch, np, ctx, card: str, seed: int,
+                     distinct: bool = False):
+    """8b: engines at ep = 1, 2, 4 on the serve phase's params (the
+    default paged ``EngineConfig``, kernels on): point A, 4 requests,
+    then a replan to point B that migrates experts between the ranks of
+    ep = 2, 4 more requests; greedy tokens of ep = 2 (both passes) and
+    ep = 4 (at B) equal to ep = 1's, each rank's shards launched at
+    G = bank / ep. Then one warm pass each: ms per decode iteration,
+    decode tokens/s and the card's peak GB (every engine of the phase is
+    alive, so the peak holds all of their banks)."""
+    from repro_torch.launch.mesh import make_ep_mesh
+    from repro_torch.serving.api import EngineConfig, build_engine
+    cfg, params = ctx["cfg"], ctx["params"]
+    total = cfg.num_layers * cfg.moe.num_experts
+    engines = {1: build_engine(cfg, params, EngineConfig(**SERVE_CFG),
+                               device="cuda")}
+    for ep in (2, 4):
+        engines[ep] = build_engine(
+            cfg, params, EngineConfig(**SERVE_CFG),
+            mesh=make_ep_mesh(ep, devices=_ep_devices(torch, ep, distinct)))
+    a, b = _ep_points(engines, total)
+    rng = np.random.default_rng(seed + 8)
+    second = [rng.integers(1, cfg.vocab_size, size=16) for _ in range(4)]
+    passes, tokens = {}, {}
+    for ep in (1, 2):
+        eng = engines[ep]
+        eng.apply_frontier_point(a)
+        with _RankLaunches() as ra:
+            passes[(ep, "A")] = serve_pass(torch, eng, ctx["prompts"])
+        plan_a = eng.current_plan
+        eng.apply_frontier_point(b)
+        with _RankLaunches() as rb:
+            passes[(ep, "B")] = serve_pass(torch, eng, second)
+        _require_rank_launches(ra.by_rank, plan_a, ep, f"8b ep={ep} at A")
+        _require_rank_launches(rb.by_rank, eng.current_plan, ep,
+                               f"8b ep={ep} at B")
+        tokens[ep] = (passes[(ep, "A")]["tokens"],
+                      passes[(ep, "B")]["tokens"])
+    moved = int((a.plan.device_assignment(2)
+                 != engines[2].current_plan.device_assignment(2)).sum())
+    if (engines[1].current_plan.bits != engines[2].current_plan.bits).any():
+        raise AssertionError("8b: ep=1 and ep=2 serve other bits at B")
+    if tokens[2] != tokens[1]:
+        raise AssertionError(f"8b: ep=2 tokens {tokens[2]} != ep=1 "
+                             f"{tokens[1]}")
+    engines[4].apply_frontier_point(b)
+    with _RankLaunches() as r4:
+        passes[(4, "B")] = serve_pass(torch, engines[4], second)
+    _require_rank_launches(r4.by_rank, engines[4].current_plan, 4,
+                           "8b ep=4 at B")
+    if passes[(4, "B")]["tokens"] != tokens[1][1]:
+        raise AssertionError("8b: ep=4 tokens differ from ep=1 at B")
+    log(f"  8b points: A {a.summary()} (banks {a.plan.bank_sizes()}), "
+        f"B {b.summary()} (banks {b.plan.bank_sizes()}); the replan A -> B "
+        f"moves {moved} of {total} experts to another rank of ep=2; "
+        "greedy tokens of ep=2 (A and B) and ep=4 (B) equal to ep=1's")
+    log(f"    tokens A {tokens[1][0]}")
+    log(f"    tokens B {tokens[1][1]}")
+    readings = {}
+    for ep, eng in engines.items():
+        _peak_reset(torch)
+        r = serve_pass(torch, eng, second)
+        _, peak = _mem_gb(torch)
+        if r["tokens"] != tokens[1][1]:
+            raise AssertionError(f"8b: warm ep={ep} pass gave other tokens")
+        readings[str(ep)] = {
+            "decode_ms_per_iter": r["decode_ms_per_iter"],
+            "tokens_per_s": r["tokens_per_s"], "peak_gb": peak,
+            "iterations": r["iterations"],
+            "launches_per_decode_iter": r["launches_per_decode_iter"]}
+        log(f"    ep={ep} at B on {card}: {r['decode_ms_per_iter']:.3f} ms "
+            f"per decode iteration, {r['tokens_per_s']:.2f} decode tok/s, "
+            f"peak {peak:.2f} GB on cuda:0; launches per decode iteration "
+            f"{r['launches_per_decode_iter']}")
+    for eng in engines.values():
+        eng.close()
+    return {"A": a.summary(), "B": b.summary(), "moved_experts": moved,
+            "tokens": tokens[1], "readings": readings,
+            "path": passes[(2, "A")]}
+
+
+def _ep_group_and_cli(torch, np, ctx, seed: int, distinct: bool = False):
+    """8c: ``make_dp_group(dp=2, ep=2)`` over four ``cuda:0`` entries
+    under the autoscaler: two long and two short requests; the scale-down
+    after the short ones retire drains a replica that still serves, and
+    every request retires with its full token count. Then the serve CLI
+    at ``--smoke`` with ``--ep 2 --dp 2 --device cuda:0,cuda:0,cuda:0,
+    cuda:0`` (kernels on; its summary lines), and ``--ep 2`` with a lone
+    ``cuda`` on a one-card host raising the actionable devices error."""
+    import contextlib
+    import io
+    from repro_torch import serving
+    from repro_torch.core.pareto import QoSTarget
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.serving.api import EngineConfig, ServeRequest
+    from repro_torch.serving.control_plane.autoscale import \
+        ReplicaAutoscaler
+    from repro_torch.serving.ep import make_dp_group
+    cfg, params = ctx["cfg"], ctx["params"]
+    t0 = time.perf_counter()
+    g = make_dp_group(cfg, params, EngineConfig(**SERVE_CFG), ep=2, dp=2,
+                      devices=_ep_devices(torch, 4, distinct))
+    planner = g.engines[0].planner
+    full = planner.size_ne + planner.num_experts_total * planner.size_e16
+    points = g.apply_target(QoSTarget(mem_budget_bytes=0.6 * full,
+                                      min_tokens_per_s=math.inf))
+    shard_keys = sorted({k for e in g.engines
+                         for k in _shard_keys(e.current_plan, 2)})
+    rng = np.random.default_rng(seed + 16)
+    lengths = [12, 12, 4, 4]
+    rids = [g.submit_request(ServeRequest(
+        rng.integers(1, cfg.vocab_size, size=16), max_new_tokens=n))
+        for n in lengths]
+    auto = ReplicaAutoscaler(patience_ticks=1, cooldown_s=0.0,
+                             max_replicas=2)
+    ops.reset_launches()
+    drained, tick, decisions = False, 0.0, []
+    while g.has_work():
+        g.run_iteration(temperature=0.0)
+        d = g.autoscale_step(tick, auto)
+        if d:
+            decisions.append(d)
+            drained = drained or (d == -1 and g.metrics["draining"] == 1)
+        tick += 1.0
+    launches = dict(ops.LAUNCHES)
+    group_launches = {f"{k}@G={n}": ops.GROUP_LAUNCHES[(k, n)]
+                      for k, n in shard_keys}
+    got = [len(g.result(r).tokens) for r in rids]
+    if got != lengths or not drained or len(g.engines) != 1:
+        raise AssertionError(f"8c: tokens {got} (want {lengths}), drained "
+                             f"with work {drained}, {len(g.engines)} "
+                             f"engines left, decisions {decisions}")
+    if not all(group_launches.values()) or not launches["splitk_reduce"]:
+        raise AssertionError(f"8c group: shards {shard_keys} not all "
+                             f"launched: {dict(ops.GROUP_LAUNCHES)}")
+    secs = time.perf_counter() - t0
+    log(f"  8c dp=2 x ep=2 over {'cuda:0-3' if distinct else 'cuda:0 x 4'}"
+        f" ({secs:.2f} s): point "
+        f"{points[0].summary()}; autoscaler decisions {decisions}, a "
+        f"replica drained with a request in flight; {len(rids)} requests "
+        f"retired with {got} tokens; shard launches {group_launches}, "
+        f"splitk_reduce {launches['splitk_reduce']}")
+    g.close()
+    del g
+    _release(torch)
+    dev = "cuda" if distinct else ",".join(["cuda:0"] * 4)
+    argv = ["--ep", "2", "--dp", "2", "--device", dev, "--smoke",
+            "--temperature", "0", "--requests", "4", "--max-new-tokens", "4"]
+    groups = []
+    make = serving.ep.make_dp_group
+
+    def make_and_keep(*a, **kw):
+        group = make(*a, **kw)
+        groups.append(list(group.engines))
+        return group
+
+    buf = io.StringIO()
+    serving.ep.make_dp_group = make_and_keep
+    ops.reset_launches()
+    try:
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            serve.main(argv)
+        cli_s = time.perf_counter() - t0
+    finally:
+        serving.ep.make_dp_group = make
+    launches = dict(ops.LAUNCHES)
+    text = buf.getvalue()
+    for need in ("[serve] ep=2 dp=2 target[",
+                 "[serve] ep=2 dp=2 16 tokens across", "tokens=["):
+        if need not in text:
+            raise AssertionError(f"8c cli: no {need!r} line in:\n{text}")
+    if not groups or not all(e.use_kernel for e in groups[0]):
+        raise AssertionError("8c cli: the group's engines run without the "
+                             "kernels")
+    cli_keys = sorted({k for e in groups[0]
+                       for k in _shard_keys(e.current_plan, 2)})
+    if not all(ops.GROUP_LAUNCHES[k] for k in cli_keys):
+        raise AssertionError(f"8c cli: shards {cli_keys} not all "
+                             f"launched: {dict(ops.GROUP_LAUNCHES)}")
+    log(f"  8c cli ({cli_s:.2f} s): python -m repro_torch.launch.serve "
+        f"{' '.join(argv)}")
+    for ln in text.splitlines():
+        log(f"    {ln}")
+    log(f"    launches {launches}")
+    refused = None
+    if torch.cuda.device_count() < 2:
+        try:
+            with contextlib.redirect_stdout(io.StringIO()):
+                serve.main(["--ep", "2", "--device", "cuda", "--smoke",
+                            "--requests", "1", "--max-new-tokens", "2"])
+        except RuntimeError as e:
+            refused = str(e)
+        if not refused or "need 2 devices" not in refused:
+            raise AssertionError(f"8c: --ep 2 --device cuda on one card "
+                                 f"did not raise the devices error "
+                                 f"({refused!r})")
+        log(f"  8c --ep 2 --device cuda on one card: {refused}")
+    return {"group_tokens": got, "decisions": decisions,
+            "cli_seconds": cli_s, "cli_lines": text.splitlines(),
+            "cli_launches": launches, "lone_cuda_error": refused}
+
+
+def phase_ep(torch, np, ctx, card: str, seed: int, distinct: bool = False):
+    """8: expert- and data-parallel serving at full width on repeated
+    ``cuda:0`` (8a model level, 8b engine level, 8c group and CLI);
+    ``distinct`` puts rank r on ``cuda:r`` instead (a four-card host,
+    ``tools/chip_phases.py ep-cards``)."""
+    t0 = time.perf_counter()
+    log(f"ep: full-width serve-phase params, EP ranks on "
+        f"{'distinct cards' if distinct else 'cuda:0'}")
+    out = {"model": _ep_model_level(torch, np, ctx, seed, distinct)}
+    _release(torch)
+    out["engine"] = _ep_engine_level(torch, np, ctx, card, seed, distinct)
+    _release(torch)
+    out["group"] = _ep_group_and_cli(torch, np, ctx, seed, distinct)
+    out["seconds"] = time.perf_counter() - t0
+    log(f"  ep: {out['seconds']:.1f} s")
     return out
 
 
@@ -3336,6 +3754,10 @@ def main(argv=None) -> int:
         for name in ("qos+dynamic", "multi-tenant", "poisson"):
             if serve.get(name) is not None:
                 paths[name] = serve[name]
+        _release(torch)
+        serve["ep"] = run("ep", phase_ep, torch, np, ctx, smi, args.seed)
+        if serve["ep"] is not None:
+            paths["ep"] = serve["ep"]["engine"]["path"]
         ctx["engine"].close()
         del ctx, served          # the tuple held the params and engine too
         torch.cuda.empty_cache()

@@ -6,14 +6,36 @@ banks — ``q4`` (packed int4 + scales), ``q8`` (int8 + scales) and ``f16``
 (bf16) — in ASCENDING-bits bank order, with a per-layer expert permutation
 mapping routed ids into bank slots (``PrecisionPlan.expert_order``).
 
-This is the reference's (``repro.core.mixed_moe``) single-device path:
-rank 0 of an EP group of one, so every expert is local and no collective
-runs. Expert and tensor parallelism are a later slice.
+Dispatch (the reference's ``repro.core.mixed_moe``):
+
+  * one device (``par=None``): rank 0 of an EP group of one, every expert
+    local, no collective;
+  * **EP** over a (1, ep) mesh (``MoEParallelism``): one process drives
+    every rank. Rank r holds the contiguous slice ``[r*loc_b,
+    (r+1)*loc_b)`` of every bank b on ``mesh.devices[r]``; each rank
+    dispatches all tokens (the data axis has size 1) to its local experts
+    under the unchanged capacity, runs the N-bank FFN on its shard and
+    combines its weighted outputs; the ranks' (T, d) outputs are then
+    summed on the activation's device, the counterpart of the reference's
+    closing ``psum`` over "model". The sum runs in f32 in rank order and
+    rounds once to the outputs' dtype: that is what the reference's bf16
+    psum gives on XLA:CPU (a running bf16 sum over 4 or 8 ranks is not).
+    A token's expert output is computed by exactly one rank and the other
+    ranks add exact zeros, so at top-2 the result is bit-identical to one
+    device; at top-k > 2 a token's outputs on one rank are summed there
+    first, so EP is bit-identical to the reference's EP, not to one
+    device.
+
+The reference's token-gather (ZeRO) regime, which needs a data axis > 1,
+and its TP regime (fewer experts than ranks) are not ported; a mesh that
+asks for either raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import threading
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -262,12 +284,126 @@ def _bank_len(bank) -> int:
 
 
 # --------------------------------------------------------------------------
-# The MoE apply (single device)
+# Parallelism: the (1, ep) expert-parallel mesh
+# --------------------------------------------------------------------------
+
+#: what a mesh the serving slice does not shard raises
+LATER_SLICE = ("is a later slice of the PyTorch port (sharded training: "
+               "dist/sharding.py and moe_apply's token-gather/ZeRO and TP "
+               "regimes); serving shards experts over a (1, ep) mesh")
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEParallelism:
+    mesh: Any                      # repro_torch.launch.mesh.Mesh
+    dp_axes: Tuple[str, ...]       # token axes ("pod","data") / ("data",)
+    ep_axis: str = "model"
+    # Second weight-sharding axis for EP banks (ZeRO/FSDP dimension): the
+    # d_ff dim of every expert is sharded over it (the reference's
+    # token-gather regime; not ported).
+    fsdp_axis: Optional[str] = None
+
+    @property
+    def ep_size(self) -> int:
+        return self.mesh.sizes[self.ep_axis]
+
+    @property
+    def fsdp_size(self) -> int:
+        if self.fsdp_axis is None or self.fsdp_axis not in self.mesh.sizes:
+            return 1
+        return self.mesh.sizes[self.fsdp_axis]
+
+
+def _fsdp_active(banks, moe: MoEConfig, par: MoEParallelism, ep: bool):
+    """Token-gather EP applies when experts are also d_ff-sharded over the
+    fsdp axis (kimi-1T: (E/16 on model) x (f/16 on data) per device).
+    The regime gate of the later sharded-training slice; a serving mesh
+    has no fsdp axis above 1, so it is never active there."""
+    if not ep or par.fsdp_size <= 1:
+        return False
+    fs = par.fsdp_size
+    for key in bank_keys(banks):
+        for name, w in banks[key].items():
+            arr = w.q if isinstance(w, QTensor) else w
+            fdim = 1 if name == "w_down" else 2
+            if arr.shape[fdim] % fs:
+                return False
+            if isinstance(w, QTensor) and w.scales.shape[fdim] % fs:
+                return False
+    return True
+
+
+def _require_ep_regime(moe: MoEConfig, par: MoEParallelism) -> None:
+    """The serving regime: experts over the EP axis, every other mesh
+    axis of size 1 (every rank sees every token)."""
+    n_dp = 1
+    for a in par.dp_axes:
+        n_dp *= par.mesh.sizes.get(a, 1)
+    if n_dp > 1 or par.fsdp_size > 1:
+        raise NotImplementedError(
+            f"moe_apply over mesh {par.mesh.sizes}: a data axis > 1 (the "
+            f"token-gather/ZeRO regime) {LATER_SLICE}")
+    if moe.num_experts < par.ep_size:
+        raise NotImplementedError(
+            f"moe_apply with {moe.num_experts} experts over ep="
+            f"{par.ep_size} (the TP regime) {LATER_SLICE}")
+
+
+def _map_bank(bank, fn):
+    return {k: v.map(fn) if isinstance(v, QTensor) else fn(v)
+            for k, v in bank.items()}
+
+
+def shard_banks(banks, mesh, *, axis: int = 0,
+                ep_axis: str = "model") -> List[Dict[str, Any]]:
+    """Per-rank shards of a bank tree (the counterpart of the reference's
+    ``_bank_specs`` in the EP regime): rank r's shard of bank b is the
+    contiguous slice ``[r*loc_b, (r+1)*loc_b)`` of the expert dim ``axis``
+    (0 for one layer's banks, 1 for the layer-stacked serve layout) on
+    ``mesh.devices[r]`` — the experts ``PrecisionPlan.device_assignment``
+    gives rank r. On the bank's own device a shard is a view (a one-layer
+    shard is then contiguous); elsewhere it is a copy. Raises
+    ``ValueError`` when a bank does not split evenly."""
+    ep = mesh.sizes[ep_axis]
+    keys = bank_keys(banks)
+    totals = tuple((banks[k]["w_up"].q if isinstance(
+        banks[k]["w_up"], QTensor) else banks[k]["w_up"]).shape[axis]
+        for k in keys)
+    if any(tot % ep for tot in totals):
+        raise ValueError(
+            f"EP banks must split evenly: "
+            f"{dict(zip(keys, totals))} over {ep} shards "
+            f"(planner rounds per-layer counts)")
+    shards = []
+    for r, dev in enumerate(mesh.devices):
+        shard: Dict[str, Any] = {}
+        for key, bank in banks.items():
+            if bank is None:
+                shard[key] = None
+                continue
+            loc = totals[keys.index(key)] // ep
+            shard[key] = _map_bank(
+                bank, lambda t: t.narrow(axis, r * loc, loc).to(dev))
+        shards.append(shard)
+    return shards
+
+
+def _on(device: torch.device):
+    """Make ``device`` current while a rank's work is issued: the kernels'
+    C entry points launch on the current card."""
+    if device.type == "cuda":
+        return torch.cuda.device(device)
+    return contextlib.nullcontext()
+
+
+# --------------------------------------------------------------------------
+# The MoE apply
 # --------------------------------------------------------------------------
 
 def moe_apply(banks, x: torch.Tensor, weights: torch.Tensor,
-              ids: torch.Tensor, moe: MoEConfig, *, act: str = "swiglu",
-              use_kernel: bool = False,
+              ids: torch.Tensor, moe: MoEConfig,
+              par: Optional[MoEParallelism] = None, *,
+              act: str = "swiglu", use_kernel: bool = False,
               capacity: Optional[int] = None) -> torch.Tensor:
     """x: (T, d) -> (T, d).
 
@@ -275,21 +411,55 @@ def moe_apply(banks, x: torch.Tensor, weights: torch.Tensor,
     the rung-keyed serve layout {"q4": ..., "q8": ..., "f16": ...}
     (bank order = ascending bits, cheapest rung first). ``capacity``
     overrides the capacity-factor formula with an explicit per-expert slot
-    count."""
+    count.
+
+    ``par`` (an EP mesh of size > 1) runs the sharded path: ``banks`` is
+    then one bank tree, sharded here (:func:`shard_banks`), or the list of
+    per-rank shards that ``apply_precision_plan(..., mesh=)`` placed on
+    the ranks' devices. Each rank's work is issued before the sum, so
+    ranks on distinct cards overlap."""
     t, d = x.shape
-    keys = bank_keys(banks)
-    totals = tuple(_bank_len(banks[k]) for k in keys)
-    locs = totals                       # one device: every expert is local
     if capacity is None:
+        # tokens are replicated over the EP axis: every rank sees every
+        # assignment and keeps its local experts' share
         cap = int(np.ceil(t * moe.top_k * moe.capacity_factor
                           / moe.num_experts))
     else:
         cap = int(capacity)
     cap = max(4, ((cap + 3) // 4) * 4)
-    xbuf, dest, order, w_sorted = _dispatch_local(
-        x, ids, weights, rank=0, totals=totals, locs=locs, capacity=cap)
-    ybuf = _expert_ffn(banks, xbuf, act, use_kernel)
-    return _combine_local(ybuf, dest, order, w_sorted, t, d, ids.shape[1])
+    k = ids.shape[1]
+    if par is not None:
+        _require_ep_regime(moe, par)
+    if par is None or par.ep_size == 1:
+        if isinstance(banks, list):           # placed on a (1, 1) mesh
+            (banks,) = banks
+        keys = bank_keys(banks)
+        totals = tuple(_bank_len(banks[key]) for key in keys)
+        xbuf, dest, order, w_sorted = _dispatch_local(
+            x, ids, weights, rank=0, totals=totals, locs=totals,
+            capacity=cap)
+        ybuf = _expert_ffn(banks, xbuf, act, use_kernel)
+        return _combine_local(ybuf, dest, order, w_sorted, t, d, k)
+    ep = par.ep_size
+    shards = banks if isinstance(banks, list) \
+        else shard_banks(banks, par.mesh, ep_axis=par.ep_axis)
+    keys = bank_keys(shards[0])
+    locs = tuple(_bank_len(shards[0][key]) for key in keys)
+    totals = tuple(loc * ep for loc in locs)
+    outs = []
+    for r, (dev, shard) in enumerate(zip(par.mesh.devices, shards)):
+        with _on(dev):
+            xr, wr, ir = x.to(dev), weights.to(dev), ids.to(dev)
+            xbuf, dest, order, w_sorted = _dispatch_local(
+                xr, ir, wr, rank=r, totals=totals, locs=locs, capacity=cap)
+            ybuf = _expert_ffn(shard, xbuf, act, use_kernel)
+            outs.append(_combine_local(ybuf, dest, order, w_sorted, t, d,
+                                       k))
+    # the closing psum: an f32 sum in rank order, rounded once
+    y = outs[0].to(x.device, torch.float32)
+    for out in outs[1:]:
+        y = y + out.to(x.device, torch.float32)
+    return y.to(outs[0].dtype)
 
 
 # --------------------------------------------------------------------------

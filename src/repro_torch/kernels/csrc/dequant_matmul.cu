@@ -466,13 +466,19 @@ __global__ void __launch_bounds__(256) splitk_reduce_kernel(
 template <int BITS, int NT>
 int launch(const Args& a, cudaStream_t s) {
   using T = Tile<BITS, NT>;
-  static bool smem_set = false;     // raise the dynamic-smem cap once
-  if (!smem_set) {
-    const cudaError_t e = cudaFuncSetAttribute(
+  // raise the dynamic-smem cap once per card: the attribute belongs to
+  // the current device, and an expert-parallel mesh launches on several
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  static unsigned long long smem_set = 0;   // bit d: set on device d
+  const unsigned long long bit = dev < 64 ? 1ull << dev : 0;
+  if (!(smem_set & bit)) {
+    e = cudaFuncSetAttribute(
         tc_matmul_kernel<BITS, NT>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
     if (e != cudaSuccess) return static_cast<int>(e);
-    smem_set = true;
+    smem_set |= bit;
   }
   const dim3 grid((a.N + BN - 1) / BN,
                   ((a.M + T::BC - 1) / T::BC) * a.splits, a.G);

@@ -47,8 +47,18 @@ footprint of all tenants):
         "priority": 1, "deadline_s": 30.0, "requests": 3},
        {"name": "batch", "max_ppl_x": 1.0, "requests": 3}]}
 
-Tenant ``i``'s params are ``init_params(cfg, seed=i)``. ``--ep``/``--dp``
-above 1 raise ``NotImplementedError`` (one device in this port).
+Tenant ``i``'s params are ``init_params(cfg, seed=i)``.
+
+``--ep N`` serves over an expert-parallel (1, N) mesh (DESIGN.md §16) and
+``--dp M`` runs M such engines as autoscaled replicas behind one submit
+surface; they need N*M devices, which ``--device`` lists in order (each
+replica takes the next N). A device may repeat: a lone ``cpu`` repeats
+(the counterpart of the reference's forced host device count), a list
+like ``cuda:0,cuda:0,cuda:0,cuda:0`` runs every rank on one card, and a
+lone ``cuda`` (or no ``--device``) takes distinct cards:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+        --ep 2 --dp 2 --temperature 0 --requests 4
 
 ``--ckpt-dir DIR`` serves trained params: the latest committed checkpoint
 in DIR (the reference's layout, written by either package's trainer) is
@@ -76,7 +86,6 @@ from repro_torch.models.model import init_params
 from repro_torch.serving.api import (EngineConfig, MultiTenantEngine,
                                      QoSTarget, RequestSLO, ServeRequest,
                                      TenantSpec, build_engine)
-from repro_torch.serving.engine import EP_NOT_IMPLEMENTED
 from repro_torch.serving.qos import QoSController, QoSControllerConfig
 
 
@@ -196,12 +205,89 @@ def _serve_tenants(args, cfg, params0, device, profile=None):
     mt.close()                  # joins the shared async transfer workers
 
 
+def _serve_dp(args, cfg, params, devices, use_kernel, profile=None):
+    """--dp N: a DPReplicaGroup of EP engines behind one declarative
+    surface (DESIGN.md §16.3). Each replica decodes over its own (1, ep)
+    device slice; the autoscaler watches the group's demand utilization
+    between iterations and its replica decisions land on real engines
+    (scale-down drains, no request is dropped)."""
+    from repro_torch.serving.ep import make_dp_group
+    group = make_dp_group(
+        cfg, params,
+        EngineConfig(max_slots=4, max_len=32 + args.max_new_tokens,
+                     overlap=args.overlap == "on", use_kernel=use_kernel),
+        ep=args.ep, dp=args.dp, max_replicas=args.dp, devices=devices)
+    if profile is not None:
+        for e in group.engines:
+            e.planner.set_profile(profile)
+    planner = group.engines[0].planner
+    full = planner.size_ne + planner.num_experts_total * planner.size_e16
+    budget = args.budget_gb * 1e9 if args.budget_gb else full * 0.6
+    max_loss = args.max_ppl_x - 1.0 if args.max_ppl_x else None
+    target = QoSTarget(
+        min_tokens_per_s=(args.min_tps if args.min_tps is not None
+                          else float("inf")),
+        max_quality_loss=max_loss, mem_budget_bytes=budget)
+    points = group.apply_target(target)
+    print(f"[serve] ep={args.ep} dp={group.n_replicas} "
+          f"target[{target.describe()}] -> {points[0].summary()}")
+    rng = np.random.default_rng(0)
+    for k in range(args.requests):
+        slo = RequestSLO()
+        if args.priority_split and k % 2:
+            slo = RequestSLO(priority=1, deadline_s=30.0)
+        group.submit_request(ServeRequest(
+            prompt=rng.integers(1, cfg.vocab_size, 16),
+            max_new_tokens=args.max_new_tokens, slo=slo))
+    tick = 0.0
+    while group.has_work():
+        group.run_iteration(temperature=args.temperature)
+        decision = group.autoscale_step(tick)
+        if decision:
+            print(f"[serve] autoscale {decision:+d} -> "
+                  f"{group.n_replicas} replicas")
+        tick += 1.0
+    m = group.metrics
+    print(f"[serve] ep={args.ep} dp={group.n_replicas} "
+          f"{m['tokens_generated']:.0f} tokens across "
+          f"{m['replicas']:.0f} replicas, "
+          f"{group.throughput_tokens_per_s():.1f} tok/s aggregate, "
+          f"{m['iterations']:.0f} engine iterations")
+    for rid in range(min(2, args.requests)):
+        r = group.result(rid)
+        print(f"  {r.summary()} tokens={r.tokens[:12]}...")
+    group.close()
+
+
+def _device_list(spec, n: int):
+    """``--device`` for ``n = ep * dp`` devices: ``None`` or a lone
+    ``cuda`` -> None (the visible cards, distinct); a lone ``cpu`` ->
+    ``["cpu"] * n``; otherwise a comma-separated list of exactly ``n``
+    devices, taken in order (entries may repeat)."""
+    if spec is None:
+        return None
+    names = [d.strip() for d in spec.split(",") if d.strip()]
+    if names == ["cuda"]:
+        return None
+    if names == ["cpu"]:
+        return names * n
+    if len(names) != n:
+        raise SystemExit(
+            f"--device lists {len(names)} device(s) but the deployment "
+            f"needs ep*dp = {n} (a device may repeat, e.g. "
+            f"{','.join(['cuda:0'] * n)})")
+    return names
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", default="mixtral-8x7b", choices=list(ARCH_IDS))
     ap.add_argument("--device", default=None,
                     help="torch device to serve on (default: the CUDA "
-                         "card; 'cpu' runs the plain PyTorch versions)")
+                         "card; 'cpu' runs the plain PyTorch versions); "
+                         "with --ep/--dp a comma-separated list of ep*dp "
+                         "devices (may repeat), a lone 'cpu' repeated, "
+                         "a lone 'cuda' for distinct cards")
     # -- declarative QoS targets (DESIGN.md §9) -------------------------
     ap.add_argument("--min-tps", type=float, default=None,
                     help="SLO: minimum tokens/s; the QoSController walks "
@@ -267,12 +353,16 @@ def build_parser() -> argparse.ArgumentParser:
                     help="JSON spec of N tenants served under ONE budget "
                          "via the multi-tenant arbiter (DESIGN.md §10); "
                          "see the module docstring for the schema")
+    # -- expert-parallel mesh serving (DESIGN.md §16) -------------------
     ap.add_argument("--ep", type=int, default=1,
-                    help="expert-parallel shard count (only 1 in this "
-                         "port)")
+                    help="expert-parallel shard count: decode over a "
+                         "(1, ep) mesh with experts sharded across the "
+                         "'model' axis; the expert count must divide by "
+                         "ep. Needs ep*dp devices (see --device)")
     ap.add_argument("--dp", type=int, default=1,
-                    help="data-parallel replica count (only 1 in this "
-                         "port)")
+                    help="data-parallel replica count: dp whole engines "
+                         "on disjoint (1, ep) device slices behind one "
+                         "submit surface, autoscaler-driven (§16.3)")
     return ap
 
 
@@ -293,8 +383,23 @@ def main(argv=None) -> None:
         raise SystemExit(f"--ep/--dp must be >= 1 (got ep={args.ep} "
                          f"dp={args.dp})")
     if args.ep > 1 or args.dp > 1:
-        raise NotImplementedError(EP_NOT_IMPLEMENTED)
-    device = resolve_device(args.device)
+        from repro_torch.serving.ep import validate_ep_layout
+        try:
+            # reject up front: a ladder/expert-count combo that does not
+            # divide over the EP axis fails before building the model
+            validate_ep_layout(cfg, args.ep)
+        except ValueError as e:
+            raise SystemExit(f"[serve] {e}")
+        if args.tenants:
+            raise SystemExit("--ep/--dp and --tenants are mutually "
+                             "exclusive (one mesh per tenant engine is "
+                             "not implemented; see DESIGN.md §16)")
+        if args.speculate:
+            raise SystemExit("--speculate over an EP/DP mesh is not "
+                             "implemented (see DESIGN.md §17)")
+    devices = _device_list(args.device, args.ep * args.dp)
+    device = resolve_device(devices[0] if devices else None)
+    use_kernel = device.type == "cuda"
     mgr = CheckpointManager(args.ckpt_dir) if args.ckpt_dir else None
     if mgr is not None and mgr.latest_step():
         tree, _ = mgr.restore(shardings=device)
@@ -325,10 +430,24 @@ def main(argv=None) -> None:
         _serve_tenants(args, cfg, params, device, profile)
         return
 
-    engine = build_engine(cfg, params, EngineConfig(
-        max_slots=4, max_len=32 + args.max_new_tokens,
-        overlap=args.overlap == "on", use_kernel=device.type == "cuda",
-        speculate=max(0, args.speculate)), device=device)
+    if args.dp > 1:
+        _serve_dp(args, cfg, params, devices, use_kernel, profile)
+        return
+
+    if args.ep > 1:
+        from repro_torch.serving.ep import build_ep_engine
+        engine = build_ep_engine(cfg, params, EngineConfig(
+            max_slots=4, max_len=32 + args.max_new_tokens,
+            overlap=args.overlap == "on", use_kernel=use_kernel),
+            ep=args.ep, devices=devices)
+        print(f"[serve] expert parallelism ep={args.ep}: (1, {args.ep}) "
+              f"mesh over {', '.join(map(str, engine.mesh.devices))}, "
+              "experts sharded (DESIGN.md §16)")
+    else:
+        engine = build_engine(cfg, params, EngineConfig(
+            max_slots=4, max_len=32 + args.max_new_tokens,
+            overlap=args.overlap == "on", use_kernel=use_kernel,
+            speculate=max(0, args.speculate)), device=device)
     if args.overlap == "on":
         print("[serve] async overlapped expert streaming ON "
               "(DESIGN.md §12)")

@@ -10,6 +10,10 @@ the overlap pipeline, the paged-KV hooks and the speculative-decode
 hooks; those are ``None`` for the SSM, hybrid and enc-dec families and a
 VLM with a vision frontend, as in the reference. ``apply_precision_plan``
 converts train-layout MoE params into the N-bank serve layout.
+``build_model(cfg, mesh)`` shards every MoE layer's experts over an
+expert-parallel (1, ep) mesh (``repro_torch.launch.mesh``), and
+``apply_precision_plan(..., mesh=)`` places the serve banks' rank shards
+on their devices; every family without routed experts ignores the mesh.
 Parameters are nested dicts of tensors with a leading layer axis on every
 ``layers/...`` leaf, as in the reference. Caches and page pools are
 updated in place (the engine holds the only reference); the reference
@@ -433,10 +437,22 @@ def _embed_inputs(params, cfg: ModelConfig, batch):
     return x, positions
 
 
-def build_model(cfg: ModelConfig, *, use_kernel: bool = False) -> Model:
+def build_model(cfg: ModelConfig, mesh=None, *,
+                use_kernel: bool = False) -> Model:
     """The model functions of ``cfg``'s family. Caches are updated in
-    place (the engine holds the only reference)."""
+    place (the engine holds the only reference).
+
+    ``mesh`` (a (1, ep) ``launch.mesh.Mesh``) runs every MoE layer's
+    expert FFN over the mesh's EP ranks (``mixed_moe.moe_apply``'s sharded
+    path); the activations, caches and every other weight stay on
+    ``mesh.devices[0]``. ``None`` is one device."""
     fwd = encdec_forward if cfg.family == "encdec" else FORWARDS[cfg.family]
+    par = None
+    if mesh is not None and cfg.moe is not None:
+        par = mixed_moe.MoEParallelism(
+            mesh=mesh, dp_axes=("data",),
+            fsdp_axis="data" if "data" in mesh.axis_names else None)
+    mkw = {} if par is None else {"par": par}
 
     def _head(params, y):
         y = L.rms_norm(y, params["final_norm"]["scale"])
@@ -454,7 +470,7 @@ def build_model(cfg: ModelConfig, *, use_kernel: bool = False) -> Model:
         x, positions = _embed_inputs(params, cfg, batch)
         kw = {"src": batch["src"]} if cfg.family == "encdec" else {}
         y, _, aux = fwd(params, cfg, x, positions, caches=None, train=True,
-                        **kw)
+                        **kw, **mkw)
         if cfg.frontend == "vision":       # loss over the text tail only
             y = y[:, cfg.frontend_len:]
         logits = _head(params, y)
@@ -474,7 +490,7 @@ def build_model(cfg: ModelConfig, *, use_kernel: bool = False) -> Model:
         x, positions = _embed_inputs(params, cfg, batch)
         kw = {"src": batch["src"]} if cfg.family == "encdec" else {}
         y, new_cache, _ = fwd(params, cfg, x, positions, caches=cache,
-                              use_kernel=use_kernel, **kw)
+                              use_kernel=use_kernel, **kw, **mkw)
         return _head(params, y[:, -1:])[:, 0], new_cache
 
     @torch.no_grad()
@@ -486,7 +502,8 @@ def build_model(cfg: ModelConfig, *, use_kernel: bool = False) -> Model:
         kw = {"enc_out": cache["enc_out"]} if cfg.family == "encdec" \
             else {}
         y, new_cache, _ = fwd(params, cfg, x, positions[:, None],
-                              caches=cache, use_kernel=use_kernel, **kw)
+                              caches=cache, use_kernel=use_kernel, **kw,
+                              **mkw)
         return _head(params, y)[:, 0], new_cache
 
     entry = dict(cfg=cfg, init=functools.partial(init_params, cfg),
@@ -504,7 +521,8 @@ def build_model(cfg: ModelConfig, *, use_kernel: bool = False) -> Model:
         x = _embed_scaled(params, cfg, tokens)
         y, new_cache, aux = decoder_forward(
             params, cfg, x, positions[:, None], caches=cache,
-            use_kernel=use_kernel, collect_routes=cfg.moe is not None)
+            use_kernel=use_kernel, collect_routes=cfg.moe is not None,
+            par=par)
         y = L.rms_norm(y, params["final_norm"]["scale"])
         logits = L.unembed(params["lm_head"]["table"], y)
         return logits[:, 0], new_cache, aux.get("route_ids")
@@ -522,7 +540,8 @@ def build_model(cfg: ModelConfig, *, use_kernel: bool = False) -> Model:
                "v": like["v"].new_zeros((n, 1, window, hkv, hd)),
                "pos": like["pos"].new_full((n, 1, window), -1)}
         y, new_sub, _ = decoder_forward(params, cfg, x, positions,
-                                        caches=sub, use_kernel=use_kernel)
+                                        caches=sub, use_kernel=use_kernel,
+                                        par=par)
         y_last = y[:, min(max(int(last_idx), 0), y.shape[1] - 1)][:, None]
         y_last = L.rms_norm(y_last, params["final_norm"]["scale"])
         logits = L.unembed(params["lm_head"]["table"], y_last)
@@ -565,7 +584,7 @@ def build_model(cfg: ModelConfig, *, use_kernel: bool = False) -> Model:
         ring = {k: cache[k][layer] for k in ("k", "v", "pos")}
         x, _, ids = decoder_block(layer_slice(params["layers"], layer),
                                   cfg, x, positions[:, None], ring,
-                                  use_kernel=use_kernel)
+                                  use_kernel=use_kernel, par=par)
         return x, cache, ids
 
     @torch.no_grad()
@@ -604,7 +623,7 @@ def build_model(cfg: ModelConfig, *, use_kernel: bool = False) -> Model:
         ring = _gather_paged_layer(pool, pt, window, layer)
         x, ring, ids = decoder_block(layer_slice(params["layers"], layer),
                                      cfg, x, positions[:, None], ring,
-                                     use_kernel=use_kernel)
+                                     use_kernel=use_kernel, par=par)
         _scatter_paged_layer(pool, pt, ring, window, layer)
         return x, pool, ids
 
@@ -619,7 +638,8 @@ def build_model(cfg: ModelConfig, *, use_kernel: bool = False) -> Model:
         x = _embed_scaled(params, cfg, tokens)
         y, cache, aux = decoder_forward(params, cfg, x, positions,
                                         caches=cache, use_kernel=use_kernel,
-                                        collect_routes=True, spec=True)
+                                        collect_routes=True, spec=True,
+                                        par=par)
         # the head column by column too, at plain decode's shapes
         logits = by_column(lambda yc: L.unembed(
             params["lm_head"]["table"],
@@ -698,15 +718,32 @@ def _put(dst, src, i: int) -> None:
         dst[i].copy_(src)
 
 
+def _tree_to(tree, device: torch.device):
+    """Every tensor of a param tree on ``device`` (no copy where it is
+    already there)."""
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
 @torch.no_grad()
-def apply_precision_plan(params, cfg: ModelConfig, plan: PrecisionPlan):
+def apply_precision_plan(params, cfg: ModelConfig, plan: PrecisionPlan,
+                         mesh=None):
     """Convert train-layout MoE params into N-bank serve layout: one bank
     per ladder rung (ascending-bits order, e.g. [q4 | q8 | f16]) + router
     column permutation. Per-layer rung counts are equal by construction
     (balanced plan), so the banks stack over layers: each layer's banks
     are built and copied into preallocated stacked storage before the
     next layer's, so the build holds one layer's banks beside the result.
-    Quantization runs on the params' device."""
+    Quantization runs on the params' device.
+
+    ``mesh`` (a (1, ep) mesh) places the result on it: the banks become a
+    list of per-rank shards, rank r's holding the contiguous slice
+    ``[r*loc_b, (r+1)*loc_b)`` of every bank (``mixed_moe.shard_banks``)
+    in storage of its own on ``mesh.devices[r]``, preallocated per rank
+    and filled layer by layer; every other leaf goes to
+    ``mesh.devices[0]``. Raises ``ValueError`` when a bank does not split
+    evenly over the ranks."""
     assert cfg.moe is not None
     moe_p = params["layers"]["moe"]
     stacked = None
@@ -716,14 +753,17 @@ def apply_precision_plan(params, cfg: ModelConfig, plan: PrecisionPlan):
         banks, order = mixed_moe.build_ladder_banks(
             layer_p, plan.bits[li], ladder=plan.ladder,
             group_size=plan.group_size)
+        parts = [banks] if mesh is None \
+            else mixed_moe.shard_banks(banks, mesh)
         if stacked is None:
-            stacked = {k: None if v is None else
-                       _stack_like(v, cfg.num_layers)
-                       for k, v in banks.items()}
-        for k, v in banks.items():
-            if v is not None:
-                _put(stacked[k], v, li)
-        del banks
+            stacked = [{k: None if v is None else
+                        _stack_like(v, cfg.num_layers)
+                        for k, v in part.items()} for part in parts]
+        for dst, part in zip(stacked, parts):
+            for k, v in part.items():
+                if v is not None:
+                    _put(dst[k], v, li)
+        del banks, parts
         idx = torch.as_tensor(order, dtype=torch.long,
                               device=moe_p["router"].device)
         routers.append(moe_p["router"][li].index_select(1, idx))
@@ -731,6 +771,10 @@ def apply_precision_plan(params, cfg: ModelConfig, plan: PrecisionPlan):
     new_params["layers"] = dict(params["layers"])
     new_params["layers"]["moe"] = {
         "router": torch.stack(routers),
-        "banks": stacked,
+        "banks": stacked[0] if mesh is None else stacked,
     }
+    if mesh is not None:
+        shards = new_params["layers"]["moe"].pop("banks")
+        new_params = _tree_to(new_params, mesh.devices[0])
+        new_params["layers"]["moe"]["banks"] = shards
     return new_params

@@ -37,6 +37,8 @@ def layer_slice(tree, li: int):
         return tree.map(lambda t: t[li])
     if isinstance(tree, dict):
         return {k: layer_slice(v, li) for k, v in tree.items()}
+    if isinstance(tree, list):          # per-rank bank shards on a mesh
+        return [layer_slice(v, li) for v in tree]
     if tree is None:
         return None
     return tree[li]
@@ -52,14 +54,15 @@ def by_column(fn, x: torch.Tensor, *rest: torch.Tensor) -> torch.Tensor:
 
 
 def _ffn_or_moe(p, xn, cfg: ModelConfig, use_kernel, token_valid=None,
-                moe_capacity=None, spec=False, aux=None):
+                moe_capacity=None, spec=False, aux=None, par=None):
     """Returns (y, route_ids|None) — ids are the (T, k) routed expert slots
     in BANK order (the serve layout permutes experts q4-first).
 
     ``token_valid`` (B, S) bool masks idle decode slots / prefill pads out
     of the dispatch: their ids become the out-of-range sentinel
     ``num_experts`` (dropped by ``_local_slot``), so they never occupy
-    expert capacity and displace real tokens."""
+    expert capacity and displace real tokens. ``par`` (an EP mesh) shards
+    the expert FFN over the mesh's ranks."""
     if cfg.moe is None:
         return L.mlp(p["mlp"], xn, cfg.act), None
     b, s, d = xn.shape
@@ -81,14 +84,15 @@ def _ffn_or_moe(p, xn, cfg: ModelConfig, use_kernel, token_valid=None,
     banks = p["moe"].get("banks")
     if banks is None:
         banks = mixed_moe.train_banks(p["moe"])
-    y = mixed_moe.moe_apply(banks, x2, weights, ids, cfg.moe, act=cfg.act,
-                            use_kernel=use_kernel, capacity=moe_capacity)
+    y = mixed_moe.moe_apply(banks, x2, weights, ids, cfg.moe, par,
+                            act=cfg.act, use_kernel=use_kernel,
+                            capacity=moe_capacity)
     return y.reshape(b, s, d), ids
 
 
 def decoder_block(p, cfg: ModelConfig, x, positions, cache, *,
                   use_kernel=False, spec=False, moe_capacity=None,
-                  aux=None, enc_out=None):
+                  aux=None, enc_out=None, par=None):
     """One decoder block on layer params ``p`` and that layer's ring
     ``cache`` {k, v, pos} (``None``: the no-cache training forward, whose
     router losses accumulate into ``aux``). Returns (x', the layer's new
@@ -134,7 +138,8 @@ def decoder_block(p, cfg: ModelConfig, x, positions, cache, *,
             x = x + h
         xn = norm(x)
     h, ids = _ffn_or_moe(p, xn, cfg, use_kernel, token_valid=token_valid,
-                         moe_capacity=moe_capacity, spec=spec, aux=aux)
+                         moe_capacity=moe_capacity, spec=spec, aux=aux,
+                         par=par)
     return x + h, new_kv, ids
 
 
@@ -161,7 +166,7 @@ def _maybe_remat(fn, cfg: ModelConfig):
 
 def decoder_forward(params, cfg: ModelConfig, x, positions, *,
                     caches, use_kernel=False, collect_routes=False,
-                    spec=False, train=False, enc_out=None):
+                    spec=False, train=False, enc_out=None, par=None):
     """x: (B,S,d) embedded input. Returns (y, new_caches, aux).
 
     ``caches=None`` is the no-cache full-sequence forward (``Model.
@@ -176,7 +181,10 @@ def decoder_forward(params, cfg: ModelConfig, x, positions, *,
     ``spec=True`` (speculative decode, DESIGN.md §17) runs S >= 1 new
     tokens through the live-cache attention path and pins the MoE
     capacity at the token count B*S, so the batched verify is drop-free
-    (plain decode and verify then score the same distributions)."""
+    (plain decode and verify then score the same distributions).
+
+    ``par`` (a ``mixed_moe.MoEParallelism`` over an EP mesh) shards every
+    MoE layer's experts over the mesh's ranks."""
     if collect_routes and (cfg.moe is None or caches is None):
         raise ValueError("collect_routes needs routed experts and a cache")
     moe_capacity = x.shape[0] * x.shape[1] if spec else None
@@ -191,7 +199,7 @@ def decoder_forward(params, cfg: ModelConfig, x, positions, *,
         x, _, _ = decoder_block(p, cfg, x, positions, None,
                                 use_kernel=use_kernel,
                                 aux=layer_aux if train else None,
-                                enc_out=enc_out)
+                                enc_out=enc_out, par=par)
         return x, layer_aux
 
     train_body = _maybe_remat(train_block, cfg)
@@ -205,7 +213,7 @@ def decoder_forward(params, cfg: ModelConfig, x, positions, *,
         cache = {k: caches[k][li] for k in ("k", "v", "pos")}
         x, new_kv, ids = decoder_block(
             p, cfg, x, positions, cache, use_kernel=use_kernel, spec=spec,
-            moe_capacity=moe_capacity, enc_out=enc_out)
+            moe_capacity=moe_capacity, enc_out=enc_out, par=par)
         new_kvs.append(new_kv)
         route_ids.append(ids)
     if caches is None:

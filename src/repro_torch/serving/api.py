@@ -67,8 +67,10 @@ class EngineConfig:
     None measures the host link on the device and uses the H100 defaults
     otherwise.
 
-    One device: ``ep > 1`` (expert parallelism) raises
-    ``NotImplementedError`` at engine construction.
+    Expert parallelism: ``ep`` — the EP shard count the planner rounds
+    every bank to (DESIGN.md §16); an engine built with a (1, ep) mesh
+    (``build_engine(..., mesh=)``, ``serving.ep.build_ep_engine``) takes
+    the mesh's.
     """
     max_slots: int = 8
     max_len: int = 256
@@ -133,13 +135,16 @@ def results_of(requests: Sequence[Request]) -> List[ServeResult]:
 
 
 def build_engine(cfg, params, config: Optional[EngineConfig] = None, *,
-                 device=None, expert_cache=None):
+                 device=None, mesh=None, expert_cache=None):
     """Construct an :class:`~repro_torch.serving.engine.
     AdaptiveServingEngine` from an :class:`EngineConfig` on ``device``
     (default: the card; raises on a host without one unless
-    ``device="cpu"``). ``expert_cache`` attaches a tenant-scoped view of
-    a shared swap space (:meth:`~repro_torch.core.expert_cache.
-    ExpertCache.scoped`) for multi-tenant deployments (DESIGN.md §10)."""
+    ``device="cpu"``), or over the devices of a (1, ep) ``mesh``
+    (``repro_torch.launch.mesh.make_ep_mesh``). ``expert_cache`` attaches
+    a tenant-scoped view of a shared swap space
+    (:meth:`~repro_torch.core.expert_cache.ExpertCache.scoped`) for
+    multi-tenant deployments (DESIGN.md §10)."""
     from repro_torch.serving.engine import AdaptiveServingEngine
     return AdaptiveServingEngine(cfg, params, config=config or EngineConfig(),
-                                 device=device, expert_cache=expert_cache)
+                                 device=device, mesh=mesh,
+                                 expert_cache=expert_cache)

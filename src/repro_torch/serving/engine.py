@@ -1,5 +1,6 @@
 """Adaptive MoE serving engine — continuous batching over fixed decode
-slots (``repro.serving.engine`` on one device).
+slots (``repro.serving.engine``), on one device or over an
+expert-parallel (1, ep) mesh.
 
   * ``ContinuousScheduler`` (serving/scheduler.py) owns requests: the
     admission queue, per-slot request state, join/retire at EVERY decode
@@ -46,8 +47,16 @@ swap-cache entries re-staged at their new rung. A multi-tenant deployment
 passes ``expert_cache=`` (a scoped view of one shared swap space,
 ``serving/multi.py``).
 
-Expert parallelism (``ep > 1``) is a later slice and raises
-``NotImplementedError`` at construction.
+Expert parallelism (``mesh=``, DESIGN.md §16): the decode FFN runs
+through ``mixed_moe.moe_apply``'s sharded path — each rung bank's rank
+shards live on their mesh devices, built there by ``apply_precision_plan``
+at every bank rebuild, so a replan that changes bank membership migrates
+experts between ranks — and the planner rounds every bank to a multiple
+of ``ep`` and gains the PEER placement tier. Attention, the KV cache, the
+router and sampling run on ``mesh.devices[0]`` (the engine's device), as
+do the expert swap cache's copies; the host store keeps one blob per
+(layer, expert) at the plan's rung, dropped with the banks. Greedy tokens
+are the single-device engine's.
 """
 from __future__ import annotations
 
@@ -87,11 +96,6 @@ __all__ = ["AdaptiveServingEngine", "Request", "RequestSLO",
            "SamplingParams", "measure_host_link_bw"]
 
 _HOST_LINK_BW_CACHE: Dict[Tuple[str, int], float] = {}
-
-#: what serving over more than one device raises (engine and CLI)
-EP_NOT_IMPLEMENTED = ("EngineConfig(ep>1) (expert parallelism) is a later "
-                      "slice of the PyTorch port; this engine serves on one "
-                      "device")
 
 
 def _sync(device: torch.device) -> None:
@@ -136,11 +140,13 @@ def _bucket(n: int, lo: int = 8, hi: Optional[int] = None) -> int:
 
 
 class AdaptiveServingEngine:
-    """Continuous-batching adaptive engine on one device.
+    """Continuous-batching adaptive engine.
 
     Construct through :func:`repro_torch.serving.api.build_engine` or
     ``AdaptiveServingEngine(cfg, params, config=EngineConfig(...))``;
-    ``device=None`` means the card. The flat keyword arguments
+    ``device=None`` means the card, and ``mesh`` (a (1, ep)
+    ``launch.mesh.Mesh``) serves over its devices, the first of them the
+    engine's device. The flat keyword arguments
     (``max_batch`` — the number of decode slots —, ``max_len``, ...) are
     the reference's backward-compatible spelling and populate an
     ``EngineConfig`` when ``config`` is None. ``expert_cache`` attaches a
@@ -149,7 +155,7 @@ class AdaptiveServingEngine:
 
     def __init__(self, cfg: ModelConfig, params, *,
                  config: Optional[EngineConfig] = None, device=None,
-                 hw: Optional[HardwareModel] = None,
+                 mesh=None, hw: Optional[HardwareModel] = None,
                  max_batch: int = 8, max_len: int = 256,
                  use_kernel: bool = False,
                  max_active_tokens: Optional[int] = None,
@@ -159,15 +165,26 @@ class AdaptiveServingEngine:
                  expert_cache=None):
         if cfg.moe is None:
             raise ValueError("the adaptive engine serves MoE models")
-        self.device = resolve_device(device)
+        if mesh is None:
+            self.device = resolve_device(device)
+        else:
+            self.device = mesh.devices[0]
+            if device is not None and resolve_device(device) != self.device:
+                raise ValueError(f"device={device} is not the mesh's first "
+                                 f"device {self.device}")
         if config is None:
             config = EngineConfig(
                 max_slots=max_batch, max_len=max_len,
                 use_kernel=use_kernel,
                 max_active_tokens=max_active_tokens, max_queue=max_queue,
                 swap_bytes=swap_bytes, prefetch=prefetch, hw=hw)
-        if config.ep > 1:
-            raise NotImplementedError(EP_NOT_IMPLEMENTED)
+        if mesh is not None:
+            ep = mesh.sizes["model"]
+            if config.ep not in (1, ep):
+                raise ValueError(f"EngineConfig.ep={config.ep} conflicts "
+                                 f"with the mesh's ep={ep}")
+            config = dataclasses.replace(config, ep=ep)
+        self.mesh = mesh
         if config.ladder is not None:
             cfg = cfg.replace(mop=dataclasses.replace(
                 cfg.mop, ladder=tuple(config.ladder)))
@@ -192,8 +209,9 @@ class AdaptiveServingEngine:
             self.hw = HardwareModel(
                 host_link_bw=measure_host_link_bw(self.device),
                 overlap_efficiency=float(eff))
-        self.planner = AdaptivePlanner(cfg, hw=self.hw, ep=1)
-        self.model: Model = build_model(cfg, use_kernel=self.use_kernel)
+        self.planner = AdaptivePlanner(cfg, hw=self.hw, ep=config.ep)
+        self.model: Model = build_model(cfg, mesh,
+                                        use_kernel=self.use_kernel)
         if self.model.prefill_into_slot is None:
             raise ValueError(f"{cfg.arch_id}: family {cfg.family} has no "
                              "slot-cache decode path")
@@ -360,12 +378,19 @@ class AdaptiveServingEngine:
 
     def apply_frontier_point(self, point: FrontierPoint) -> PlanResult:
         """Apply one frontier point: the point's exact device footprint is
-        the budget and its per-rung counts are the quality knobs."""
+        the budget and its per-rung counts are the quality knobs. Under EP
+        (or for a point with PEER experts) the point's exact (total
+        resident, peer) split is pinned, since the budget-derived
+        residency cannot reconstruct a peer slice; single-device points
+        keep the budget-derived path."""
         counts = point.quantized_counts() if point.counts_per_rung \
             else None
-        result = self._reconfigure(float(point.qos.device_bytes),
-                                   "quality", point.num_q_experts,
-                                   counts=counts)
+        pin = point.peer_experts > 0 or self.planner.ep > 1
+        result = self._reconfigure(
+            float(point.qos.device_bytes), "quality", point.num_q_experts,
+            counts=counts,
+            resident_experts=point.resident_experts if pin else None,
+            peer_experts=point.peer_experts if pin else None)
         self._active_point = point
         return result
 
@@ -396,10 +421,12 @@ class AdaptiveServingEngine:
 
     def _reconfigure(self, mem_budget_bytes: float, preference: str,
                      num_q_experts: Optional[int] = None,
-                     counts=None) -> PlanResult:
+                     counts=None, resident_experts: Optional[int] = None,
+                     peer_experts: Optional[int] = None) -> PlanResult:
         """Replan under new constraints; safe with requests in flight.
         Placement-only changes apply immediately; a bank-split change
-        drains the active slots first."""
+        drains the active slots first. ``resident_experts``/
+        ``peer_experts`` pin the placement split (the EP apply path)."""
         self._require_usable()
         t0 = time.perf_counter()
         # async staging barrier: every enqueued transfer lands BEFORE the
@@ -408,7 +435,8 @@ class AdaptiveServingEngine:
         self.expert_cache.drain()
         result, delta = self.planner.replan(
             mem_budget_bytes, preference, num_q_experts,
-            batch_size=self.max_slots, counts=counts)
+            batch_size=self.max_slots, counts=counts,
+            resident_experts=resident_experts, peer_experts=peer_experts)
         plan = result.plan
         prev_plan = self._plan_result.plan \
             if self._plan_result is not None else None
@@ -432,6 +460,10 @@ class AdaptiveServingEngine:
             self.expert_cache.invalidate()
         self._plan_result = result
         self._order = plan.expert_order()
+        # accelerator-resident = LOCAL + PEER: under EP the banks are
+        # sharded over the mesh, so a PEER expert is served by its rank,
+        # never streamed over the host link (single-device plans have no
+        # PEER entries: the DEVICE mask)
         newly_resident = {(int(li), int(ei)) for li, ei
                           in np.argwhere(plan.location != HOST)}
         if not rebuild:
@@ -473,14 +505,15 @@ class AdaptiveServingEngine:
         return result
 
     def _rebuild_banks(self, plan: PrecisionPlan) -> None:
-        """Build ``plan``'s serve-layout banks. The old banks are released
-        first, so the peak never holds both sets; a build that fails (out
-        of memory at full width) therefore leaves no banks to serve on,
-        and the engine refuses every later iteration and replan."""
+        """Build ``plan``'s serve-layout banks (on a mesh: each rank's
+        shards on its device). The old banks are released first, so the
+        peak never holds both sets; a build that fails (out of memory at
+        full width) therefore leaves no banks to serve on, and the engine
+        refuses every later iteration and replan."""
         self._serve_params = None
         try:
             self._serve_params = apply_precision_plan(
-                self.params_train, self.cfg, plan)
+                self.params_train, self.cfg, plan, mesh=self.mesh)
         except BaseException as e:
             self._unusable = (
                 f"rebuilding the serve banks failed ({type(e).__name__}: "
@@ -840,7 +873,7 @@ class AdaptiveServingEngine:
                 location=np.full_like(plan.location, DEVICE))
             self._draft_params = None       # free the old draft first
             self._draft_params = apply_precision_plan(
-                self.params_train, self.cfg, draft_plan)
+                self.params_train, self.cfg, draft_plan, mesh=self.mesh)
             self._draft_sig = sig
         return self._draft_params
 

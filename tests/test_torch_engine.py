@@ -31,6 +31,7 @@ from repro_torch.core.expert_cache import (AsyncExpertCache,
                                            PrefetchingExpertCache)
 from repro_torch.core.pareto import ParetoFrontier
 from repro_torch.core.planner import AdaptivePlanner
+from repro_torch.launch.mesh import make_ep_mesh
 from repro_torch.models.model import params_from_numpy
 from repro_torch.serving.api import (EngineConfig, QoSTarget, ServeRequest,
                                      build_engine)
@@ -263,13 +264,21 @@ def test_engine_error_paths(smoke, monkeypatch):
         eng.submit(np.arange(1, 30), max_new_tokens=2)
     eng.apply_target(QoSTarget(mem_budget_bytes=1e12))
     assert eng.active_point is not None and eng.target is not None
-    # every single-device config builds; only expert parallelism raises
+    # every config builds; expert parallelism too: ep=2 over a (1, 2)
+    # mesh builds and serves, and an expert count that does not divide
+    # over ep raises the reference's ValueError
     for ok in (dict(paged_kv=True), dict(overlap=True),
                dict(prefetch=True), dict(speculate=2)):
         build_engine(tcfg, tparams, dataclasses.replace(cfg, **ok),
                      device="cpu").close()
-    with pytest.raises(NotImplementedError, match="later slice"):
-        build_engine(tcfg, tparams, dataclasses.replace(cfg, ep=2),
+    ep2 = build_engine(tcfg, tparams, dataclasses.replace(cfg, ep=2),
+                       mesh=make_ep_mesh(2, devices=["cpu"] * 2))
+    ep2.apply_target(QoSTarget(mem_budget_bytes=1e12))
+    rid = ep2.submit(np.array([1, 2, 3]), max_new_tokens=2)
+    ep2.step()
+    assert len(ep2.result(rid).tokens) == 2
+    with pytest.raises(ValueError, match="ep=3"):
+        build_engine(tcfg, tparams, dataclasses.replace(cfg, ep=3),
                      device="cpu")
     # no device= means the card; without one the engine refuses to start
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -216,13 +216,34 @@ def test_tenants_bf16_points_match_reference(clis_bf16, tmp_path):
     assert len(chat) == 2 and chat[0].split("->")[1] != chat[1].split("->")[1]
 
 
-def test_ep_dp_raise_the_engine_message(clis):
-    for flag in ("--ep", "--dp"):
-        with pytest.raises(NotImplementedError,
-                           match=re.escape(tengine.EP_NOT_IMPLEMENTED)):
-            clis("port", [flag, "2"])
-    with pytest.raises(SystemExit):
-        clis("port", ["--ep", "0"])
+def test_ep_dp_raise_the_engine_message(clis, tmp_path):
+    """``--ep``/``--dp`` serve (over ``--device cpu`` repeated ep*dp
+    times); what the reference's CLI refuses before building a model
+    (ep or dp below 1, an expert count that does not divide, ``--tenants``
+    or ``--speculate`` with EP/DP) raises the same ``SystemExit``."""
+    lines = clis("port", ["--ep", "2", "--dp", "2", "--temperature", "0",
+                          "--requests", "4", "--max-new-tokens", "4"])
+    assert any(ln.startswith("[serve] ep=2 dp=2 target[") for ln in lines)
+    assert any(ln.startswith("[serve] ep=2 dp=2 16 tokens across 2 "
+                             "replicas") for ln in lines)
+    lines = clis("port", ["--ep", "2", "--temperature", "0",
+                          "--requests", "2", "--max-new-tokens", "3"])
+    assert any("(1, 2) mesh over cpu, cpu" in ln for ln in lines)
+    assert sum(ln.startswith("  req ") for ln in lines) == 2
+    spec = tmp_path / "tenants.json"
+    spec.write_text('{"tenants": [{"name": "a"}]}')
+    for argv in (["--ep", "0"], ["--dp", "0"], ["--ep", "3"],
+                 ["--ep", "2", "--tenants", str(spec)],
+                 ["--dp", "2", "--speculate", "2"]):
+        with pytest.raises(SystemExit) as want:
+            clis("ref", argv)
+        with pytest.raises(SystemExit) as got:
+            clis("port", argv)
+        if "--speculate" in argv:   # the reason differs: no jit here
+            assert str(got.value).split(" (")[0] \
+                == str(want.value).split(" (")[0]
+        else:
+            assert str(got.value) == str(want.value)
 
 
 @pytest.mark.parametrize("writer", ["reference", "port"])

@@ -4,9 +4,11 @@ iterate on a phase without the whole script:
 
     python3 tools/chip_phases.py poisson kimi qwen3 kimi-rows
     python3 tools/chip_phases.py families families-train
+    python3 tools/chip_phases.py ep
+    python3 tools/chip_phases.py ep-cards      # on a host with 4 cards
 
-``poisson`` first runs the serve phase (3), whose params and point it
-drives; ``kimi`` is 7b, ``qwen3`` 7c, ``families`` 7d, ``families-train``
+``poisson``, ``ep`` (8) and ``ep-cards`` (8 with rank r on ``cuda:r``)
+first run the serve phase (3), whose params and point they drive; ``kimi`` is 7b, ``qwen3`` 7c, ``families`` 7d, ``families-train``
 7e and ``kimi-rows`` the kernel phase's B3 rows at Kimi-K2's widths. It
 builds the kernels first, prints what the phases print, writes their
 records to ``--out`` and exits 1 if a phase failed. ``chip_smoke.py``
@@ -23,20 +25,21 @@ import traceback
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
-PHASES = ("poisson", "kimi", "qwen3", "families", "families-train",
+PHASES = ("poisson", "ep", "ep-cards", "kimi", "qwen3", "families", "families-train",
           "kimi-rows")
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("phases", nargs="*", choices=PHASES,
-                    help=f"phases to run (default: all of {PHASES})")
+                    help=f"phases to run (default: all of {PHASES} "
+                         "but ep-cards, which needs four cards)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--out", default=str(ROOT / "chiprun_out"
                                          / "chip_phases.json"))
     args = ap.parse_args(argv)
-    phases = args.phases or PHASES
+    phases = args.phases or [p for p in PHASES if p != "ep-cards"]
     sys.path[:0] = [str(ROOT), str(ROOT / "src")]
     import numpy as np
     import torch
@@ -56,10 +59,17 @@ def main(argv=None) -> int:
         cs.log(f"== {name}: {time.perf_counter() - t0:.1f} s")
         cs._release(torch)
 
-    if "poisson" in phases:
+    if {"poisson", "ep", "ep-cards"} & set(phases):
         served = cs.phase_serve(torch, np, args.seed, card)
         ctx = served[2]
-        run("poisson", cs.phase_poisson, torch, np, ctx, card, args.seed)
+        if "poisson" in phases:
+            run("poisson", cs.phase_poisson, torch, np, ctx, card,
+                args.seed)
+        if "ep" in phases:
+            run("ep", cs.phase_ep, torch, np, ctx, card, args.seed)
+        if "ep-cards" in phases:
+            run("ep-cards", cs.phase_ep, torch, np, ctx, card, args.seed,
+                True)
         ctx["engine"].close()
         del ctx, served
         cs._release(torch)
