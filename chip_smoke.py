@@ -175,6 +175,38 @@ Phases (each raises on failure, and the script then exits non-zero):
                ln(vocab), nonzero gradients on ``A_log``, ``dt_bias``,
                ``conv``, ``decay_lora_a/b``, ``bonus``, ``mix`` and the
                shared attention block; ms and peak GB;
+  9. mesh    — sharded training and MoE over (data, model) meshes, every
+               position on ``cuda:0`` (a repeated device list), after the
+               train phases release their memory:
+     9a. moe   — ``mixed_moe.moe_apply`` at one full-width Mixtral layer
+               (8 experts, d 4096, d_ff 14336) in each regime: token-gather
+               on (2, 2) at 16 tokens, data x EP on (2, 2) at 8192 tokens
+               per data rank (past the 64 MiB gate by itself, drop-free
+               capacity on both sides), TP on (1, 16) at 16 tokens; the
+               bf16 train layout forward and backward, then int4 | int8 |
+               bf16 banks (4/2/2 experts) with the kernels on: outputs
+               bytes equal to the one-device ``moe_apply`` where the regime
+               does not split d_ff (data x EP), within 2e-2 of max |y|
+               where it does, every kernel launch held against its plain
+               version and booked per position (kernel, G, C x K x N);
+     9b. train — full-width Mixtral, depth 32 -> 1, on (2, 2): AdamW, 2
+               microbatches, 3 steps of 4 x 128 from seeded params, twice
+               (params and moments bit-equal), every shard's shape from
+               ``param_specs``/``opt_state_specs``, replicas equal after
+               every step, each step's nll within 1e-2 of the one-device
+               step's; one Adafactor and one int8 + Adafactor step; step
+               ms, tokens/s, peak GB;
+     9c. serve — ``build_model(cfg, mesh)`` on ``apply_precision_plan(...,
+               mesh=)`` (int4 4, int8 2, bf16 2 per layer) at depth 2 on
+               (2, 2) (token-gather) and (1, 16) (TP): prefill of 2 x 8 + 4
+               decode steps with the kernels on, fed the one-device run's
+               greedy tokens: logits within 2e-2 of max |logit|, greedy
+               ids equal wherever one device's top-2 margin is firm;
+               launches per position, ms per decode step, peak GB;
+     9d. cli   — ``repro_torch.launch.train.main`` at ``--smoke --mesh 2,2
+               --device cuda:0,cuda:0,cuda:0,cuda:0`` with a checkpoint,
+               then ``--resume`` on ``--mesh 1,1``: the elastic restore's
+               params bit-equal to the saved ones;
   4. parity  — the smoke-size model's prefill + decode logits on the card
                (kernels) agree with the same model on the CPU (the
                kernels' plain versions);
@@ -195,7 +227,10 @@ Phases (each raises on failure, and the script then exits non-zero):
                the port never calls); B3 (int4 and int8) at Kimi-K2's widths
                and G = 384, C = 8 (up: K 7168, N 2048; down: K 2048, N
                7168), held against its plain version on the first, a
-               middle and the last expert of the bank.
+               middle and the last expert of the bank; B3 and B4 at phase
+               9's shard shapes (token-gather up K 4096, N 7168 and down
+               K 7168, N 4096 at G = bank / 2; TP up N 896 and down K 896
+               at G = bank), C = 8.
 
 A failed phase is reported and the phases that do not need its result
 still run; the script then exits 1 and prints no result. Otherwise the
@@ -1789,6 +1824,598 @@ def phase_ep(torch, np, ctx, card: str, seed: int, distinct: bool = False):
 
 
 # --------------------------------------------------------------------------
+# phase 9: sharded training and MoE over (data, model) meshes
+# --------------------------------------------------------------------------
+
+#: 9a: (mesh shape, tokens) per regime at one Mixtral layer's full width.
+#: Data x EP crosses the token-gather gate by itself: 8192 tokens per data
+#: rank x 2 gathered x d 4096 x 2 bytes = 128 MiB > 64 MiB.
+MESH_REGIMES = {"token-gather": ((2, 2), 16), "data x EP": ((2, 2), 16384),
+                "TP": ((1, 16), 16)}
+#: 9a/9c's serve banks per layer (every bank splits over model = 2)
+MESH_BANKS = {4: 4, 8: 2, 16: 2}
+MESH_BITS = (4, 4, 8, 16, 4, 8, 16, 4)         # expert -> rung, 9a
+#: a d_ff-splitting regime's outputs against one device's: partial d_ff
+#: products rounded to bf16 per position, then summed in f32
+MESH_BAR = 2e-2
+MESH_FORWARDS = 5                              # 9c: prefill + 4 decode steps
+MESH_SERVE = {"2x2": ((2, 2), "token-gather"), "1x16": ((1, 16), "TP")}
+#: the phase-5 rows at phase 9's shard shapes (C, K, N): token-gather's
+#: d_ff half of 14336 and TP's sixteenth (896), decode C = 8
+MESH_SHAPES = {"tg_up": (C_DECODE, D_MODEL, D_FF // 2),
+               "tg_down": (C_DECODE, D_FF // 2, D_MODEL),
+               "tp_up": (C_DECODE, D_MODEL, D_FF // 16),
+               "tp_down": (C_DECODE, D_FF // 16, D_MODEL)}
+CLI_CKPT = ROOT / "build" / "chip_smoke_mesh_ckpt"     # gitignored, removed
+
+
+def _mesh_devices(n: int, distinct: bool):
+    """``cuda:0`` repeated, or position p on ``cuda:(p % cards)``."""
+    if not distinct:
+        return ["cuda:0"] * n
+    import torch
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        raise RuntimeError(f"distinct cards: need several, have {cards}")
+    return [f"cuda:{p % cards}" for p in range(n)]
+
+
+class _PositionLaunches:
+    """Books the grouped kernels' launches by mesh position while
+    ``moe_apply`` runs: ``mixed_moe._local_fn`` is given each position's
+    index, and the launch functions record ``(kernel, G, C, K, N)`` under
+    the position whose FFN is running, plus its ``splitk_reduce``s. With
+    ``check``, every launch's output is held against its plain version on
+    the same inputs (those plain calls launch nothing)."""
+
+    def __init__(self, check: bool = False):
+        self.check = check
+
+    def __enter__(self):
+        import collections
+        from repro_torch.core import mixed_moe
+        from repro_torch.kernels import cuda_lib
+        from repro_torch.kernels import grouped_matmul as gk
+        self.mm, self.gk = mixed_moe, gk
+        self.by_pos = collections.defaultdict(collections.Counter)
+        self.checked, self.worst = 0, 0.0
+        at = {"p": None}
+        self._local, self._dq, self._bf = (mixed_moe._local_fn,
+                                           gk.launch_dequant, gk.launch_bf16)
+
+        def local(pos, *a, **kw):
+            at["p"] = pos
+            s0 = cuda_lib.LAUNCHES["splitk_reduce"]
+            out = self._local(pos, *a, **kw)
+            self.by_pos[pos]["splitk_reduce"] += \
+                cuda_lib.LAUNCHES["splitk_reduce"] - s0
+            return out
+
+        def held(key, out, want):
+            import torch
+            err, ok = _close(torch, out, want)
+            if not ok:
+                raise AssertionError(f"{key} at position {at['p']}: max "
+                                     f"|diff| {err} from its plain version")
+            self.checked += 1
+            self.worst = max(self.worst, err)
+
+        def dq(x, wq, scales, *, bits, group_size, n):
+            out = self._dq(x, wq, scales, bits=bits, group_size=group_size,
+                           n=n)
+            key = (f"grouped_q{bits}", *x.shape, n)
+            self.by_pos[at["p"]][key] += 1
+            if self.check:
+                held(key, out, gk.grouped_quantized_matmul_plain(
+                    x, wq, scales, bits=bits, group_size=group_size))
+            return out
+
+        def bf(x, w):
+            out = self._bf(x, w)
+            key = ("grouped_bf16", *x.shape, w.shape[2])
+            self.by_pos[at["p"]][key] += 1
+            if self.check:
+                held(key, out, gk.grouped_bf16_matmul_plain(x, w))
+            return out
+
+        mixed_moe._local_fn, gk.launch_dequant, gk.launch_bf16 = \
+            local, dq, bf
+        return self
+
+    def __exit__(self, *exc):
+        self.mm._local_fn = self._local
+        self.gk.launch_dequant, self.gk.launch_bf16 = self._dq, self._bf
+
+    def table(self):
+        """Position -> {"kernel@G=g CxKxN": launches, "splitk_reduce": n}."""
+        return {p: {(k if k == "splitk_reduce" else
+                     f"{k[0]}@G={k[1]} {k[2]}x{k[3]}x{k[4]}"): v
+                    for k, v in sorted(book.items(), key=str) if v}
+                for p, book in sorted(self.by_pos.items())}
+
+    def require(self, n_pos: int, banks, what: str, splits: bool):
+        """Every position launched each bank's three matrices (and the
+        split-K reduction where the plans split K)."""
+        if sorted(self.by_pos) != list(range(n_pos)):
+            raise AssertionError(f"{what}: launches at positions "
+                                 f"{sorted(self.by_pos)}, want 0..{n_pos - 1}")
+        names = {4: "grouped_q4", 8: "grouped_q8", 16: "grouped_bf16"}
+        for p, book in self.by_pos.items():
+            for bits in banks:
+                n = sum(v for k, v in book.items()
+                        if k != "splitk_reduce" and k[0] == names[bits])
+                if n < 3:
+                    raise AssertionError(f"{what}: position {p} launched "
+                                         f"{names[bits]} {n} times")
+            if splits and book["splitk_reduce"] <= 0:
+                raise AssertionError(f"{what}: position {p} never launched "
+                                     "splitk_reduce")
+
+
+def _path_record(torch, what: str, launches: dict, per_iter=None):
+    """A path's launch record in the form of the serve paths'."""
+    return {"what": what, "launches": dict(launches),
+            "launches_per_decode_iter": per_iter or {
+                k: None for k in launches}}
+
+
+def _mesh_layer(torch, seed: int):
+    """One full-width Mixtral MoE layer, seeded on the card: router (f32)
+    and bf16 experts scaled by 1/sqrt(fan in)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    e = 8
+
+    def w(shape):
+        return (torch.randn(shape, generator=gen, device="cuda")
+                / math.sqrt(shape[-2])).to(torch.bfloat16)
+    return {"router": torch.randn((D_MODEL, e), generator=gen,
+                                  device="cuda") / math.sqrt(D_MODEL),
+            "w_gate": w((e, D_MODEL, D_FF)), "w_up": w((e, D_MODEL, D_FF)),
+            "w_down": w((e, D_FF, D_MODEL))}, gen
+
+
+def _gap(torch, got, want) -> float:
+    """max |got - want| over max |want|, in f32."""
+    w = want.float()
+    return float((got.float() - w).abs().max()) / max(
+        float(w.abs().max()), 1e-30)
+
+
+def _mesh_moe(torch, np, seed: int, distinct: bool):
+    """9a: ``moe_apply`` at one Mixtral layer's full-width shapes in each
+    regime against the port's one-device ``moe_apply`` on the same
+    inputs: the bf16 train layout forward and backward, then the serve
+    layout (int4 | int8 | bf16 banks) with the kernels on, every launch
+    held against its plain version and booked per position."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import mixed_moe as mm
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_test_mesh
+    moe = get_config("mixtral-8x7b").moe
+    layer, gen = _mesh_layer(torch, seed)
+    serve, order = mm.build_ladder_banks(layer, np.array(MESH_BITS),
+                                         ladder=(16, 8, 4), group_size=GROUP)
+    serve_router = layer["router"][:, torch.as_tensor(order).long().to(
+        layer["router"].device)]
+    out = {}
+    for regime, (shape, t) in MESH_REGIMES.items():
+        n = math.prod(shape)
+        mesh = make_test_mesh(shape, devices=_mesh_devices(n, distinct))
+        par = mm.MoEParallelism(mesh=mesh, dp_axes=("data",),
+                                fsdp_axis="data")
+        x = torch.randn((t, D_MODEL), generator=gen, device="cuda").to(
+            torch.bfloat16)
+        r = torch.randn((t, D_MODEL), generator=gen, device="cuda")
+        got_regime = mm.moe_regime(mm.train_banks(layer), t, D_MODEL, moe,
+                                   par)
+        if got_regime != regime:
+            raise AssertionError(f"9a: {t} tokens on {shape} take "
+                                 f"{got_regime}, not {regime}")
+        # data x EP runs drop-free on both sides (one device's capacity
+        # counts all tokens, a position's only its data rank's)
+        caps = (t, t // shape[0]) if regime == "data x EP" else (None, None)
+        rec = {"mesh": list(shape), "tokens": t}
+        # the bf16 train layout: forward and backward
+        w, ids = mm.route(layer["router"], x, moe)
+        runs = {}
+        for name, p, cap in (("one device", None, caps[0]),
+                             ("mesh", par, caps[1])):
+            leaves = {k: layer[k].detach().requires_grad_(True)
+                      for k in ("w_gate", "w_up", "w_down")}
+            xx = x.detach().requires_grad_(True)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            y = mm.moe_apply({"q4": None, "f16": leaves}, xx, w, ids, moe,
+                             p, capacity=cap)
+            (y.float() * r).sum().backward()
+            torch.cuda.synchronize()
+            runs[name] = (y.detach(), {k: v.grad for k, v in
+                                       dict(leaves, x=xx).items()},
+                          (time.perf_counter() - t0) * 1e3)
+            del leaves, xx, y
+            _release(torch)
+        (y1, g1, ms1), (y2, g2, ms2) = runs["one device"], runs["mesh"]
+        del runs
+        rec["train"] = {"bytes_equal": _bits_equal(torch, y1, y2),
+                        "gap": _gap(torch, y2, y1),
+                        "grad_gap": max(_gap(torch, g2[k], g1[k])
+                                        for k in g1),
+                        "one_device_ms": ms1, "mesh_ms": ms2}
+        del y1, y2, g1, g2
+        _release(torch)
+        # the serve layout with the kernels on
+        w, ids = mm.route(serve_router, x, moe)
+        y1 = mm.moe_apply(serve, x, w, ids, moe, use_kernel=True,
+                          capacity=caps[0])
+        placed = mm.shard_banks(serve, mesh)
+        ops.reset_launches()
+        with _PositionLaunches(check=True) as book:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            y2 = mm.moe_apply(placed, x, w, ids, moe, par, use_kernel=True,
+                              capacity=caps[1])
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+        launches = dict(ops.LAUNCHES)
+        book.require(n, MESH_BANKS, f"9a {regime}",
+                     splits=regime != "data x EP")
+        rec["serve"] = {"bytes_equal": _bits_equal(torch, y1, y2),
+                        "gap": _gap(torch, y2, y1), "mesh_ms": ms,
+                        "launches_by_position": book.table(),
+                        "launches_checked": book.checked,
+                        "launch_max_abs_err": book.worst,
+                        "path": _path_record(torch, f"9a {regime}",
+                                             launches)}
+        del y1, y2, placed
+        _release(torch)
+        for lay in ("train", "serve"):
+            q = rec[lay]
+            if regime == "data x EP":
+                if not q["bytes_equal"]:
+                    raise AssertionError(f"9a {regime} {lay}: bytes differ "
+                                         f"from one device (gap "
+                                         f"{q['gap']:.3e})")
+            elif q["gap"] > MESH_BAR:
+                raise AssertionError(f"9a {regime} {lay}: {q['gap']:.3e} of "
+                                     f"max |y| from one device > {MESH_BAR}")
+        tr, sv = rec["train"], rec["serve"]
+        log(f"  9a {regime} on {shape}, {t} tokens: train layout "
+            f"{'bytes equal' if tr['bytes_equal'] else 'gap %.3e' % tr['gap']}"
+            f" (grads {tr['grad_gap']:.3e} of max |g|), forward + backward "
+            f"{tr['mesh_ms']:.1f} ms (one device {tr['one_device_ms']:.1f} "
+            f"ms); serve layout, kernels "
+            f"{'bytes equal' if sv['bytes_equal'] else 'gap %.3e' % sv['gap']}"
+            f", {sv['mesh_ms']:.1f} ms, {sv['launches_checked']} launches "
+            f"held against their plain versions (max |diff| "
+            f"{sv['launch_max_abs_err']:.2e})")
+        for p, b in sv["launches_by_position"].items():
+            log(f"    position {p}: {b}")
+        out[regime] = rec
+    del layer, serve
+    return out
+
+
+def _check_placement(tree, specs, what: str):
+    """Each leaf's placement is its spec, and every position's shard has
+    the block shape that spec gives."""
+    from repro_torch.training.optimizer import tree_leaves
+    want = dict(tree_leaves(specs))
+    n = 0
+    for path, leaf in tree_leaves(tree):
+        if tuple(leaf.spec) != tuple(want[path]):
+            raise AssertionError(f"{what} {'/'.join(path)}: spec {leaf.spec}"
+                                 f", want {want[path]}")
+        lay = leaf.layout
+        for pos, idx in enumerate(lay.index):
+            shape = tuple(s.stop - s.start
+                          for s in lay.block(leaf.shape, idx))
+            if tuple(leaf.shards[pos].shape) != shape:
+                raise AssertionError(f"{what} {'/'.join(path)} at position "
+                                     f"{pos}: {tuple(leaf.shards[pos].shape)}"
+                                     f", want {shape}")
+            n += 1
+    return n
+
+
+def _replicas_equal(torch, tree, what: str):
+    from repro_torch.dist import sharding as SH
+    from repro_torch.training.optimizer import tree_leaves
+    for path, leaf in tree_leaves(tree):
+        if isinstance(leaf, SH.Sharded):
+            for _, group in leaf.layout.groups:
+                for p in group[1:]:
+                    if not _bits_equal(torch, leaf.shards[p].to(
+                            leaf.shards[group[0]].device),
+                            leaf.shards[group[0]]):
+                        raise AssertionError(f"{what}: replicas of "
+                                             f"{'/'.join(path)} differ")
+
+
+def _mesh_train(torch, np, seed: int, card: str, distinct: bool):
+    """9b: full-width Mixtral at depth 1 on a (2, 2) mesh: AdamW with 2
+    microbatches, 3 steps from seeded params, twice (params and moments
+    bit-equal), shard shapes against ``param_specs``/``opt_state_specs``,
+    replicas equal after every step, the nll against one device's steps;
+    one Adafactor and one int8-compressed step on the mesh."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import (DataPipeline, SyntheticCorpus,
+                                           SyntheticCorpusConfig)
+    from repro_torch.dist import sharding as SH
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models.model import build_model, init_params
+    from repro_torch.training.train_loop import (init_train_state,
+                                                 make_train_step,
+                                                 opt_state_specs)
+    cfg = get_config("mixtral-8x7b").replace(num_layers=1)
+    pipe = DataPipeline(SyntheticCorpus(SyntheticCorpusConfig(
+        vocab_size=cfg.vocab_size)), batch=TRAIN_BATCH, seq=TRAIN_SEQ)
+    batches = [pipe.next_batch() for _ in range(4)]
+    tcfg = _train_config(torch)
+    log(f"  9b train: {cfg.arch_id} full width, num_layers 32 -> 1, "
+        f"{cfg.param_count() / 1e9:.2f} B params; AdamW, 2 microbatches, "
+        f"batches {TRAIN_BATCH} x {TRAIN_SEQ}")
+    params = init_params(cfg, seed, device="cuda")
+    step = make_train_step(build_model(cfg).loss_fn, tcfg)
+    state = init_train_state(params, tcfg)
+    _peak_reset(torch)
+    params, state, one = _train_steps(torch, step, params, state,
+                                      batches[:3], "9b one device", card)
+    del params, state
+    _release(torch)
+    mesh = make_test_mesh((2, 2), devices=_mesh_devices(4, distinct))
+    model = build_model(cfg, mesh)
+    step = make_train_step(model.loss_fn, tcfg)
+    runs, first = {}, None
+    for run in (1, 2):
+        _peak_reset(torch)
+        params = init_params(cfg, seed, device="cuda")
+        specs = SH.param_specs(cfg, mesh, params)
+        sp = SH.shard_tree(params, SH.shardings(mesh, specs))
+        del params
+        state = init_train_state(sp, tcfg)
+        n_shards = _check_placement(sp, specs, "params") + _check_placement(
+            state, opt_state_specs(specs, tcfg, sp), "AdamW state")
+        recs = []
+        for i, b in enumerate(batches[:3]):
+            sp, state, rec = _train_steps(torch, step, sp, state, [b],
+                                          f"9b mesh 2x2 run {run}", card, i)
+            _replicas_equal(torch, sp, f"params after step {i}")
+            _replicas_equal(torch, state, f"AdamW state after step {i}")
+            recs += rec
+        runs[run] = recs
+        leaves = {k: [s.cpu() for s in SH.distinct(v)] for k, v in
+                  _state_leaves(sp, state).items()}
+        if run == 1:
+            first = leaves
+            del sp, state
+            _release(torch)
+        elif any(not all(_bits_equal(torch, a, b) for a, b in
+                         zip(v, first[k])) for k, v in leaves.items()):
+            raise AssertionError("9b: two identical mesh runs differ")
+        del leaves
+    del first
+    gaps = [abs(a["nll"] - b["nll"]) for a, b in zip(runs[2], one)]
+    if max(gaps) > 1e-2:
+        raise AssertionError(f"9b: mesh nll {[r['nll'] for r in runs[2]]} "
+                             f"vs one device {[r['nll'] for r in one]}")
+    log(f"  9b: {n_shards} shards placed by param_specs/opt_state_specs; "
+        f"replicas equal after every step; params, moments and step of the "
+        f"two runs bit-equal; nll gaps to one device "
+        f"{[float('%.3e' % g) for g in gaps]} (bar 1e-2)")
+    del state
+    _release(torch)
+    af = _train_config(torch, "adafactor")
+    sp, _, af_recs = _train_steps(torch, make_train_step(model.loss_fn, af),
+                                  sp, init_train_state(sp, af),
+                                  [batches[3]], "9b mesh Adafactor", card)
+    _replicas_equal(torch, sp, "params after Adafactor")
+    _release(torch)
+    q8 = _train_config(torch, "adafactor", "int8")
+    q8_state = init_train_state(sp, q8)
+    _check_placement(q8_state, opt_state_specs(specs, q8, sp),
+                     "int8 + Adafactor state")
+    sp, q8_state, q8_recs = _train_steps(
+        torch, make_train_step(model.loss_fn, q8), sp, q8_state,
+        [batches[0]], "9b mesh int8 + Adafactor", card)
+    _replicas_equal(torch, q8_state, "int8 residuals")
+    del sp, q8_state
+    _release(torch)
+    return {"one_device": one, "mesh_run1": runs[1], "mesh": runs[2],
+            "nll_gaps": gaps, "shards_checked": n_shards,
+            "adafactor": af_recs, "int8": q8_recs,
+            "step_ms": [r["ms"] for r in runs[2]],
+            "tokens_per_s": [r["tokens_per_s"] for r in runs[2]],
+            "peak_gb": max(r["peak_gb"] for r in runs[2])}
+
+
+def _mesh_decode(torch, cfg, params, mesh, tokens, feed=None):
+    """``Model.prefill`` of ``tokens`` (B, S) and 4 decode steps with the
+    kernels on, fed ``feed`` (the one-device run's greedy tokens) or its
+    own: the logits of each forward (f32, host), the tokens fed and the
+    decode steps' ms."""
+    from repro_torch.models.model import build_model
+    model = build_model(cfg, mesh, use_kernel=True)
+    cache = model.init_cache(tokens.shape[0], 24, device="cuda")
+    logits, cache = model.prefill(params, {"tokens": tokens}, cache)
+    out, fed = [logits.float().cpu()], []
+    pos = torch.full((tokens.shape[0],), tokens.shape[1], device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for step in range(MESH_FORWARDS - 1):
+        cur = logits.argmax(-1)[:, None] if feed is None else feed[step]
+        fed.append(cur)
+        logits, cache = model.decode_step(params, cache, cur, pos + step)
+        out.append(logits.float().cpu())
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / (MESH_FORWARDS - 1)
+    return torch.stack(out), fed, ms
+
+
+def _mesh_serve(torch, np, seed: int, distinct: bool):
+    """9c: ``build_model(cfg, mesh)`` on ``apply_precision_plan(...,
+    mesh=)`` at depth 2: prefill of 2 x 8 and 4 decode steps with the
+    kernels on over (2, 2) (token-gather) and (1, 16) (TP), fed the
+    one-device run's greedy tokens: logits within ``MESH_BAR`` of max
+    |logit| and the same greedy ids wherever one device's top-2 margin
+    exceeds twice the gap; launches per position; ms per decode step."""
+    from repro_torch.core import mixed_moe as mm
+    from repro_torch.core.precision_plan import balanced_ladder_plan
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models.model import apply_precision_plan, init_params
+    from repro_torch.models.transformer import layer_slice
+    cfg = serving_config()
+    L, E = cfg.num_layers, cfg.moe.num_experts
+    params = init_params(cfg, seed, device="cuda")
+    plan = balanced_ladder_plan(
+        L, E, {b: n * L for b, n in MESH_BANKS.items() if b < 16},
+        ladder=(16, 8, 4), group_size=cfg.mop.group_size)
+    tok = torch.from_numpy(np.random.default_rng(seed).integers(
+        1, cfg.vocab_size, (2, 8))).to("cuda")
+    sp = apply_precision_plan(params, cfg, plan)
+    want, feed, ms1 = _mesh_decode(torch, cfg, sp, None, tok)
+    del sp
+    _release(torch)
+    top2 = want.topk(2, dim=-1).values
+    margin = (top2[..., 0] - top2[..., 1])
+    out = {"one_device_ms_per_decode_step": ms1}
+    for name, (shape, regime) in MESH_SERVE.items():
+        n = math.prod(shape)
+        mesh = make_test_mesh(shape, devices=_mesh_devices(n, distinct))
+        _peak_reset(torch)
+        t0 = time.perf_counter()
+        placed = apply_precision_plan(params, cfg, plan, mesh=mesh)
+        torch.cuda.synchronize()
+        place_s = time.perf_counter() - t0
+        par = mm.MoEParallelism(mesh, ("data",), fsdp_axis="data")
+        for t in (tok.numel(), tok.shape[0]):           # prefill, decode
+            got_regime = mm.moe_regime(
+                layer_slice(placed["layers"]["moe"]["banks"], 0), t,
+                cfg.d_model, cfg.moe, par)
+            if got_regime != regime:
+                raise AssertionError(f"9c {name}: {t} tokens take "
+                                     f"{got_regime}, not {regime}")
+        ops.reset_launches()
+        with _PositionLaunches() as book:
+            got, _, ms = _mesh_decode(torch, cfg, placed, mesh, tok, feed)
+        launches = dict(ops.LAUNCHES)
+        _, peak = _mem_gb(torch)
+        del placed
+        _release(torch)
+        book.require(n, MESH_BANKS, f"9c {name}", splits=True)
+        scale = float(want.abs().max())
+        gap = float((got - want).abs().max())
+        same = got.argmax(-1) == want.argmax(-1)
+        firm = margin > 2 * gap
+        if gap > MESH_BAR * scale or bool((firm & ~same).any()):
+            raise AssertionError(f"9c {name}: logits gap {gap:.3e} (bar "
+                                 f"{MESH_BAR * scale:.3e}); greedy ids "
+                                 f"differ where firm: {(firm & ~same).sum()}")
+        rec = {"mesh": list(shape), "regime": regime, "place_s": place_s,
+               "logits_gap": gap, "max_logit": scale,
+               "greedy_equal": bool(same.all()),
+               "ms_per_decode_step": ms, "peak_gb": peak,
+               "launches_by_position": book.table(),
+               # the prefill and each decode step launch alike, so a
+               # decode iteration's launches are the run's over its
+               # forwards
+               "path": _path_record(torch, f"9c {name}", launches, {
+                   k: v / MESH_FORWARDS for k, v in launches.items()})}
+        log(f"  9c {name} ({regime}): shards placed in {place_s:.2f} s; "
+            f"prefill 2x8 + 4 decode steps, logits within {gap:.3e} of one "
+            f"device's (max |logit| {scale:.3f}), greedy ids "
+            f"{'equal' if rec['greedy_equal'] else 'equal where firm'}; "
+            f"{ms:.2f} ms per decode step (one device {ms1:.2f}); peak "
+            f"{peak:.2f} GB")
+        for p, b in rec["launches_by_position"].items():
+            log(f"    position {p}: {b}")
+        out[name] = rec
+    del params
+    return out
+
+
+def _mesh_cli(torch, card: str, distinct: bool):
+    """9d: the train CLI at ``--smoke --mesh 2,2`` on four device entries
+    with a checkpoint, then ``--resume`` on ``--mesh 1,1``; the elastic
+    restore's params bytes equal to the saved ones."""
+    import contextlib
+    import io
+    import shutil
+    from repro_torch.configs import get_config, reduce_for_smoke
+    from repro_torch.dist import sharding as SH
+    from repro_torch.ft.checkpoint import CheckpointManager
+    from repro_torch.launch import train as T
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models.model import abstract_params
+    from repro_torch.training.optimizer import tree_leaves
+    shutil.rmtree(CLI_CKPT, ignore_errors=True)
+    devs = ",".join(_mesh_devices(4, distinct))
+    common = ["--arch", "mixtral-8x7b", "--smoke", "--batch", "4", "--seq",
+              "32", "--log-every", "1"]
+    runs = {}
+    try:
+        for name, argv in (
+                ("mesh 2x2", ["--mesh", "2,2", "--device", devs, "--steps",
+                              "4", "--ckpt-every", "2", "--ckpt-dir",
+                              str(CLI_CKPT / "a")]),
+                ("resume 1x1", ["--mesh", "1,1", "--device", "cuda:0",
+                                "--steps", "4", "--resume", "--ckpt-dir",
+                                str(CLI_CKPT / "b")])):
+            if name.startswith("resume"):
+                (CLI_CKPT / "b").mkdir(parents=True)
+                shutil.copytree(CLI_CKPT / "a" / "step_2",
+                                CLI_CKPT / "b" / "step_2")
+                (CLI_CKPT / "b" / "step_2.COMMITTED").touch()
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                T.main(common + argv)
+            runs[name] = {"s": time.perf_counter() - t0,
+                          "lines": buf.getvalue().splitlines()}
+            for line in runs[name]["lines"]:
+                log(f"    cli {name}: {line}")
+        if "[train] resumed from step 2" not in runs["resume 1x1"]["lines"]:
+            raise AssertionError("9d: the resume did not restore step 2")
+        cfg = reduce_for_smoke(get_config("mixtral-8x7b"))
+        one = make_test_mesh((1, 1), devices=["cuda:0"])
+        mgr = CheckpointManager(str(CLI_CKPT / "a"))
+        saved, _ = mgr.restore(2)
+        placed, _ = mgr.restore(2, shardings={"params": SH.param_shardings(
+            cfg, one, abstract_params(cfg))})
+        flat = dict(tree_leaves(saved["params"]))
+        for path, leaf in tree_leaves(placed["params"]):
+            if not _bits_equal(torch, leaf.full().cpu(), flat[path]):
+                raise AssertionError(f"9d: {'/'.join(path)} restored on "
+                                     "(1, 1) differs from the saved bytes")
+        log(f"  9d cli: --mesh 2,2 on {devs} ({runs['mesh 2x2']['s']:.2f} "
+            f"s), resumed on --mesh 1,1 ({runs['resume 1x1']['s']:.2f} s); "
+            f"the elastic restore's {len(flat)} params bit-equal to the "
+            "saved ones")
+    finally:
+        shutil.rmtree(CLI_CKPT, ignore_errors=True)
+    return runs
+
+
+def phase_mesh(torch, np, seed: int, card: str, distinct: bool = False):
+    """9: sharded training and MoE over (data, model) meshes, every
+    position on ``cuda:0`` (``distinct``: position p on ``cuda:(p %
+    cards)``, ``tools/chip_phases.py mesh-cards``)."""
+    t0 = time.perf_counter()
+    log(f"mesh: (data, model) meshes, positions on "
+        f"{'distinct cards' if distinct else 'cuda:0'}")
+    out = {"moe": _mesh_moe(torch, np, seed, distinct)}
+    _release(torch)
+    out["train"] = _mesh_train(torch, np, seed, card, distinct)
+    _release(torch)
+    out["serve"] = _mesh_serve(torch, np, seed, distinct)
+    _release(torch)
+    out["cli"] = _mesh_cli(torch, card, distinct)
+    out["seconds"] = time.perf_counter() - t0
+    log(f"  mesh: {out['seconds']:.1f} s")
+    return out
+
+
+# --------------------------------------------------------------------------
 # phase 7a: the paper's serving under load (Poisson arrivals, QoS loop)
 # --------------------------------------------------------------------------
 
@@ -2142,12 +2769,14 @@ def _train_config(torch, optimizer="adamw", compression=None):
                        grad_compression=compression)
 
 
-def _train_steps(torch, step_fn, params, state, batches, what, card):
-    """Run ``step_fn`` over ``batches`` on the card; each step's ms,
-    tokens/s, nll and grad norm, and the peak memory since the reset."""
+def _train_steps(torch, step_fn, params, state, batches, what, card,
+                 start: int = 0):
+    """Run ``step_fn`` over ``batches`` on the card (steps numbered from
+    ``start``); each step's ms, tokens/s, nll and grad norm, and the peak
+    memory since the reset."""
     from repro_torch.launch.train import batch_to
     recs = []
-    for i, b in enumerate(batches):
+    for i, b in enumerate(batches, start):
         t0 = time.perf_counter()
         params, state, m = step_fn(params, state, batch_to(b, "cuda"))
         torch.cuda.synchronize()
@@ -3524,6 +4153,23 @@ def phase_kernels(torch, np, sizes, seed: int, reps: int):
     for (name, label), row in _kimi_rows(torch, gen, gk, ops, qk,
                                          reps).items():
         next(e for e in extra if e["name"] == name)[label] = row
+    log("kernels: B3 and B4 at phase 9's shard shapes (token-gather: d_ff "
+        "half of a model rank's experts; TP: d_ff sixteenth of the bank)")
+    for name, bits in (("grouped_q4", 4), ("grouped_q8", 8),
+                       ("grouped_bf16", 16)):
+        for label, (c, k, n) in MESH_SHAPES.items():
+            g = MESH_BANKS[bits] // (2 if label.startswith("tg") else 1)
+            r = bf16_case(g, c, k, n) if bits == 16 \
+                else q_case(bits, g, c, k, n, True)
+            log(f"  {name:13s} {label:10s} G={g} C={c:3d} K={k:5d} "
+                f"N={n:5d} x{r['copies']} splits {r['plan']['splits']}: "
+                f"{r['ms']:.4f} ms (bound {r['bound_ms']:.4f} ms by "
+                f"{r['bound_by']}, {r['bound_ms'] / r['ms']:.1%} of bound), "
+                f"plain {r['plain_ms']:.4f} ms, bmm {r['library_ms']:.4f} ms "
+                f"({r['library_ms'] / r['ms']:.2f}x), max|err| "
+                f"{r['max_abs_err']:.2e}")
+            next(e for e in extra if e["name"] == name)[label] = r
+            torch.cuda.empty_cache()
     return records, extra
 
 
@@ -3773,6 +4419,14 @@ def main(argv=None) -> int:
     _release(torch)
     train["train cli"] = run("train cli", phase_train_cli, torch, np, smi)
     _release(torch)
+    mesh = run("mesh", phase_mesh, torch, np, args.seed, smi) \
+        if built else None
+    if mesh is not None:
+        for regime, rec in mesh["moe"].items():
+            paths[f"9a {regime}"] = rec["serve"]["path"]
+        for name in MESH_SERVE:
+            paths[f"9c {name}"] = mesh["serve"][name]["path"]
+    _release(torch)
     kimi = run("kimi", phase_kimi, torch, np, args.seed, smi) \
         if built else None
     if kimi is not None:
@@ -3809,7 +4463,7 @@ def main(argv=None) -> int:
     out.write_text(json.dumps({
         "nvidia_smi": smi, "device": torch.cuda.get_device_name(0),
         "build_s": build_s, "ptxas": ptxas, "serve": serve, "cli": cli,
-        "train": train, "kimi": kimi, "qwen3": qwen3,
+        "train": train, "mesh": mesh, "kimi": kimi, "qwen3": qwen3,
         "families": families, "families_train": families_train,
         "parity_max_abs_diff": parity_err, "kernels": records,
         "kernel_shapes": extra, "failures": failures,

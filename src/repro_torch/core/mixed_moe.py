@@ -1,5 +1,6 @@
-"""Mixed-precision MoE layer on one device: N expert banks (one per ladder
-rung, e.g. int4 | int8 | bf16) + the capacity-bounded local dispatch.
+"""Mixed-precision MoE layer: N expert banks (one per ladder
+rung, e.g. int4 | int8 | bf16), the capacity-bounded local dispatch, and
+its regimes over a device mesh.
 
 The paper's partial expert quantization turns each MoE layer into per-rung
 banks — ``q4`` (packed int4 + scales), ``q8`` (int8 + scales) and ``f16``
@@ -8,32 +9,29 @@ mapping routed ids into bank slots (``PrecisionPlan.expert_order``).
 
 Dispatch (the reference's ``repro.core.mixed_moe``):
 
-  * one device (``par=None``): rank 0 of an EP group of one, every expert
-    local, no collective;
-  * **EP** over a (1, ep) mesh (``MoEParallelism``): one process drives
-    every rank. Rank r holds the contiguous slice ``[r*loc_b,
-    (r+1)*loc_b)`` of every bank b on ``mesh.devices[r]``; each rank
-    dispatches all tokens (the data axis has size 1) to its local experts
-    under the unchanged capacity, runs the N-bank FFN on its shard and
-    combines its weighted outputs; the ranks' (T, d) outputs are then
-    summed on the activation's device, the counterpart of the reference's
-    closing ``psum`` over "model". The sum runs in f32 in rank order and
+  * one device (``par=None``, or a mesh of one position): rank 0 of an EP
+    group of one, every expert local, no collective;
+  * a (data, model) mesh (``MoEParallelism``): one process drives every
+    position, and ``moe_apply`` runs the reference's shard_map body per
+    position on that position's device with its collectives spelled
+    out: the token-gather, data x EP and TP regimes (see
+    :func:`moe_apply`). Each closing sum runs in f32 in rank order and
     rounds once to the outputs' dtype: that is what the reference's bf16
-    psum gives on XLA:CPU (a running bf16 sum over 4 or 8 ranks is not).
-    A token's expert output is computed by exactly one rank and the other
-    ranks add exact zeros, so at top-2 the result is bit-identical to one
-    device; at top-k > 2 a token's outputs on one rank are summed there
-    first, so EP is bit-identical to the reference's EP, not to one
-    device.
-
-The reference's token-gather (ZeRO) regime, which needs a data axis > 1,
-and its TP regime (fewer experts than ranks) are not ported; a mesh that
-asks for either raises ``NotImplementedError``.
+    ``psum`` and ``psum_scatter`` give on XLA:CPU (a running bf16 sum
+    over 4 or 8 ranks is not). A token's expert output is computed by
+    exactly one model rank where the regime does not split d_ff, and the
+    other ranks add exact zeros, so at top-2 data x EP and the (1, ep)
+    serving mesh are bit-identical to one device; at top-k > 2 a token's
+    outputs on one rank are summed there first, so the result is
+    bit-identical to the reference's, not to one device. Token-gather
+    and TP sum partial d_ff products, whose bf16 rounding differs from
+    one device's.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import math
 import threading
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -43,6 +41,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import MoEConfig
 from repro_torch.core.quantization import QTensor, dequantize, quantize
+from repro_torch.dist import sharding as SH
 from repro_torch.kernels import ops
 
 # --------------------------------------------------------------------------
@@ -284,13 +283,16 @@ def _bank_len(bank) -> int:
 
 
 # --------------------------------------------------------------------------
-# Parallelism: the (1, ep) expert-parallel mesh
+# Parallelism: the (data, model) mesh
 # --------------------------------------------------------------------------
 
-#: what a mesh the serving slice does not shard raises
-LATER_SLICE = ("is a later slice of the PyTorch port (sharded training: "
-               "dist/sharding.py and moe_apply's token-gather/ZeRO and TP "
-               "regimes); serving shards experts over a (1, ep) mesh")
+# Token-gather pays only while the gathered activations stay ~cache-scale;
+# above this the dispatch-buffer amplification dominates (see moe_apply).
+TOKEN_GATHER_MAX_BYTES = 64 << 20
+
+#: the key of a placed bank's d_ff slice, which the token-gather regime runs
+DFF = "dff"
+_MATS = ("w_gate", "w_up", "w_down")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -299,8 +301,8 @@ class MoEParallelism:
     dp_axes: Tuple[str, ...]       # token axes ("pod","data") / ("data",)
     ep_axis: str = "model"
     # Second weight-sharding axis for EP banks (ZeRO/FSDP dimension): the
-    # d_ff dim of every expert is sharded over it (the reference's
-    # token-gather regime; not ported).
+    # d_ff dim of every expert is sharded over it. Token-gather dispatch
+    # keeps the weights sharded and moves ACTIVATIONS over this axis.
     fsdp_axis: Optional[str] = None
 
     @property
@@ -314,91 +316,199 @@ class MoEParallelism:
         return self.mesh.sizes[self.fsdp_axis]
 
 
-def _fsdp_active(banks, moe: MoEConfig, par: MoEParallelism, ep: bool):
-    """Token-gather EP applies when experts are also d_ff-sharded over the
-    fsdp axis (kimi-1T: (E/16 on model) x (f/16 on data) per device).
-    The regime gate of the later sharded-training slice; a serving mesh
-    has no fsdp axis above 1, so it is never active there."""
-    if not ep or par.fsdp_size <= 1:
-        return False
-    fs = par.fsdp_size
+def _dff_dim(name: str, axis: int = 0) -> int:
+    """The d_ff dim of a bank matrix whose expert dim is ``axis``: the
+    rows (K) of w_down and its scales, the columns (N) of up/gate."""
+    return axis + 1 if name == "w_down" else axis + 2
+
+
+def _dff_divides(banks, n: int, axis: int = 0) -> bool:
+    """Every bank matrix's d_ff dim (a QTensor's codes and scales both)
+    splits into ``n`` equal slices."""
     for key in bank_keys(banks):
-        for name, w in banks[key].items():
-            arr = w.q if isinstance(w, QTensor) else w
-            fdim = 1 if name == "w_down" else 2
-            if arr.shape[fdim] % fs:
-                return False
-            if isinstance(w, QTensor) and w.scales.shape[fdim] % fs:
+        for name in _MATS:
+            w = banks[key][name]
+            parts = (w.q, w.scales) if isinstance(w, QTensor) else (w,)
+            if any(t.shape[_dff_dim(name, axis)] % n for t in parts):
                 return False
     return True
 
 
-def _require_ep_regime(moe: MoEConfig, par: MoEParallelism) -> None:
-    """The serving regime: experts over the EP axis, every other mesh
-    axis of size 1 (every rank sees every token)."""
-    n_dp = 1
-    for a in par.dp_axes:
-        n_dp *= par.mesh.sizes.get(a, 1)
-    if n_dp > 1 or par.fsdp_size > 1:
-        raise NotImplementedError(
-            f"moe_apply over mesh {par.mesh.sizes}: a data axis > 1 (the "
-            f"token-gather/ZeRO regime) {LATER_SLICE}")
-    if moe.num_experts < par.ep_size:
-        raise NotImplementedError(
-            f"moe_apply with {moe.num_experts} experts over ep="
-            f"{par.ep_size} (the TP regime) {LATER_SLICE}")
+def _fsdp_active(banks, moe: MoEConfig, par: MoEParallelism, ep: bool):
+    """Token-gather EP applies when experts are also d_ff-sharded over the
+    fsdp axis (kimi-1T: (E/16 on model) x (f/16 on data) per device)."""
+    return ep and par.fsdp_size > 1 and _dff_divides(banks, par.fsdp_size)
 
 
 def _map_bank(bank, fn):
-    return {k: v.map(fn) if isinstance(v, QTensor) else fn(v)
-            for k, v in bank.items()}
+    return {k: bank[k].map(fn) if isinstance(bank[k], QTensor)
+            else fn(bank[k]) for k in _MATS}
 
 
-def shard_banks(banks, mesh, *, axis: int = 0,
-                ep_axis: str = "model") -> List[Dict[str, Any]]:
-    """Per-rank shards of a bank tree (the counterpart of the reference's
-    ``_bank_specs`` in the EP regime): rank r's shard of bank b is the
-    contiguous slice ``[r*loc_b, (r+1)*loc_b)`` of the expert dim ``axis``
-    (0 for one layer's banks, 1 for the layer-stacked serve layout) on
-    ``mesh.devices[r]`` — the experts ``PrecisionPlan.device_assignment``
-    gives rank r. On the bank's own device a shard is a view (a one-layer
-    shard is then contiguous); elsewhere it is a copy. Raises
-    ``ValueError`` when a bank does not split evenly."""
-    ep = mesh.sizes[ep_axis]
+def _dff_slice(bank, i: int, n: int, axis: int = 0):
+    """Slice ``i`` of ``n`` of a bank's d_ff dim as contiguous copies (a
+    strided view is never handed to a kernel)."""
+    out = {}
+    for name in _MATS:
+        dim = _dff_dim(name, axis)
+
+        def cut(t):
+            size = t.shape[dim] // n
+            return t.narrow(dim, i * size, size).contiguous()
+        w = bank[name]
+        out[name] = w.map(cut) if isinstance(w, QTensor) else cut(w)
+    return out
+
+
+def _totals(banks, axis: int = 0):
     keys = bank_keys(banks)
-    totals = tuple((banks[k]["w_up"].q if isinstance(
+    return keys, tuple((banks[k]["w_up"].q if isinstance(
         banks[k]["w_up"], QTensor) else banks[k]["w_up"]).shape[axis]
         for k in keys)
-    if any(tot % ep for tot in totals):
+
+
+def shard_banks(banks, mesh, *, axis: int = 0, ep_axis: str = "model",
+                fsdp_axis: Optional[str] = "data") -> List[Dict[str, Any]]:
+    """Per-position shards of a bank tree, as ``dist.sharding.
+    _expert_spec`` places them. With at least as many experts as the
+    model axis (EP), position (i, j) holds the contiguous slice
+    ``[j*loc_b, (j+1)*loc_b)`` of every bank b along the expert dim
+    ``axis`` (0 for one layer's banks, 1 for the layer-stacked serve
+    layout) at full d_ff — the experts ``PrecisionPlan.
+    device_assignment`` gives rank j — replicated over the data axis; on
+    a mesh whose data axis has size > 1, the shard also carries under
+    ``DFF`` a contiguous copy of its d_ff slice i, which the token-gather
+    regime runs. With fewer experts (TP), every position holds all
+    experts on d_ff slice j. Shards live on ``mesh.devices[p]``: views on
+    the bank's own device where the slice is contiguous, copies
+    elsewhere. Raises ``ValueError`` when an EP bank does not split
+    evenly or a TP d_ff dim does not divide."""
+    m = mesh.sizes[ep_axis]
+    keys, totals = _totals(banks, axis)
+    ep = sum(totals) >= m
+    if ep and any(tot % m for tot in totals):
         raise ValueError(
             f"EP banks must split evenly: "
-            f"{dict(zip(keys, totals))} over {ep} shards "
+            f"{dict(zip(keys, totals))} over {m} shards "
             f"(planner rounds per-layer counts)")
+    if not ep and not _dff_divides(banks, m, axis):
+        raise ValueError(f"TP banks: a d_ff dim does not split over {m}")
+    fs = mesh.sizes.get(fsdp_axis, 1)
+    dff = ep and fs > 1 and _dff_divides(banks, fs, axis)
     shards = []
-    for r, dev in enumerate(mesh.devices):
+    for pos, dev in enumerate(mesh.devices):
+        at = SH.coords(mesh, pos)
+        j = at[ep_axis]
         shard: Dict[str, Any] = {}
         for key, bank in banks.items():
             if bank is None:
                 shard[key] = None
                 continue
-            loc = totals[keys.index(key)] // ep
-            shard[key] = _map_bank(
-                bank, lambda t: t.narrow(axis, r * loc, loc).to(dev))
+            if ep:
+                loc = totals[keys.index(key)] // m
+                part = _map_bank(
+                    bank, lambda t: t.narrow(axis, j * loc, loc).to(dev))
+                if dff:
+                    part[DFF] = _dff_slice(part, at[fsdp_axis], fs, axis)
+            else:
+                part = _map_bank(_dff_slice(bank, j, m, axis),
+                                 lambda t: t.to(dev))
+            shard[key] = part
         shards.append(shard)
     return shards
 
 
 def _on(device: torch.device):
-    """Make ``device`` current while a rank's work is issued: the kernels'
-    C entry points launch on the current card."""
+    """Make ``device`` current while a position's work is issued: the
+    kernels' C entry points launch on the current card."""
     if device.type == "cuda":
         return torch.cuda.device(device)
     return contextlib.nullcontext()
 
 
+def _take_rows(a: torch.Tensor, rows) -> torch.Tensor:
+    """The row slices ``rows`` of ``a``, concatenated in order."""
+    return torch.cat([a[r] for r in rows]) if len(rows) > 1 else a[rows[0]]
+
+
+class _Spread(torch.autograd.Function):
+    """Copies of row slices of ``x`` on the mesh positions' devices:
+    output p holds ``x``'s rows ``rows[p]`` on ``devices[p]``. The
+    backward adds the positions' gradients on ``x``'s device in f32 in
+    position order and rounds once; autograd would add them as they
+    arrive, which on distinct cards is in no fixed order."""
+
+    @staticmethod
+    def forward(ctx, x, rows, devices):
+        ctx.rows, ctx.meta = rows, (x.shape, x.dtype, x.device)
+        return tuple(_take_rows(x, r).to(dev, copy=True)
+                     for r, dev in zip(rows, devices))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        shape, dtype, device = ctx.meta
+        acc = torch.zeros(shape, dtype=torch.float32, device=device)
+        for r, g in zip(ctx.rows, grads):
+            if g is None:
+                continue
+            g = g.to(device, torch.float32)
+            off = 0
+            for sl in r:
+                n = sl.stop - sl.start
+                acc[sl] += g[off:off + n]
+                off += n
+        return acc.to(dtype), None, None
+
+
+def _sum_f32(parts, device) -> torch.Tensor:
+    """A bf16 ``psum`` as XLA:CPU runs it: the parts summed in f32 in rank
+    order on ``device``, rounded once to their dtype (``psum_scatter``
+    rounds the same way)."""
+    acc = parts[0].to(device, torch.float32)
+    for t in parts[1:]:
+        acc = acc + t.to(device, torch.float32)
+    return acc.to(parts[0].dtype)
+
+
 # --------------------------------------------------------------------------
 # The MoE apply
 # --------------------------------------------------------------------------
+
+def moe_regime(banks, t: int, d: int, moe: MoEConfig,
+               par: Optional[MoEParallelism]) -> str:
+    """The regime :func:`moe_apply` runs ``t`` tokens of width ``d`` in:
+    "one device", "token-gather", "data x EP" or "TP". Token-gather
+    needs EP and a d_ff-divisible fsdp axis > 1, and pays only while the
+    gathered tokens stay within ``TOKEN_GATHER_MAX_BYTES``: at
+    train/prefill token counts the gathered activations and the
+    amplified dispatch buffers blow device memory, so each data rank
+    runs its own tokens through the full d_ff instead."""
+    if par is None or len(par.mesh.devices) == 1:
+        return "one device"
+    ep = moe.num_experts >= par.ep_size
+    if not ep:
+        return "TP"
+    tree = banks[0] if isinstance(banks, list) else banks
+    if _fsdp_active(tree, moe, par, ep):
+        n_dp = math.prod(par.mesh.sizes.get(a, 1) for a in par.dp_axes)
+        if (t // n_dp) * par.fsdp_size * d * 2 <= TOKEN_GATHER_MAX_BYTES:
+            return "token-gather"
+    return "data x EP"
+
+
+def _local_fn(pos, bank, x, weights, ids, *, rank, totals, locs, capacity,
+              act, use_kernel):
+    """One mesh position's share (the reference's shard_map body between
+    its collectives): dispatch the tokens it sees to its local experts,
+    run the N-bank FFN on its bank shard, combine. ``pos`` names the
+    position (launch bookkeeping reads it)."""
+    t, d = x.shape
+    xbuf, dest, order, w_sorted = _dispatch_local(
+        x, ids, weights, rank=rank, totals=totals, locs=locs,
+        capacity=capacity)
+    ybuf = _expert_ffn(bank, xbuf, act, use_kernel)
+    return _combine_local(ybuf, dest, order, w_sorted, t, d, ids.shape[1])
+
 
 def moe_apply(banks, x: torch.Tensor, weights: torch.Tensor,
               ids: torch.Tensor, moe: MoEConfig,
@@ -413,53 +523,126 @@ def moe_apply(banks, x: torch.Tensor, weights: torch.Tensor,
     overrides the capacity-factor formula with an explicit per-expert slot
     count.
 
-    ``par`` (an EP mesh of size > 1) runs the sharded path: ``banks`` is
-    then one bank tree, sharded here (:func:`shard_banks`), or the list of
-    per-rank shards that ``apply_precision_plan(..., mesh=)`` placed on
-    the ranks' devices. Each rank's work is issued before the sum, so
-    ranks on distinct cards overlap."""
+    ``par`` (a mesh of more than one position) runs the reference's
+    shard_map: ``banks`` is then one bank tree, placed here by
+    :func:`shard_banks`, or the list of per-position shards that
+    :func:`shard_banks` (through ``apply_precision_plan(..., mesh=)``) or
+    ``build_model``'s gather of a sharded param tree placed. The data axes split the tokens; position
+    (i, j) (data rank i, model rank j) runs one of three regimes:
+
+      * token-gather (EP, a d_ff-divisible fsdp axis > 1, and the
+        gathered tokens within ``TOKEN_GATHER_MAX_BYTES``): the data
+        ranks' token shards gathered in rank order through rank j's
+        experts on d_ff slice i, the partial outputs reduce-scattered
+        over data, then summed over model;
+      * data x EP (the gate says no): data shard i through rank j's
+        experts at full d_ff, summed over model;
+      * TP (fewer experts than model ranks): data shard i through all
+        experts on d_ff slice j, whose down projections are partial sums
+        closed by the sum over model.
+
+    Each sum runs in f32 in rank order and rounds once, as XLA:CPU's bf16
+    ``psum`` and ``psum_scatter`` do; the data ranks' outputs are then
+    concatenated in order on ``x``'s device. Every position's work is
+    issued before the sums, so positions on distinct cards overlap, and
+    the whole is differentiable."""
     t, d = x.shape
+    regime = moe_regime(banks, t, d, moe, par)
+    if regime == "one device":
+        if isinstance(banks, list):           # placed on a (1, 1) mesh
+            (banks,) = banks
+        if capacity is None:
+            cap = int(np.ceil(t * moe.top_k * moe.capacity_factor
+                              / moe.num_experts))
+        else:
+            cap = int(capacity)
+        cap = max(4, ((cap + 3) // 4) * 4)
+        keys = bank_keys(banks)
+        totals = tuple(_bank_len(banks[key]) for key in keys)
+        return _local_fn(0, banks, x, weights, ids, rank=0, totals=totals,
+                         locs=totals, capacity=cap, act=act,
+                         use_kernel=use_kernel)
+    mesh, m = par.mesh, par.ep_size
+    ep = regime != "TP"
+    fsdp = regime == "token-gather"
+    n_dp = math.prod(mesh.sizes.get(a, 1) for a in par.dp_axes)
+    if t % n_dp:
+        raise ValueError(f"{t} tokens do not split over {n_dp} data ranks "
+                         f"({par.dp_axes})")
+    t_loc = t // n_dp
+    if not isinstance(banks, list):
+        banks = shard_banks(banks, mesh, ep_axis=par.ep_axis,
+                            fsdp_axis=par.fsdp_axis)
+    locs = tuple(_bank_len(banks[0][k]) for k in bank_keys(banks[0]))
+    totals = tuple(n * m for n in locs) if ep else locs
+    fs = par.fsdp_size if fsdp else 1
+    t_disp = t_loc * fs
+    # static per-shard capacity: each position sees all the assignments
+    # of its (gathered) tokens and keeps its local experts' share
     if capacity is None:
-        # tokens are replicated over the EP axis: every rank sees every
-        # assignment and keeps its local experts' share
-        cap = int(np.ceil(t * moe.top_k * moe.capacity_factor
+        cap = int(np.ceil(t_disp * moe.top_k * moe.capacity_factor
                           / moe.num_experts))
     else:
         cap = int(capacity)
     cap = max(4, ((cap + 3) // 4) * 4)
-    k = ids.shape[1]
-    if par is not None:
-        _require_ep_regime(moe, par)
-    if par is None or par.ep_size == 1:
-        if isinstance(banks, list):           # placed on a (1, 1) mesh
-            (banks,) = banks
-        keys = bank_keys(banks)
-        totals = tuple(_bank_len(banks[key]) for key in keys)
-        xbuf, dest, order, w_sorted = _dispatch_local(
-            x, ids, weights, rank=0, totals=totals, locs=totals,
-            capacity=cap)
-        ybuf = _expert_ffn(banks, xbuf, act, use_kernel)
-        return _combine_local(ybuf, dest, order, w_sorted, t, d, k)
-    ep = par.ep_size
-    shards = banks if isinstance(banks, list) \
-        else shard_banks(banks, par.mesh, ep_axis=par.ep_axis)
-    keys = bank_keys(shards[0])
-    locs = tuple(_bank_len(shards[0][key]) for key in keys)
-    totals = tuple(loc * ep for loc in locs)
-    outs = []
-    for r, (dev, shard) in enumerate(zip(par.mesh.devices, shards)):
+
+    at = [SH.coords(mesh, p) for p in range(len(mesh.devices))]
+
+    def dp_index(c):
+        i = 0
+        for a in par.dp_axes:
+            i = i * mesh.sizes.get(a, 1) + c.get(a, 0)
+        return i
+
+    def peers(p, axis):
+        """The positions that differ from ``p`` only along ``axis``, in
+        that axis's order."""
+        return [q for q in range(len(at)) if all(
+            at[q][a] == at[p][a] for a in mesh.axis_names if a != axis)]
+
+    def tokens(i):
+        return slice(i * t_loc, (i + 1) * t_loc)
+
+    # the token rows each position sees: its data rank's, or with
+    # token-gather every fsdp peer's in rank order
+    rows = [[tokens(dp_index(at[q])) for q in peers(p, par.fsdp_axis)]
+            if fsdp else [tokens(dp_index(at[p]))] for p in range(len(at))]
+    xs = _Spread.apply(x, rows, mesh.devices)
+    ws = _Spread.apply(weights, rows, mesh.devices)
+    y = []
+    for p, dev in enumerate(mesh.devices):
+        c = at[p]
+        j = c[par.ep_axis]
+        bank = banks[p]
+        if fsdp:
+            bank = {k: None if b is None else
+                    b.get(DFF) or _dff_slice(b, c[par.fsdp_axis], fs)
+                    for k, b in bank.items()}
         with _on(dev):
-            xr, wr, ir = x.to(dev), weights.to(dev), ids.to(dev)
-            xbuf, dest, order, w_sorted = _dispatch_local(
-                xr, ir, wr, rank=r, totals=totals, locs=locs, capacity=cap)
-            ybuf = _expert_ffn(shard, xbuf, act, use_kernel)
-            outs.append(_combine_local(ybuf, dest, order, w_sorted, t, d,
-                                       k))
-    # the closing psum: an f32 sum in rank order, rounded once
-    y = outs[0].to(x.device, torch.float32)
-    for out in outs[1:]:
-        y = y + out.to(x.device, torch.float32)
-    return y.to(outs[0].dtype)
+            y.append(_local_fn(p, bank, xs[p], ws[p],
+                               _take_rows(ids, rows[p]).to(dev),
+                               rank=j if ep else 0, totals=totals,
+                               locs=locs, capacity=cap, act=act,
+                               use_kernel=use_kernel))
+    z = y
+    if fsdp:
+        # psum_scatter over the fsdp axis: position p keeps block
+        # (its fsdp rank) of the gathered token rows, summed over the
+        # fsdp peers
+        z = []
+        for p, dev in enumerate(mesh.devices):
+            blk = slice(at[p][par.fsdp_axis] * t_loc,
+                        (at[p][par.fsdp_axis] + 1) * t_loc)
+            z.append(_sum_f32([y[q][blk] for q in peers(p, par.fsdp_axis)],
+                              dev))
+    # psum over the model axis, read at the first position of each data
+    # rank; the data ranks' outputs concatenated in order
+    first = {}
+    for p in range(len(at)):
+        first.setdefault(dp_index(at[p]), p)
+    outs = [_sum_f32([z[q] for q in peers(first[i], par.ep_axis)],
+                     x.device) for i in range(n_dp)]
+    return outs[0] if n_dp == 1 else torch.cat(outs)
 
 
 # --------------------------------------------------------------------------

@@ -19,9 +19,13 @@ on every host core: the stream is cut into chunks, each deflated on its
 own thread and ended on a byte boundary (a sync flush), and the chunks
 joined under one zlib header and Adler-32 make one ordinary zlib frame.
 
-Leaves come back as tensors: on the CPU, or on the device that
-``restore(shardings=)`` names. Resharding a restore across devices waits
-for EP x DP.
+A tree may hold :class:`repro_torch.dist.sharding.Sharded` leaves (params
+and optimizer state placed on a mesh): ``save`` writes each such leaf
+whole, gathered from its distinct shards, so a checkpoint has the same
+bytes whatever the mesh. Leaves come back as tensors on the CPU, on the
+device ``restore(shardings=)`` names, or placed on a mesh by a placement
+tree (``sharding.param_shardings``) of any mesh shape: the elastic
+restore.
 """
 from __future__ import annotations
 
@@ -39,6 +43,8 @@ from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
+
+from repro_torch.dist import sharding as SH
 
 _FLAG = "COMMITTED"
 _ZSTD_MAGIC = b"\x28\xb5\x2f\xfd"
@@ -270,7 +276,10 @@ def _unflatten(flat: Dict[str, Any]):
 
 def _host_leaf(x):
     """A leaf as a host snapshot the caller cannot change later: a CPU
-    tensor copy, or a numpy array copy (Python scalars included)."""
+    tensor copy (a sharded leaf gathered whole), or a numpy array copy
+    (Python scalars included)."""
+    if isinstance(x, SH.Sharded):
+        x = x.full("cpu")
     if isinstance(x, torch.Tensor):
         return x.detach().to("cpu", copy=True)
     return np.array(x)
@@ -324,9 +333,10 @@ def decode_tree(data: bytes):
 
 def _tree_map2(fn, tree, other):
     """``fn(leaf, other's node)`` over ``tree``'s leaves; ``other`` has
-    ``tree``'s structure, or is ``None`` (then for every leaf below)."""
+    ``tree``'s structure (a key it lacks is ``None``), or is one node for
+    every leaf below."""
     if isinstance(tree, dict):
-        return {k: _tree_map2(fn, v, other[k] if isinstance(other, dict)
+        return {k: _tree_map2(fn, v, other.get(k) if isinstance(other, dict)
                               else other) for k, v in tree.items()}
     return fn(tree, other)
 
@@ -415,8 +425,11 @@ class CheckpointManager:
                 shardings=None, target=None):
         """Load a committed checkpoint. ``target`` (a tree of anything
         with ``shape`` and ``dtype``, ``None`` leaves skipped) validates
-        shapes and dtypes. ``shardings`` (a device) places every leaf on
-        it; leaves stay on the CPU without one."""
+        shapes and dtypes. ``shardings`` places the leaves: a device puts
+        every leaf on it; a tree of ``sharding.Placement`` objects matching
+        the stored tree (or a subtree's device) shards each leaf over its
+        mesh, whatever mesh saved it. Leaves stay on the CPU without one,
+        and where the tree has no entry."""
         self.wait()
         step = self.latest_step() if step is None else step
         if step is None:
@@ -438,7 +451,11 @@ class CheckpointManager:
                 return p
             tree = _tree_map2(chk, tree, target)
         if shardings is not None:
-            tree = _tree_map2(
-                lambda x, _: None if x is None else x.to(shardings), tree,
-                None)
+            def place(x, where):
+                if x is None or where is None:
+                    return x
+                if isinstance(where, SH.Placement):
+                    return SH.shard(x, where)
+                return x.to(where)
+            tree = _tree_map2(place, tree, shardings)
         return tree, manifest

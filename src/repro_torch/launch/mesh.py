@@ -1,15 +1,17 @@
-"""Device meshes for expert-parallel serving (``repro.launch.mesh``).
+"""Device meshes (``repro.launch.mesh``).
 
 One process drives every device of a mesh, as one JAX process drives its
 ``shard_map``: a :class:`Mesh` is a named shape over an explicit tuple of
-``torch.device``s, and the sharded ``mixed_moe.moe_apply`` runs each EP
-rank's share on that rank's device. An explicit device list may repeat a
+``torch.device``s; ``dist.sharding`` stores a tensor's shards on it, and
+the sharded ``mixed_moe.moe_apply`` runs each mesh position's share on
+that position's device. An explicit device list may repeat a
 device — ``["cpu"] * 4`` is the counterpart of the reference's forced host
 device count, and ``["cuda:0"] * 4`` runs four ranks on one card. Without
 a list, a mesh takes distinct cards ``cuda:0, cuda:1, ...``.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -18,7 +20,8 @@ import torch
 
 from repro_torch.device import resolve_device
 
-__all__ = ["Mesh", "make_ep_mesh", "make_production_mesh", "make_test_mesh"]
+__all__ = ["Mesh", "make_ep_mesh", "make_production_mesh", "make_test_mesh",
+           "use_mesh"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -42,6 +45,21 @@ class Mesh:
     def sizes(self) -> Dict[str, int]:
         """Axis name -> size (``jax.sharding.Mesh.shape``)."""
         return dict(zip(self.axis_names, self.shape))
+
+
+@contextlib.contextmanager
+def use_mesh(mesh):
+    """Make ``mesh`` the ambient mesh for the duration of the block (the
+    reference's ``jax.set_mesh``): ``dist.sharding.full_grouped_ok`` and
+    the activation rules read it. The rules installed by an enclosing
+    ``activation_constraints`` stay."""
+    from repro_torch.dist import sharding
+    prev = getattr(sharding._ACTIVE, "mesh", None)
+    sharding._ACTIVE.mesh = mesh
+    try:
+        yield mesh
+    finally:
+        sharding._ACTIVE.mesh = prev
 
 
 def _device(d) -> torch.device:

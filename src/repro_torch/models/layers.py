@@ -9,9 +9,11 @@ Conventions (as in ``repro.models.layers``):
     bidirectional self-attention, and cross-attention
 
 Attention has the reference's cached branches (prefill-from-empty and
-decode over the ring buffer) and always contracts grouped-query attention
-without expanding K/V, as the reference does on one device (its flat
-spelling on meshes is the same computation).
+decode over the ring buffer). Grouped-query attention contracts without
+expanding K/V, as the reference does on one device; under an active mesh
+whose model axis divides the heads, full attention takes the reference's
+flat spelling (K/V repeated per head), which ``dist.sharding.
+full_grouped_ok`` chooses. Decode always groups.
 """
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import AttentionConfig
+from repro_torch.dist.sharding import full_grouped_ok
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6
@@ -139,18 +142,42 @@ def _sdpa_grouped_block(q, k, v, mask, scale) -> torch.Tensor:
     return out.reshape(b, sq, h, hd)
 
 
-def _sdpa(q, k, v, mask) -> torch.Tensor:
+def _sdpa_block(q, k, v, mask, scale) -> torch.Tensor:
+    """The flat contraction over (B, H, Sq, Sk) scores: K/V have a head
+    per query head."""
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.to(torch.float32),
+                          k.to(torch.float32)) * scale
+    logits = torch.where(mask, logits, torch.full_like(logits, -1e30))
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", probs.to(torch.float32),
+                        v.to(torch.float32)).to(q.dtype)
+
+
+def _full_grouped(h: int, hkv: int) -> bool:
+    """Full attention's spelling: the reference's ``full_grouped_ok``,
+    except that multi-head attention (hkv == h) keeps the grouped
+    spelling, the same contraction with groups of one."""
+    return hkv == h or full_grouped_ok(h, hkv)
+
+
+def _sdpa(q, k, v, mask, grouped: bool = True) -> torch.Tensor:
     """q: (B,Sq,H,hd) k,v: (B,Sk,Hkv,hd) mask: (B,1,Sq,Sk) bool.
 
+    ``grouped=False`` repeats K/V per query head and contracts flat.
     Long queries are processed in blocks of _Q_CHUNK so the score tensor is
     O(chunk x Sk), never O(Sq x Sk); exact softmax (each block sees all
     of K)."""
-    sq, hd = q.shape[1], q.shape[3]
+    sq, h, hd = q.shape[1], q.shape[2], q.shape[3]
+    if not grouped:
+        rep = h // k.shape[2]
+        k = k.repeat_interleave(rep, dim=2)
+        v = v.repeat_interleave(rep, dim=2)
+    block = _sdpa_grouped_block if grouped else _sdpa_block
     scale = hd ** -0.5
     if sq <= 2 * _Q_CHUNK or sq % _Q_CHUNK:
-        return _sdpa_grouped_block(q, k, v, mask, scale)
-    outs = [_sdpa_grouped_block(q[:, i:i + _Q_CHUNK], k, v,
-                                mask[:, :, i:i + _Q_CHUNK], scale)
+        return block(q, k, v, mask, scale)
+    outs = [block(q[:, i:i + _Q_CHUNK], k, v, mask[:, :, i:i + _Q_CHUNK],
+                  scale)
             for i in range(0, sq, _Q_CHUNK)]
     return torch.cat(outs, dim=1)
 
@@ -194,12 +221,13 @@ def attention(p: Dict[str, Any], x: torch.Tensor, acfg: AttentionConfig, *,
     if not cross:
         q = rope(q, positions, acfg.rope_theta)
         k = rope(k, positions, acfg.rope_theta)
+    g_full = _full_grouped(h, hkv)
 
     if cross:
         new_cache = None
         mask = torch.ones((b, 1, s, src.shape[1]), dtype=torch.bool,
                           device=x.device)
-        out = _sdpa(q, k, v, mask)
+        out = _sdpa(q, k, v, mask, g_full)
     elif cache is None:
         new_cache = None
         qpos = positions
@@ -209,7 +237,7 @@ def attention(p: Dict[str, Any], x: torch.Tensor, acfg: AttentionConfig, *,
         if acfg.causal and acfg.sliding_window:
             mask &= (qpos[:, None, :, None] - qpos[:, None, None, :]
                      < acfg.sliding_window)
-        out = _sdpa(q, k, v, mask)
+        out = _sdpa(q, k, v, mask, g_full)
     elif s > 1 and not spec:
         new_cache = _prefill_cache(cache, k, v, positions)
         qpos = positions
@@ -219,7 +247,7 @@ def attention(p: Dict[str, Any], x: torch.Tensor, acfg: AttentionConfig, *,
         if acfg.sliding_window:
             mask &= (qpos[:, None, :, None] - qpos[:, None, None, :]
                      < acfg.sliding_window)
-        out = _sdpa(q, k, v, mask)
+        out = _sdpa(q, k, v, mask, g_full)
     else:
         # decode (S == 1) or speculative draft/verify (spec, S >= 1): the
         # position-tag mask below is exact for S > 1 queries too

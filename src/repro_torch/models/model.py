@@ -10,10 +10,12 @@ the overlap pipeline, the paged-KV hooks and the speculative-decode
 hooks; those are ``None`` for the SSM, hybrid and enc-dec families and a
 VLM with a vision frontend, as in the reference. ``apply_precision_plan``
 converts train-layout MoE params into the N-bank serve layout.
-``build_model(cfg, mesh)`` shards every MoE layer's experts over an
-expert-parallel (1, ep) mesh (``repro_torch.launch.mesh``), and
-``apply_precision_plan(..., mesh=)`` places the serve banks' rank shards
-on their devices; every family without routed experts ignores the mesh.
+``build_model(cfg, mesh)`` runs over any (data, model) mesh
+(``repro_torch.launch.mesh``): every MoE layer through the mesh regimes
+of ``mixed_moe.moe_apply``, on params placed by ``dist.sharding.
+shard_tree`` (each position holds its ``param_specs`` shard) or by
+``apply_precision_plan(..., mesh=)`` (the serve banks' per-position
+shards; every other leaf on ``mesh.devices[0]``).
 Parameters are nested dicts of tensors with a leading layer axis on every
 ``layers/...`` leaf, as in the reference. Caches and page pools are
 updated in place (the engine holds the only reference); the reference
@@ -21,6 +23,7 @@ returns new ones.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import math
@@ -34,6 +37,7 @@ from repro_torch.core import mixed_moe
 from repro_torch.core.precision_plan import PrecisionPlan
 from repro_torch.core.quantization import QTensor
 from repro_torch.device import resolve_device
+from repro_torch.dist import sharding as SH
 from repro_torch.models import layers as L
 from repro_torch.models.encdec import encdec_forward
 from repro_torch.models.transformer import (FORWARDS, _hybrid_layout,
@@ -104,6 +108,14 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device=None,
     gen = generator or torch.Generator(device=dev).manual_seed(seed)
     dtype = _DTYPES[cfg.dtype]
     return nest({name: _init_one(gen, name, shape, dtype, dev)
+                 for name, shape in cfg.param_shapes()})
+
+
+def abstract_params(cfg: ModelConfig) -> Dict[str, Any]:
+    """The param tree as ``meta`` tensors: shapes and dtypes, no storage
+    (the reference's ShapeDtypeStruct tree)."""
+    dtype = _DTYPES[cfg.dtype]
+    return nest({name: torch.empty(shape, dtype=dtype, device="meta")
                  for name, shape in cfg.param_shapes()})
 
 
@@ -437,22 +449,65 @@ def _embed_inputs(params, cfg: ModelConfig, batch):
     return x, positions
 
 
+def _mesh_params(params, mesh):
+    """A param tree with :class:`dist.sharding.Sharded` leaves in the
+    form the forwards take: every dense leaf gathered whole on
+    ``mesh.devices[0]`` (its gradient flows back to the shards through
+    the gather), the MoE experts as the list of per-position bank shards
+    ``mixed_moe.moe_apply`` runs. A tree without sharded leaves is
+    returned as it is."""
+    if not SH.has_sharded(params):
+        return params
+    home = mesh.devices[0]
+    out = {k: SH.gather(v, home) for k, v in params.items() if k != "layers"}
+    layers = {k: v for k, v in params["layers"].items() if k != "moe"}
+    out["layers"] = SH.gather(layers, home)
+    moe = params["layers"].get("moe")
+    if moe is not None:
+        banks = moe.get("banks")
+        if banks is None:
+            banks = mixed_moe.train_banks(moe)
+        if not isinstance(banks, list):
+            banks = [SH.at_position(banks, p)
+                     for p in range(len(mesh.devices))]
+        out["layers"]["moe"] = {"router": SH.gather(moe["router"], home),
+                                "banks": banks}
+    return out
+
+
 def build_model(cfg: ModelConfig, mesh=None, *,
+                dp_axes: Tuple[str, ...] = ("data",),
                 use_kernel: bool = False) -> Model:
     """The model functions of ``cfg``'s family. Caches are updated in
     place (the engine holds the only reference).
 
-    ``mesh`` (a (1, ep) ``launch.mesh.Mesh``) runs every MoE layer's
-    expert FFN over the mesh's EP ranks (``mixed_moe.moe_apply``'s sharded
-    path); the activations, caches and every other weight stay on
-    ``mesh.devices[0]``. ``None`` is one device."""
+    ``mesh`` (a (data, model) ``launch.mesh.Mesh``; ``None`` is one
+    device) runs every MoE layer's expert FFN over the mesh's positions
+    (``mixed_moe.moe_apply``'s regimes), the data axes ``dp_axes``
+    splitting the tokens and "data" doubling as the experts' d_ff (FSDP)
+    axis of the token-gather regime. The dense compute, activations and
+    caches stay on ``mesh.devices[0]``: params placed by ``dist.sharding.
+    shard_tree`` are gathered there per call. On a mesh of more than one
+    position, ``loss_fn`` runs under the reference's training activation
+    rules and ``prefill``/``decode_step`` under its serving rules
+    (``dist.sharding.activation_constraints``), which choose the
+    attention spelling."""
     fwd = encdec_forward if cfg.family == "encdec" else FORWARDS[cfg.family]
     par = None
     if mesh is not None and cfg.moe is not None:
         par = mixed_moe.MoEParallelism(
-            mesh=mesh, dp_axes=("data",),
+            mesh=mesh, dp_axes=dp_axes,
             fsdp_axis="data" if "data" in mesh.axis_names else None)
     mkw = {} if par is None else {"par": par}
+    multi = mesh is not None and len(mesh.devices) > 1
+
+    def rules(train: bool = False):
+        if not multi:
+            return contextlib.nullcontext()
+        return SH.activation_constraints(cfg, mesh, dp_axes, train=train)
+
+    def local(params):
+        return params if mesh is None else _mesh_params(params, mesh)
 
     def _head(params, y):
         y = L.rms_norm(y, params["final_norm"]["scale"])
@@ -467,13 +522,15 @@ def build_model(cfg: ModelConfig, mesh=None, *,
         metrics). Records a graph when grad mode is on and a param
         requires grad; the train step's backward is deterministic on the
         card (``layers.embed``, ``mixed_moe._dispatch_local``)."""
-        x, positions = _embed_inputs(params, cfg, batch)
-        kw = {"src": batch["src"]} if cfg.family == "encdec" else {}
-        y, _, aux = fwd(params, cfg, x, positions, caches=None, train=True,
-                        **kw, **mkw)
-        if cfg.frontend == "vision":       # loss over the text tail only
-            y = y[:, cfg.frontend_len:]
-        logits = _head(params, y)
+        params = local(params)
+        with rules(train=True):
+            x, positions = _embed_inputs(params, cfg, batch)
+            kw = {"src": batch["src"]} if cfg.family == "encdec" else {}
+            y, _, aux = fwd(params, cfg, x, positions, caches=None,
+                            train=True, **kw, **mkw)
+            if cfg.frontend == "vision":   # loss over the text tail only
+                y = y[:, cfg.frontend_len:]
+            logits = _head(params, y)
         loss = L.softmax_xent(logits, batch["labels"], cfg.vocab_size)
         metrics = {"nll": loss}
         for k, v in aux.items():
@@ -487,24 +544,28 @@ def build_model(cfg: ModelConfig, mesh=None, *,
         """The whole batch's prompts (+ ``src`` / ``frontend``) into a
         fresh cache from ``init_cache``: (the last position's logits
         (B, V) f32, the cache)."""
-        x, positions = _embed_inputs(params, cfg, batch)
-        kw = {"src": batch["src"]} if cfg.family == "encdec" else {}
-        y, new_cache, _ = fwd(params, cfg, x, positions, caches=cache,
-                              use_kernel=use_kernel, **kw, **mkw)
-        return _head(params, y[:, -1:])[:, 0], new_cache
+        params = local(params)
+        with rules():
+            x, positions = _embed_inputs(params, cfg, batch)
+            kw = {"src": batch["src"]} if cfg.family == "encdec" else {}
+            y, new_cache, _ = fwd(params, cfg, x, positions, caches=cache,
+                                  use_kernel=use_kernel, **kw, **mkw)
+            return _head(params, y[:, -1:])[:, 0], new_cache
 
     @torch.no_grad()
     def decode_step(params, cache, tokens, positions):
         """tokens (B,1); positions (B,) absolute position of the token
         (behind a vision frontend it counts the frontend's positions).
         Returns (logits (B,V) f32, cache)."""
-        x = _embed_scaled(params, cfg, tokens)
-        kw = {"enc_out": cache["enc_out"]} if cfg.family == "encdec" \
-            else {}
-        y, new_cache, _ = fwd(params, cfg, x, positions[:, None],
-                              caches=cache, use_kernel=use_kernel, **kw,
-                              **mkw)
-        return _head(params, y)[:, 0], new_cache
+        params = local(params)
+        with rules():
+            x = _embed_scaled(params, cfg, tokens)
+            kw = {"enc_out": cache["enc_out"]} \
+                if cfg.family == "encdec" else {}
+            y, new_cache, _ = fwd(params, cfg, x, positions[:, None],
+                                  caches=cache, use_kernel=use_kernel, **kw,
+                                  **mkw)
+            return _head(params, y)[:, 0], new_cache
 
     entry = dict(cfg=cfg, init=functools.partial(init_params, cfg),
                  loss_fn=loss_fn, prefill=prefill, decode_step=decode_step,
@@ -737,13 +798,17 @@ def apply_precision_plan(params, cfg: ModelConfig, plan: PrecisionPlan,
     next layer's, so the build holds one layer's banks beside the result.
     Quantization runs on the params' device.
 
-    ``mesh`` (a (1, ep) mesh) places the result on it: the banks become a
-    list of per-rank shards, rank r's holding the contiguous slice
-    ``[r*loc_b, (r+1)*loc_b)`` of every bank (``mixed_moe.shard_banks``)
-    in storage of its own on ``mesh.devices[r]``, preallocated per rank
-    and filled layer by layer; every other leaf goes to
-    ``mesh.devices[0]``. Raises ``ValueError`` when a bank does not split
-    evenly over the ranks."""
+    ``mesh`` (a (data, model) mesh) places the result on it: the banks
+    become a list of per-position shards as ``dist.sharding.
+    _expert_spec`` places them (``mixed_moe.shard_banks``): with EP,
+    position (i, j) holds model rank j's contiguous slice ``[j*loc_b,
+    (j+1)*loc_b)`` of every bank, replicated over data, plus the
+    contiguous d_ff slice i the token-gather regime runs where the data
+    axis is > 1; with TP (fewer experts than model ranks), all experts
+    on d_ff slice j. Each position's shards are in storage of its own on
+    ``mesh.devices[p]``, preallocated per position and filled layer by
+    layer; every other leaf goes to ``mesh.devices[0]``. Raises
+    ``ValueError`` when a bank does not split evenly over the ranks."""
     assert cfg.moe is not None
     moe_p = params["layers"]["moe"]
     stacked = None

@@ -61,8 +61,8 @@ def _ffn_or_moe(p, xn, cfg: ModelConfig, use_kernel, token_valid=None,
     ``token_valid`` (B, S) bool masks idle decode slots / prefill pads out
     of the dispatch: their ids become the out-of-range sentinel
     ``num_experts`` (dropped by ``_local_slot``), so they never occupy
-    expert capacity and displace real tokens. ``par`` (an EP mesh) shards
-    the expert FFN over the mesh's ranks."""
+    expert capacity and displace real tokens. ``par`` (a mesh) runs the
+    expert FFN through ``moe_apply``'s mesh regimes."""
     if cfg.moe is None:
         return L.mlp(p["mlp"], xn, cfg.act), None
     b, s, d = xn.shape
@@ -183,8 +183,8 @@ def decoder_forward(params, cfg: ModelConfig, x, positions, *,
     capacity at the token count B*S, so the batched verify is drop-free
     (plain decode and verify then score the same distributions).
 
-    ``par`` (a ``mixed_moe.MoEParallelism`` over an EP mesh) shards every
-    MoE layer's experts over the mesh's ranks."""
+    ``par`` (a ``mixed_moe.MoEParallelism`` over a (data, model) mesh)
+    runs every MoE layer through ``moe_apply``'s mesh regimes."""
     if collect_routes and (cfg.moe is None or caches is None):
         raise ValueError("collect_routes needs routed experts and a cache")
     moe_capacity = x.shape[0] * x.shape[1] if spec else None

@@ -1,40 +1,42 @@
 """Adafactor (factored second moment, no first moment;
 ``repro.training.adafactor``): the memory-lean optimizer option. Updates
-in place, like :func:`repro_torch.training.optimizer.adamw_update`."""
+in place, like :func:`repro_torch.training.optimizer.adamw_update`.
+
+On a sharded tree the factored moments shard like their param with the
+reduced dim's partition dropped (``train_loop.opt_state_specs``), and a
+leaf's update runs once on the whole tensor (``sharding.whole``): the row
+and column means and the update's RMS see every element."""
 from __future__ import annotations
 
 from typing import Any, Dict
 
 import torch
 
+from repro_torch.dist import sharding as SH
 from repro_torch.training.optimizer import (OptConfig, clip_scale,
-                                            global_norm, schedule,
-                                            tree_leaves, tree_map)
+                                            global_norm, init_step,
+                                            schedule, tree_map)
 
 
 def init_adafactor_state(params) -> Dict[str, Any]:
     def factors(x):
-        def zeros(shape):
-            return torch.zeros(shape, dtype=torch.float32, device=x.device)
         if x.ndim < 2:
-            return {"v": zeros(x.shape)}
-        return {"vr": zeros(x.shape[:-1]),
-                "vc": zeros(x.shape[:-2] + x.shape[-1:])}
-    dev = next(leaf for _, leaf in tree_leaves(params)).device
-    return {"f": tree_map(factors, params),
-            "step": torch.zeros((), dtype=torch.int32, device=dev)}
+            return {"v": SH.zeros(x)}
+        return {"vr": SH.zeros(x, drop=-1), "vc": SH.zeros(x, drop=-2)}
+    return {"f": tree_map(factors, params), "step": init_step(params)}
 
 
 @torch.no_grad()
 def adafactor_update(params, grads, state, cfg: OptConfig):
     """One Adafactor step, in place. Returns (params, state, {grad_norm,
     lr})."""
-    step = state["step"] + 1
+    step = SH.value(state["step"]) + 1
     lr = schedule(cfg, step)
     gnorm = global_norm(grads)
     scale = clip_scale(gnorm, cfg.clip_norm)
     b2 = 1.0 - torch.pow(step.to(torch.float32), -0.8)
 
+    @SH.whole
     def upd(p, g, f):
         g = g.to(torch.float32) * scale
         g2 = g * g + 1e-30
@@ -56,5 +58,5 @@ def adafactor_update(params, grads, state, cfg: OptConfig):
                  * float(p.ndim >= 2)).to(p.dtype))
 
     tree_map(upd, params, grads, state["f"])
-    state["step"] = step
+    state["step"] = SH.replicate(step, state["step"])
     return params, state, {"grad_norm": gnorm, "lr": lr}

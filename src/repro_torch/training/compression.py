@@ -10,7 +10,9 @@
 to the reference's: the scale is a true quotient ``absmax / 127`` with a
 device-tensor divisor (a Python-scalar divisor on a CUDA tensor becomes a
 multiply by the reciprocal), and ``torch.round`` rounds half to even as
-``jnp.round`` does. The residual is updated in place.
+``jnp.round`` does. The residual is updated in place. On a sharded tree
+the residual shards like its param, and a leaf is compressed once on the
+whole tensor (``sharding.whole``): the absmax scale is the tensor's.
 """
 from __future__ import annotations
 
@@ -18,12 +20,12 @@ from typing import Any, Tuple
 
 import torch
 
+from repro_torch.dist import sharding as SH
 from repro_torch.training.optimizer import f32, tree_leaves, tree_map
 
 
 def init_error_feedback(params) -> Any:
-    return tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                          device=p.device), params)
+    return tree_map(SH.zeros, params)
 
 
 def quantize_grad(g: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -40,6 +42,7 @@ def quantize_grad(g: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 def compress_grads(grads, ef):
     """(decoded grads, error feedback updated in place). Apply between
     accumulation and the optimizer update."""
+    @SH.whole
     def one(g, e):
         corrected = g.to(torch.float32) + e
         q, scale = quantize_grad(corrected)

@@ -9,6 +9,11 @@ reference's, op for op. Step-dependent scalars are f32 tensors on the
 params' device, and every division has a tensor divisor: on a CUDA
 tensor PyTorch turns a division by a Python scalar into a multiply by
 its reciprocal, which is not the true quotient.
+
+A tree may hold :class:`repro_torch.dist.sharding.Sharded` leaves (a
+param tree placed on a mesh): AdamW then updates each distinct shard
+once (``sharding.per_shard``) and syncs its replicas, the global norm
+counts each element once, and the step counter is replicated.
 """
 from __future__ import annotations
 
@@ -17,6 +22,8 @@ import math
 from typing import Any, Callable, Dict, Iterator, Tuple
 
 import torch
+
+from repro_torch.dist import sharding as SH
 
 
 # --------------------------------------------------------------------------
@@ -79,19 +86,31 @@ def schedule(cfg: OptConfig, step: torch.Tensor) -> torch.Tensor:
                                 0.1 + 0.9 * cos)
 
 
+def init_step(params):
+    """The step counter: an int32 zero on the params' (home) device,
+    replicated over their mesh when they are sharded."""
+    first = next(leaf for _, leaf in tree_leaves(params))
+    return SH.replicate(torch.zeros((), dtype=torch.int32,
+                                    device=first.device), first)
+
+
 def init_opt_state(params) -> Dict[str, Any]:
     def zeros(p):
-        return tree_map(lambda x: torch.zeros(x.shape, dtype=torch.float32,
-                                              device=x.device), p)
-    dev = next(leaf for _, leaf in tree_leaves(params)).device
+        return tree_map(SH.zeros, p)
     return {"m": zeros(params), "v": zeros(params),
-            "step": torch.zeros((), dtype=torch.int32, device=dev)}
+            "step": init_step(params)}
 
 
 def global_norm(tree) -> torch.Tensor:
-    total = 0
+    """sqrt of the sum of squares of every element, each once (a sharded
+    leaf's distinct shards, not its replicas), on the first leaf's
+    device."""
+    total, dev = 0, None
     for _, x in tree_leaves(tree):
-        total = total + torch.sum(torch.square(x.to(torch.float32)))
+        for s in SH.distinct(x):
+            part = torch.sum(torch.square(s.to(torch.float32)))
+            dev = part.device if dev is None else dev
+            total = total + part.to(dev)
     return torch.sqrt(total)
 
 
@@ -110,7 +129,7 @@ def clip_scale(gnorm: torch.Tensor, clip_norm: float) -> torch.Tensor:
 def adamw_update(params, grads, state, cfg: OptConfig):
     """One AdamW step, in place. Returns (params, state, {grad_norm,
     lr})."""
-    step = state["step"] + 1
+    step = SH.value(state["step"]) + 1
     lr = schedule(cfg, step)
     gnorm = global_norm(grads)
     scale = clip_scale(gnorm, cfg.clip_norm)
@@ -118,15 +137,19 @@ def adamw_update(params, grads, state, cfg: OptConfig):
     bc1 = 1 - torch.pow(f32(cfg.b1, stepf), stepf)
     bc2 = 1 - torch.pow(f32(cfg.b2, stepf), stepf)
 
+    @SH.per_shard
     def upd(path, p, g, m, v):
-        g = g.to(torch.float32) * scale
+        # the step scalars on this shard's device (a mesh's cards differ)
+        lr_, scale_, bc1_, bc2_ = (t.to(p.device)
+                                   for t in (lr, scale, bc1, bc2))
+        g = g.to(torch.float32) * scale_
         m.mul_(cfg.b1).add_(g * (1 - cfg.b1))
         v.mul_(cfg.b2).add_(g * (1 - cfg.b2) * g)
-        delta = (m / bc1) / (torch.sqrt(v / bc2) + cfg.eps)
+        delta = (m / bc1_) / (torch.sqrt(v / bc2_) + cfg.eps)
         if _is_matrix(path):
             delta = delta + cfg.weight_decay * p.to(torch.float32)
-        p.copy_((p.to(torch.float32) - lr * delta).to(p.dtype))
+        p.copy_((p.to(torch.float32) - lr_ * delta).to(p.dtype))
 
     tree_map(upd, params, grads, state["m"], state["v"], with_path=True)
-    state["step"] = step
+    state["step"] = SH.replicate(step, state["step"])
     return params, state, {"grad_norm": gnorm, "lr": lr}

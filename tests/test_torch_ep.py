@@ -11,7 +11,9 @@ counterpart of the reference's forced host device count.
   words;
 * the sharded ``moe_apply`` gives output bytes equal to one device at
   ep in {2, 4} (kernels off; bf16 and quantized ladder banks, with and
-  without capacity drops); a data axis > 1 and the TP layout raise;
+  without capacity drops); a (2, 2) mesh and the TP layout run the
+  reference's regimes (``test_torch_mesh_moe.py`` holds them against
+  the reference);
 * the reference's decode parity script, ported: prefill + 4 greedy decode
   steps of the smoke Mixtral give logits BYTES equal across ep in
   {1, 2, 4} on binary, mixed (16, 8, 4) and replanned plans, with the
@@ -170,19 +172,32 @@ def test_sharded_moe_apply_bytes_equal_one_device(ep, banks_kind,
 
 
 def test_sharded_moe_apply_refuses_what_serving_never_builds():
+    """The (2, 2) mesh and the TP layout, which the serving slice
+    refused, now run the reference's regimes: data x EP at top-2 gives
+    one device's bytes; token-gather and TP sum partial d_ff products,
+    so they agree within bf16 rounding. A bank that does not split
+    evenly still raises the reference's ValueError."""
     p, x = _moe_inputs(8)
     moe = MoEConfig(num_experts=E, top_k=2, d_ff_expert=F)
     weights, ids = tm.route(p["router"], x, moe)
     banks = tm.train_banks(p)
-    # a data axis > 1: the token-gather / ZeRO regime
-    with pytest.raises(NotImplementedError, match="later slice"):
-        tm.moe_apply(banks, x, weights, ids, moe,
-                     _par(make_test_mesh((2, 2), devices=cpus(4))))
+    want = tm.moe_apply(banks, x, weights, ids, moe)
+    mesh = make_test_mesh((2, 2), devices=cpus(4))
+    dxep = tm.moe_apply(banks, x, weights, ids, moe, tm.MoEParallelism(
+        mesh=mesh, dp_axes=("data",)))
+    assert torch.equal(dxep.view(torch.int16), want.view(torch.int16))
+    gathered = tm.moe_apply(banks, x, weights, ids, moe, _par(mesh))
+    bar = 2 ** -7 * float(want.float().abs().max())
+    assert float((gathered.float() - want.float()).abs().max()) <= bar
     # fewer experts than ranks: the TP regime
     small = MoEConfig(num_experts=2, top_k=1, d_ff_expert=F)
-    with pytest.raises(NotImplementedError, match="TP regime"):
-        tm.moe_apply(banks, x, weights, ids, small,
-                     _par(make_ep_mesh(4, devices=cpus(4))))
+    two = {"q4": None, "f16": {k: v[:2] for k, v in banks["f16"].items()}}
+    w2, i2 = tm.route(p["router"][:, :2], x, small)
+    one = tm.moe_apply(two, x, w2, i2, small)
+    tp = tm.moe_apply(two, x, w2, i2, small,
+                      _par(make_ep_mesh(4, devices=cpus(4))))
+    bar = 2 ** -7 * float(one.float().abs().max())
+    assert float((tp.float() - one.float()).abs().max()) <= bar
     # a bank that does not split evenly: the reference's ValueError
     bits = np.array([4, 4, 4, 16, 16, 16, 16, 16])       # 3 int4, 5 bf16
     odd, _ = tm.build_ladder_banks(p, bits, ladder=(16, 4), group_size=GROUP)

@@ -120,10 +120,15 @@ def test_port_resume_is_bit_equal_to_a_straight_run(tmp_path, capsys,
                            y.reshape(-1).view(torch.uint8)), k
 
 
-def test_mesh_raises_not_implemented():
-    with pytest.raises(NotImplementedError, match="--mesh"):
-        T.main(["--device", "cpu", "--arch", "smollm-360m", "--mesh",
-                "1,1"])
+def test_mesh_raises_not_implemented(capsys):
+    """``--mesh`` used to raise; now ``--mesh 1,1`` and ``--mesh 2,2``
+    on CPU device lists train and print their mesh."""
+    for mesh, devices in (("1,1", "cpu"), ("2,2", "cpu,cpu,cpu,cpu")):
+        T.main(["--device", devices, "--arch", "smollm-360m", "--mesh",
+                mesh, "--steps", "2", "--batch", "2", "--seq", "16"])
+        out = capsys.readouterr().out
+        assert f"mesh={mesh.replace(',', 'x')}" in out
+        assert len(re.findall(r"step +\d+ nll=[0-9.]+", out)) == 2, out
 
 
 def test_default_device_is_the_card(monkeypatch):

@@ -6,10 +6,15 @@ iterate on a phase without the whole script:
     python3 tools/chip_phases.py families families-train
     python3 tools/chip_phases.py ep
     python3 tools/chip_phases.py ep-cards      # on a host with 4 cards
+    python3 tools/chip_phases.py mesh
+    python3 tools/chip_phases.py mesh-cards    # on a host with 4 cards
 
 ``poisson``, ``ep`` (8) and ``ep-cards`` (8 with rank r on ``cuda:r``)
 first run the serve phase (3), whose params and point they drive; ``kimi`` is 7b, ``qwen3`` 7c, ``families`` 7d, ``families-train``
-7e and ``kimi-rows`` the kernel phase's B3 rows at Kimi-K2's widths. It
+7e and ``kimi-rows`` the kernel phase's B3 rows at Kimi-K2's widths;
+``mesh`` is 9 (sharded training and MoE over (data, model) meshes on
+repeated ``cuda:0``) and ``mesh-cards`` 9 with mesh position p on
+``cuda:(p % cards)``. It
 builds the kernels first, prints what the phases print, writes their
 records to ``--out`` and exits 1 if a phase failed. ``chip_smoke.py``
 stays the check of record: it runs every phase and prints the result
@@ -25,21 +30,22 @@ import traceback
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
-PHASES = ("poisson", "ep", "ep-cards", "kimi", "qwen3", "families", "families-train",
-          "kimi-rows")
+PHASES = ("poisson", "ep", "ep-cards", "kimi", "qwen3", "families",
+          "families-train", "kimi-rows", "mesh", "mesh-cards")
+CARDS = ("ep-cards", "mesh-cards")              # need several cards
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("phases", nargs="*", choices=PHASES,
                     help=f"phases to run (default: all of {PHASES} "
-                         "but ep-cards, which needs four cards)")
+                         f"but {CARDS}, which need four cards)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--out", default=str(ROOT / "chiprun_out"
                                          / "chip_phases.json"))
     args = ap.parse_args(argv)
-    phases = args.phases or [p for p in PHASES if p != "ep-cards"]
+    phases = args.phases or [p for p in PHASES if p not in CARDS]
     sys.path[:0] = [str(ROOT), str(ROOT / "src")]
     import numpy as np
     import torch
@@ -73,6 +79,10 @@ def main(argv=None) -> int:
         ctx["engine"].close()
         del ctx, served
         cs._release(torch)
+    if "mesh" in phases:
+        run("mesh", cs.phase_mesh, torch, np, args.seed, card)
+    if "mesh-cards" in phases:
+        run("mesh-cards", cs.phase_mesh, torch, np, args.seed, card, True)
     if "kimi" in phases:
         run("kimi", cs.phase_kimi, torch, np, args.seed, card)
     if "qwen3" in phases:
