@@ -207,6 +207,20 @@ Phases (each raises on failure, and the script then exits non-zero):
                --device cuda:0,cuda:0,cuda:0,cuda:0`` with a checkpoint,
                then ``--resume`` on ``--mesh 1,1``: the elastic restore's
                params bit-equal to the saved ones;
+ 10. roofline — full-width Mixtral-8x7B at the serve depth (2) on a (1, 1)
+               mesh of ``cuda:0`` with ``use_kernel=False`` (the dry run's
+               program, ``launch/dryrun.py`` ``build_cell``): a decode step
+               at batch 32 over a 4096-token cache, a prefill of 4 x 2048
+               tokens and an AdamW train step of 2 x 256 tokens, each
+               counted by ``roofline.op_count`` on the card and on
+               ``meta`` (op sequence, FLOPs, bytes and collectives must be
+               equal), timed on the host (median of 3) and by the
+               profiler (device busy), and held against its count's bound
+               max(FLOPs / 989e12, bytes / 3.35e12): bound / device time,
+               bound / wall, busy share; ``tools/chip_phases.py roofline``
+               also runs one dry-run cell (``run_cell``, Mixtral
+               ``decode_32k`` on the 256-position mesh of ``meta``) on the
+               card's host and prints its ``trace_s``;
   4. parity  — the smoke-size model's prefill + decode logits on the card
                (kernels) agree with the same model on the CPU (the
                kernels' plain versions);
@@ -2416,6 +2430,146 @@ def phase_mesh(torch, np, seed: int, card: str, distinct: bool = False):
 
 
 # --------------------------------------------------------------------------
+# phase 10: the roofline's anchor cell, op counts of whole steps
+# --------------------------------------------------------------------------
+
+#: the anchor's steps, (seq_len, global batch, kind): one decode step at
+#: batch 32 over a 4096-token cache, a prefill of 4 x 2048 tokens, and an
+#: AdamW train step of 2 x 256 tokens (two microbatches of one sequence)
+ROOFLINE_STEPS = {"decode": (4096, 32, "decode"),
+                  "prefill": (2048, 4, "prefill"),
+                  "train": (256, 2, "train")}
+ROOFLINE_REPS = 3                     # timed runs of each step
+DRY_CELL = ("mixtral-8x7b", "decode_32k", False)   # pod16x16
+
+
+def _anchor_cell(cfg, kind: str, mesh):
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.mesh import use_mesh
+    seq, batch, k = ROOFLINE_STEPS[kind]
+    with use_mesh(mesh):
+        return D.build_cell(cfg, ShapeConfig(kind, seq, batch, k), mesh)
+
+
+def _count_diff(real, meta) -> str:
+    rows = []
+    for name in sorted(set(real.by_op) | set(meta.by_op)):
+        a, b = real.by_op.get(name), meta.by_op.get(name)
+        if a != b:
+            rows.append(f"    {name}: card {a} meta {b}")
+    return "\n".join(rows[:20])
+
+
+def _roofline_step(torch, cfg, kind: str, card: str):
+    """One anchor step on a (1, 1) mesh of ``cuda:0``: its op count
+    against the same step's on ``meta``, its wall and device time, and the
+    share of the card its count's bound makes of them."""
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.mesh import make_test_mesh, use_mesh
+    mesh = make_test_mesh((1, 1), devices=["cuda:0"])
+    step, args = _anchor_cell(cfg, kind, mesh)
+    _peak_reset(torch)
+    with use_mesh(mesh):
+        out = step(*args)             # warm-up: cuBLAS handles, allocator
+        torch.cuda.synchronize()
+        del out
+        real, count_s = D.count_step(step, args, 1)
+        walls = []
+        for _ in range(ROOFLINE_REPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = step(*args)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            del out
+        prof = _profiler(torch)
+        with prof:
+            out = step(*args)
+            torch.cuda.synchronize()
+        del out
+    peak = _mem_gb(torch)[1]
+    del args, step
+    _release(torch)
+    meta_mesh = make_test_mesh((1, 1), devices=["meta"])
+    m_step, m_args = _anchor_cell(cfg, kind, meta_mesh)
+    with use_mesh(meta_mesh):
+        meta, meta_s = D.count_step(m_step, m_args, 1)
+    cost, m_cost = real.cost_summary(), meta.cost_summary()
+    same = (real.digest() == meta.digest() and cost == m_cost
+            and real.collective_summary() == meta.collective_summary())
+    if not same:
+        raise AssertionError(f"roofline {kind}: the card's op count differs "
+                             f"from meta's\n{_count_diff(real, meta)}")
+    wall_ms = sorted(walls)[len(walls) // 2] * 1e3
+    busy_ms = _profile_report(prof, wall_ms / 1e3)["busy_ms"]
+    bound_ms, bound_by = _bound_ms(cost["bytes_accessed"], cost["flops"])
+    seq, batch, _ = ROOFLINE_STEPS[kind]
+    rec = {"tokens": seq * batch if kind != "decode" else batch,
+           "flops": cost["flops"], "bytes": cost["bytes_accessed"],
+           "products": cost["dot_count"], "ops": sum(
+               v[0] for v in real.by_op.values()),
+           "digest": real.digest(), "meta_equal": same,
+           "wall_ms": [w * 1e3 for w in walls], "wall_ms_median": wall_ms,
+           "device_busy_ms": busy_ms, "bound_ms": bound_ms,
+           "bound_by": bound_by,
+           "bound_of_device": bound_ms / busy_ms if busy_ms else None,
+           "bound_of_wall": bound_ms / wall_ms,
+           "busy_share": busy_ms / wall_ms,
+           "counted_s": count_s, "meta_trace_s": meta_s, "peak_gb": peak,
+           "memory_meta": meta.memory()}
+    log(f"  10 {kind} ({batch} x {seq}) on {card}: {cost['flops']:.4e} "
+        f"FLOPs in {cost['dot_count']} products, {cost['bytes_accessed']:.4e}"
+        f" bytes over {rec['ops']} ops; card == meta: op sequence, FLOPs, "
+        f"bytes and collectives equal")
+    shares = (f"{rec['bound_of_device']:.1%} of device time, "
+              if busy_ms else "device time not measured (profiler saw none), ")
+    log(f"     wall {wall_ms:.3f} ms (median of {ROOFLINE_REPS}: "
+        f"{', '.join(f'{w * 1e3:.3f}' for w in walls)}), device busy "
+        f"{busy_ms:.3f} ms ({rec['busy_share']:.1%} of wall); bound "
+        f"{bound_ms:.3f} ms ({bound_by}): {shares}"
+        f"{rec['bound_of_wall']:.1%} of wall; peak {peak:.2f} GB; host "
+        f"{count_s:.2f} s counted on the card, {meta_s:.2f} s on meta")
+    return rec
+
+
+def phase_roofline(torch, np, seed: int, card: str):
+    """10: full-width Mixtral at the serve depth on a (1, 1) mesh of
+    ``cuda:0``, ``use_kernel=False`` (the dry run's program): decode,
+    prefill and train step counted by ``roofline.op_count`` on the card
+    and on ``meta``, timed, and held against their count's bound."""
+    from repro_torch.roofline.op_count import OpCounter
+    t0 = time.perf_counter()
+    cfg = serving_config()
+    log(f"roofline: {cfg.arch_id} depth {cfg.num_layers}, (1, 1) mesh of "
+        f"cuda:0, use_kernel=False")
+    with OpCounter(1):            # the dispatch mode's one-time imports
+        torch.ones(1, device="cuda:0").add(1)
+    out = {kind: _roofline_step(torch, cfg, kind, card)
+           for kind in ROOFLINE_STEPS}
+    out["seconds"] = time.perf_counter() - t0
+    log(f"  roofline: {out['seconds']:.1f} s")
+    return out
+
+
+def phase_dry_cell(torch):
+    """10: one dry-run cell through ``launch.dryrun.run_cell`` on the
+    card's host (meta tensors, the production mesh, no device work)."""
+    from repro_torch.launch import dryrun as D
+    arch, shape, multi_pod = DRY_CELL
+    rec = D.run_cell(arch, shape, multi_pod, save=False)
+    if not rec["ok"]:
+        raise AssertionError(f"dry run {arch} {shape}: {rec['error']}")
+    log(f"  10 dry run {arch} {shape} {rec['mesh']}: trace_s "
+        f"{rec['trace_s']} (host), build_s {rec['build_s']}, peak "
+        f"{rec['memory']['peak_per_device_gib']:.2f} GiB at position "
+        f"{rec['memory']['position']}, {rec['cost']['flops']:.4e} FLOPs at "
+        f"the busiest position, collectives "
+        f"{rec['collectives']['total_bytes']:.4e} B")
+    return rec
+
+
+# --------------------------------------------------------------------------
 # phase 7a: the paper's serving under load (Poisson arrivals, QoS loop)
 # --------------------------------------------------------------------------
 
@@ -4427,6 +4581,8 @@ def main(argv=None) -> int:
         for name in MESH_SERVE:
             paths[f"9c {name}"] = mesh["serve"][name]["path"]
     _release(torch)
+    roofline = run("roofline", phase_roofline, torch, np, args.seed, smi)
+    _release(torch)
     kimi = run("kimi", phase_kimi, torch, np, args.seed, smi) \
         if built else None
     if kimi is not None:
@@ -4463,7 +4619,8 @@ def main(argv=None) -> int:
     out.write_text(json.dumps({
         "nvidia_smi": smi, "device": torch.cuda.get_device_name(0),
         "build_s": build_s, "ptxas": ptxas, "serve": serve, "cli": cli,
-        "train": train, "mesh": mesh, "kimi": kimi, "qwen3": qwen3,
+        "train": train, "mesh": mesh, "roofline": roofline, "kimi": kimi,
+        "qwen3": qwen3,
         "families": families, "families_train": families_train,
         "parity_max_abs_diff": parity_err, "kernels": records,
         "kernel_shapes": extra, "failures": failures,

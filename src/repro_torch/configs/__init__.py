@@ -10,8 +10,8 @@ from __future__ import annotations
 import importlib
 
 from repro_torch.configs.base import (  # noqa: F401
-    AttentionConfig, ModelConfig, MoEConfig, MoPConfig, SSMConfig,
-    reduce_for_smoke,
+    AttentionConfig, ModelConfig, MoEConfig, MoPConfig, SHAPES, ShapeConfig,
+    SSMConfig, reduce_for_smoke, shape_applicable,
 )
 
 _MODULES = {
@@ -35,3 +35,16 @@ def get_config(arch_id: str) -> ModelConfig:
         raise KeyError(f"unknown arch {arch_id!r}; known: {sorted(_MODULES)}")
     mod = importlib.import_module(f"repro_torch.configs.{_MODULES[arch_id]}")
     return mod.CONFIG
+
+
+def all_cells():
+    """Every runnable (arch, shape) dry-run cell, in the reference's order
+    (``repro.configs.all_cells``): ``mixtral-mop`` is Mixtral's serving
+    variant, not an architecture of its own, so it has no cell."""
+    for arch in ARCH_IDS:
+        if arch == "mixtral-mop":
+            continue
+        cfg = get_config(arch)
+        for shape in SHAPES.values():
+            if shape_applicable(cfg, shape):
+                yield arch, shape.name

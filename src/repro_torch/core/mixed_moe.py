@@ -43,6 +43,7 @@ from repro_torch.configs.base import MoEConfig
 from repro_torch.core.quantization import QTensor, dequantize, quantize
 from repro_torch.dist import sharding as SH
 from repro_torch.kernels import ops
+from repro_torch.roofline import op_count as OC
 
 # --------------------------------------------------------------------------
 # Routing
@@ -96,7 +97,10 @@ def route(router_w: torch.Tensor, x: torch.Tensor, moe: MoEConfig, *,
                           probs.detach().cpu().numpy()))
     if aux is not None:
         e = moe.num_experts
-        dispatch = F.one_hot(ids, e).to(torch.float32).sum(1)     # (T,E)
+        # one-hot by comparison: F.one_hot checks the ids' range on the
+        # host, which a meta tensor cannot and the card does not do
+        dispatch = (ids[..., None] == torch.arange(e, device=ids.device)
+                    ).to(torch.float32).sum(1)                      # (T,E)
         lb = moe.load_balance_loss * e * torch.sum(
             dispatch.mean(0) * probs.mean(0))
         lse = torch.logsumexp(logits, dim=-1)
@@ -148,6 +152,15 @@ def _local_slot(flat_e, *, rank, totals, locs):
     return slot, ok
 
 
+def bucket_starts(sorted_e: torch.Tensor, n: int) -> torch.Tensor:
+    """The first index of each value ``0..n-1`` in the sorted ids
+    ``sorted_e``: ``cumsum(bincount(sorted_e, minlength=n)) - bincount``,
+    exact integers, with a shape that does not depend on the data (the
+    length of ``bincount``'s output does, so it has no ``meta`` kernel)."""
+    return torch.searchsorted(sorted_e, torch.arange(
+        n, dtype=sorted_e.dtype, device=sorted_e.device))
+
+
 def _dispatch_local(x, ids, weights, *, rank, totals, locs, capacity):
     """Pack routed tokens into (e_loc, capacity, d); returns buffers +
     metadata needed for the combine. Dropped assignments (over capacity,
@@ -164,8 +177,7 @@ def _dispatch_local(x, ids, weights, *, rank, totals, locs, capacity):
     key = torch.where(is_local, local_e, torch.full_like(local_e, e_loc))
     order = torch.argsort(key, stable=True)                   # (T*k,)
     sorted_e = key[order]
-    counts = torch.bincount(sorted_e, minlength=e_loc + 1)
-    starts = torch.cumsum(counts, 0) - counts
+    starts = bucket_starts(sorted_e, e_loc + 1)
     pos = torch.arange(t * k, device=x.device) - starts[sorted_e]
     valid = (sorted_e < e_loc) & (pos < capacity)
     drop = e_loc * capacity
@@ -431,6 +443,20 @@ def _take_rows(a: torch.Tensor, rows) -> torch.Tensor:
     return torch.cat([a[r] for r in rows]) if len(rows) > 1 else a[rows[0]]
 
 
+def _row_bytes(shape, dtype: torch.dtype, rows) -> Dict[int, int]:
+    """Bytes of the rows ``rows[p]`` of a tensor of ``shape`` and ``dtype``
+    that position ``p`` holds."""
+    per_row = math.prod(shape[1:]) * dtype.itemsize
+    return {p: per_row * sum(sl.stop - sl.start for sl in r)
+            for p, r in enumerate(rows)}
+
+
+def _book_scatter(a: torch.Tensor, rows) -> None:
+    """Book the home device (position 0) sending each position its rows."""
+    got = _row_bytes(a.shape, a.dtype, rows)
+    OC.collective("scatter", got, {0: sum(got.values())})
+
+
 class _Spread(torch.autograd.Function):
     """Copies of row slices of ``x`` on the mesh positions' devices:
     output p holds ``x``'s rows ``rows[p]`` on ``devices[p]``. The
@@ -441,23 +467,32 @@ class _Spread(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, rows, devices):
         ctx.rows, ctx.meta = rows, (x.shape, x.dtype, x.device)
-        return tuple(_take_rows(x, r).to(dev, copy=True)
-                     for r, dev in zip(rows, devices))
+        if OC.counting():
+            _book_scatter(x, rows)
+        out = []
+        for p, (r, dev) in enumerate(zip(rows, devices)):
+            with OC.at_position(p):
+                out.append(_take_rows(x, r).to(dev, copy=True))
+        return tuple(out)
 
     @staticmethod
     def backward(ctx, *grads):
         shape, dtype, device = ctx.meta
-        acc = torch.zeros(shape, dtype=torch.float32, device=device)
-        for r, g in zip(ctx.rows, grads):
-            if g is None:
-                continue
-            g = g.to(device, torch.float32)
-            off = 0
-            for sl in r:
-                n = sl.stop - sl.start
-                acc[sl] += g[off:off + n]
-                off += n
-        return acc.to(dtype), None, None
+        if OC.counting():
+            OC.collective("reduce", {0: math.prod(shape) * dtype.itemsize},
+                          _row_bytes(shape, dtype, ctx.rows))
+        with OC.at_position(0):
+            acc = torch.zeros(shape, dtype=torch.float32, device=device)
+            for r, g in zip(ctx.rows, grads):
+                if g is None:
+                    continue
+                g = g.to(device, torch.float32)
+                off = 0
+                for sl in r:
+                    n = sl.stop - sl.start
+                    acc[sl] += g[off:off + n]
+                    off += n
+            return acc.to(dtype), None, None
 
 
 def _sum_f32(parts, device) -> torch.Tensor:
@@ -609,6 +644,8 @@ def moe_apply(banks, x: torch.Tensor, weights: torch.Tensor,
             if fsdp else [tokens(dp_index(at[p]))] for p in range(len(at))]
     xs = _Spread.apply(x, rows, mesh.devices)
     ws = _Spread.apply(weights, rows, mesh.devices)
+    if OC.counting():
+        _book_scatter(ids, rows)
     y = []
     for p, dev in enumerate(mesh.devices):
         c = at[p]
@@ -618,7 +655,7 @@ def moe_apply(banks, x: torch.Tensor, weights: torch.Tensor,
             bank = {k: None if b is None else
                     b.get(DFF) or _dff_slice(b, c[par.fsdp_axis], fs)
                     for k, b in bank.items()}
-        with _on(dev):
+        with _on(dev), OC.at_position(p):
             y.append(_local_fn(p, bank, xs[p], ws[p],
                                _take_rows(ids, rows[p]).to(dev),
                                rank=j if ep else 0, totals=totals,
@@ -633,15 +670,28 @@ def moe_apply(banks, x: torch.Tensor, weights: torch.Tensor,
         for p, dev in enumerate(mesh.devices):
             blk = slice(at[p][par.fsdp_axis] * t_loc,
                         (at[p][par.fsdp_axis] + 1) * t_loc)
-            z.append(_sum_f32([y[q][blk] for q in peers(p, par.fsdp_axis)],
-                              dev))
+            with OC.at_position(p):
+                z.append(_sum_f32([y[q][blk]
+                                   for q in peers(p, par.fsdp_axis)], dev))
+        if OC.counting():
+            OC.collective("reduce-scatter",
+                          {p: OC.nbytes(v) for p, v in enumerate(z)},
+                          {p: OC.nbytes(v) for p, v in enumerate(y)})
     # psum over the model axis, read at the first position of each data
     # rank; the data ranks' outputs concatenated in order
     first = {}
     for p in range(len(at)):
         first.setdefault(dp_index(at[p]), p)
-    outs = [_sum_f32([z[q] for q in peers(first[i], par.ep_axis)],
-                     x.device) for i in range(n_dp)]
+    with OC.at_position(0):
+        outs = [_sum_f32([z[q] for q in peers(first[i], par.ep_axis)],
+                         x.device) for i in range(n_dp)]
+    if OC.counting():
+        sent: Dict[int, int] = {}
+        for i in range(n_dp):
+            for q in peers(first[i], par.ep_axis):
+                sent[q] = sent.get(q, 0) + OC.nbytes(z[q])
+        OC.collective("all-reduce", {0: sum(OC.nbytes(o) for o in outs)},
+                      sent)
     return outs[0] if n_dp == 1 else torch.cat(outs)
 
 

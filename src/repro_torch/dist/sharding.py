@@ -44,6 +44,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.quantization import QTensor
+from repro_torch.roofline import op_count as OC
 
 MODEL_AXIS = "model"
 
@@ -137,6 +138,28 @@ def activation_constraints(cfg, mesh, dp_axes: Tuple[str, ...],
         yield
     finally:
         _ACTIVE.rules, _ACTIVE.mesh = prev
+
+
+def under_current_rules(fn):
+    """``fn`` run, wherever and whenever it is called, under the
+    activation rules and the mesh active now. A remat recompute runs in
+    the backward: after the forward's ``activation_constraints`` closed,
+    and on the card in autograd's own thread, where this thread's rules
+    are not set; it must choose the attention spelling the forward
+    chose."""
+    state = (getattr(_ACTIVE, "rules", None), getattr(_ACTIVE, "mesh", None))
+
+    @functools.wraps(fn)
+    def run(*args, **kwargs):
+        prev = (getattr(_ACTIVE, "rules", None),
+                getattr(_ACTIVE, "mesh", None))
+        _ACTIVE.rules, _ACTIVE.mesh = state
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            _ACTIVE.rules, _ACTIVE.mesh = prev
+
+    return run
 
 
 def _effective_spec(spec: P, mesh) -> Optional[P]:
@@ -396,7 +419,12 @@ class Sharded:
                       for k in range(lay.counts[dim])]
             return pieces[0] if len(pieces) == 1 else torch.cat(pieces, dim)
 
-        return build((), 0)
+        with OC.at_position(0):          # the gather lands on the home
+            out = build((), 0)
+        if OC.counting() and len(lay.groups) > 1:
+            _book_gather(out, {pos[0]: OC.nbytes(self.shards[pos[0]])
+                               for _, pos in lay.groups})
+        return out
 
     @torch.no_grad()
     def assign(self, value: torch.Tensor) -> None:
@@ -421,6 +449,17 @@ class Sharded:
                 f"spec={self.spec}, mesh={self.mesh.shape})")
 
 
+def _book_gather(out: torch.Tensor, blocks: Dict[int, int]) -> None:
+    """Book an all-gather of the representatives' ``blocks`` (position ->
+    bytes) into ``out`` at the home (position 0), and, when ``out`` takes a
+    gradient, the scatter of its blocks' gradients back to them."""
+    whole_b = OC.nbytes(out)
+    OC.collective("all-gather", {0: whole_b}, blocks)
+    if out.requires_grad:
+        out.register_hook(
+            lambda g: OC.collective("scatter", blocks, {0: whole_b}))
+
+
 def shard(x, placement: Placement) -> Sharded:
     """``jax.device_put(x, NamedSharding)``: each position's block of
     ``x`` (a tensor anywhere, or a :class:`Sharded` to reshard) copied to
@@ -429,8 +468,10 @@ def shard(x, placement: Placement) -> Sharded:
         x = x.full()
     x = x.detach()
     lay = _layout(placement, tuple(x.shape))
-    shards = [_copy_to(x[lay.block(x.shape, idx)], dev)
-              for idx, dev in zip(lay.index, placement.mesh.devices)]
+    shards = []
+    for p, (idx, dev) in enumerate(zip(lay.index, placement.mesh.devices)):
+        with OC.at_position(p):
+            shards.append(_copy_to(x[lay.block(x.shape, idx)], dev))
     return Sharded(placement, x.shape, shards)
 
 
@@ -491,9 +532,11 @@ def replicate(v: torch.Tensor, like):
     if not isinstance(like, Sharded):
         return v
     devs = like.mesh.devices
-    return Sharded(Placement(like.mesh, P()), v.shape,
-                   [v if i == 0 else _copy_to(v, d)
-                    for i, d in enumerate(devs)])
+    shards = [v]
+    for i, d in enumerate(devs[1:], 1):
+        with OC.at_position(i):
+            shards.append(_copy_to(v, d))
+    return Sharded(Placement(like.mesh, P()), v.shape, shards)
 
 
 def zeros(x, dtype: torch.dtype = torch.float32, drop: Optional[int] = None):
@@ -510,10 +553,13 @@ def zeros(x, dtype: torch.dtype = torch.float32, drop: Optional[int] = None):
         spec = spec[:drop] + spec[drop + 1:]
     placement = Placement(x.mesh, P(*spec))
     lay = _layout(placement, shape)
-    return Sharded(placement, shape, [
-        torch.zeros(tuple(s.stop - s.start for s in lay.block(shape, idx)),
-                    dtype=dtype, device=dev)
-        for idx, dev in zip(lay.index, x.mesh.devices)])
+    shards = []
+    for p, (idx, dev) in enumerate(zip(lay.index, x.mesh.devices)):
+        with OC.at_position(p):
+            shards.append(torch.zeros(
+                tuple(s.stop - s.start for s in lay.block(shape, idx)),
+                dtype=dtype, device=dev))
+    return Sharded(placement, shape, shards)
 
 
 def per_shard(fn):
@@ -533,8 +579,11 @@ def per_shard(fn):
         groups = first.layout.groups
         seen = [[a.shards[pos[0]]._version for _, pos in groups]
                 for a in sh]
-        outs = [fn(*(a.shards[pos[0]] if isinstance(a, Sharded) else a
-                     for a in args)) for _, pos in groups]
+        outs = []
+        for _, pos in groups:
+            with OC.at_position(pos[0]):
+                outs.append(fn(*(a.shards[pos[0]] if isinstance(a, Sharded)
+                                 else a for a in args)))
         for a, vers in zip(sh, seen):
             if any(a.shards[pos[0]]._version != v
                    for (_, pos), v in zip(groups, vers)):
@@ -546,7 +595,8 @@ def per_shard(fn):
         for out, (_, pos) in zip(outs, groups):
             shards[pos[0]] = out
             for p in pos[1:]:
-                shards[p] = _copy_to(out, devs[p])
+                with OC.at_position(p):
+                    shards[p] = _copy_to(out, devs[p])
         return Sharded(first.placement, first.shape, shards)
     return apply
 
@@ -591,20 +641,29 @@ def sum_replicas(x: Sharded) -> Sharded:
     gives on XLA:CPU), at every position of the group."""
     devs = x.mesh.devices
     shards = [None] * len(x.shards)
+    moved: Dict[int, int] = {}
     for _, pos in x.layout.groups:
-        parts = [x.shards[p] for p in pos if x.shards[p] is not None]
-        if not parts:
+        held = [p for p in pos if x.shards[p] is not None]
+        if not held:
             raise ValueError("sum_replicas: no position holds a value")
-        if len(parts) == 1:
-            out = parts[0]
-        else:
-            dev = parts[0].device
-            acc = parts[0].to(torch.float32)
-            for t in parts[1:]:
-                acc = acc + t.to(dev, torch.float32)
-            out = acc.to(parts[0].dtype)
+        parts = [x.shards[p] for p in held]
+        with OC.at_position(held[0]):
+            if len(parts) == 1:
+                out = parts[0]
+            else:
+                dev = parts[0].device
+                acc = parts[0].to(torch.float32)
+                for t in parts[1:]:
+                    acc = acc + t.to(dev, torch.float32)
+                out = acc.to(parts[0].dtype)
         for p in pos:
-            shards[p] = out if devs[p] == out.device else out.to(devs[p])
+            with OC.at_position(p):
+                shards[p] = out if devs[p] == out.device \
+                    else out.to(devs[p])
+        if len(pos) > 1:
+            moved.update(dict.fromkeys(pos, OC.nbytes(out)))
+    if moved:                  # each replica group's all-reduce, booked once
+        OC.collective("all-reduce", moved, moved)
     return Sharded(x.placement, x.shape, shards)
 
 

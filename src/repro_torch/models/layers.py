@@ -292,7 +292,9 @@ class _Embed(torch.autograd.Function):
     def backward(ctx, grad):
         ids, = ctx.saved_tensors
         grad = grad.reshape(-1, grad.shape[-1])
-        onehot = F.one_hot(ids.reshape(-1).long(), ctx.rows).to(grad.dtype)
+        flat = ids.reshape(-1)
+        onehot = (flat[:, None] == torch.arange(
+            ctx.rows, device=flat.device)).to(grad.dtype)
         return onehot.t() @ grad, None
 
 

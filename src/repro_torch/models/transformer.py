@@ -26,6 +26,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import mixed_moe
 from repro_torch.core.quantization import QTensor
+from repro_torch.dist import sharding as SH
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as S
 
@@ -147,18 +148,25 @@ def _maybe_remat(fn, cfg: ModelConfig):
     """``cfg.remat`` as activation checkpointing of a block while a graph
     is recorded: "full" recomputes the whole block in the backward
     (``jax.checkpoint``), "dots" saves the matmul outputs and recomputes
-    the rest (``jax.checkpoint_policies.checkpoint_dots``)."""
+    the rest (``jax.checkpoint_policies.checkpoint_dots``). The recompute
+    runs under the activation rules of the forward that recorded it
+    (``dist.sharding.under_current_rules``). The blocks draw no random
+    numbers, so it keeps no RNG state (saving and restoring it would copy
+    the card's generator state on the host in every backward)."""
     if cfg.remat == "none" or not torch.is_grad_enabled():
         return fn
     from torch.utils import checkpoint as ckpt
+    fn = SH.under_current_rules(fn)
     if cfg.remat == "full":
-        return functools.partial(ckpt.checkpoint, fn, use_reentrant=False)
+        return functools.partial(ckpt.checkpoint, fn, use_reentrant=False,
+                                 preserve_rng_state=False)
     if cfg.remat == "dots":
         aten = torch.ops.aten
         dots = [aten.mm.default, aten.bmm.default, aten.addmm.default,
                 aten.baddbmm.default]
         return functools.partial(
             ckpt.checkpoint, fn, use_reentrant=False,
+            preserve_rng_state=False,
             context_fn=functools.partial(
                 ckpt.create_selective_checkpoint_contexts, dots))
     raise ValueError(f"unknown remat policy {cfg.remat!r}")
@@ -230,10 +238,16 @@ def decoder_forward(params, cfg: ModelConfig, x, positions, *,
 
 def _write_layer(caches, li: int, new) -> None:
     """Copy a layer's new cache entries into row ``li`` of the stacked
-    ``caches`` (a decode write that already went in place is skipped)."""
+    ``caches`` (a decode write that already went in place is skipped: the
+    same storage at the same offset, which holds on ``meta`` tensors too,
+    whose ``data_ptr`` is always 0)."""
     for k, v in new.items():
-        if v is not None and caches[k][li].data_ptr() != v.data_ptr():
-            caches[k][li].copy_(v)
+        if v is None:
+            continue
+        row = caches[k][li]
+        if v.untyped_storage()._cdata != row.untyped_storage()._cdata \
+                or v.storage_offset() != row.storage_offset():
+            row.copy_(v)
 
 
 # ---------------------------------------------------------------------------

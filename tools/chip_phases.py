@@ -8,13 +8,17 @@ iterate on a phase without the whole script:
     python3 tools/chip_phases.py ep-cards      # on a host with 4 cards
     python3 tools/chip_phases.py mesh
     python3 tools/chip_phases.py mesh-cards    # on a host with 4 cards
+    python3 tools/chip_phases.py roofline
 
 ``poisson``, ``ep`` (8) and ``ep-cards`` (8 with rank r on ``cuda:r``)
 first run the serve phase (3), whose params and point they drive; ``kimi`` is 7b, ``qwen3`` 7c, ``families`` 7d, ``families-train``
 7e and ``kimi-rows`` the kernel phase's B3 rows at Kimi-K2's widths;
 ``mesh`` is 9 (sharded training and MoE over (data, model) meshes on
 repeated ``cuda:0``) and ``mesh-cards`` 9 with mesh position p on
-``cuda:(p % cards)``. It
+``cuda:(p % cards)``; ``roofline`` is 10 (the anchor steps' op counts on
+the card and on ``meta``, their times and shares of the bound) followed
+by one dry-run cell on the card's host (``run_cell``, Mixtral
+``decode_32k`` over the 256-position mesh of ``meta``). It
 builds the kernels first, prints what the phases print, writes their
 records to ``--out`` and exits 1 if a phase failed. ``chip_smoke.py``
 stays the check of record: it runs every phase and prints the result
@@ -31,7 +35,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 PHASES = ("poisson", "ep", "ep-cards", "kimi", "qwen3", "families",
-          "families-train", "kimi-rows", "mesh", "mesh-cards")
+          "families-train", "kimi-rows", "mesh", "mesh-cards", "roofline")
 CARDS = ("ep-cards", "mesh-cards")              # need several cards
 
 
@@ -83,6 +87,9 @@ def main(argv=None) -> int:
         run("mesh", cs.phase_mesh, torch, np, args.seed, card)
     if "mesh-cards" in phases:
         run("mesh-cards", cs.phase_mesh, torch, np, args.seed, card, True)
+    if "roofline" in phases:
+        run("roofline", cs.phase_roofline, torch, np, args.seed, card)
+        run("dry cell", cs.phase_dry_cell, torch)
     if "kimi" in phases:
         run("kimi", cs.phase_kimi, torch, np, args.seed, card)
     if "qwen3" in phases:
