@@ -189,20 +189,25 @@ Phases (each raises on failure, and the script then exits non-zero):
                does not split d_ff (data x EP), within 2e-2 of max |y|
                where it does, every kernel launch held against its plain
                version and booked per position (kernel, G, C x K x N);
-     9b. train — full-width Mixtral, depth 32 -> 1, on (2, 2): AdamW, 2
-               microbatches, 3 steps of 4 x 128 from seeded params, twice
-               (params and moments bit-equal), every shard's shape from
-               ``param_specs``/``opt_state_specs``, replicas equal after
-               every step, each step's nll within 1e-2 of the one-device
-               step's; one Adafactor and one int8 + Adafactor step; step
-               ms, tokens/s, peak GB;
+     9b. train — full-width Mixtral, depth 32 -> 1, on (2, 2), the dense
+               compute split over the mesh: AdamW, 2 microbatches, 3 steps
+               of 4 x 128 from seeded params, twice (params and moments
+               bit-equal), every shard's shape from ``param_specs``/
+               ``opt_state_specs``, replicas equal after every step, each
+               step's nll within 1e-2 of the one-device step's and of one
+               device's at the mesh's params, the first step's grad norm
+               within 1e-2 of one device's; one Adafactor and one int8 +
+               Adafactor step; step ms, tokens/s, peak GB;
      9c. serve — ``build_model(cfg, mesh)`` on ``apply_precision_plan(...,
                mesh=)`` (int4 4, int8 2, bf16 2 per layer) at depth 2 on
-               (2, 2) (token-gather) and (1, 16) (TP): prefill of 2 x 8 + 4
-               decode steps with the kernels on, fed the one-device run's
-               greedy tokens: logits within 2e-2 of max |logit|, greedy
-               ids equal wherever one device's top-2 margin is firm;
-               launches per position, ms per decode step, peak GB;
+               (2, 2) (token-gather, the dense compute split) and (1, 16)
+               (TP, pure-EP serving rules: the dense compute whole): prefill
+               of 2 x 8 + 4 decode steps with the kernels on, fed the
+               one-device run's greedy tokens: logits within 2e-2 of max
+               |logit|, greedy ids equal wherever one device's top-2 margin
+               is firm; launches per position, ms per decode step, peak GB,
+               and one more decode step counted by ``roofline.op_count``
+               (per-position GB and FLOPs);
      9d. cli   — ``repro_torch.launch.train.main`` at ``--smoke --mesh 2,2
                --device cuda:0,cuda:0,cuda:0,cuda:0`` with a checkpoint,
                then ``--resume`` on ``--mesh 1,1``: the elastic restore's
@@ -217,10 +222,14 @@ Phases (each raises on failure, and the script then exits non-zero):
                equal), timed on the host (median of 3) and by the
                profiler (device busy), and held against its count's bound
                max(FLOPs / 989e12, bytes / 3.35e12): bound / device time,
-               bound / wall, busy share; ``tools/chip_phases.py roofline``
-               also runs one dry-run cell (``run_cell``, Mixtral
-               ``decode_32k`` on the 256-position mesh of ``meta``) on the
-               card's host and prints its ``trace_s``;
+               bound / wall, busy share; then the decode step on a (2, 2)
+               mesh of repeated ``cuda:0``, the dense compute split,
+               counted on the card and on ``meta`` (equal op sequence,
+               FLOPs, bytes and collectives), with each position's FLOPs
+               and GiB; ``tools/chip_phases.py dry-cell`` runs one dry-run
+               cell (``run_cell``, Mixtral ``decode_32k`` on the
+               256-position mesh of ``meta``) on the card's host and
+               prints its ``trace_s``;
   4. parity  — the smoke-size model's prefill + decode logits on the card
                (kernels) agree with the same model on the CPU (the
                kernels' plain versions);
@@ -2179,7 +2188,9 @@ def _mesh_train(torch, np, seed: int, card: str, distinct: bool):
     mesh = make_test_mesh((2, 2), devices=_mesh_devices(4, distinct))
     model = build_model(cfg, mesh)
     step = make_train_step(model.loss_fn, tcfg)
-    runs, first = {}, None
+    whole_loss = build_model(cfg).loss_fn
+    from repro_torch.launch.train import batch_to
+    runs, first, same_params = {}, None, []
     for run in (1, 2):
         _peak_reset(torch)
         params = init_params(cfg, seed, device="cuda")
@@ -2191,6 +2202,18 @@ def _mesh_train(torch, np, seed: int, card: str, distinct: bool):
             state, opt_state_specs(specs, tcfg, sp), "AdamW state")
         recs = []
         for i, b in enumerate(batches[:3]):
+            if run == 2:        # one device's nll at the mesh's params,
+                # over the step's microbatches (the MoE capacity counts a
+                # microbatch's tokens)
+                whole, n = SH.gather(sp, "cuda:0"), tcfg.num_microbatches
+                with torch.no_grad():
+                    nll = torch.stack([whole_loss(whole, {
+                        k: v.reshape((n, -1) + v.shape[1:])[i]
+                        for k, v in batch_to(b, "cuda").items()})[1]["nll"]
+                        for i in range(n)]).mean()
+                same_params.append(float(nll))
+                del whole
+                _release(torch)
             sp, state, rec = _train_steps(torch, step, sp, state, [b],
                                           f"9b mesh 2x2 run {run}", card, i)
             _replicas_equal(torch, sp, f"params after step {i}")
@@ -2208,14 +2231,25 @@ def _mesh_train(torch, np, seed: int, card: str, distinct: bool):
             raise AssertionError("9b: two identical mesh runs differ")
         del leaves
     del first
+    # each step's nll within 1e-2 of one device's own run (the
+    # trajectory: a wrong update on the mesh moves it), of one device's
+    # at the mesh's params (the forward), and the first step's gradient
+    # norm within 1e-2 of one device's (the backward)
     gaps = [abs(a["nll"] - b["nll"]) for a, b in zip(runs[2], one)]
-    if max(gaps) > 1e-2:
+    held = [abs(a["nll"] - b) for a, b in zip(runs[2], same_params)]
+    g0 = abs(runs[2][0]["grad_norm"] - one[0]["grad_norm"]) \
+        / one[0]["grad_norm"]
+    if max(gaps) > 1e-2 or max(held) > 1e-2 or g0 > 1e-2:
         raise AssertionError(f"9b: mesh nll {[r['nll'] for r in runs[2]]} "
-                             f"vs one device {[r['nll'] for r in one]}")
+                             f"vs one device {[r['nll'] for r in one]}, "
+                             f"at the mesh's params {same_params}; first "
+                             f"grad norm gap {g0:.3e}")
     log(f"  9b: {n_shards} shards placed by param_specs/opt_state_specs; "
         f"replicas equal after every step; params, moments and step of the "
-        f"two runs bit-equal; nll gaps to one device "
-        f"{[float('%.3e' % g) for g in gaps]} (bar 1e-2)")
+        f"two runs bit-equal; nll gaps to one device's own steps "
+        f"{[float('%.3e' % g) for g in gaps]}, to one device at the mesh's "
+        f"params {[float('%.3e' % g) for g in held]}, first grad norm "
+        f"{g0:.3e} of one device's (bar 1e-2 each)")
     del state
     _release(torch)
     af = _train_config(torch, "adafactor")
@@ -2235,7 +2269,8 @@ def _mesh_train(torch, np, seed: int, card: str, distinct: bool):
     del sp, q8_state
     _release(torch)
     return {"one_device": one, "mesh_run1": runs[1], "mesh": runs[2],
-            "nll_gaps": gaps, "shards_checked": n_shards,
+            "nll_gaps": gaps, "nll_gaps_same_params": held,
+            "grad_norm_gap": g0, "shards_checked": n_shards,
             "adafactor": af_recs, "int8": q8_recs,
             "step_ms": [r["ms"] for r in runs[2]],
             "tokens_per_s": [r["tokens_per_s"] for r in runs[2]],
@@ -2245,24 +2280,49 @@ def _mesh_train(torch, np, seed: int, card: str, distinct: bool):
 def _mesh_decode(torch, cfg, params, mesh, tokens, feed=None):
     """``Model.prefill`` of ``tokens`` (B, S) and 4 decode steps with the
     kernels on, fed ``feed`` (the one-device run's greedy tokens) or its
-    own: the logits of each forward (f32, host), the tokens fed and the
-    decode steps' ms."""
+    own: the logits of each forward (f32, host; a split run's sharded
+    logits gathered in rank order), the tokens fed, the decode steps' ms
+    and, on a mesh, one more decode step counted by ``roofline.op_count``
+    (its per-position argument + peak live GB, and whether it ran
+    split)."""
+    from repro_torch.dist import sharding as SH
     from repro_torch.models.model import build_model
+    from repro_torch.roofline.op_count import OpCounter
+
+    def whole(lg):
+        return lg.full() if isinstance(lg, SH.Sharded) else lg
+
     model = build_model(cfg, mesh, use_kernel=True)
     cache = model.init_cache(tokens.shape[0], 24, device="cuda")
     logits, cache = model.prefill(params, {"tokens": tokens}, cache)
-    out, fed = [logits.float().cpu()], []
+    out, fed = [whole(logits).float().cpu()], []
     pos = torch.full((tokens.shape[0],), tokens.shape[1], device="cuda")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for step in range(MESH_FORWARDS - 1):
-        cur = logits.argmax(-1)[:, None] if feed is None else feed[step]
+        cur = whole(logits).argmax(-1)[:, None] if feed is None \
+            else feed[step]
         fed.append(cur)
         logits, cache = model.decode_step(params, cache, cur, pos + step)
-        out.append(logits.float().cpu())
+        out.append(whole(logits).float().cpu())
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3 / (MESH_FORWARDS - 1)
-    return torch.stack(out), fed, ms
+    counted = None
+    if mesh is not None:
+        n = len(mesh.devices)
+        args = (params, cache, fed[-1], pos + MESH_FORWARDS - 1)
+        with OpCounter(n) as c:
+            c.place(args)
+            lg, _ = model.decode_step(*args)
+            torch.cuda.synchronize()
+            c.outputs(lg)
+        counted = {"split": isinstance(lg, SH.Sharded),
+                   "per_position_gb": [g * 2**30 / 1e9 for g in
+                                       c.memory()["per_position_gib"]],
+                   "per_position_flops": c.cost_summary()[
+                       "per_position"]["flops"],
+                   "collectives": c.collective_summary()}
+    return torch.stack(out), fed, ms, counted
 
 
 def _mesh_serve(torch, np, seed: int, distinct: bool):
@@ -2274,6 +2334,7 @@ def _mesh_serve(torch, np, seed: int, distinct: bool):
     exceeds twice the gap; launches per position; ms per decode step."""
     from repro_torch.core import mixed_moe as mm
     from repro_torch.core.precision_plan import balanced_ladder_plan
+    from repro_torch.dist import sharding as SH
     from repro_torch.kernels import ops
     from repro_torch.launch.mesh import make_test_mesh
     from repro_torch.models.model import apply_precision_plan, init_params
@@ -2287,7 +2348,7 @@ def _mesh_serve(torch, np, seed: int, distinct: bool):
     tok = torch.from_numpy(np.random.default_rng(seed).integers(
         1, cfg.vocab_size, (2, 8))).to("cuda")
     sp = apply_precision_plan(params, cfg, plan)
-    want, feed, ms1 = _mesh_decode(torch, cfg, sp, None, tok)
+    want, feed, ms1, _ = _mesh_decode(torch, cfg, sp, None, tok)
     del sp
     _release(torch)
     top2 = want.topk(2, dim=-1).values
@@ -2311,7 +2372,12 @@ def _mesh_serve(torch, np, seed: int, distinct: bool):
                                      f"{got_regime}, not {regime}")
         ops.reset_launches()
         with _PositionLaunches() as book:
-            got, _, ms = _mesh_decode(torch, cfg, placed, mesh, tok, feed)
+            got, _, ms, counted = _mesh_decode(torch, cfg, placed, mesh, tok,
+                                               feed)
+        if counted["split"] != SH.splits_dense(cfg, mesh):
+            raise AssertionError(f"9c {name}: split {counted['split']}, "
+                                 f"the serving rules say "
+                                 f"{SH.splits_dense(cfg, mesh)}")
         launches = dict(ops.LAUNCHES)
         _, peak = _mem_gb(torch)
         del placed
@@ -2329,18 +2395,25 @@ def _mesh_serve(torch, np, seed: int, distinct: bool):
                "logits_gap": gap, "max_logit": scale,
                "greedy_equal": bool(same.all()),
                "ms_per_decode_step": ms, "peak_gb": peak,
+               "split": counted["split"],
+               "per_position_gb": counted["per_position_gb"],
+               "per_position_flops": counted["per_position_flops"],
                "launches_by_position": book.table(),
                # the prefill and each decode step launch alike, so a
                # decode iteration's launches are the run's over its
-               # forwards
+               # forwards (the counted decode step is one more)
                "path": _path_record(torch, f"9c {name}", launches, {
-                   k: v / MESH_FORWARDS for k, v in launches.items()})}
+                   k: v / (MESH_FORWARDS + 1) for k, v in launches.items()})}
         log(f"  9c {name} ({regime}): shards placed in {place_s:.2f} s; "
             f"prefill 2x8 + 4 decode steps, logits within {gap:.3e} of one "
             f"device's (max |logit| {scale:.3f}), greedy ids "
             f"{'equal' if rec['greedy_equal'] else 'equal where firm'}; "
             f"{ms:.2f} ms per decode step (one device {ms1:.2f}); peak "
             f"{peak:.2f} GB")
+        log(f"    {'split' if rec['split'] else 'whole'} dense compute; one "
+            f"decode step counted on the card: per-position GB (arguments "
+            f"+ peak live) {[round(g, 3) for g in rec['per_position_gb']]},"
+            f" FLOPs {[f'{f:.3e}' for f in rec['per_position_flops']]}")
         for p, b in rec["launches_by_position"].items():
             log(f"    position {p}: {b}")
         out[name] = rec
@@ -2533,6 +2606,53 @@ def _roofline_step(torch, cfg, kind: str, card: str):
     return rec
 
 
+MESH_COUNT = (2, 2)                   # the split decode counted in 10
+
+
+def _mesh_count(torch, cfg, card: str):
+    """The anchor decode step on a (2, 2) mesh of repeated ``cuda:0``,
+    the dense compute split over it: its op count on the card against
+    the same step's on a (2, 2) mesh of ``meta`` (op sequence, FLOPs,
+    bytes and collectives equal), with each position's FLOPs and
+    argument + peak bytes."""
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.mesh import make_test_mesh, use_mesh
+    n = math.prod(MESH_COUNT)
+    counts = {}
+    for where in ("cuda:0", "meta"):
+        mesh = make_test_mesh(MESH_COUNT, devices=[where] * n)
+        step, args = _anchor_cell(cfg, "decode", mesh)
+        with use_mesh(mesh):
+            counts[where], _ = D.count_step(step, args, n)
+        del step, args
+        _release(torch)
+    real, meta = counts["cuda:0"], counts["meta"]
+    same = (real.digest() == meta.digest()
+            and real.cost_summary() == meta.cost_summary()
+            and real.collective_summary() == meta.collective_summary())
+    if not same:
+        raise AssertionError(f"roofline decode on {MESH_COUNT}: the card's "
+                             f"op count differs from meta's\n"
+                             f"{_count_diff(real, meta)}")
+    cost, coll, mem = (real.cost_summary(), real.collective_summary(),
+                       real.memory())
+    flops = cost["per_position"]["flops"]
+    rec = {"mesh": list(MESH_COUNT), "digest": real.digest(),
+           "meta_equal": same, "per_position_flops": flops,
+           "per_position_gib": mem["per_position_gib"],
+           "meta_per_position_gib": meta.memory()["per_position_gib"],
+           "all_reduce_count": coll["all-reduce_count"],
+           "all_gather_count": coll["all-gather_count"],
+           "collective_bytes": coll["total_bytes"]}
+    log(f"  10 decode on {MESH_COUNT} of cuda:0 ({card}), dense compute "
+        f"split: card == meta: op sequence, FLOPs, bytes and collectives "
+        f"equal; per-position FLOPs {[f'{f:.4e}' for f in flops]}, "
+        f"GiB {[round(g, 3) for g in mem['per_position_gib']]}; "
+        f"{coll['all-reduce_count']} all-reduces, "
+        f"{coll['all-gather_count']} all-gathers")
+    return rec
+
+
 def phase_roofline(torch, np, seed: int, card: str):
     """10: full-width Mixtral at the serve depth on a (1, 1) mesh of
     ``cuda:0``, ``use_kernel=False`` (the dry run's program): decode,
@@ -2547,6 +2667,7 @@ def phase_roofline(torch, np, seed: int, card: str):
         torch.ones(1, device="cuda:0").add(1)
     out = {kind: _roofline_step(torch, cfg, kind, card)
            for kind in ROOFLINE_STEPS}
+    out["decode 2x2"] = _mesh_count(torch, cfg, card)
     out["seconds"] = time.perf_counter() - t0
     log(f"  roofline: {out['seconds']:.1f} s")
     return out

@@ -15,17 +15,18 @@ Dispatch (the reference's ``repro.core.mixed_moe``):
     position, and ``moe_apply`` runs the reference's shard_map body per
     position on that position's device with its collectives spelled
     out: the token-gather, data x EP and TP regimes (see
-    :func:`moe_apply`). Each closing sum runs in f32 in rank order and
-    rounds once to the outputs' dtype: that is what the reference's bf16
-    ``psum`` and ``psum_scatter`` give on XLA:CPU (a running bf16 sum
-    over 4 or 8 ranks is not). A token's expert output is computed by
-    exactly one model rank where the regime does not split d_ff, and the
-    other ranks add exact zeros, so at top-2 data x EP and the (1, ep)
-    serving mesh are bit-identical to one device; at top-k > 2 a token's
-    outputs on one rank are summed there first, so the result is
-    bit-identical to the reference's, not to one device. Token-gather
-    and TP sum partial d_ff products, whose bf16 rounding differs from
-    one device's.
+    :func:`moe_apply`), on the split forward's per-position tokens or on
+    a whole ``x`` scattered from its device. Each closing sum runs in
+    f32 in rank order and rounds once to the outputs' dtype: that is
+    what the reference's bf16 ``psum`` and ``psum_scatter`` give on
+    XLA:CPU (a running bf16 sum over 4 or 8 ranks is not). A token's
+    expert output is computed by exactly one model rank where the regime
+    does not split d_ff, and the other ranks add exact zeros, so at top-2
+    data x EP and the (1, ep) serving mesh are bit-identical to one
+    device; at top-k > 2 a token's outputs on one rank are summed there
+    first, so the result is bit-identical to the reference's, not to one
+    device. Token-gather and TP sum partial d_ff products, whose bf16
+    rounding differs from one device's.
 """
 from __future__ import annotations
 
@@ -80,11 +81,14 @@ class capture_moe_inputs:
 
 
 def route(router_w: torch.Tensor, x: torch.Tensor, moe: MoEConfig, *,
-          aux: Optional[Dict[str, torch.Tensor]] = None
+          aux: Optional[Dict[str, torch.Tensor]] = None,
+          stats: Optional[list] = None
           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (T, d) -> (weights (T,k) f32, ids (T,k) int64). ``aux`` (the
     training forward) accumulates the Switch-style load-balance and
-    router-z losses into the given dict."""
+    router-z losses into the given dict; ``stats`` (one data rank's
+    tokens of the split forward) gets their sums over these tokens
+    instead, which :func:`router_losses` combines over the data ranks."""
     logits = x.to(torch.float32) @ router_w.to(torch.float32)
     probs = torch.softmax(logits, dim=-1)
     top_p, ids = torch.topk(probs, moe.top_k, dim=-1)
@@ -95,20 +99,44 @@ def route(router_w: torch.Tensor, x: torch.Tensor, moe: MoEConfig, *,
     if moe_trace is not None:
         moe_trace.append((x.detach().to(torch.float32).cpu().numpy(),
                           probs.detach().cpu().numpy()))
-    if aux is not None:
+    if aux is not None or stats is not None:
         e = moe.num_experts
         # one-hot by comparison: F.one_hot checks the ids' range on the
         # host, which a meta tensor cannot and the card does not do
         dispatch = (ids[..., None] == torch.arange(e, device=ids.device)
                     ).to(torch.float32).sum(1)                      # (T,E)
+        lse = torch.logsumexp(logits, dim=-1)
+    if stats is not None:
+        stats.append((dispatch.sum(0), probs.sum(0), (lse ** 2).sum(),
+                      x.shape[0]))
+    if aux is not None:
         lb = moe.load_balance_loss * e * torch.sum(
             dispatch.mean(0) * probs.mean(0))
-        lse = torch.logsumexp(logits, dim=-1)
         z = moe.router_z_loss * torch.mean(lse ** 2)
         aux["load_balance"] = aux.get("load_balance", 0.0) + lb
         aux["router_z"] = aux.get("router_z", 0.0) + z
     weights = top_p / torch.clamp(top_p.sum(-1, keepdim=True), min=1e-9)
     return weights, ids
+
+
+def router_losses(stats, positions, moe: MoEConfig, device
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The load-balance and router-z losses of the whole batch from the
+    data ranks' ``route(..., stats=)`` sums (``stats[i]`` made at mesh
+    position ``positions[i]``), in data-rank order: each sum moved to
+    ``device`` (position 0) and added there in f32 in that order, then
+    the reference's means."""
+    if OC.counting():
+        sent = {p: OC.nbytes(s[0]) + OC.nbytes(s[1]) + OC.nbytes(s[2])
+                for p, s in zip(positions, stats)}
+        OC.collective("reduce", {0: sum(sent.values())}, sent)
+    with OC.at_position(0):
+        d, pr, z = (SH.rank_sum([s[i] for s in stats], device)
+                    for i in range(3))
+        t = float(sum(s[3] for s in stats))
+        e = moe.num_experts
+        lb = moe.load_balance_loss * e * torch.sum((d / t) * (pr / t))
+        return lb, moe.router_z_loss * (z / t)
 
 
 # --------------------------------------------------------------------------
@@ -495,16 +523,6 @@ class _Spread(torch.autograd.Function):
             return acc.to(dtype), None, None
 
 
-def _sum_f32(parts, device) -> torch.Tensor:
-    """A bf16 ``psum`` as XLA:CPU runs it: the parts summed in f32 in rank
-    order on ``device``, rounded once to their dtype (``psum_scatter``
-    rounds the same way)."""
-    acc = parts[0].to(device, torch.float32)
-    for t in parts[1:]:
-        acc = acc + t.to(device, torch.float32)
-    return acc.to(parts[0].dtype)
-
-
 # --------------------------------------------------------------------------
 # The MoE apply
 # --------------------------------------------------------------------------
@@ -545,11 +563,10 @@ def _local_fn(pos, bank, x, weights, ids, *, rank, totals, locs, capacity,
     return _combine_local(ybuf, dest, order, w_sorted, t, d, ids.shape[1])
 
 
-def moe_apply(banks, x: torch.Tensor, weights: torch.Tensor,
-              ids: torch.Tensor, moe: MoEConfig,
+def moe_apply(banks, x, weights, ids, moe: MoEConfig,
               par: Optional[MoEParallelism] = None, *,
               act: str = "swiglu", use_kernel: bool = False,
-              capacity: Optional[int] = None) -> torch.Tensor:
+              capacity: Optional[int] = None):
     """x: (T, d) -> (T, d).
 
     ``banks`` is either the train layout {"f16": {...(E,d,f) bf16...}} or
@@ -562,8 +579,9 @@ def moe_apply(banks, x: torch.Tensor, weights: torch.Tensor,
     shard_map: ``banks`` is then one bank tree, placed here by
     :func:`shard_banks`, or the list of per-position shards that
     :func:`shard_banks` (through ``apply_precision_plan(..., mesh=)``) or
-    ``build_model``'s gather of a sharded param tree placed. The data axes split the tokens; position
-    (i, j) (data rank i, model rank j) runs one of three regimes:
+    ``build_model``'s placed param tree gives. The data axes split the
+    tokens; position (i, j) (data rank i, model rank j) runs one of three
+    regimes:
 
       * token-gather (EP, a d_ff-divisible fsdp axis > 1, and the
         gathered tokens within ``TOKEN_GATHER_MAX_BYTES``): the data
@@ -577,13 +595,28 @@ def moe_apply(banks, x: torch.Tensor, weights: torch.Tensor,
         closed by the sum over model.
 
     Each sum runs in f32 in rank order and rounds once, as XLA:CPU's bf16
-    ``psum`` and ``psum_scatter`` do; the data ranks' outputs are then
-    concatenated in order on ``x``'s device. Every position's work is
-    issued before the sums, so positions on distinct cards overlap, and
-    the whole is differentiable."""
-    t, d = x.shape
+    ``psum`` and ``psum_scatter`` do. The tokens come in one of two forms:
+
+      * the split forward's: ``x``, ``weights`` and ``ids`` are lists of
+        one shard per position, its data rank's tokens on its device
+        (model ranks of a data rank hold equal copies); the result is
+        such a list, every model rank of a data rank holding the model
+        sum;
+      * a whole ``x`` on one device: scattered to the positions from
+        there, and the data ranks' model sums concatenated back there in
+        order.
+
+    Every position's work is issued before the sums, so positions on
+    distinct cards overlap, and the whole is differentiable."""
+    split = isinstance(x, (list, tuple))
+    t, d = tuple(x[0].shape) if split else tuple(x.shape)
+    if split:               # every data rank's tokens
+        t *= math.prod(par.mesh.sizes.get(a, 1) for a in par.dp_axes)
     regime = moe_regime(banks, t, d, moe, par)
     if regime == "one device":
+        if split:
+            raise ValueError("per-position tokens need a mesh of more than "
+                             "one position")
         if isinstance(banks, list):           # placed on a (1, 1) mesh
             (banks,) = banks
         if capacity is None:
@@ -638,14 +671,27 @@ def moe_apply(banks, x: torch.Tensor, weights: torch.Tensor,
     def tokens(i):
         return slice(i * t_loc, (i + 1) * t_loc)
 
-    # the token rows each position sees: its data rank's, or with
-    # token-gather every fsdp peer's in rank order
-    rows = [[tokens(dp_index(at[q])) for q in peers(p, par.fsdp_axis)]
-            if fsdp else [tokens(dp_index(at[p]))] for p in range(len(at))]
-    xs = _Spread.apply(x, rows, mesh.devices)
-    ws = _Spread.apply(weights, rows, mesh.devices)
-    if OC.counting():
-        _book_scatter(ids, rows)
+    if split:
+        # each position's own tokens, or with token-gather every fsdp
+        # peer's in rank order (an all-gather over the fsdp axis)
+        xs, ws, idl = list(x), list(weights), list(ids)
+        if fsdp:
+            groups = tuple(sorted({tuple(peers(p, par.fsdp_axis))
+                                   for p in range(len(at))}))
+            xs = SH.all_gather(xs, groups, mesh.devices, 0)
+            ws = SH.all_gather(ws, groups, mesh.devices, 0)
+            idl = SH.all_gather(idl, groups, mesh.devices, 0)
+    else:
+        # the token rows each position sees: its data rank's, or with
+        # token-gather every fsdp peer's in rank order
+        rows = [[tokens(dp_index(at[q])) for q in peers(p, par.fsdp_axis)]
+                if fsdp else [tokens(dp_index(at[p]))]
+                for p in range(len(at))]
+        xs = _Spread.apply(x, rows, mesh.devices)
+        ws = _Spread.apply(weights, rows, mesh.devices)
+        if OC.counting():
+            _book_scatter(ids, rows)
+        idl = None
     y = []
     for p, dev in enumerate(mesh.devices):
         c = at[p]
@@ -656,8 +702,9 @@ def moe_apply(banks, x: torch.Tensor, weights: torch.Tensor,
                     b.get(DFF) or _dff_slice(b, c[par.fsdp_axis], fs)
                     for k, b in bank.items()}
         with _on(dev), OC.at_position(p):
-            y.append(_local_fn(p, bank, xs[p], ws[p],
-                               _take_rows(ids, rows[p]).to(dev),
+            pid = _take_rows(ids, rows[p]).to(dev) if idl is None \
+                else idl[p]
+            y.append(_local_fn(p, bank, xs[p], ws[p], pid,
                                rank=j if ep else 0, totals=totals,
                                locs=locs, capacity=cap, act=act,
                                use_kernel=use_kernel))
@@ -671,20 +718,26 @@ def moe_apply(banks, x: torch.Tensor, weights: torch.Tensor,
             blk = slice(at[p][par.fsdp_axis] * t_loc,
                         (at[p][par.fsdp_axis] + 1) * t_loc)
             with OC.at_position(p):
-                z.append(_sum_f32([y[q][blk]
-                                   for q in peers(p, par.fsdp_axis)], dev))
+                z.append(SH.rank_sum([y[q][blk]
+                                      for q in peers(p, par.fsdp_axis)],
+                                     dev))
         if OC.counting():
             OC.collective("reduce-scatter",
                           {p: OC.nbytes(v) for p, v in enumerate(z)},
                           {p: OC.nbytes(v) for p, v in enumerate(y)})
+    if split:
+        # psum over the model axis, delivered to every model rank
+        groups = tuple(sorted({tuple(peers(p, par.ep_axis))
+                               for p in range(len(at))}))
+        return SH.all_reduce(z, groups, mesh.devices)
     # psum over the model axis, read at the first position of each data
     # rank; the data ranks' outputs concatenated in order
     first = {}
     for p in range(len(at)):
         first.setdefault(dp_index(at[p]), p)
     with OC.at_position(0):
-        outs = [_sum_f32([z[q] for q in peers(first[i], par.ep_axis)],
-                         x.device) for i in range(n_dp)]
+        outs = [SH.rank_sum([z[q] for q in peers(first[i], par.ep_axis)],
+                            x.device) for i in range(n_dp)]
     if OC.counting():
         sent: Dict[int, int] = {}
         for i in range(n_dp):

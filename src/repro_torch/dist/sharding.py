@@ -9,9 +9,19 @@ may repeat a device), so a rule here is explicit storage:
   dp_axes)`` installs the reference's table of logical activation names
   ("residual", "attn_scores_full", ...) and their specs, and makes
   ``mesh`` the active mesh; ``constrain(x, name)`` returns ``x``
-  unchanged (the port keeps activations on ``mesh.devices[0]``).
-  ``full_grouped_ok`` reads the active mesh to choose the attention
-  contraction, as the reference's does.
+  unchanged (the split forwards hold each activation as per-position
+  shards, by these rules, and need no annotation). ``full_grouped_ok``
+  reads the active mesh to choose the attention contraction, as the
+  reference's does.
+
+* **The split dense path** — :class:`Split` says which rows of the batch
+  and which model rank each position holds; :func:`rows` hands each
+  position its data rank's rows of an input; :func:`all_reduce` (the
+  model-axis closing sum of row-parallel partial outputs) and
+  :func:`all_gather` (column shards, vocab slices, token shards) are the
+  collectives between the positions' work, each an f32 sum (or a
+  concatenation) in rank order, rounded once, with a backward of the same
+  kind, and each booked with ``roofline.op_count``.
 
 * **Parameter rules** — ``param_specs`` walks a param tree and assigns
   the reference's megatron-style specs by leaf name (column-parallel
@@ -96,16 +106,28 @@ def batch_axes(mesh, global_batch: int) -> Tuple[str, ...]:
 # Activation constraints
 # ---------------------------------------------------------------------------
 
+def ep_only(cfg, mesh, train: bool = False) -> bool:
+    """A pure-EP serving mesh: every batch axis has size 1, "model" only
+    shards expert banks and attention stays replicated."""
+    return cfg.moe is not None and not train and all(
+        _axis_size(mesh, a) <= 1 for a in ("pod", "data"))
+
+
+def splits_dense(cfg, mesh, train: bool = False) -> bool:
+    """Do the reference's rules split a decoder's dense compute over
+    ``mesh``: a decoder family on more than one position, outside the
+    pure-EP serving rules (which keep attention whole)?"""
+    return (mesh is not None and len(mesh.devices) > 1
+            and cfg.family in ("dense", "moe", "vlm")
+            and not ep_only(cfg, mesh, train))
+
+
 def _activation_rules(cfg, mesh, dp_axes: Tuple[str, ...],
                       train: bool = False) -> Dict[str, P]:
     dp = _dp_entry(dp_axes)
     m = MODEL_AXIS
     msize = _axis_size(mesh, m)
-    # a pure-EP serving mesh: every batch axis has size 1, "model" only
-    # shards expert banks and attention stays replicated
-    ep_only = cfg.moe is not None and not train and all(
-        _axis_size(mesh, a) <= 1 for a in ("pod", "data"))
-    shard_m = msize > 1 and not ep_only
+    shard_m = msize > 1 and not ep_only(cfg, mesh, train)
     h = cfg.attention.num_heads if cfg.attention else 0
     heads_ok = h > 0 and shard_m and h % msize == 0
     ssm_h = 0
@@ -180,10 +202,8 @@ def _effective_spec(spec: P, mesh) -> Optional[P]:
 
 
 def constrain(x: torch.Tensor, name: str) -> torch.Tensor:
-    """The reference's sharding constraint: a no-op outside an
-    ``activation_constraints`` context and for unknown names or rules of
-    a higher rank. Inside one the port keeps activations on
-    ``mesh.devices[0]``, so the value is returned as it is either way."""
+    """The reference's sharding constraint, returned as it is: the split
+    forwards already hold each activation as the rules place it."""
     return x
 
 
@@ -668,6 +688,281 @@ def sum_replicas(x: Sharded) -> Sharded:
 
 
 # ---------------------------------------------------------------------------
+# The split dense path: who holds what, and the collectives between
+# ---------------------------------------------------------------------------
+
+class Split:
+    """The positions of ``mesh`` as the split dense path uses them: the
+    batch rows split over ``dp_axes`` (position ``p`` holds data rank
+    ``dp[p]``'s rows; positions with the same rows are replicas), and
+    ``rank[p]`` its index on the model axis. ``model_groups`` are the
+    positions that differ only along "model", each in rank order (the
+    closing sums run over them); ``lead`` is the first position of each
+    data rank, in data-rank order (the loss is summed over them)."""
+
+    def __init__(self, mesh, dp_axes: Tuple[str, ...]):
+        self.mesh = mesh
+        self.dp_axes = tuple(a for a in dp_axes if a in mesh.sizes)
+        self.devices = mesh.devices
+        self.n = len(mesh.devices)
+        self.n_dp = math.prod(_axis_size(mesh, a) for a in self.dp_axes)
+        self.msize = _axis_size(mesh, MODEL_AXIS)
+        at = [coords(mesh, p) for p in range(self.n)]
+        self.dp = []
+        for c in at:
+            i = 0
+            for a in self.dp_axes:
+                i = i * _axis_size(mesh, a) + c[a]
+            self.dp.append(i)
+        self.rank = [c.get(MODEL_AXIS, 0) for c in at]
+        self.model_groups = self.groups(MODEL_AXIS)
+        lead: Dict[int, int] = {}
+        for p in range(self.n):
+            lead.setdefault(self.dp[p], p)
+        self.lead = [lead[i] for i in range(self.n_dp)]
+
+    def groups(self, axis: str) -> Tuple[Tuple[int, ...], ...]:
+        """The positions that differ only along ``axis``, one group per
+        setting of the other axes, each in that axis's order."""
+        at = [coords(self.mesh, p) for p in range(self.n)]
+        out: Dict[Tuple, list] = {}
+        for p, c in enumerate(at):
+            out.setdefault(tuple(v for a, v in sorted(c.items())
+                                 if a != axis), []).append(p)
+        return tuple(tuple(g) for g in out.values())
+
+    @property
+    def batch_entry(self):
+        """The spec entry of the batch dim."""
+        return _dp_entry(self.dp_axes)
+
+    def each(self, fn, *lists):
+        """``[fn(p, lists[0][p], ...) for p]``, each call's ops charged
+        to its position."""
+        out = []
+        for p in range(self.n):
+            with OC.at_position(p):
+                out.append(fn(p, *(a[p] for a in lists)))
+        return out
+
+
+@functools.lru_cache(maxsize=None)
+def split_of(mesh, dp_axes: Tuple[str, ...]) -> Split:
+    return Split(mesh, tuple(dp_axes))
+
+
+def rows(x, split: Split):
+    """Each position's data-rank rows of an input whose dim 0 is the
+    batch: a :class:`Sharded` placed over the split's batch axes gives
+    its shards; a tensor is scattered from its device (booked as a
+    ``scatter`` from position 0)."""
+    if isinstance(x, Sharded):
+        if x.spec[:1] != (split.batch_entry,) or x.mesh != split.mesh:
+            raise ValueError(f"input placed by {x.spec}, not split over "
+                             f"{split.dp_axes}")
+        return list(x.shards)
+    b = x.shape[0]
+    if b % split.n_dp:
+        raise ValueError(f"batch of {b} does not split over {split.n_dp} "
+                         f"data ranks ({split.dp_axes})")
+    loc = b // split.n_dp
+    out = split.each(lambda p: _copy_to(
+        x[split.dp[p] * loc:(split.dp[p] + 1) * loc], split.devices[p]))
+    if OC.counting():
+        got = {p: OC.nbytes(t) for p, t in enumerate(out)}
+        OC.collective("scatter", got, {0: sum(got.values())})
+    return out
+
+
+def rank_sum(parts, device, dtype=None) -> torch.Tensor:
+    """A bf16 ``psum`` as XLA:CPU runs it: ``parts`` summed in f32 in
+    rank order on ``device``, rounded once to ``dtype`` (default: the
+    parts' dtype)."""
+    acc = parts[0].to(device, torch.float32)
+    for t in parts[1:]:
+        acc = acc + t.to(device, torch.float32)
+    return acc.to(parts[0].dtype if dtype is None else dtype)
+
+
+def _book_all(kind: str, outs, parts) -> None:
+    if OC.counting():
+        OC.collective(kind, {p: OC.nbytes(t) for p, t in enumerate(outs)
+                             if t is not None},
+                      {p: OC.nbytes(t) for p, t in enumerate(parts)
+                       if t is not None})
+
+
+def _sizes(n: int, m: int):
+    """The lengths of ``m`` contiguous pieces of ``n`` (differing by at
+    most one)."""
+    base, extra = divmod(n, m)
+    return [base + (j < extra) for j in range(m)]
+
+
+def _group_sums(groups, devices, parts, like):
+    """Every position's copy of its group's rank-order f32 sum of
+    ``parts`` (``None`` = zero), rounded once to ``like[p]``: a ring
+    all-reduce's reduce-scatter and all-gather. Each part is cut into one
+    piece per rank of its group (one op); rank j sums piece j over the
+    group's parts (:func:`rank_sum`), and each position concatenates the
+    sums in rank order. Every element is the same sequence of f32 adds
+    whichever position made it, so the copies are bit-equal."""
+    outs = [None] * len(parts)
+    for g in groups:
+        held = [q for q in g if parts[q] is not None]
+        if not held:
+            continue
+        sizes = _sizes(parts[held[0]].shape[-1], len(g))
+        pieces = {}
+        for q in held:
+            with OC.at_position(q):
+                pieces[q] = parts[q].to(torch.float32).split(sizes, -1)
+        sums = []
+        for i, p in enumerate(g):
+            with OC.at_position(p):
+                sums.append(rank_sum([pieces[q][i] for q in held],
+                                     devices[p], like[p]))
+        for p in g:
+            with OC.at_position(p):
+                outs[p] = torch.cat([t.to(devices[p]) for t in sums], -1)
+    return outs
+
+
+class _AllReduce(torch.autograd.Function):
+    """Every position's sum of its group's parts, in f32 in rank order,
+    rounded once (:func:`_group_sums`), so the replicas of a data rank's
+    rows stay bit-equal. The backward is the same sum of the gradients:
+    never autograd's adds in order of arrival."""
+
+    @staticmethod
+    def forward(ctx, groups, devices, *parts):
+        ctx.groups, ctx.devices = groups, devices
+        ctx.like = [t.dtype for t in parts]
+        outs = _group_sums(groups, devices, parts, ctx.like)
+        _book_all("all-reduce", outs, parts)
+        return tuple(outs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        out = _group_sums(ctx.groups, ctx.devices, grads, ctx.like)
+        _book_all("all-reduce", out, grads)
+        return (None, None, *out)
+
+
+class _AllGather(torch.autograd.Function):
+    """Every position's concatenation of its group's parts along ``dim``
+    in rank order; the backward reduce-scatters the gradients (each
+    part's slice summed over the group in f32 in rank order)."""
+
+    @staticmethod
+    def forward(ctx, groups, devices, dim, *parts):
+        ctx.groups, ctx.devices, ctx.dim = groups, devices, dim
+        ctx.like = [t.dtype for t in parts]
+        ctx.at = {}
+        outs = [None] * len(parts)
+        for g in groups:
+            off = 0
+            for q in g:
+                ctx.at[q] = (off, parts[q].shape[dim])
+                off += parts[q].shape[dim]
+            for p in g:
+                with OC.at_position(p):
+                    outs[p] = torch.cat([parts[q].to(devices[p])
+                                         for q in g], dim)
+        _book_all("all-gather", outs, parts)
+        return tuple(outs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        out = [None] * len(grads)
+        for g in ctx.groups:
+            for q in g:
+                parts = [grads[p].narrow(ctx.dim, *ctx.at[q])
+                         for p in g if grads[p] is not None]
+                if parts:
+                    with OC.at_position(q):
+                        out[q] = rank_sum(parts, ctx.devices[q], ctx.like[q])
+        _book_all("reduce-scatter", out, grads)
+        return (None, None, None, *out)
+
+
+class _FanOut(torch.autograd.Function):
+    """``n`` aliases of ``x`` whose gradients are added in their order.
+    A tensor read by several ops gets their gradients in the order they
+    finish; with positions on distinct cards that order follows the
+    other cards' threads, and three or more bf16 terms then round
+    differently from run to run."""
+
+    @staticmethod
+    def forward(ctx, x, n):
+        return tuple(x.view_as(x) for _ in range(n))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        acc = None
+        for g in grads:
+            if g is not None:
+                acc = g if acc is None else acc + g
+        return acc, None
+
+
+def fan_out(x: torch.Tensor, n: int):
+    """``x`` for ``n`` readers (:class:`_FanOut` while it takes a
+    gradient, else ``x`` itself ``n`` times)."""
+    if not x.requires_grad:
+        return (x,) * n
+    return _FanOut.apply(x, n)
+
+
+def all_reduce(parts, groups, devices):
+    """Per-position partial values (one per position) -> each position's
+    sum over its group (see :class:`_AllReduce`); groups of one are
+    returned as they are."""
+    if all(len(g) == 1 for g in groups):
+        return list(parts)
+    return list(_AllReduce.apply(tuple(groups), tuple(devices), *parts))
+
+
+def all_gather(parts, groups, devices, dim: int):
+    """Per-position shards -> each position's concatenation of its
+    group's shards along ``dim`` (see :class:`_AllGather`)."""
+    if all(len(g) == 1 for g in groups):
+        return list(parts)
+    return list(_AllGather.apply(tuple(groups), tuple(devices), dim,
+                                 *parts))
+
+
+def to_lead(parts, split: Split, dim: int):
+    """Each data rank's model group's shards concatenated along ``dim``
+    at the group's first position (a gather in rank order): one tensor
+    per data rank, in data-rank order."""
+    out, moved = [], {}
+    for lead in split.lead:
+        g = next(g for g in split.model_groups if g[0] == lead)
+        with OC.at_position(lead):
+            out.append(parts[lead] if len(g) == 1 else torch.cat(
+                [parts[q].to(split.devices[lead]) for q in g], dim))
+        if len(g) > 1:
+            moved[lead] = OC.nbytes(out[-1])
+    if moved and OC.counting():
+        OC.collective("all-gather", moved, {
+            q: OC.nbytes(parts[q]) for g in split.model_groups
+            if g[0] in moved for q in g})
+    return out
+
+
+def cache_spec(shape, batch: int, lead) -> P:
+    """A decode cache leaf's spec: the batch dim of an (L, B, ...) stack
+    (or of a (B, ...) leaf) over the batch axes, the rest replicated."""
+    spec = [None] * len(shape)
+    if len(shape) >= 2 and shape[1] == batch:
+        spec[1] = lead
+    elif len(shape) >= 1 and shape[0] == batch:
+        spec[0] = lead
+    return P(*spec)
+
+
+# ---------------------------------------------------------------------------
 # IO specs for the dry run (the reference's launch/dryrun.py)
 # ---------------------------------------------------------------------------
 
@@ -706,14 +1001,5 @@ def cache_specs(cfg, shape, mesh):
     lead = _dp_entry(batch_axes(mesh, shape.global_batch))
     b = shape.global_batch
     cache = init_cache(cfg, b, shape.seq_len, device="meta")
-
-    def spec_of(leaf):
-        sh = leaf.shape
-        spec = [None] * len(sh)
-        if len(sh) >= 2 and sh[1] == b:
-            spec[1] = lead                 # (L, B, ...) stacks
-        elif len(sh) >= 1 and sh[0] == b:
-            spec[0] = lead                 # (B, ...) e.g. enc_out
-        return Placement(mesh, P(*spec))
-
-    return cache, _map_specs(spec_of, cache)
+    return cache, _map_specs(
+        lambda leaf: Placement(mesh, cache_spec(leaf.shape, b, lead)), cache)

@@ -16,10 +16,14 @@ Per cell this script:
      or ``decode_step``) with ``build_model(cfg, mesh)`` and
      ``use_kernel=False``, as the reference's dry run does; its params
      are ``abstract_params``, placed by ``dist.sharding.shard_tree`` for
-     training and, for a serving cell of a MoP-enabled MoE, converted by
-     ``apply_precision_plan(..., mesh=)`` from a ``balanced_random_plan``
-     with half of each layer's experts at 4 bits; inputs and caches come
-     from ``dist.sharding.input_specs`` / ``cache_specs``;
+     training and by ``place_params`` for serving (a MoP-enabled MoE's
+     converted by ``apply_precision_plan(..., mesh=)`` from a
+     ``balanced_random_plan`` with half of each layer's experts at 4
+     bits); a serving cell's inputs are placed by ``dist.sharding.
+     input_specs`` and its cache made by ``Model.init_cache``, each data
+     rank's rows at its positions; a train cell's batch is split over the
+     data ranks inside the step (a scatter the count books), after the
+     train step cut it into microbatches;
   2. runs it once under the counter;
   3. writes one record per cell to
      ``results/dryrun_torch/<arch>__<shape>__<mesh>.json``: the
@@ -59,7 +63,7 @@ from repro_torch.core.precision_plan import balanced_random_plan
 from repro_torch.dist import sharding as SH
 from repro_torch.launch.mesh import make_production_mesh, use_mesh
 from repro_torch.models.model import (abstract_params, apply_precision_plan,
-                                      build_model, init_cache, init_params)
+                                      build_model, init_params, place_params)
 from repro_torch.roofline import op_count
 from repro_torch.roofline.op_count import OpCounter
 from repro_torch.training.optimizer import OptConfig
@@ -83,10 +87,12 @@ def _params(cfg: ModelConfig, device: torch.device):
 
 def _serve_params_struct(cfg: ModelConfig, mesh):
     """Serve-layout params on ``mesh`` (mixed banks for a MoP MoE,
-    placed per position; every other leaf on ``mesh.devices[0]``)."""
+    placed per position), every other leaf placed by ``place_params``:
+    its ``param_specs`` shard at each position where the serving rules
+    split the dense compute."""
     params = _params(cfg, mesh.devices[0])
     if cfg.moe is None or not cfg.mop.enabled:
-        return params
+        return place_params(cfg, mesh, params)
     e = cfg.moe.num_experts
     per_layer = int(e * MOP_FRACTION)
     per_layer -= per_layer % 16 if e >= 16 else 0
@@ -140,9 +146,11 @@ def build_cell(cfg: ModelConfig, shape: ShapeConfig, mesh):
 
     model = build_model(cfg, mesh, dp_axes=dp)
     serve_params = _serve_params_struct(cfg, mesh)
-    cache = init_cache(cfg, shape.global_batch, shape.seq_len, device=dev)
-    inp, _ = SH.input_specs(cfg, shape, mesh)
+    cache = model.init_cache(shape.global_batch, shape.seq_len, device=dev)
+    inp, placed = SH.input_specs(cfg, shape, mesh)
     inp = _like(inp, dev)
+    if SH.splits_dense(cfg, mesh):        # each data rank's rows in place
+        inp = SH.shard_tree(inp, placed)
     if shape.kind == "prefill":
         return model.prefill, (serve_params, inp, cache)
     return model.decode_step, (serve_params, cache, inp["tokens"],

@@ -15,7 +15,8 @@ converts train-layout MoE params into the N-bank serve layout.
 of ``mixed_moe.moe_apply``, on params placed by ``dist.sharding.
 shard_tree`` (each position holds its ``param_specs`` shard) or by
 ``apply_precision_plan(..., mesh=)`` (the serve banks' per-position
-shards; every other leaf on ``mesh.devices[0]``).
+shards, the other leaves by ``place_params``); a decoder's dense compute
+splits over the mesh by the reference's rules (see ``build_model``).
 Parameters are nested dicts of tensors with a leading layer axis on every
 ``layers/...`` leaf, as in the reference. Caches and page pools are
 updated in place (the engine holds the only reference); the reference
@@ -42,7 +43,9 @@ from repro_torch.models import layers as L
 from repro_torch.models.encdec import encdec_forward
 from repro_torch.models.transformer import (FORWARDS, _hybrid_layout,
                                             by_column, decoder_block,
-                                            decoder_forward, layer_slice)
+                                            decoder_forward,
+                                            decoder_forward_split,
+                                            layer_slice)
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
            "float16": torch.float16}
@@ -147,6 +150,20 @@ def params_from_numpy(tree, device=None):
 # ---------------------------------------------------------------------------
 # Cache construction
 # ---------------------------------------------------------------------------
+
+def init_kv_cache(batch: int, window: int, num_kv_heads: int,
+                  head_dim: int, dtype=torch.bfloat16, *,
+                  device=None) -> Dict[str, torch.Tensor]:
+    """One layer's ring KV cache (``repro.models.layers.init_kv_cache``):
+    k/v (B, W, Hkv, hd) zeros and (B, W) int32 position tags, -1 =
+    empty."""
+    dev = resolve_device(device)
+    shape = (batch, window, num_kv_heads, head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=dev),
+            "v": torch.zeros(shape, dtype=dtype, device=dev),
+            "pos": torch.full((batch, window), -1, dtype=torch.int32,
+                              device=dev)}
+
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                device=None) -> Dict[str, Any]:
@@ -451,7 +468,9 @@ def _embed_inputs(params, cfg: ModelConfig, batch):
 
 def _mesh_params(params, mesh):
     """A param tree with :class:`dist.sharding.Sharded` leaves in the
-    form the forwards take: every dense leaf gathered whole on
+    form the whole-batch forwards take where the rules keep the dense
+    compute whole (the pure-EP serving mesh, and the SSM, hybrid and
+    enc-dec families): every dense leaf gathered whole on
     ``mesh.devices[0]`` (its gradient flows back to the shards through
     the gather), the MoE experts as the list of per-position bank shards
     ``mixed_moe.moe_apply`` runs. A tree without sharded leaves is
@@ -475,6 +494,115 @@ def _mesh_params(params, mesh):
     return out
 
 
+def _plain_leaf(tree, path=""):
+    """The path of a dense leaf of ``tree`` that is not a
+    :class:`dist.sharding.Sharded` (bank lists excepted), or None."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            if k == "banks" and isinstance(v, list):
+                continue
+            got = _plain_leaf(v, f"{path}/{k}")
+            if got:
+                return got
+        return None
+    if isinstance(tree, QTensor):
+        return _plain_leaf(tree.q, path)
+    return None if tree is None or isinstance(tree, SH.Sharded) else path
+
+
+def _position_params(params, split):
+    """Each mesh position's param tree of its own shards (no gather): the
+    dense leaves' shards, and the MoE experts' bank shard of that
+    position (the placed serve banks, or the train layout's expert
+    shards as a train-layout bank)."""
+    bad = _plain_leaf(params)
+    if bad:
+        raise ValueError(f"{bad} is not placed on the mesh: the split "
+                         "forward takes params placed by dist.sharding."
+                         "shard_tree (or apply_precision_plan(mesh=))")
+    moe = params["layers"].get("moe")
+    banks = None if moe is None else moe.get("banks")
+    out = []
+    for p in range(split.n):
+        tree = SH.at_position(params, p)
+        if moe is not None:
+            m = tree["layers"]["moe"]
+            b = banks[p] if isinstance(banks, list) else \
+                mixed_moe.train_banks(m) if banks is None else m["banks"]
+            tree["layers"] = dict(tree["layers"],
+                                  moe={"router": m["router"], "banks": b})
+        out.append(tree)
+    return out
+
+
+def place_params(cfg: ModelConfig, mesh, params):
+    """``params`` (a placed bank list under ``layers/moe/banks`` kept as
+    it is) placed for serving on ``mesh``: by ``dist.sharding.
+    param_specs`` where the reference's serving rules split the dense
+    compute (``dist.sharding.splits_dense``), every position holding its
+    own shards; otherwise every dense leaf on ``mesh.devices[0]``, where
+    the whole-batch forwards run it (the pure-EP serving mesh)."""
+    moe = params["layers"].get("moe")
+    banks = None if moe is None else moe.get("banks")
+    if isinstance(banks, list):
+        params = dict(params, layers=dict(
+            params["layers"], moe={k: v for k, v in moe.items()
+                                   if k != "banks"}))
+    if SH.splits_dense(cfg, mesh):
+        out = SH.shard_tree(params, SH.param_shardings(cfg, mesh, params))
+    else:
+        out = _tree_to(params, mesh.devices[0])
+    if isinstance(banks, list):
+        out["layers"]["moe"]["banks"] = banks
+    return out
+
+
+def _split_cache(cfg: ModelConfig, batch: int, max_len: int, split):
+    """``init_cache`` on a mesh whose serving rules split the dense
+    compute: each position's cache holds its data rank's rows (all KV
+    heads), made on its device, as :class:`dist.sharding.Sharded` leaves
+    placed per ``dist.sharding.cache_spec`` (batch over the data axes,
+    replicated over model)."""
+    if batch % split.n_dp:
+        raise ValueError(f"batch of {batch} does not split over "
+                         f"{split.n_dp} data ranks")
+    parts = split.each(lambda p: init_cache(
+        cfg, batch // split.n_dp, max_len, device=split.devices[p]))
+    return _sharded_cache(parts, batch, split)
+
+
+def _sharded_cache(parts, batch: int, split):
+    """Per-position {k, v, pos} stacks as :class:`dist.sharding.Sharded`
+    leaves of the global batch ``batch``."""
+    out = {}
+    for key, first in parts[0].items():
+        shape = (first.shape[0], batch) + tuple(first.shape[2:])
+        out[key] = SH.Sharded(SH.Placement(split.mesh, SH.cache_spec(
+            shape, batch, split.batch_entry)), shape, [c[key] for c in parts])
+    return out
+
+
+def _split_logits(logits, rows: int, split):
+    """Per-position (B_i, V or V/m) logits as one :class:`dist.sharding.
+    Sharded` (B, V): rows over the data axes, vocab slices over model
+    where the head is vocab-sharded."""
+    b = logits[0].shape[0] * split.n_dp
+    sharded = logits[0].shape[-1] < rows
+    spec = SH.P(split.batch_entry, SH.MODEL_AXIS if sharded else None)
+    return SH.Sharded(SH.Placement(split.mesh, spec), (b, rows), logits)
+
+
+def _whole_only(name: str):
+    """A serving hook that raises: the slot, paged and speculative hooks
+    run the whole-batch forwards (one device, or the pure-EP serving
+    mesh), which a mesh that splits the dense compute does not take."""
+    def refuse(*args, **kwargs):
+        raise ValueError(f"Model.{name} serves on one device or the pure-EP "
+                         "(1, ep) mesh; this mesh splits the dense compute: "
+                         "use prefill and decode_step")
+    return refuse
+
+
 def build_model(cfg: ModelConfig, mesh=None, *,
                 dp_axes: Tuple[str, ...] = ("data",),
                 use_kernel: bool = False) -> Model:
@@ -485,13 +613,32 @@ def build_model(cfg: ModelConfig, mesh=None, *,
     device) runs every MoE layer's expert FFN over the mesh's positions
     (``mixed_moe.moe_apply``'s regimes), the data axes ``dp_axes``
     splitting the tokens and "data" doubling as the experts' d_ff (FSDP)
-    axis of the token-gather regime. The dense compute, activations and
-    caches stay on ``mesh.devices[0]``: params placed by ``dist.sharding.
-    shard_tree`` are gathered there per call. On a mesh of more than one
-    position, ``loss_fn`` runs under the reference's training activation
-    rules and ``prefill``/``decode_step`` under its serving rules
-    (``dist.sharding.activation_constraints``), which choose the
-    attention spelling."""
+    axis of the token-gather regime. On a mesh of more than one position,
+    ``loss_fn`` runs under the reference's training activation rules and
+    ``prefill``/``decode_step`` under its serving rules
+    (``dist.sharding.activation_constraints``).
+
+    Where those rules split a decoder family's dense compute
+    (``dist.sharding.splits_dense``: not the pure-EP serving mesh), the
+    whole-batch entry points take params placed on the mesh
+    (``dist.sharding.shard_tree``, ``place_params``,
+    ``apply_precision_plan(mesh=)``) and run split: the batch (tokens,
+    positions, labels, a vision frontend) is split over ``dp_axes`` at
+    entry (a :class:`dist.sharding.Sharded` input placed so is used as
+    it is), every position computes attention, the MLP, the embedding
+    and the head on its own shards and its data rank's rows
+    (``layers.*_split``), ``init_cache`` places each data rank's cache
+    rows at its positions, ``prefill``/``decode_step`` return the logits
+    as a :class:`dist.sharding.Sharded` (B, V) (rows over data, vocab
+    slices over model; ``.full()`` gathers them) and the cache as
+    ``Sharded`` leaves, and ``loss_fn`` sums the data ranks' NLL in rank
+    order. Nothing is gathered onto ``mesh.devices[0]``; a plain cache or
+    an unplaced dense leaf raises, and so do the slot, paged and
+    speculative serving hooks (``_whole_only``). On the pure-EP serving
+    mesh (params of ``apply_precision_plan(mesh=)``: the banks' shards,
+    every other leaf on ``mesh.devices[0]``) the dense compute runs
+    whole there, and so does the SSM, hybrid and enc-dec families',
+    whose sharded leaves are gathered onto ``mesh.devices[0]``."""
     fwd = encdec_forward if cfg.family == "encdec" else FORWARDS[cfg.family]
     par = None
     if mesh is not None and cfg.moe is not None:
@@ -509,6 +656,84 @@ def build_model(cfg: ModelConfig, mesh=None, *,
     def local(params):
         return params if mesh is None else _mesh_params(params, mesh)
 
+    def split_for(train: bool):
+        """The :class:`dist.sharding.Split` of a call that runs split, or
+        None (its params must then be placed: ``_position_params``
+        raises on a whole dense leaf)."""
+        if not SH.splits_dense(cfg, mesh, train):
+            return None
+        return SH.split_of(mesh, tuple(dp_axes))
+
+    def split_inputs(params, batch, split):
+        """Each position's params, token embeddings (+ frontend) and
+        positions."""
+        pp = _position_params(params, split)
+        tok = SH.rows(batch["tokens"], split)
+        xs = L.embed_split([t["embed"]["table"] for t in pp], tok,
+                           cfg.padded_vocab, split)
+        xs = split.each(lambda p, x: x * torch.tensor(
+            math.sqrt(cfg.d_model), dtype=x.dtype, device=x.device), xs)
+        if cfg.frontend == "vision" and "frontend" in batch:
+            fr = SH.rows(batch["frontend"], split)
+            xs = split.each(lambda p, f, x: torch.cat([f.to(x.dtype), x],
+                                                      dim=1), fr, xs)
+        poss = split.each(lambda p, x: torch.arange(
+            x.shape[1], device=x.device)[None].expand(x.shape[:2]), xs)
+        return pp, xs, poss
+
+    def split_head(pp, ys, split):
+        return split.each(lambda p, t, y: L.unembed(
+            t["lm_head"]["table"], L.rms_norm(y, t["final_norm"]["scale"])),
+            pp, ys)
+
+    def split_cache_parts(cache, split):
+        if not (isinstance(cache, dict)
+                and all(isinstance(v, SH.Sharded) for v in cache.values())):
+            raise ValueError("on this mesh the cache is split over the "
+                             "data ranks: make it with Model.init_cache")
+        return [{k: v.shards[p] for k, v in cache.items()}
+                for p in range(split.n)]
+
+    def loss_split(params, batch, split):
+        with rules(train=True):
+            pp, xs, poss = split_inputs(params, batch, split)
+            ys, _, aux = decoder_forward_split(pp, cfg, xs, poss,
+                                               caches=None, split=split,
+                                               train=True, par=par)
+            if cfg.frontend == "vision":   # loss over the text tail only
+                ys = split.each(lambda p, y: y[:, cfg.frontend_len:], ys)
+            logits = split_head(pp, ys, split)
+        return L.softmax_xent_split(logits, SH.rows(batch["labels"], split),
+                                    cfg.vocab_size, split), aux
+
+    def prefill_split(params, batch, cache, split):
+        parts = split_cache_parts(cache, split)
+        with rules():
+            pp, xs, poss = split_inputs(params, batch, split)
+            ys, new, _ = decoder_forward_split(pp, cfg, xs, poss,
+                                               caches=parts, split=split,
+                                               use_kernel=use_kernel,
+                                               par=par)
+            logits = split_head(pp, split.each(lambda p, y: y[:, -1:], ys),
+                                split)
+        logits = split.each(lambda p, lg: lg[:, 0], logits)
+        b = next(iter(cache.values())).shape[1]
+        return _split_logits(logits, cfg.padded_vocab, split), \
+            _sharded_cache(new, b, split)
+
+    def decode_split(params, cache, tokens, positions, split):
+        parts = split_cache_parts(cache, split)
+        with rules():
+            pp, xs, _ = split_inputs(params, {"tokens": tokens}, split)
+            poss = split.each(lambda p, q: q[:, None],
+                              SH.rows(positions, split))
+            ys, _, _ = decoder_forward_split(pp, cfg, xs, poss, caches=parts,
+                                             split=split,
+                                             use_kernel=use_kernel, par=par)
+            logits = split_head(pp, ys, split)
+        logits = split.each(lambda p, lg: lg[:, 0], logits)
+        return _split_logits(logits, cfg.padded_vocab, split), cache
+
     def _head(params, y):
         y = L.rms_norm(y, params["final_norm"]["scale"])
         return L.unembed(params["lm_head"]["table"], y)
@@ -522,6 +747,15 @@ def build_model(cfg: ModelConfig, mesh=None, *,
         metrics). Records a graph when grad mode is on and a param
         requires grad; the train step's backward is deterministic on the
         card (``layers.embed``, ``mixed_moe._dispatch_local``)."""
+        split = split_for(train=True)
+        if split is not None:
+            loss, aux = loss_split(params, batch, split)
+            metrics = {"nll": loss}
+            for k, v in aux.items():
+                loss = loss + v.to(loss.device)
+                metrics[k] = v
+            metrics["loss"] = loss
+            return loss, metrics
         params = local(params)
         with rules(train=True):
             x, positions = _embed_inputs(params, cfg, batch)
@@ -544,6 +778,10 @@ def build_model(cfg: ModelConfig, mesh=None, *,
         """The whole batch's prompts (+ ``src`` / ``frontend``) into a
         fresh cache from ``init_cache``: (the last position's logits
         (B, V) f32, the cache)."""
+        split = split_for(train=False)
+        if split is not None:
+            return prefill_split(params, batch, cache, split)
+        _whole_cache(cache)
         params = local(params)
         with rules():
             x, positions = _embed_inputs(params, cfg, batch)
@@ -557,6 +795,10 @@ def build_model(cfg: ModelConfig, mesh=None, *,
         """tokens (B,1); positions (B,) absolute position of the token
         (behind a vision frontend it counts the frontend's positions).
         Returns (logits (B,V) f32, cache)."""
+        split = split_for(train=False)
+        if split is not None:
+            return decode_split(params, cache, tokens, positions, split)
+        _whole_cache(cache)
         params = local(params)
         with rules():
             x = _embed_scaled(params, cfg, tokens)
@@ -567,9 +809,25 @@ def build_model(cfg: ModelConfig, mesh=None, *,
                                   **mkw)
             return _head(params, y)[:, 0], new_cache
 
+    def _whole_cache(cache):
+        if isinstance(cache, dict) and any(
+                isinstance(v, SH.Sharded) for v in cache.values()):
+            raise ValueError("a split cache needs params placed on the "
+                             "mesh (dist.sharding.shard_tree, "
+                             "place_params)")
+
+    def model_init_cache(batch: int, max_len: int, *, device=None):
+        """The family's decode cache; on a mesh whose serving rules split
+        a decoder's dense compute, each data rank's rows at its
+        positions (``device`` is then the mesh's)."""
+        if SH.splits_dense(cfg, mesh):
+            return _split_cache(cfg, batch, max_len,
+                                SH.split_of(mesh, tuple(dp_axes)))
+        return init_cache(cfg, batch, max_len, device=device)
+
     entry = dict(cfg=cfg, init=functools.partial(init_params, cfg),
                  loss_fn=loss_fn, prefill=prefill, decode_step=decode_step,
-                 init_cache=functools.partial(init_cache, cfg))
+                 init_cache=model_init_cache)
     if cfg.family not in ("dense", "moe", "vlm") or cfg.frontend != "none":
         return Model(**entry)
 
@@ -735,8 +993,7 @@ def build_model(cfg: ModelConfig, mesh=None, *,
             1, pt.page, pos.reshape(l, b * nc, ps).index_select(1, pt.chunk))
         return pool
 
-    return Model(**entry,
-                 prefill_into_slot=prefill_into_slot,
+    hooks = dict(prefill_into_slot=prefill_into_slot,
                  decode_step_routed=decode_step_routed,
                  reset_slot=reset_slot,
                  decode_embed=decode_embed,
@@ -751,6 +1008,9 @@ def build_model(cfg: ModelConfig, mesh=None, *,
                  paged_spec_step_routed=paged_spec_step_routed,
                  rollback_slots=rollback_slots,
                  paged_rollback=paged_rollback)
+    if SH.splits_dense(cfg, mesh):
+        hooks = {k: _whole_only(k) for k in hooks}
+    return Model(**entry, **hooks)
 
 
 # ---------------------------------------------------------------------------
@@ -807,8 +1067,10 @@ def apply_precision_plan(params, cfg: ModelConfig, plan: PrecisionPlan,
     axis is > 1; with TP (fewer experts than model ranks), all experts
     on d_ff slice j. Each position's shards are in storage of its own on
     ``mesh.devices[p]``, preallocated per position and filled layer by
-    layer; every other leaf goes to ``mesh.devices[0]``. Raises
-    ``ValueError`` when a bank does not split evenly over the ranks."""
+    layer; every other leaf is placed by :func:`place_params` (its
+    ``param_specs`` shards where the serving rules split the dense
+    compute, else ``mesh.devices[0]``). Raises ``ValueError`` when a bank
+    does not split evenly over the ranks."""
     assert cfg.moe is not None
     moe_p = params["layers"]["moe"]
     stacked = None
@@ -839,7 +1101,5 @@ def apply_precision_plan(params, cfg: ModelConfig, plan: PrecisionPlan,
         "banks": stacked[0] if mesh is None else stacked,
     }
     if mesh is not None:
-        shards = new_params["layers"]["moe"].pop("banks")
-        new_params = _tree_to(new_params, mesh.devices[0])
-        new_params["layers"]["moe"]["banks"] = shards
+        new_params = place_params(cfg, mesh, new_params)
     return new_params

@@ -144,6 +144,103 @@ def decoder_block(p, cfg: ModelConfig, x, positions, cache, *,
     return x + h, new_kv, ids
 
 
+def decoder_block_split(ps, cfg: ModelConfig, xs, poss, rings, split,
+                        tables, *, use_kernel=False, stats=None, par=None):
+    """:func:`decoder_block` over a (data, model) mesh: ``ps`` (each
+    position's layer params: its shards), ``xs`` (its data rank's
+    residual rows), ``poss`` and ``rings`` (its cache rows, or ``None``)
+    are per-position lists (``dist.sharding.Split``). Attention, the MLP
+    and the MoE run their split forms; norms and the router run on every
+    position's copy of its rows. ``stats`` (the training forward)
+    collects the lead positions' router sums; ``tables`` are the
+    forward's ``layers.position_tables``. Returns (x', the new rings)."""
+    lead = set(split.lead)
+    hs, new = L.attention_split(
+        [p["attn"] for p in ps],
+        split.each(lambda i, x, p: L.rms_norm(x, p["attn_norm"]["scale"]),
+                   xs, ps),
+        cfg.attention, poss=poss, caches=rings, split=split, tables=tables)
+    xs = split.each(lambda i, x, h: x + h, xs, hs)
+    xns = split.each(lambda i, x, p: L.rms_norm(x, p["ffn_norm"]["scale"]),
+                     xs, ps)
+    if cfg.moe is None:
+        ys = L.mlp_split([p["mlp"] for p in ps], xns, cfg.act, cfg.d_ff,
+                         split)
+        return split.each(lambda i, x, y: x + y, xs, ys), new
+
+    def routed(i, xn, p, pos):
+        x2 = xn.reshape(-1, xn.shape[-1])
+        w, ids = mixed_moe.route(
+            p["moe"]["router"], x2, cfg.moe,
+            stats=stats if stats is not None and i in lead else None)
+        if rings is not None:       # idle slots and pads take no capacity
+            v = (pos >= 0).reshape(-1)[:, None]
+            ids = torch.where(v, ids, torch.full_like(ids,
+                                                      cfg.moe.num_experts))
+            w = torch.where(v, w, torch.zeros_like(w))
+        return x2, w, ids
+
+    r = split.each(routed, xns, ps, poss)
+    ys = mixed_moe.moe_apply([p["moe"]["banks"] for p in ps],
+                             [a for a, _, _ in r], [w for _, w, _ in r],
+                             [i for _, _, i in r], cfg.moe, par,
+                             act=cfg.act, use_kernel=use_kernel)
+    return split.each(lambda i, x, y: x + y.reshape(x.shape), xs, ys), new
+
+
+def decoder_forward_split(pos_params, cfg: ModelConfig, xs, poss, *,
+                          caches, split, use_kernel=False, train=False,
+                          par=None):
+    """:func:`decoder_forward` over a (data, model) mesh: ``pos_params``
+    (each position's param tree of its own shards), ``xs``, ``poss`` and
+    ``caches`` (each position's {k, v, pos} stacks of its data rank's
+    rows) are per-position lists, and the residual stays per position
+    through the layers. Returns (ys, new caches, aux): the router losses
+    of the whole batch (``train``) at position 0."""
+    aux: Dict[str, Any] = {}
+    if train and cfg.moe is not None:
+        zero = torch.zeros((), dtype=torch.float32, device=split.devices[0])
+        aux.update(load_balance=zero, router_z=zero)
+
+    tables = L.position_tables(cfg.attention, poss, split,
+                               caches is not None)
+
+    def train_block(xs, ps):
+        stats: list = []
+        xs, _ = decoder_block_split(ps, cfg, xs, poss, None, split, tables,
+                                    use_kernel=use_kernel,
+                                    stats=stats if train else None,
+                                    par=par)
+        if not stats:
+            return xs, {}
+        lb, z = mixed_moe.router_losses(stats, split.lead, cfg.moe,
+                                        split.devices[0])
+        return xs, {"load_balance": lb, "router_z": z}
+
+    train_body = _maybe_remat(train_block, cfg)
+    new = [[] for _ in range(split.n)]
+    for li in range(cfg.num_layers):
+        ps = [layer_slice(t["layers"], li) for t in pos_params]
+        if caches is None:
+            xs, layer_aux = train_body(xs, ps)
+            for k, v in layer_aux.items():
+                aux[k] = aux[k] + v
+            continue
+        rings = [{k: c[k][li] for k in ("k", "v", "pos")} for c in caches]
+        xs, rings = decoder_block_split(ps, cfg, xs, poss, rings, split,
+                                        tables, use_kernel=use_kernel,
+                                        par=par)
+        for p, ring in enumerate(rings):
+            new[p].append(ring)
+    if caches is None:
+        return xs, None, aux
+    if xs[0].shape[1] == 1:
+        return xs, caches, aux          # written in place layer by layer
+    stacked = split.each(lambda p, rs: {k: torch.stack([r[k] for r in rs])
+                                        for k in ("k", "v", "pos")}, new)
+    return xs, stacked, aux
+
+
 def _maybe_remat(fn, cfg: ModelConfig):
     """``cfg.remat`` as activation checkpointing of a block while a graph
     is recorded: "full" recomputes the whole block in the backward

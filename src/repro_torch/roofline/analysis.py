@@ -160,8 +160,11 @@ def load_cell(path: Path, hw: Hardware = H100) -> Optional[CellRoofline]:
     )
 
 
-def load_all(results: Path = RESULTS, mesh: Optional[str] = None,
+def load_all(results: Optional[Path] = None, mesh: Optional[str] = None,
              tag: str = "", hw: Hardware = H100) -> List[CellRoofline]:
+    """The cells under ``results`` (``None``: the module's ``RESULTS``,
+    read when called)."""
+    results = RESULTS if results is None else results
     cells = []
     for p in sorted(results.glob(f"*__*{tag}.json")):
         stem_parts = p.stem.split("__")
@@ -205,6 +208,8 @@ def pick_hillclimb_cells(cells: List[CellRoofline]) -> Dict[str, CellRoofline]:
     most collective-bound, and the paper-representative cell (mixtral
     decode — the paper's own serving workload)."""
     single = [c for c in cells if c.mesh == "pod16x16"]
+    if not single:
+        raise ValueError("no pod16x16 cell to pick from")
     train = [c for c in single if c.shape.startswith("train")] or single
     worst = min(train, key=lambda c: c.mfu_bound)
     coll = max(single, key=lambda c: (c.t_collective / c.bound
@@ -225,6 +230,9 @@ def main() -> None:
                     help="print the three hillclimb targets")
     args = ap.parse_args()
     cells = load_all(mesh=args.mesh)
+    if args.pick and not cells:
+        raise ValueError(f"no dry-run records under {RESULTS}: run "
+                         "repro_torch.launch.dryrun first")
     table = markdown_table(cells)
     print(table)
     if args.md:

@@ -35,12 +35,13 @@ on real ones, and books per mesh position:
 
 **Positions.** On ``meta`` every device is ``meta``, so a tensor's device
 cannot tell the positions apart; the controller says where it runs.
-``mixed_moe.moe_apply`` issues each position's share inside
+The split forwards (``dist.sharding.Split.each``, the collectives) and
+``mixed_moe.moe_apply`` issue each position's share inside
 :func:`at_position`. Elsewhere (and in the backward, which runs after
 those blocks closed) an op belongs to the first of its tensor operands
 whose storage a position other than 0 created or holds, and otherwise to
-position 0, ``mesh.devices[0]``, where the port runs the dense layers,
-keeps the activations and gathers the dense weights.
+position 0, ``mesh.devices[0]`` (where the whole-batch forwards of the
+families that keep the dense compute whole run it).
 
 The counters are off unless a counter is open: :func:`collective` returns
 at once, and no op is seen.

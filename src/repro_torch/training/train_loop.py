@@ -12,12 +12,14 @@ loss_fn, tcfg)`` on a model built with a mesh, with params placed by
 ``dist.sharding.shard_tree(params, param_shardings(cfg, mesh, params))``
 and the state made from them (it shards by :func:`opt_state_specs`).
 Every mesh position's shard is a leaf of its own: the backward gives
-each position its part of the gradient (the dense weights' through the
-gather onto ``mesh.devices[0]``, the expert shards' from the tokens that
-position ran), and a replicated shard's gradient is summed over its
-replicas in f32 in position order and rounded once, as the reference's
-bf16 ``psum`` over the data axis is. The optimizer then updates each
-distinct shard once and copies it to its replicas.
+each position its part of the gradient straight from that position's
+work (a decoder's dense shards from its split forward, the expert
+shards from the tokens that position ran; the families that keep the
+dense compute whole send theirs back through the gather onto
+``mesh.devices[0]``), and a replicated shard's gradient is summed over
+its replicas in f32 in position order and rounded once, as the
+reference's bf16 ``psum`` over the data axis is. The optimizer then
+updates each distinct shard once and copies it to its replicas.
 """
 from __future__ import annotations
 

@@ -4,10 +4,13 @@ sweeps (``repro_torch.configs.all_cells``).
 * ``all_cells()`` is the reference's list, in its order;
 * ``run_cell`` and the CLI on the smoke Mixtral over a (2, 2) mesh of
   ``meta`` positions (the production mesh and config swapped for smoke
-  ones, so no production cell runs here) write one well-formed record: the
-  reference's keys, per-position memory, cost and collectives and
-  ``trace_s``; a second CLI run skips the cached cell, and the port's
-  ``analysis`` reads the record;
+  ones, so no production cell runs here) write one well-formed record:
+  the reference's keys, per-position memory (balanced: the dense
+  compute is split), cost and collectives (the model-axis all-reduces;
+  no scatter of the placed inputs) and ``trace_s``; a second CLI run
+  skips the cached cell, and the port's ``analysis`` reads the record
+  (on a clean checkout: ``analysis.load_all`` reads the module's
+  ``RESULTS`` when called);
 * a failing cell is recorded with its error, and the CLI exits 1;
 * the dry run's train step (``remat="full"``) on a (2, 2) mesh runs with
   no ambient mesh and with its backward in another thread, as autograd
@@ -58,7 +61,9 @@ def test_run_cell_writes_a_well_formed_record(smoke_cells):
         assert key in rec, key
     mem = rec["memory"]
     assert len(mem["per_position_gib"]) == 4
-    assert mem["position"] == 0 and mem["argument_bytes"] > 0
+    assert mem["argument_bytes"] > 0
+    # the dense compute split over the mesh: no position holds the rest's
+    assert mem["peak_per_device_gib"] <= 1.2 * min(mem["per_position_gib"])
     assert mem["peak_per_device_gib"] == max(mem["per_position_gib"])
     assert mem["peak_per_device_gib"] == (
         mem["argument_bytes"] + mem["temp_bytes"]) / 2**30
@@ -66,7 +71,8 @@ def test_run_cell_writes_a_well_formed_record(smoke_cells):
     assert cost["flops"] == max(cost["per_position"]["flops"]) > 0
     assert cost["dot_count"] > 0 and cost["bytes_accessed"] > 0
     coll = rec["collectives"]
-    assert coll["total_bytes"] > 0 and coll["scatter_count"] > 0
+    assert coll["total_bytes"] > 0 and coll["all-reduce_count"] > 0
+    assert coll["scatter_count"] == 0        # the inputs are placed
     cell = A.load_cell(path)
     assert cell.op_flops == cost["flops"] and cell.trace_s == rec["trace_s"]
     assert cell.bound > 0

@@ -206,7 +206,7 @@ def test_overlap_metrics_and_calibration(smoke):
     """The pipeline splits blocked from hidden transfer time, throughput
     charges only the exposed part, and calibrate_overlap folds the
     measured window into the hardware model (dropping the frontier)."""
-    _, teng = serve_both(smoke, use_kernel=False, overlap=True)
+    jeng, teng = serve_both(smoke, use_kernel=False, overlap=True)
     m = teng.metrics
     assert m["expert_fetches"] > 0
     assert m["transfer_overlapped_s"] == pytest.approx(max(
@@ -220,6 +220,7 @@ def test_overlap_metrics_and_calibration(smoke):
     assert teng.hw.overlap_efficiency == eff and teng._frontier is None
     teng.close()
     teng.close()                                # idempotent
+    jeng.close()
 
 
 def test_frontier_and_planner_copies_equal():
