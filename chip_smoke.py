@@ -212,6 +212,21 @@ Phases (each raises on failure, and the script then exits non-zero):
                --device cuda:0,cuda:0,cuda:0,cuda:0`` with a checkpoint,
                then ``--resume`` on ``--mesh 1,1``: the elastic restore's
                params bit-equal to the saved ones;
+     9e. families mesh (runs after 7e) — RWKV6-3B (depth 32 -> 2),
+               Zamba2-7B (81 -> 7: one group of six and the tail) and
+               SeamlessM4T-medium (12 + 12 -> 2 + 2) at full width, their
+               dense compute split over (2, 2) of repeated ``cuda:0``: in
+               float32, prefill of 2 x 8 tokens (1024 encoder frames for
+               SeamlessM4T) and 4 decode steps through ``_mesh_decode``
+               against one device's run at the same params, fed its
+               greedy tokens: logits within 1e-4 of max |logit|, greedy
+               ids equal; the same in bf16, the gap and ms per decode step
+               printed, greedy ids equal wherever one device's top-2
+               margin exceeds twice the gap; one split AdamW step (bf16, 2
+               microbatches of 2 x 64) twice from the same params: params
+               and moments bit-equal, nll within 1e-2 of one device's at
+               those params; the split Zamba2 decode step's op count on
+               the card equal to ``meta``'s;
  10. roofline — full-width Mixtral-8x7B at the serve depth (2) on a (1, 1)
                mesh of ``cuda:0`` with ``use_kernel=False`` (the dry run's
                program, ``launch/dryrun.py`` ``build_cell``): a decode step
@@ -2277,14 +2292,14 @@ def _mesh_train(torch, np, seed: int, card: str, distinct: bool):
             "peak_gb": max(r["peak_gb"] for r in runs[2])}
 
 
-def _mesh_decode(torch, cfg, params, mesh, tokens, feed=None):
-    """``Model.prefill`` of ``tokens`` (B, S) and 4 decode steps with the
-    kernels on, fed ``feed`` (the one-device run's greedy tokens) or its
-    own: the logits of each forward (f32, host; a split run's sharded
-    logits gathered in rank order), the tokens fed, the decode steps' ms
-    and, on a mesh, one more decode step counted by ``roofline.op_count``
-    (its per-position argument + peak live GB, and whether it ran
-    split)."""
+def _mesh_decode(torch, cfg, params, mesh, batch, feed=None):
+    """``Model.prefill`` of ``batch`` (tokens (B, S), an enc-dec's
+    ``src``) and 4 decode steps with the kernels on, fed ``feed`` (the
+    one-device run's greedy tokens) or its own: the logits of each
+    forward (f32, host; a split run's sharded logits gathered in rank
+    order), the tokens fed, the decode steps' ms and, on a mesh, one more
+    decode step counted by ``roofline.op_count`` (its per-position
+    argument + peak live GB, and whether it ran split)."""
     from repro_torch.dist import sharding as SH
     from repro_torch.models.model import build_model
     from repro_torch.roofline.op_count import OpCounter
@@ -2292,9 +2307,10 @@ def _mesh_decode(torch, cfg, params, mesh, tokens, feed=None):
     def whole(lg):
         return lg.full() if isinstance(lg, SH.Sharded) else lg
 
+    tokens = batch["tokens"]
     model = build_model(cfg, mesh, use_kernel=True)
     cache = model.init_cache(tokens.shape[0], 24, device="cuda")
-    logits, cache = model.prefill(params, {"tokens": tokens}, cache)
+    logits, cache = model.prefill(params, batch, cache)
     out, fed = [whole(logits).float().cpu()], []
     pos = torch.full((tokens.shape[0],), tokens.shape[1], device="cuda")
     torch.cuda.synchronize()
@@ -2348,7 +2364,7 @@ def _mesh_serve(torch, np, seed: int, distinct: bool):
     tok = torch.from_numpy(np.random.default_rng(seed).integers(
         1, cfg.vocab_size, (2, 8))).to("cuda")
     sp = apply_precision_plan(params, cfg, plan)
-    want, feed, ms1, _ = _mesh_decode(torch, cfg, sp, None, tok)
+    want, feed, ms1, _ = _mesh_decode(torch, cfg, sp, None, {"tokens": tok})
     del sp
     _release(torch)
     top2 = want.topk(2, dim=-1).values
@@ -2372,8 +2388,8 @@ def _mesh_serve(torch, np, seed: int, distinct: bool):
                                      f"{got_regime}, not {regime}")
         ops.reset_launches()
         with _PositionLaunches() as book:
-            got, _, ms, counted = _mesh_decode(torch, cfg, placed, mesh, tok,
-                                               feed)
+            got, _, ms, counted = _mesh_decode(torch, cfg, placed, mesh,
+                                               {"tokens": tok}, feed)
         if counted["split"] != SH.splits_dense(cfg, mesh):
             raise AssertionError(f"9c {name}: split {counted['split']}, "
                                  f"the serving rules say "
@@ -2609,19 +2625,26 @@ def _roofline_step(torch, cfg, kind: str, card: str):
 MESH_COUNT = (2, 2)                   # the split decode counted in 10
 
 
-def _mesh_count(torch, cfg, card: str):
-    """The anchor decode step on a (2, 2) mesh of repeated ``cuda:0``,
-    the dense compute split over it: its op count on the card against
-    the same step's on a (2, 2) mesh of ``meta`` (op sequence, FLOPs,
-    bytes and collectives equal), with each position's FLOPs and
-    argument + peak bytes."""
+def _mesh_count(torch, cfg, card: str, shape=None, what: str = "10"):
+    """The anchor decode step (or the dry-run cell of ``shape``, a
+    ``ShapeConfig``) on a (2, 2) mesh of repeated ``cuda:0``, the dense
+    compute split over it: its op count on the card against the same
+    step's on a (2, 2) mesh of ``meta`` (op sequence, FLOPs, bytes and
+    collectives equal), with each position's FLOPs and argument + peak
+    bytes."""
     from repro_torch.launch import dryrun as D
     from repro_torch.launch.mesh import make_test_mesh, use_mesh
+    from repro_torch.models.model import abstract_params
     n = math.prod(MESH_COUNT)
     counts = {}
     for where in ("cuda:0", "meta"):
         mesh = make_test_mesh(MESH_COUNT, devices=[where] * n)
-        step, args = _anchor_cell(cfg, "decode", mesh)
+        if shape is None:
+            step, args = _anchor_cell(cfg, "decode", mesh)
+        else:           # the abstract tree's shapes on both sides
+            with use_mesh(mesh):
+                step, args = D.build_cell(cfg, shape, mesh, D._like(
+                    abstract_params(cfg), mesh.devices[0]))
         with use_mesh(mesh):
             counts[where], _ = D.count_step(step, args, n)
         del step, args
@@ -2631,7 +2654,7 @@ def _mesh_count(torch, cfg, card: str):
             and real.cost_summary() == meta.cost_summary()
             and real.collective_summary() == meta.collective_summary())
     if not same:
-        raise AssertionError(f"roofline decode on {MESH_COUNT}: the card's "
+        raise AssertionError(f"{what} decode on {MESH_COUNT}: the card's "
                              f"op count differs from meta's\n"
                              f"{_count_diff(real, meta)}")
     cost, coll, mem = (real.cost_summary(), real.collective_summary(),
@@ -2644,8 +2667,9 @@ def _mesh_count(torch, cfg, card: str):
            "all_reduce_count": coll["all-reduce_count"],
            "all_gather_count": coll["all-gather_count"],
            "collective_bytes": coll["total_bytes"]}
-    log(f"  10 decode on {MESH_COUNT} of cuda:0 ({card}), dense compute "
-        f"split: card == meta: op sequence, FLOPs, bytes and collectives "
+    log(f"  {what} decode on {MESH_COUNT} of cuda:0 ({card}), dense "
+        f"compute split: card == meta: op sequence, FLOPs, bytes and "
+        f"collectives "
         f"equal; per-position FLOPs {[f'{f:.4e}' for f in flops]}, "
         f"GiB {[round(g, 3) for g in mem['per_position_gib']]}; "
         f"{coll['all-reduce_count']} all-reduces, "
@@ -4059,6 +4083,159 @@ def phase_families_train(torch, np, seed: int, card: str):
     return out
 
 
+#: 9e's depth cuts at full width: RWKV6 32 -> 2, Zamba2 81 -> 7 (one
+#: group of six and the tail), SeamlessM4T 12 + 12 -> 2 + 2
+FAM_MESH = {"rwkv6-3b": 2, "zamba2-7b": 7, "seamless-m4t-medium": 2}
+FAM_MESH_F32_BAR = 1e-4       # split vs one device, of max |logit|
+FAM_MESH_TRAIN = (4, 64)      # one AdamW step's batch: 2 microbatches
+
+
+def _fam_mesh_config(arch: str, dtype: str):
+    cut = {"num_layers": FAM_MESH[arch], "dtype": dtype}
+    if family_config(arch).num_encoder_layers:
+        cut["num_encoder_layers"] = 2
+    return family_config(arch).replace(**cut)
+
+
+def _fam_mesh_serve(torch, np, arch: str, dtype: str, mesh, seed: int):
+    """Prefill of 2 x 8 tokens (an enc-dec's ``src`` of ``frontend_len``
+    frames) and 4 decode steps split over ``mesh`` against one device's
+    own run at the same params, fed its greedy tokens: (the logits gap of
+    max |logit|, greedy equal, one device's and the mesh's ms per decode
+    step)."""
+    from repro_torch.dist import sharding as SH
+    from repro_torch.models.model import init_params
+    cfg = _fam_mesh_config(arch, dtype)
+    params = init_params(cfg, seed, device="cuda")
+    batch = _to(_smoke_batch(torch, np, cfg, np.random.default_rng(seed),
+                             2, 8), torch, "cuda")
+    batch.pop("labels")
+    want, feed, ms1, _ = _mesh_decode(torch, cfg, params, None, batch)
+    sp = SH.shard_tree(params, SH.param_shardings(cfg, mesh, params))
+    del params
+    _release(torch)
+    got, _, ms, counted = _mesh_decode(torch, cfg, sp, mesh, batch, feed)
+    del sp
+    _release(torch)
+    scale = float(want.abs().max())
+    gap = float((got - want).abs().max())
+    same = got.argmax(-1) == want.argmax(-1)
+    top2 = want.topk(2, dim=-1).values
+    firm = (top2[..., 0] - top2[..., 1]) > 2 * gap
+    finite = bool(torch.isfinite(got).all()) and counted["split"]
+    if dtype == "float32":
+        ok = gap <= FAM_MESH_F32_BAR * scale and bool(same.all())
+    else:                     # bf16: 9c's rule, the gap printed
+        ok = not bool((firm & ~same).any())
+    if not (finite and ok):
+        raise AssertionError(f"9e {arch} {dtype}: logits gap {gap:.3e} "
+                             f"(max |logit| {scale:.3f}), greedy ids "
+                             f"differ where firm: {int((firm & ~same).sum())}"
+                             f", finite and split {finite}")
+    return {"gap": gap / scale, "max_logit": scale,
+            "greedy_equal": bool(same.all()), "one_device_ms": ms1,
+            "mesh_ms": ms}
+
+
+def _fam_mesh_train(torch, np, arch: str, mesh, seed: int):
+    """One AdamW step of the split ``loss_fn`` (bf16, 2 microbatches)
+    from the same placed params, twice: stepped params and moments
+    bit-equal, and the step's nll within 1e-2 of one device's at those
+    params over the same microbatches."""
+    from repro_torch.dist import sharding as SH
+    from repro_torch.models.model import build_model, init_params
+    from repro_torch.training.train_loop import (init_train_state,
+                                                 make_train_step)
+    cfg = _fam_mesh_config(arch, "bfloat16")
+    b, s = FAM_MESH_TRAIN
+    batch = _to(_smoke_batch(torch, np, cfg, np.random.default_rng(seed), b,
+                             s), torch, "cuda")
+    tcfg = _train_config(torch)
+    step = make_train_step(build_model(cfg, mesh).loss_fn, tcfg)
+    params = init_params(cfg, seed, device="cuda")
+    n = tcfg.num_microbatches
+    with torch.no_grad():
+        whole = build_model(cfg).loss_fn
+        one = float(torch.stack([whole(params, {
+            k: v.reshape((n, -1) + v.shape[1:])[i]
+            for k, v in batch.items()})[1]["nll"] for i in range(n)]).mean())
+    runs = []
+    for _ in range(2):
+        _peak_reset(torch)
+        sp = SH.shard_tree(params, SH.param_shardings(cfg, mesh, params))
+        state = init_train_state(sp, tcfg)
+        t0 = time.perf_counter()
+        sp, state, m = step(sp, state, batch)
+        torch.cuda.synchronize()
+        rec = {"ms": (time.perf_counter() - t0) * 1e3,
+               "nll": float(m["nll"]), "grad_norm": float(m["grad_norm"]),
+               "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        _replicas_equal(torch, sp, f"9e {arch} params")
+        runs.append(({k: [t.cpu() for t in SH.distinct(v)] for k, v in
+                      _state_leaves(sp, state).items()}, rec))
+        del sp, state
+        _release(torch)
+    (a, r1), (b_, r2) = runs
+    same = all(_bits_equal(torch, x, y) for k in a
+               for x, y in zip(a[k], b_[k]))
+    gap = abs(r1["nll"] - one)
+    if not (same and r1["nll"] == r2["nll"] and gap <= 1e-2
+            and math.isfinite(r1["grad_norm"])):
+        raise AssertionError(f"9e {arch} train: runs bit-equal {same}, nll "
+                             f"{r1['nll']} / {r2['nll']} vs one device "
+                             f"{one} (bar 1e-2), grad norm "
+                             f"{r1['grad_norm']}")
+    return {"nll": r1["nll"], "one_device_nll": one, "nll_gap": gap,
+            "grad_norm": r1["grad_norm"], "ms": [r1["ms"], r2["ms"]],
+            "peak_gb": r1["peak_gb"], "bit_equal": same}
+
+
+def phase_families_mesh(torch, np, seed: int, card: str,
+                        distinct: bool = False):
+    """9e: RWKV6, Zamba2 and SeamlessM4T at full width and cut depth
+    (``FAM_MESH``), their dense compute split over a (2, 2) mesh of
+    repeated ``cuda:0`` (``distinct``: position p on ``cuda:(p %
+    cards)``): f32 and bf16 prefill + 4 decode steps against one device
+    (f32 within ``FAM_MESH_F32_BAR`` of max |logit| with equal greedy
+    ids; bf16's gap printed, its greedy ids equal wherever one device's
+    top-2 margin exceeds twice the gap), one split AdamW step twice
+    (bit-equal, nll against one device's), and the split Zamba2 decode
+    step's op count on the card against ``meta``'s."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch.mesh import make_test_mesh
+    t0 = time.perf_counter()
+    mesh = make_test_mesh((2, 2), devices=_mesh_devices(4, distinct))
+    out = {}
+    for arch, depth in FAM_MESH.items():
+        rec = {"depth": depth}
+        for dtype in ("float32", "bfloat16"):
+            rec[dtype] = r = _fam_mesh_serve(torch, np, arch, dtype, mesh,
+                                             seed)
+            log(f"  9e {arch} {dtype} (depth {depth}, full width) split "
+                f"over 2x2 of {mesh.devices[0]}...: prefill 2x8 + 4 decode "
+                f"steps, logits within {r['gap']:.3e} of max |logit| "
+                f"{r['max_logit']:.3f} of one device's, greedy ids "
+                f"{'equal' if r['greedy_equal'] else 'equal where firm'}; "
+                f"{r['mesh_ms']:.2f} ms per decode step (one device "
+                f"{r['one_device_ms']:.2f})")
+        rec["train"] = t = _fam_mesh_train(torch, np, arch, mesh, seed)
+        log(f"  9e {arch} train: one split AdamW step of "
+            f"{FAM_MESH_TRAIN[0]} x {FAM_MESH_TRAIN[1]} tokens twice, "
+            f"{t['ms'][0]:.1f} / {t['ms'][1]:.1f} ms, params and moments "
+            f"bit-equal; nll {t['nll']:.4f}, one device at the same params "
+            f"{t['one_device_nll']:.4f} (gap {t['nll_gap']:.2e}, bar 1e-2); "
+            f"peak {t['peak_gb']:.2f} GB")
+        out[arch] = rec
+        _release(torch)
+    if not distinct:
+        out["zamba2 count"] = _mesh_count(
+            torch, _fam_mesh_config("zamba2-7b", "bfloat16"), card,
+            ShapeConfig("decode", 24, 2, "decode"), "9e zamba2-7b")
+    out["seconds"] = time.perf_counter() - t0
+    log(f"  9e: {out['seconds']:.1f} s")
+    return out
+
+
 def phase_parity(torch, np, seed: int):
     """The smoke-size model (2 layers, d_model 64) with a 3-rung plan: the
     same params on the card (CUDA kernels) and on the CPU (the kernels'
@@ -4716,6 +4893,9 @@ def main(argv=None) -> int:
     families_train = run("families-train", phase_families_train, torch,
                          np, args.seed, smi)
     _release(torch)
+    families_mesh = run("families mesh", phase_families_mesh, torch, np,
+                        args.seed, smi)
+    _release(torch)
     parity_err = run("parity", phase_parity, torch, np, args.seed) \
         if built else None
     kern = run("kernels", phase_kernels, torch, np, sizes, args.seed,
@@ -4743,6 +4923,7 @@ def main(argv=None) -> int:
         "train": train, "mesh": mesh, "roofline": roofline, "kimi": kimi,
         "qwen3": qwen3,
         "families": families, "families_train": families_train,
+        "families_mesh": families_mesh,
         "parity_max_abs_diff": parity_err, "kernels": records,
         "kernel_shapes": extra, "failures": failures,
         "total_s": total_s}, indent=1, default=str))

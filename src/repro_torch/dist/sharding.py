@@ -18,7 +18,8 @@ may repeat a device), so a rule here is explicit storage:
   and which model rank each position holds; :func:`rows` hands each
   position its data rank's rows of an input; :func:`all_reduce` (the
   model-axis closing sum of row-parallel partial outputs) and
-  :func:`all_gather` (column shards, vocab slices, token shards) are the
+  :func:`all_gather` (column shards, vocab slices, token shards, state
+  slices) and :func:`reduce_scatter` (RWKV's gated channel mix) are the
   collectives between the positions' work, each an f32 sum (or a
   concatenation) in rank order, rounded once, with a backward of the same
   kind, and each booked with ``roofline.op_count``.
@@ -114,11 +115,11 @@ def ep_only(cfg, mesh, train: bool = False) -> bool:
 
 
 def splits_dense(cfg, mesh, train: bool = False) -> bool:
-    """Do the reference's rules split a decoder's dense compute over
-    ``mesh``: a decoder family on more than one position, outside the
-    pure-EP serving rules (which keep attention whole)?"""
+    """Do the reference's rules split a model's dense compute over
+    ``mesh``: any family on more than one position, outside the pure-EP
+    serving rules (which keep attention whole; they apply to MoE models
+    only, so never to the SSM, hybrid and enc-dec families)?"""
     return (mesh is not None and len(mesh.devices) > 1
-            and cfg.family in ("dense", "moe", "vlm")
             and not ep_only(cfg, mesh, train))
 
 
@@ -799,14 +800,12 @@ def _sizes(n: int, m: int):
     return [base + (j < extra) for j in range(m)]
 
 
-def _group_sums(groups, devices, parts, like):
-    """Every position's copy of its group's rank-order f32 sum of
-    ``parts`` (``None`` = zero), rounded once to ``like[p]``: a ring
-    all-reduce's reduce-scatter and all-gather. Each part is cut into one
-    piece per rank of its group (one op); rank j sums piece j over the
-    group's parts (:func:`rank_sum`), and each position concatenates the
-    sums in rank order. Every element is the same sequence of f32 adds
-    whichever position made it, so the copies are bit-equal."""
+def _piece_sums(groups, devices, parts, like):
+    """A reduce-scatter: rank j of each group gets piece j (of one per
+    rank, along the last dim) of the group's rank-order f32 sum of
+    ``parts`` (``None`` = zero), rounded once to ``like[p]``. Each part is
+    cut into its pieces in one op, and rank j sums piece j over the
+    group's parts (:func:`rank_sum`)."""
     outs = [None] * len(parts)
     for g in groups:
         held = [q for q in g if parts[q] is not None]
@@ -817,14 +816,28 @@ def _group_sums(groups, devices, parts, like):
         for q in held:
             with OC.at_position(q):
                 pieces[q] = parts[q].to(torch.float32).split(sizes, -1)
-        sums = []
         for i, p in enumerate(g):
             with OC.at_position(p):
-                sums.append(rank_sum([pieces[q][i] for q in held],
-                                     devices[p], like[p]))
+                outs[p] = rank_sum([pieces[q][i] for q in held],
+                                   devices[p], like[p])
+    return outs
+
+
+def _group_sums(groups, devices, parts, like):
+    """Every position's copy of its group's rank-order f32 sum of
+    ``parts`` (``None`` = zero), rounded once to ``like[p]``: a ring
+    all-reduce's reduce-scatter (:func:`_piece_sums`) and all-gather, each
+    position concatenating the pieces in rank order. Every element is the
+    same sequence of f32 adds whichever position made it, so the copies
+    are bit-equal."""
+    sums = _piece_sums(groups, devices, parts, like)
+    outs = [None] * len(parts)
+    for g in groups:
+        if sums[g[0]] is None:
+            continue
         for p in g:
             with OC.at_position(p):
-                outs[p] = torch.cat([t.to(devices[p]) for t in sums], -1)
+                outs[p] = torch.cat([sums[q].to(devices[p]) for q in g], -1)
     return outs
 
 
@@ -846,6 +859,30 @@ class _AllReduce(torch.autograd.Function):
     def backward(ctx, *grads):
         out = _group_sums(ctx.groups, ctx.devices, grads, ctx.like)
         _book_all("all-reduce", out, grads)
+        return (None, None, *out)
+
+
+class _ReduceScatter(torch.autograd.Function):
+    """Each position's piece of its group's sum of the parts (one piece
+    per rank along the last dim, :func:`_piece_sums`); the backward
+    all-gathers the pieces' gradients in rank order."""
+
+    @staticmethod
+    def forward(ctx, groups, devices, *parts):
+        ctx.groups, ctx.devices = groups, devices
+        outs = _piece_sums(groups, devices, parts, [t.dtype for t in parts])
+        _book_all("reduce-scatter", outs, parts)
+        return tuple(outs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        out = [None] * len(grads)
+        for g in ctx.groups:
+            for p in g:
+                with OC.at_position(p):
+                    out[p] = torch.cat([grads[q].to(ctx.devices[p])
+                                        for q in g], -1)
+        _book_all("all-gather", out, grads)
         return (None, None, *out)
 
 
@@ -923,6 +960,15 @@ def all_reduce(parts, groups, devices):
     return list(_AllReduce.apply(tuple(groups), tuple(devices), *parts))
 
 
+def reduce_scatter(parts, groups, devices):
+    """Per-position partial values -> each position's piece (its rank's
+    of one per rank, along the last dim) of its group's sum (see
+    :class:`_ReduceScatter`); groups of one are returned as they are."""
+    if all(len(g) == 1 for g in groups):
+        return list(parts)
+    return list(_ReduceScatter.apply(tuple(groups), tuple(devices), *parts))
+
+
 def all_gather(parts, groups, devices, dim: int):
     """Per-position shards -> each position's concatenation of its
     group's shards along ``dim`` (see :class:`_AllGather`)."""
@@ -952,8 +998,11 @@ def to_lead(parts, split: Split, dim: int):
 
 
 def cache_spec(shape, batch: int, lead) -> P:
-    """A decode cache leaf's spec: the batch dim of an (L, B, ...) stack
-    (or of a (B, ...) leaf) over the batch axes, the rest replicated."""
+    """A decode cache leaf's spec (the reference's ``cache_specs`` rule):
+    the batch dim of an (L, B, ...) stack (dim 1 where it equals the
+    batch) or else of a (B, ...) leaf (Seamless's ``enc_out``) over the
+    batch axes, the rest replicated: every model rank of a data rank holds
+    all the heads, channels and states of its rows."""
     spec = [None] * len(shape)
     if len(shape) >= 2 and shape[1] == batch:
         spec[1] = lead

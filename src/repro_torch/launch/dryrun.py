@@ -85,12 +85,13 @@ def _params(cfg: ModelConfig, device: torch.device):
     return init_params(cfg, 0, device=device)
 
 
-def _serve_params_struct(cfg: ModelConfig, mesh):
+def _serve_params_struct(cfg: ModelConfig, mesh, params=None):
     """Serve-layout params on ``mesh`` (mixed banks for a MoP MoE,
     placed per position), every other leaf placed by ``place_params``:
     its ``param_specs`` shard at each position where the serving rules
     split the dense compute."""
-    params = _params(cfg, mesh.devices[0])
+    if params is None:
+        params = _params(cfg, mesh.devices[0])
     if cfg.moe is None or not cfg.mop.enabled:
         return place_params(cfg, mesh, params)
     e = cfg.moe.num_experts
@@ -126,9 +127,13 @@ def _like(tree, device: torch.device):
     return torch.zeros(tree.shape, dtype=tree.dtype, device=device)
 
 
-def build_cell(cfg: ModelConfig, shape: ShapeConfig, mesh):
+def build_cell(cfg: ModelConfig, shape: ShapeConfig, mesh, params=None):
     """Returns (step, args): ``step(*args)`` runs the cell once, its
-    params and state placed on ``mesh`` as the port places them."""
+    params and state placed on ``mesh`` as the port places them.
+    ``params``: the train-layout params to place (default: ``_params``;
+    ``_like(abstract_params(cfg), device)`` gives a device the shapes
+    ``meta`` counts with: ``init_params`` draws Mamba2's ``A_log`` with
+    one value per layer, as the reference's init does)."""
     dev = mesh.devices[0]
     dp = SH.batch_axes(mesh, shape.global_batch)
 
@@ -137,7 +142,7 @@ def build_cell(cfg: ModelConfig, shape: ShapeConfig, mesh):
         model_t = build_model(cfg_t, mesh, dp_axes=dp)
         tcfg = pick_train_cfg(cfg, shape, mesh)
         step = make_train_step(model_t.loss_fn, tcfg)
-        params = _params(cfg, dev)
+        params = _params(cfg, dev) if params is None else params
         params = SH.shard_tree(params,
                                SH.param_shardings(cfg, mesh, params))
         opt_state = init_train_state(params, tcfg)
@@ -145,7 +150,7 @@ def build_cell(cfg: ModelConfig, shape: ShapeConfig, mesh):
         return step, (params, opt_state, _like(batch, dev))
 
     model = build_model(cfg, mesh, dp_axes=dp)
-    serve_params = _serve_params_struct(cfg, mesh)
+    serve_params = _serve_params_struct(cfg, mesh, params)
     cache = model.init_cache(shape.global_batch, shape.seq_len, device=dev)
     inp, placed = SH.input_specs(cfg, shape, mesh)
     inp = _like(inp, dev)

@@ -266,9 +266,11 @@ def _attend(p, q, k, v, acfg: AttentionConfig, positions, cache, *,
         k = rms_norm(k, p["k_norm"])
     g_full = _full_grouped(acfg.num_heads, acfg.num_kv_heads)
     if cross:
+        q = q[:, rows]
         mask = torch.ones((q.shape[0], 1, q.shape[1], k.shape[1]),
                           dtype=torch.bool, device=q.device)
-        return _sdpa(q, k, v, mask, g_full), None
+        return _sdpa(q, k[:, :, kv_heads], v[:, :, kv_heads], mask, g_full,
+                     chunk), None
     rt = None if tables is None else tables["rope"]
     q = rope(q, positions, acfg.rope_theta, rt)
     k = rope(k, positions, acfg.rope_theta, rt)
@@ -347,12 +349,16 @@ def position_tables(acfg: AttentionConfig, poss, split: "SH.Split",
 
 
 def attention_split(ps, xs, acfg: AttentionConfig, *, poss, caches,
-                    split: "SH.Split", tables):
-    """:func:`attention` (self-attention, no ``spec``) per mesh position:
-    ``ps``, ``xs`` (B_i, S, d), ``poss`` (B_i, S) and ``caches`` (each
-    position's ring {k, v, pos} of its data rank's rows, all KV heads;
-    ``None``: no cache) are per-position lists. Returns (the outputs,
-    the new rings or ``None``).
+                    split: "SH.Split", tables, kv_xs=None):
+    """:func:`attention` (no ``spec``) per mesh position: ``ps``, ``xs``
+    (B_i, S, d), ``poss`` (B_i, S) and ``caches`` (each position's ring
+    {k, v, pos} of its data rank's rows, all KV heads; ``None``: no
+    cache) are per-position lists. Returns (the outputs, the new rings or
+    ``None``). An encoder's self-attention is ``acfg.causal=False`` with
+    no cache (its ``tables`` carry the open mask). ``kv_xs`` (each
+    position's data-rank rows of ``enc_out``) makes it cross-attention: K
+    and V from ``kv_xs``, no rope, every source position attended, no
+    cache (``poss``, ``caches`` and ``tables`` are not read).
 
     Where ``wq`` is column-sharded over the model axis and the heads
     divide it, position (i, j) projects query heads slice j, and its
@@ -376,32 +382,41 @@ def attention_split(ps, xs, acfg: AttentionConfig, *, poss, caches,
     kv_split = ps[0]["wk"].shape[-1] < hkv * hd
     heads = q_split and h % m == 0
     hl = h // m if heads else h
-    xqkv = split.each(lambda p, x: SH.fan_out(x, 3), xs)
-    q = split.each(lambda p, x, w: x[0] @ w["wq"], xqkv, ps)
-    k = split.each(lambda p, x, w: x[1] @ w["wk"], xqkv, ps)
-    v = split.each(lambda p, x, w: x[2] @ w["wv"], xqkv, ps)
+    cross = kv_xs is not None
+    if cross:
+        xq = xs
+        xkv = split.each(lambda p, x: SH.fan_out(x, 2), kv_xs)
+    else:
+        xqkv = split.each(lambda p, x: SH.fan_out(x, 3), xs)
+        xq = [a[0] for a in xqkv]
+        xkv = [a[1:] for a in xqkv]
+    q = split.each(lambda p, x, w: x @ w["wq"], xq, ps)
+    k = split.each(lambda p, x, w: x[0] @ w["wk"], xkv, ps)
+    v = split.each(lambda p, x, w: x[1] @ w["wv"], xkv, ps)
     if kv_split:
         k = SH.all_gather(k, groups, devs, -1)
         v = SH.all_gather(v, groups, devs, -1)
     if q_split and not heads:
         q = SH.all_gather(q, groups, devs, -1)
-    s = xs[0].shape[1]
+    s, sk = xs[0].shape[1], k[0].shape[1]
     block = q_split and not heads and m > 1 and s % m == 0 and \
         (caches is None or s > 1)
+    nothing = [None] * split.n
 
     def one(p, x, w, qp, kp, vp, pos, cache, tab):
         b, j = x.shape[0], split.rank[p]
         n = s // m if block else s
         out, new = _attend(
-            w, qp.reshape(b, s, hl, hd), kp.reshape(b, s, hkv, hd),
-            vp.reshape(b, s, hkv, hd), acfg, pos, cache, tables=tab,
+            w, qp.reshape(b, s, hl, hd), kp.reshape(b, sk, hkv, hd),
+            vp.reshape(b, sk, hkv, hd), acfg, pos, cache, cross=cross,
+            tables=tab,
             kv_heads=_kv_heads(h, hkv, hl, j) if heads else slice(None),
             rows=slice(j * n, (j + 1) * n) if block else slice(None),
-            chunk=_split_chunk(b, hl, s))
+            chunk=_split_chunk(b, hl, sk))
         return out, new
 
-    done = split.each(one, xs, ps, q, k, v, poss,
-                      caches or [None] * split.n, tables)
+    done = split.each(one, xs, ps, q, k, v, poss or nothing,
+                      caches or nothing, tables or nothing)
     outs = [o for o, _ in done]
     if block:
         outs = SH.all_gather(outs, groups, devs, 1)

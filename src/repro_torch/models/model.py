@@ -15,8 +15,9 @@ converts train-layout MoE params into the N-bank serve layout.
 of ``mixed_moe.moe_apply``, on params placed by ``dist.sharding.
 shard_tree`` (each position holds its ``param_specs`` shard) or by
 ``apply_precision_plan(..., mesh=)`` (the serve banks' per-position
-shards, the other leaves by ``place_params``); a decoder's dense compute
-splits over the mesh by the reference's rules (see ``build_model``).
+shards, the other leaves by ``place_params``); every family's dense
+compute splits over the mesh by the reference's rules (see
+``build_model``).
 Parameters are nested dicts of tensors with a leading layer axis on every
 ``layers/...`` leaf, as in the reference. Caches and page pools are
 updated in place (the engine holds the only reference); the reference
@@ -40,11 +41,10 @@ from repro_torch.core.quantization import QTensor
 from repro_torch.device import resolve_device
 from repro_torch.dist import sharding as SH
 from repro_torch.models import layers as L
-from repro_torch.models.encdec import encdec_forward
-from repro_torch.models.transformer import (FORWARDS, _hybrid_layout,
-                                            by_column, decoder_block,
-                                            decoder_forward,
-                                            decoder_forward_split,
+from repro_torch.models.encdec import encdec_forward, encdec_forward_split
+from repro_torch.models.transformer import (FORWARDS, FORWARDS_SPLIT,
+                                            _hybrid_layout, by_column,
+                                            decoder_block, decoder_forward,
                                             layer_slice)
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
@@ -469,12 +469,13 @@ def _embed_inputs(params, cfg: ModelConfig, batch):
 def _mesh_params(params, mesh):
     """A param tree with :class:`dist.sharding.Sharded` leaves in the
     form the whole-batch forwards take where the rules keep the dense
-    compute whole (the pure-EP serving mesh, and the SSM, hybrid and
-    enc-dec families): every dense leaf gathered whole on
+    compute whole: the pure-EP (1, ep) serving mesh of a MoE model (and
+    a mesh of one position). Every dense leaf is gathered whole on
     ``mesh.devices[0]`` (its gradient flows back to the shards through
     the gather), the MoE experts as the list of per-position bank shards
-    ``mixed_moe.moe_apply`` runs. A tree without sharded leaves is
-    returned as it is."""
+    ``mixed_moe.moe_apply`` runs. Every family splits its dense compute
+    over any other mesh, so no other mesh reaches here. A tree without
+    sharded leaves is returned as it is."""
     if not SH.has_sharded(params):
         return params
     home = mesh.devices[0]
@@ -559,27 +560,35 @@ def place_params(cfg: ModelConfig, mesh, params):
 
 def _split_cache(cfg: ModelConfig, batch: int, max_len: int, split):
     """``init_cache`` on a mesh whose serving rules split the dense
-    compute: each position's cache holds its data rank's rows (all KV
-    heads), made on its device, as :class:`dist.sharding.Sharded` leaves
-    placed per ``dist.sharding.cache_spec`` (batch over the data axes,
-    replicated over model)."""
+    compute: each position's cache holds its data rank's rows (every KV
+    head, SSM head and conv channel), made on its device, as
+    :class:`dist.sharding.Sharded` leaves placed per ``dist.sharding.
+    cache_spec`` (batch over the data axes, replicated over model)."""
     if batch % split.n_dp:
         raise ValueError(f"batch of {batch} does not split over "
                          f"{split.n_dp} data ranks")
     parts = split.each(lambda p: init_cache(
         cfg, batch // split.n_dp, max_len, device=split.devices[p]))
-    return _sharded_cache(parts, batch, split)
+
+    def place(whole, parts):
+        if isinstance(whole, dict):
+            return {k: place(v, [q[k] for q in parts])
+                    for k, v in whole.items()}
+        spec = SH.cache_spec(whole.shape, batch, split.batch_entry)
+        return SH.Sharded(SH.Placement(split.mesh, spec), whole.shape, parts)
+
+    return place(init_cache(cfg, batch, max_len, device="meta"), parts)
 
 
-def _sharded_cache(parts, batch: int, split):
-    """Per-position {k, v, pos} stacks as :class:`dist.sharding.Sharded`
-    leaves of the global batch ``batch``."""
-    out = {}
-    for key, first in parts[0].items():
-        shape = (first.shape[0], batch) + tuple(first.shape[2:])
-        out[key] = SH.Sharded(SH.Placement(split.mesh, SH.cache_spec(
-            shape, batch, split.batch_entry)), shape, [c[key] for c in parts])
-    return out
+def _placed_like(like, parts):
+    """Per-position cache trees ``parts`` as :class:`dist.sharding.
+    Sharded` leaves placed as ``like``'s (a shard that is ``like``'s own,
+    written in place, is kept)."""
+    if isinstance(like, dict):
+        return {k: _placed_like(v, [q[k] for q in parts])
+                for k, v in like.items()}
+    shape = tuple(n * c for n, c in zip(parts[0].shape, like.layout.counts))
+    return SH.Sharded(like.placement, shape, parts)
 
 
 def _split_logits(logits, rows: int, split):
@@ -618,27 +627,29 @@ def build_model(cfg: ModelConfig, mesh=None, *,
     ``prefill``/``decode_step`` under its serving rules
     (``dist.sharding.activation_constraints``).
 
-    Where those rules split a decoder family's dense compute
-    (``dist.sharding.splits_dense``: not the pure-EP serving mesh), the
-    whole-batch entry points take params placed on the mesh
+    Where those rules split the dense compute (``dist.sharding.
+    splits_dense``: every family, on any mesh but the pure-EP serving
+    mesh), the whole-batch entry points take params placed on the mesh
     (``dist.sharding.shard_tree``, ``place_params``,
     ``apply_precision_plan(mesh=)``) and run split: the batch (tokens,
-    positions, labels, a vision frontend) is split over ``dp_axes`` at
-    entry (a :class:`dist.sharding.Sharded` input placed so is used as
-    it is), every position computes attention, the MLP, the embedding
-    and the head on its own shards and its data rank's rows
-    (``layers.*_split``), ``init_cache`` places each data rank's cache
-    rows at its positions, ``prefill``/``decode_step`` return the logits
-    as a :class:`dist.sharding.Sharded` (B, V) (rows over data, vocab
-    slices over model; ``.full()`` gathers them) and the cache as
-    ``Sharded`` leaves, and ``loss_fn`` sums the data ranks' NLL in rank
-    order. Nothing is gathered onto ``mesh.devices[0]``; a plain cache or
-    an unplaced dense leaf raises, and so do the slot, paged and
+    positions, labels, a vision frontend, an enc-dec ``src``) is split
+    over ``dp_axes`` at entry (a :class:`dist.sharding.Sharded` input
+    placed so is used as it is), every position computes attention, the
+    MLP, the RWKV and Mamba2 mixes, the embedding and the head on its own
+    shards and its data rank's rows (``layers.*_split``,
+    ``ssm.*_split``, ``transformer.FORWARDS_SPLIT``,
+    ``encdec.encdec_forward_split``), ``init_cache`` places each data
+    rank's cache rows (KV rings, SSM states, conv rows, ``enc_out``) at
+    its positions, ``prefill``/``decode_step`` return the logits as a
+    :class:`dist.sharding.Sharded` (B, V) (rows over data, vocab slices
+    over model; ``.full()`` gathers them) and the cache as ``Sharded``
+    leaves, and ``loss_fn`` sums the data ranks' NLL in rank order.
+    Nothing is gathered onto ``mesh.devices[0]``; a plain cache or an
+    unplaced dense leaf raises, and so do the slot, paged and
     speculative serving hooks (``_whole_only``). On the pure-EP serving
     mesh (params of ``apply_precision_plan(mesh=)``: the banks' shards,
     every other leaf on ``mesh.devices[0]``) the dense compute runs
-    whole there, and so does the SSM, hybrid and enc-dec families',
-    whose sharded leaves are gathered onto ``mesh.devices[0]``."""
+    whole there (``_mesh_params``)."""
     fwd = encdec_forward if cfg.family == "encdec" else FORWARDS[cfg.family]
     par = None
     if mesh is not None and cfg.moe is not None:
@@ -664,6 +675,21 @@ def build_model(cfg: ModelConfig, mesh=None, *,
             return None
         return SH.split_of(mesh, tuple(dp_axes))
 
+    def split_fwd(pp, xs, poss, caches, split, batch=None, **kw):
+        """The family's split forward; the enc-dec encoder reads each
+        position's rows of ``src`` (``batch``), or at decode its cache's
+        ``enc_out``."""
+        if cfg.family != "encdec":
+            return FORWARDS_SPLIT[cfg.family](pp, cfg, xs, poss,
+                                              caches=caches, split=split,
+                                              par=par, **kw)
+        if batch is not None:
+            kw["srcs"] = SH.rows(batch["src"], split)
+        else:
+            kw["enc_outs"] = [c["enc_out"] for c in caches]
+        return encdec_forward_split(pp, cfg, xs, poss, caches=caches,
+                                    split=split, par=par, **kw)
+
     def split_inputs(params, batch, split):
         """Each position's params, token embeddings (+ frontend) and
         positions."""
@@ -687,19 +713,16 @@ def build_model(cfg: ModelConfig, mesh=None, *,
             pp, ys)
 
     def split_cache_parts(cache, split):
-        if not (isinstance(cache, dict)
-                and all(isinstance(v, SH.Sharded) for v in cache.values())):
+        if not isinstance(cache, dict) or _plain_leaf(cache):
             raise ValueError("on this mesh the cache is split over the "
                              "data ranks: make it with Model.init_cache")
-        return [{k: v.shards[p] for k, v in cache.items()}
-                for p in range(split.n)]
+        return [SH.at_position(cache, p) for p in range(split.n)]
 
     def loss_split(params, batch, split):
         with rules(train=True):
             pp, xs, poss = split_inputs(params, batch, split)
-            ys, _, aux = decoder_forward_split(pp, cfg, xs, poss,
-                                               caches=None, split=split,
-                                               train=True, par=par)
+            ys, _, aux = split_fwd(pp, xs, poss, None, split, batch,
+                                   train=True)
             if cfg.frontend == "vision":   # loss over the text tail only
                 ys = split.each(lambda p, y: y[:, cfg.frontend_len:], ys)
             logits = split_head(pp, ys, split)
@@ -710,16 +733,13 @@ def build_model(cfg: ModelConfig, mesh=None, *,
         parts = split_cache_parts(cache, split)
         with rules():
             pp, xs, poss = split_inputs(params, batch, split)
-            ys, new, _ = decoder_forward_split(pp, cfg, xs, poss,
-                                               caches=parts, split=split,
-                                               use_kernel=use_kernel,
-                                               par=par)
+            ys, new, _ = split_fwd(pp, xs, poss, parts, split, batch,
+                                   use_kernel=use_kernel)
             logits = split_head(pp, split.each(lambda p, y: y[:, -1:], ys),
                                 split)
         logits = split.each(lambda p, lg: lg[:, 0], logits)
-        b = next(iter(cache.values())).shape[1]
         return _split_logits(logits, cfg.padded_vocab, split), \
-            _sharded_cache(new, b, split)
+            _placed_like(cache, new)
 
     def decode_split(params, cache, tokens, positions, split):
         parts = split_cache_parts(cache, split)
@@ -727,9 +747,8 @@ def build_model(cfg: ModelConfig, mesh=None, *,
             pp, xs, _ = split_inputs(params, {"tokens": tokens}, split)
             poss = split.each(lambda p, q: q[:, None],
                               SH.rows(positions, split))
-            ys, _, _ = decoder_forward_split(pp, cfg, xs, poss, caches=parts,
-                                             split=split,
-                                             use_kernel=use_kernel, par=par)
+            ys, _, _ = split_fwd(pp, xs, poss, parts, split,
+                                 use_kernel=use_kernel)
             logits = split_head(pp, ys, split)
         logits = split.each(lambda p, lg: lg[:, 0], logits)
         return _split_logits(logits, cfg.padded_vocab, split), cache
@@ -810,16 +829,15 @@ def build_model(cfg: ModelConfig, mesh=None, *,
             return _head(params, y)[:, 0], new_cache
 
     def _whole_cache(cache):
-        if isinstance(cache, dict) and any(
-                isinstance(v, SH.Sharded) for v in cache.values()):
+        if isinstance(cache, dict) and SH.has_sharded(cache):
             raise ValueError("a split cache needs params placed on the "
                              "mesh (dist.sharding.shard_tree, "
                              "place_params)")
 
     def model_init_cache(batch: int, max_len: int, *, device=None):
         """The family's decode cache; on a mesh whose serving rules split
-        a decoder's dense compute, each data rank's rows at its
-        positions (``device`` is then the mesh's)."""
+        the dense compute, each data rank's rows at its positions
+        (``device`` is then the mesh's)."""
         if SH.splits_dense(cfg, mesh):
             return _split_cache(cfg, batch, max_len,
                                 SH.split_of(mesh, tuple(dp_axes)))

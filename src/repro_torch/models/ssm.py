@@ -35,6 +35,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import SSMConfig
+from repro_torch.dist import sharding as SH
 
 DECAY_CLAMP = 1.8      # |log w| cap; exp(1.8 * 32) < f32 max
 
@@ -253,45 +254,139 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor,
     return y, xp[:, -(win - 1):]
 
 
+def _mamba2_inner(p: Dict, proj: torch.Tensor, scfg: SSMConfig,
+                  cache: Optional[Dict], heads: slice):
+    """Mamba2 from the input projection ``proj`` (B,S,2di+2N+H) to the
+    gated output before its norm, for the heads ``heads`` (all of them on
+    one device, a model rank's own in :func:`mamba2_block_split`): their
+    ``xin``/``z`` channels and ``dt``, and the whole ``B`` and ``C``. The
+    conv and ``D`` are per channel, the scan per head. Returns (y (B,S,
+    channels) in the model dtype, the heads' new state, the new conv rows
+    of every channel)."""
+    bsz, s, _ = proj.shape
+    hd, n = scfg.head_dim, scfg.state_dim
+    h = p["D"].shape[0]
+    di = h * hd
+    hs = range(h)[heads]
+    ch = slice(hs.start * hd, hs.stop * hd)
+    xin_all, _, bc, dt = torch.split(proj, [di, di, 2 * n, h], dim=-1)
+    z = proj[..., di + ch.start:di + ch.stop]
+    conv_state = cache["conv"] if cache is not None else None
+    if hs.stop - hs.start == h:           # every channel: the whole conv
+        conv_out, new_conv = _causal_conv(torch.cat([xin_all, bc], -1),
+                                          p["conv"], conv_state)
+    else:                                 # this rank's channels, B and C
+        def keep(a):
+            return torch.cat([a[..., ch], a[..., di:]], -1)
+        conv_out, _ = _causal_conv(
+            torch.cat([xin_all[..., ch], bc], -1), keep(p["conv"]),
+            None if conv_state is None else keep(conv_state))
+        new_conv = None
+        if conv_state is not None:        # every channel's last inputs
+            new_conv = torch.cat([conv_state, torch.cat([xin_all, bc], -1)],
+                                 1)[:, 1 - p["conv"].shape[0]:]
+    conv_out = _silu(conv_out)
+    cl = ch.stop - ch.start
+    xin, bmat, cmat = torch.split(conv_out, [cl, n, n], dim=-1)
+
+    dt = dt[..., heads].to(torch.float32) + p["dt_bias"][heads]
+    dt = torch.logaddexp(dt, torch.zeros_like(dt))         # softplus, (B,S,H)
+    a_log = p["A_log"]      # (H,), or one per layer (the reference's init)
+    a = -torch.exp((a_log[heads] if a_log.ndim else a_log).to(torch.float32))
+    logdecay = torch.clamp(dt * a, min=-DECAY_CLAMP * 4)
+    hl = len(hs)
+    u = xin.reshape(bsz, s, hl, hd) * dt[..., None].to(proj.dtype)
+
+    if cache is not None and s == 1:      # decode step
+        y, s_new = ssd_step(cache["state"][:, heads], u[:, 0],
+                            logdecay[:, 0], bmat[:, 0], cmat[:, 0])
+        y = y[:, None]
+    else:                                 # train / prefill (chunked)
+        s0 = cache["state"][:, heads] if cache is not None else None
+        y, s_new = ssd_chunked(u, logdecay, bmat, cmat,
+                               min(scfg.chunk_size, s), s0=s0)
+    y = y + xin.reshape(bsz, s, hl, hd) \
+        * p["D"][heads].to(proj.dtype)[:, None]
+    return y.reshape(bsz, s, cl) * _silu(z), s_new, new_conv
+
+
 def mamba2_block(p: Dict, x: torch.Tensor, scfg: SSMConfig,
                  cache: Optional[Dict] = None):
     """x: (B,S,d). cache (decode): {"state": (B,H,P,N), "conv": (B,3,C)}.
     Returns (y, new cache {"state", "conv"})."""
-    bsz, s, d = x.shape
-    di = scfg.expand * d
-    n = scfg.state_dim
-    h = di // scfg.head_dim
-    proj = x @ p["w_in"]                                   # (B,S,2di+2N+h)
-    xin, z, bmat, cmat, dt = torch.split(proj, [di, di, n, n, h], dim=-1)
-    conv_in = torch.cat([xin, bmat, cmat], dim=-1)
-    conv_state = cache["conv"] if cache is not None else None
-    conv_out, new_conv = _causal_conv(conv_in, p["conv"], conv_state)
-    conv_out = _silu(conv_out)
-    xin, bmat, cmat = torch.split(conv_out, [di, n, n], dim=-1)
-
-    dt = dt.to(torch.float32) + p["dt_bias"]
-    dt = torch.logaddexp(dt, torch.zeros_like(dt))         # softplus, (B,S,H)
-    a = -torch.exp(p["A_log"].to(torch.float32))           # (H,) < 0
-    logdecay = torch.clamp(dt * a, min=-DECAY_CLAMP * 4)
-    u = xin.reshape(bsz, s, h, scfg.head_dim) * dt[..., None].to(x.dtype)
-
-    if cache is not None and s == 1:      # decode step
-        y, s_new = ssd_step(cache["state"], u[:, 0], logdecay[:, 0],
-                            bmat[:, 0], cmat[:, 0])
-        y = y[:, None]
-    else:                                 # train / prefill (chunked)
-        s0 = cache["state"] if cache is not None else None
-        y, s_new = ssd_chunked(u, logdecay, bmat, cmat,
-                               min(scfg.chunk_size, s), s0=s0)
-    new_cache = {"state": s_new, "conv": new_conv}
-    y = y + xin.reshape(bsz, s, h, scfg.head_dim) \
-        * p["D"].to(x.dtype)[:, None]
-    y = y.reshape(bsz, s, di) * _silu(z)
+    y, s_new, new_conv = _mamba2_inner(p, x @ p["w_in"], scfg, cache,
+                                       slice(None))
     # final rms norm over the inner dim (mamba2 gated norm)
     yf = y.to(torch.float32)
     y = (yf * torch.rsqrt(torch.mean(yf * yf, -1, keepdim=True) + 1e-6)
          * p["norm"]).to(x.dtype)
-    return y @ p["w_out"], new_cache
+    return y @ p["w_out"], {"state": s_new, "conv": new_conv}
+
+
+def mamba2_block_split(ps, xs, scfg: SSMConfig, caches, split: "SH.Split"):
+    """:func:`mamba2_block` per mesh position (``dist.sharding.Split``):
+    ``ps``, ``xs`` (B_i, S, d) and ``caches`` (each position's {state,
+    conv} of its data rank's rows, every head and channel; ``None``: no
+    cache) are per-position lists. Returns (the outputs, the new caches
+    or ``None``).
+
+    ``w_in``'s column shards (911 of Zamba2's 14,576 columns at 16 ranks)
+    cross the ``xin | z | B | C | dt`` boundaries, so the projection is
+    all-gathered over model (an activation, never the weight). Where the
+    heads divide the model axis, rank j then runs heads slice j: its
+    ``xin``, ``z`` and ``dt`` and the whole ``B`` and ``C``, its channels
+    of the depthwise conv, the scan and ``D``; the gated RMS norm over the
+    whole inner dim closes its f32 sum of squares with the model sum, and
+    the rank's channels times ``w_out``'s row shard are a partial product
+    closed by the model sum. The new state slices are all-gathered before
+    the cache write (every rank holds all of its rows' heads, as the
+    reference's ``cache_specs`` places them); each rank has every
+    channel's conv inputs from the gathered projection. Where the heads do
+    not divide, every rank runs every head and closes ``w_out`` with its
+    row slice."""
+    groups, devs, m = split.model_groups, split.devices, split.msize
+    h = ps[0]["D"].shape[0]
+    di = h * scfg.head_dim
+    nin = 2 * di + 2 * scfg.state_dim + h
+    heads = m > 1 and h % m == 0
+    out_split = ps[0]["w_out"].shape[0] < di
+    proj = split.each(lambda p, x, w: x @ w["w_in"], xs, ps)
+    if ps[0]["w_in"].shape[-1] < nin:
+        proj = SH.all_gather(proj, groups, devs, -1)
+
+    def inner(p, w, pr, cache):
+        hl = h // m if heads else h
+        j = split.rank[p] if heads else 0
+        return _mamba2_inner(w, pr, scfg, cache, slice(j * hl, (j + 1) * hl))
+
+    done = split.each(inner, ps, proj, caches or [None] * split.n)
+    yf = split.each(lambda p, d: d[0].to(torch.float32), done)
+    # the sum of squares reads f once (``square``): f's gradient is then
+    # two terms, whose sum is the same whichever sum's backward runs first
+    ss = split.each(lambda p, f: torch.square(f).sum(-1, keepdim=True), yf)
+    if heads:                 # the norm's sum of squares over the ranks
+        ss = SH.all_reduce(ss, groups, devs)
+
+    def close(p, f, q, w, d):
+        c, j = f.shape[-1], split.rank[p]
+        first = j * c if heads else 0
+        y = (f * torch.rsqrt(q / di + 1e-6)
+             * w["norm"][first:first + c]).to(d[0].dtype)
+        if out_split and not heads:       # this rank's rows of w_out
+            r = w["w_out"].shape[0]
+            y = y[..., j * r:(j + 1) * r]
+        return y @ w["w_out"]
+
+    outs = split.each(close, yf, ss, ps, done)
+    if out_split:
+        outs = SH.all_reduce(outs, groups, devs)
+    if caches is None:
+        return outs, None
+    states = [s for _, s, _ in done]
+    if heads:
+        states = SH.all_gather(states, groups, devs, 1)
+    return outs, [{"state": st, "conv": cv}
+                  for st, (_, _, cv) in zip(states, done)]
 
 
 def _token_shift(x: torch.Tensor, prev: Optional[torch.Tensor]):
@@ -307,10 +402,9 @@ def rwkv6_timemix(p: Dict, x: torch.Tensor, scfg: SSMConfig,
     bsz, s, d = x.shape
     hd = scfg.head_dim
     h = d // hd
-    prev = cache["x_att"] if cache is not None else None
-    xx, last = _token_shift(x, prev)
-    mix = p["mix"]                                           # (5, d)
-    xr, xk, xv, xg, xw = (x + mix[i] * (xx - x) for i in range(5))
+    mixed, last = _mixes(x, p["mix"], cache["x_att"] if cache is not None
+                         else None)                          # mix (5, d)
+    xr, xk, xv, xg, xw = mixed.unbind(0)
     r = (xr @ p["w_r"]).reshape(bsz, s, h, hd)
     k = (xk @ p["w_k"]).reshape(bsz, s, h, hd)
     v = (xv @ p["w_v"]).reshape(bsz, s, h, hd)
@@ -321,31 +415,161 @@ def rwkv6_timemix(p: Dict, x: torch.Tensor, scfg: SSMConfig,
         (p["decay_base"] + lora).to(torch.float32))
     logw = logw.reshape(bsz, s, h, hd)
 
-    if cache is not None and s == 1:      # decode step
-        y, s_new = rwkv_step(cache["state"], r[:, 0], k[:, 0], v[:, 0],
-                             logw[:, 0], p["bonus"])
+    yf, s_new = _rwkv_heads(r, k, v, logw, p["bonus"], p["ln_x"], scfg,
+                            None if cache is None else cache["state"])
+    out = (yf.to(x.dtype) * g) @ p["w_o"]
+    return out, {"state": s_new, "x_att": last}
+
+
+def _rwkv_heads(r, k, v, logw, bonus, ln_x, scfg: SSMConfig, state):
+    """RWKV6's heads from r, k, v, logw (B,S,H,hd) and their ``bonus``,
+    from ``state`` (B,H,K,V) or zeros: the recurrence (a decode step at
+    S == 1 with a state, else chunked) and the per-head group norm
+    (``ln_x``, population variance as in ``jnp.var``). Returns (the
+    normed output (B,S,H*hd) f32, the new state)."""
+    bsz, s, h, hd = r.shape
+    if state is not None and s == 1:      # decode step
+        y, s_new = rwkv_step(state, r[:, 0], k[:, 0], v[:, 0], logw[:, 0],
+                             bonus)
         y = y[:, None]
     else:                                 # train / prefill (chunked)
-        s0 = cache["state"] if cache is not None else None
-        y, s_new = rwkv_chunked(r, k, v, logw, p["bonus"],
-                                min(scfg.chunk_size, 32, s), s0=s0)
-    # per-head group norm (ln_x), population variance as in jnp.var
+        y, s_new = rwkv_chunked(r, k, v, logw, bonus,
+                                min(scfg.chunk_size, 32, s), s0=state)
     yf = y.reshape(bsz, s, h, hd).to(torch.float32)
     yf = (yf - yf.mean(-1, keepdim=True)) \
         * torch.rsqrt(yf.var(-1, keepdim=True, correction=0) + 1e-5)
-    yf = yf.reshape(bsz, s, d) * p["ln_x"].to(torch.float32)
-    out = (yf.to(x.dtype) * g) @ p["w_o"]
-    return out, {"state": s_new, "x_att": last}
+    return yf.reshape(bsz, s, h * hd) * ln_x.to(torch.float32), s_new
 
 
 def rwkv6_channelmix(p: Dict, x: torch.Tensor,
                      cache: Optional[Dict] = None):
     """Returns (y, new cache {"x_ffn"})."""
-    prev = cache["x_ffn"] if cache is not None else None
-    xx, last = _token_shift(x, prev)
-    mix = p["ffn_mix"]
-    xk = x + mix[0] * (xx - x)
-    xr = x + mix[1] * (xx - x)
-    k = torch.square(F.relu(xk @ p["ffn_k"]))
-    r = _sigmoid(xr @ p["ffn_r"])
+    mixed, last = _mixes(x, p["ffn_mix"], cache["x_ffn"] if cache is not None
+                         else None)
+    k = torch.square(F.relu(mixed[0] @ p["ffn_k"]))
+    r = _sigmoid(mixed[1] @ p["ffn_r"])
     return r * (k @ p["ffn_v"]), {"x_ffn": last}
+
+
+def _mixes(x: torch.Tensor, mix: torch.Tensor, prev):
+    """The token-shift mixes ``x + mix[i] * (xx - x)`` of every row ``i``
+    of ``mix`` as one (n, B, S, d) tensor (each element rounded as the
+    separate mixes round it), and the last row for the cache. One tensor
+    feeds every projection, so its gradient meets in one place, whichever
+    order the projections' gradients come back in."""
+    xx, last = _token_shift(x, prev)
+    return x + mix[:, None, None] * (xx - x), last
+
+
+def rwkv6_timemix_split(ps, xs, scfg: SSMConfig, caches, split: "SH.Split"):
+    """:func:`rwkv6_timemix` per mesh position (``dist.sharding.Split``):
+    ``ps``, ``xs`` (B_i, S, d) and ``caches`` (each position's {state,
+    x_att} of its data rank's rows, every head; ``None``: no cache) are
+    per-position lists. Returns (the outputs, the new caches or ``None``).
+
+    ``w_r``, ``w_k``, ``w_v`` and ``w_g`` are column shards and ``w_o`` a
+    row shard. Where the heads divide the model axis (the reference's
+    ``ssm_inner`` rule), rank j's columns are heads slice j: it runs the
+    recurrence on those heads only, with their columns of the decay LoRA's
+    output (its weights are replicated), ``decay_base``, ``bonus`` and
+    ``ln_x``, and its gated heads times ``w_o``'s row shard are a partial
+    product closed by the model sum; the new state slices are all-gathered
+    before the cache write. Where they do not divide (RWKV6-3B's 40 heads
+    at 16 ranks: 2.5 a rank), r, k and v are all-gathered over model and
+    every rank runs every head of its rows, then closes ``w_o`` with its
+    columns of the output, as ``layers.attention_split`` does for
+    undivided heads."""
+    groups, devs, m = split.model_groups, split.devices, split.msize
+    d = xs[0].shape[-1]
+    h = d // scfg.head_dim
+    col = ps[0]["w_r"].shape[-1] < d
+    heads = col and h % m == 0
+
+    def cols(p, w):
+        c = w["w_r"].shape[-1]
+        return slice(split.rank[p] * c, (split.rank[p] + 1) * c)
+
+    def project(p, x, w, cache):
+        mixed, last = _mixes(x, w["mix"], None if cache is None
+                             else cache["x_att"])
+        xr, xk, xv, xg, xw = mixed.unbind(0)
+        rkv = torch.stack([xr @ w["w_r"], xk @ w["w_k"], xv @ w["w_v"]])
+        own = cols(p, w) if heads else slice(None)
+        lora = torch.tanh(xw @ w["decay_lora_a"]) \
+            @ w["decay_lora_b"][:, own]
+        logw = -DECAY_CLAMP * _sigmoid(
+            (w["decay_base"][own] + lora).to(torch.float32))
+        return rkv, _silu(xg @ w["w_g"]), logw, last
+
+    done = split.each(project, xs, ps, caches or [None] * split.n)
+    rkv = [t[0] for t in done]
+    if col and not heads:
+        rkv = SH.all_gather(rkv, groups, devs, -1)
+
+    def core(p, w, t, rkv, cache):
+        _, g, logw, _ = t
+        hl = h // m if heads else h
+        hs = slice(split.rank[p] * hl, (split.rank[p] + 1) * hl) \
+            if heads else slice(None)
+        bsz, s = logw.shape[:2]
+        r, k, v = (a.reshape(bsz, s, hl, scfg.head_dim) for a in rkv)
+        yf, s_new = _rwkv_heads(
+            r, k, v, logw.reshape(r.shape), w["bonus"][hs],
+            w["ln_x"][cols(p, w) if heads else slice(None)], scfg,
+            None if cache is None else cache["state"][:, hs])
+        if col and not heads:             # this rank's columns of w_o
+            yf = yf[..., cols(p, w)]
+        return (yf.to(g.dtype) * g) @ w["w_o"], s_new
+
+    out = split.each(core, ps, done, rkv, caches or [None] * split.n)
+    outs = [o for o, _ in out]
+    if col:
+        outs = SH.all_reduce(outs, groups, devs)
+    if caches is None:
+        return outs, None
+    states = [st for _, st in out]
+    if heads:
+        states = SH.all_gather(states, groups, devs, 1)
+    return outs, [{"state": st, "x_att": t[3]}
+                  for st, t in zip(states, done)]
+
+
+def rwkv6_channelmix_split(ps, xs, d_ff: int, caches, split: "SH.Split"):
+    """:func:`rwkv6_channelmix` per mesh position: ``ffn_k`` is a column
+    shard and ``ffn_v`` a row shard, so ``k @ ffn_v`` is a partial
+    product; ``ffn_r`` is a column shard, and its gate multiplies the
+    closed sum. The sum is reduce-scattered, each rank gates its piece
+    with its own columns of ``r`` and the gated pieces are all-gathered:
+    the bytes of the all-reduce alone (all-gathering ``r`` instead adds a
+    (B, S, d) gather to the all-reduce), and the gate's product runs on
+    1/m of the elements; the sums are the all-reduce's, so the values are
+    the same. Whole where a dim does not divide. Returns (the outputs,
+    the new caches {x_ffn} or ``None``)."""
+    groups, devs = split.model_groups, split.devices
+    d = xs[0].shape[-1]
+    k_split = ps[0]["ffn_v"].shape[0] < d_ff
+    r_split = ps[0]["ffn_r"].shape[-1] < d
+
+    def local(p, x, w, cache):
+        mixed, last = _mixes(x, w["ffn_mix"], None if cache is None
+                             else cache["x_ffn"])
+        k = torch.square(F.relu(mixed[0] @ w["ffn_k"]))
+        return k @ w["ffn_v"], _sigmoid(mixed[1] @ w["ffn_r"]), last
+
+    done = split.each(local, xs, ps, caches or [None] * split.n)
+    kv = [t[0] for t in done]
+    if r_split:
+        if k_split:
+            kv = SH.reduce_scatter(kv, groups, devs)
+        else:                             # each rank's columns of the sum
+            c = d // split.msize
+            kv = split.each(lambda p, a: a[..., split.rank[p] * c:
+                                           (split.rank[p] + 1) * c], kv)
+        outs = SH.all_gather(split.each(lambda p, a, t: t[1] * a, kv, done),
+                             groups, devs, -1)
+    else:
+        if k_split:
+            kv = SH.all_reduce(kv, groups, devs)
+        outs = split.each(lambda p, a, t: t[1] * a, kv, done)
+    return outs, (None if caches is None
+                  else [{"x_ffn": t[2]} for t in done])

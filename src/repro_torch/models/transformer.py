@@ -144,8 +144,19 @@ def decoder_block(p, cfg: ModelConfig, x, positions, cache, *,
     return x + h, new_kv, ids
 
 
+def _norm_split(xs, ps, name: str, split):
+    """Each position's ``rms_norm`` of its rows by its ``name`` scale."""
+    return split.each(lambda i, x, p: L.rms_norm(x, p[name]["scale"]),
+                      xs, ps)
+
+
+def _add_split(xs, hs, split):
+    return split.each(lambda i, x, h: x + h, xs, hs)
+
+
 def decoder_block_split(ps, cfg: ModelConfig, xs, poss, rings, split,
-                        tables, *, use_kernel=False, stats=None, par=None):
+                        tables, *, use_kernel=False, stats=None, par=None,
+                        enc_outs=None):
     """:func:`decoder_block` over a (data, model) mesh: ``ps`` (each
     position's layer params: its shards), ``xs`` (its data rank's
     residual rows), ``poss`` and ``rings`` (its cache rows, or ``None``)
@@ -153,14 +164,22 @@ def decoder_block_split(ps, cfg: ModelConfig, xs, poss, rings, split,
     and the MoE run their split forms; norms and the router run on every
     position's copy of its rows. ``stats`` (the training forward)
     collects the lead positions' router sums; ``tables`` are the
-    forward's ``layers.position_tables``. Returns (x', the new rings)."""
+    forward's ``layers.position_tables``; ``enc_outs`` (the enc-dec
+    family: each position's rows of the encoder output) adds
+    cross-attention after the self-attention, under ``cross_attn_norm``.
+    Returns (x', the new rings)."""
     lead = set(split.lead)
     hs, new = L.attention_split(
-        [p["attn"] for p in ps],
-        split.each(lambda i, x, p: L.rms_norm(x, p["attn_norm"]["scale"]),
-                   xs, ps),
+        [p["attn"] for p in ps], _norm_split(xs, ps, "attn_norm", split),
         cfg.attention, poss=poss, caches=rings, split=split, tables=tables)
-    xs = split.each(lambda i, x, h: x + h, xs, hs)
+    xs = _add_split(xs, hs, split)
+    if enc_outs is not None:
+        hs, _ = L.attention_split(
+            [p["cross_attn"] for p in ps],
+            _norm_split(xs, ps, "cross_attn_norm", split), cfg.attention,
+            poss=None, caches=None, split=split, tables=None,
+            kv_xs=enc_outs)
+        xs = _add_split(xs, hs, split)
     xns = split.each(lambda i, x, p: L.rms_norm(x, p["ffn_norm"]["scale"]),
                      xs, ps)
     if cfg.moe is None:
@@ -190,13 +209,14 @@ def decoder_block_split(ps, cfg: ModelConfig, xs, poss, rings, split,
 
 def decoder_forward_split(pos_params, cfg: ModelConfig, xs, poss, *,
                           caches, split, use_kernel=False, train=False,
-                          par=None):
+                          par=None, enc_outs=None):
     """:func:`decoder_forward` over a (data, model) mesh: ``pos_params``
-    (each position's param tree of its own shards), ``xs``, ``poss`` and
+    (each position's param tree of its own shards), ``xs``, ``poss``,
     ``caches`` (each position's {k, v, pos} stacks of its data rank's
-    rows) are per-position lists, and the residual stays per position
-    through the layers. Returns (ys, new caches, aux): the router losses
-    of the whole batch (``train``) at position 0."""
+    rows) and ``enc_outs`` (the enc-dec decoder's cross-attention source)
+    are per-position lists, and the residual stays per position through
+    the layers. Returns (ys, new caches, aux): the router losses of the
+    whole batch (``train``) at position 0."""
     aux: Dict[str, Any] = {}
     if train and cfg.moe is not None:
         zero = torch.zeros((), dtype=torch.float32, device=split.devices[0])
@@ -204,13 +224,17 @@ def decoder_forward_split(pos_params, cfg: ModelConfig, xs, poss, *,
 
     tables = L.position_tables(cfg.attention, poss, split,
                                caches is not None)
+    # every layer's cross-attention reads enc_out: its gradient sums over
+    # the layers in their order
+    encs = None if enc_outs is None else list(zip(*split.each(
+        lambda p, e: SH.fan_out(e, cfg.num_layers), enc_outs)))
 
-    def train_block(xs, ps):
+    def train_block(xs, ps, enc=None):
         stats: list = []
         xs, _ = decoder_block_split(ps, cfg, xs, poss, None, split, tables,
                                     use_kernel=use_kernel,
                                     stats=stats if train else None,
-                                    par=par)
+                                    par=par, enc_outs=enc)
         if not stats:
             return xs, {}
         lb, z = mixed_moe.router_losses(stats, split.lead, cfg.moe,
@@ -221,15 +245,16 @@ def decoder_forward_split(pos_params, cfg: ModelConfig, xs, poss, *,
     new = [[] for _ in range(split.n)]
     for li in range(cfg.num_layers):
         ps = [layer_slice(t["layers"], li) for t in pos_params]
+        enc = None if encs is None else list(encs[li])
         if caches is None:
-            xs, layer_aux = train_body(xs, ps)
+            xs, layer_aux = train_body(xs, ps, enc)
             for k, v in layer_aux.items():
                 aux[k] = aux[k] + v
             continue
         rings = [{k: c[k][li] for k in ("k", "v", "pos")} for c in caches]
         xs, rings = decoder_block_split(ps, cfg, xs, poss, rings, split,
                                         tables, use_kernel=use_kernel,
-                                        par=par)
+                                        par=par, enc_outs=enc)
         for p, ring in enumerate(rings):
             new[p].append(ring)
     if caches is None:
@@ -378,6 +403,48 @@ def rwkv_forward(params, cfg: ModelConfig, x, positions, *, caches=None,
     return x, caches, {}
 
 
+def _layer_caches(caches, li: int):
+    """Each position's cache rows of layer ``li``."""
+    return [{k: v[li] for k, v in c.items()} for c in caches]
+
+
+def _write_layers(caches, li: int, new) -> None:
+    for c, n in zip(caches, new):
+        _write_layer(c, li, n)
+
+
+def rwkv_forward_split(pos_params, cfg: ModelConfig, xs, poss, *,
+                       caches, split, **_):
+    """:func:`rwkv_forward` over a (data, model) mesh: ``pos_params``,
+    ``xs`` and ``caches`` (each position's {state, x_att, x_ffn} stacks
+    of its data rank's rows, every head) are per-position lists; the time
+    and channel mixes run their split forms (``ssm.rwkv6_*_split``).
+    Every position's cache is written in place."""
+    def block(xs, ps, cs):
+        rw = [p["rwkv"] for p in ps]
+        hs, tm = S.rwkv6_timemix_split(
+            rw, _norm_split(xs, ps, "attn_norm", split), cfg.ssm,
+            None if cs is None else [{k: c[k] for k in ("state", "x_att")}
+                                     for c in cs], split)
+        xs = _add_split(xs, hs, split)
+        hs, cm = S.rwkv6_channelmix_split(
+            rw, _norm_split(xs, ps, "ffn_norm", split), cfg.d_ff,
+            None if cs is None else [{"x_ffn": c["x_ffn"]} for c in cs],
+            split)
+        return _add_split(xs, hs, split), \
+            None if cs is None else [{**a, **b} for a, b in zip(tm, cm)]
+
+    train_body = _maybe_remat(lambda xs, ps: block(xs, ps, None)[0], cfg)
+    for li in range(cfg.num_layers):
+        ps = [layer_slice(t["layers"], li) for t in pos_params]
+        if caches is None:
+            xs = train_body(xs, ps)
+            continue
+        xs, new = block(xs, ps, _layer_caches(caches, li))
+        _write_layers(caches, li, new)
+    return xs, caches, {}
+
+
 # ---------------------------------------------------------------------------
 # Zamba2 hybrid: [shared-attn, 6x mamba2] x 13 + [shared-attn, 3x mamba2]
 # ---------------------------------------------------------------------------
@@ -444,10 +511,83 @@ def hybrid_forward(params, cfg: ModelConfig, x, positions, *, caches=None,
     return x, caches, {}
 
 
+def _fanned(tree, n: int):
+    """``n`` copies of a param tree whose leaves are ``dist.sharding.
+    fan_out`` aliases: the gradients of the ``n`` uses add in order."""
+    if isinstance(tree, dict):
+        sub = {k: _fanned(v, n) for k, v in tree.items()}
+        return [{k: v[i] for k, v in sub.items()} for i in range(n)]
+    return list(SH.fan_out(tree, n))
+
+
+def _shared_attn_block_split(shareds, cfg, xs, poss, rings, split, tables):
+    hs, new = L.attention_split(
+        [p["attn"] for p in shareds],
+        _norm_split(xs, shareds, "attn_norm", split), cfg.attention,
+        poss=poss, caches=rings, split=split, tables=tables)
+    xs = _add_split(xs, hs, split)
+    hs = L.mlp_split([p["mlp"] for p in shareds],
+                     _norm_split(xs, shareds, "ffn_norm", split), cfg.act,
+                     cfg.d_ff, split)
+    return _add_split(xs, hs, split), new
+
+
+def hybrid_forward_split(pos_params, cfg: ModelConfig, xs, poss, *,
+                         caches, split, **_):
+    """:func:`hybrid_forward` over a (data, model) mesh: ``pos_params``,
+    ``xs``, ``poss`` and ``caches`` (each position's {mamba: {state,
+    conv}, attn: {k, v, pos}} stacks of its data rank's rows) are
+    per-position lists. The shared block runs ``layers.attention_split``
+    and ``mlp_split`` on each position's shards of it, one
+    ``dist.sharding.fan_out`` alias per application, so its gradient sums
+    over the ``full + 1`` applications in their order; the Mamba2 layers
+    run ``ssm.mamba2_block_split``. Every position's cache is written in
+    place."""
+    full, g, rem = _hybrid_layout(cfg)
+    shared = list(zip(*split.each(lambda p, t: _fanned(t["shared"], full + 1),
+                                  pos_params)))
+    tables = L.position_tables(cfg.attention, poss, split,
+                               caches is not None)
+
+    def mamba(xs, ps, cs):
+        hs, new = S.mamba2_block_split(
+            [p["mamba"] for p in ps], _norm_split(xs, ps, "attn_norm", split),
+            cfg.ssm, cs, split)
+        return _add_split(xs, hs, split), new
+
+    train_body = _maybe_remat(lambda xs, ps: mamba(xs, ps, None)[0], cfg)
+    li = 0
+    for row in range(full + 1):
+        rings = None if caches is None else \
+            _layer_caches([c["attn"] for c in caches], row)
+        xs, new = _shared_attn_block_split(list(shared[row]), cfg, xs, poss,
+                                           rings, split, tables)
+        if caches is not None:
+            _write_layers([c["attn"] for c in caches], row, new)
+        for _ in range(g if row < full else rem):
+            ps = [layer_slice(t["layers"], li) for t in pos_params]
+            if caches is None:
+                xs = train_body(xs, ps)
+            else:
+                mc = [c["mamba"] for c in caches]
+                xs, new = mamba(xs, ps, _layer_caches(mc, li))
+                _write_layers(mc, li, new)
+            li += 1
+    return xs, caches, {}
+
+
 FORWARDS = {
     "dense": decoder_forward,
     "moe": decoder_forward,
     "vlm": decoder_forward,
     "ssm": rwkv_forward,
     "hybrid": hybrid_forward,
+}
+
+FORWARDS_SPLIT = {
+    "dense": decoder_forward_split,
+    "moe": decoder_forward_split,
+    "vlm": decoder_forward_split,
+    "ssm": rwkv_forward_split,
+    "hybrid": hybrid_forward_split,
 }

@@ -8,6 +8,8 @@ iterate on a phase without the whole script:
     python3 tools/chip_phases.py ep-cards      # on a host with 4 cards
     python3 tools/chip_phases.py mesh
     python3 tools/chip_phases.py mesh-cards    # on a host with 4 cards
+    python3 tools/chip_phases.py families-mesh
+    python3 tools/chip_phases.py families-mesh-cards   # 4 cards
     python3 tools/chip_phases.py roofline dry-cell
 
 ``poisson``, ``ep`` (8) and ``ep-cards`` (8 with rank r on ``cuda:r``)
@@ -15,7 +17,11 @@ first run the serve phase (3), whose params and point they drive; ``kimi`` is 7b
 7e and ``kimi-rows`` the kernel phase's B3 rows at Kimi-K2's widths;
 ``mesh`` is 9 (sharded training and MoE over (data, model) meshes on
 repeated ``cuda:0``) and ``mesh-cards`` 9 with mesh position p on
-``cuda:(p % cards)``; ``roofline`` is 10 (the anchor steps' op counts on
+``cuda:(p % cards)``; ``families-mesh`` is 9e (RWKV6, Zamba2 and
+SeamlessM4T split over (2, 2) of repeated ``cuda:0``) and
+``families-mesh-cards`` 9e with position p on ``cuda:(p % cards)``
+(no count: the card-vs-meta count runs on repeated ``cuda:0``);
+``roofline`` is 10 (the anchor steps' op counts on
 the card and on ``meta``, their times and shares of the bound, and the
 split (2, 2) decode's count) and ``dry-cell`` one dry-run cell on the
 card's host (``run_cell``, Mixtral ``decode_32k`` over the 256-position
@@ -36,9 +42,9 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 PHASES = ("poisson", "ep", "ep-cards", "kimi", "qwen3", "families",
-          "families-train", "kimi-rows", "mesh", "mesh-cards", "roofline",
-          "dry-cell")
-CARDS = ("ep-cards", "mesh-cards")              # need several cards
+          "families-train", "families-mesh", "families-mesh-cards",
+          "kimi-rows", "mesh", "mesh-cards", "roofline", "dry-cell")
+CARDS = ("ep-cards", "mesh-cards", "families-mesh-cards")   # several cards
 
 
 def main(argv=None) -> int:
@@ -102,6 +108,12 @@ def main(argv=None) -> int:
     if "families-train" in phases:
         run("families-train", cs.phase_families_train, torch, np,
             args.seed, card)
+    if "families-mesh" in phases:
+        run("families-mesh", cs.phase_families_mesh, torch, np, args.seed,
+            card)
+    if "families-mesh-cards" in phases:
+        run("families-mesh-cards", cs.phase_families_mesh, torch, np,
+            args.seed, card, True)
     if "kimi-rows" in phases:
         from repro_torch.kernels import grouped_matmul as gk
         from repro_torch.kernels import ops
