@@ -245,6 +245,24 @@ Phases (each raises on failure, and the script then exits non-zero):
                cell (``run_cell``, Mixtral ``decode_32k`` on the
                256-position mesh of ``meta``) on the card's host and
                prints its ``trace_s``;
+ 11. engine mesh — ``build_engine`` on full-width Mixtral-8x7B (depth
+               2) over a (2, 2) mesh of repeated ``cuda:0``, the dense
+               compute split (each data rank's slots, heads and vocab
+               slices over model, the KV pool placed per data rank), the
+               kernels on: the paged, slot, overlap and ``speculate=2``
+               configs serve the same 8 prompts across one bank-split
+               replan A -> B; paged == slot and overlap == sync (every
+               sampled logit bit-equal), speculative == plain greedy
+               tokens, a warm rerun equal, the one-device engine's tokens
+               equal up to near-ties (a router top-k boundary below 2**-8
+               or a top-2 logit margin below twice 9c's bar, met by that
+               request on the split path), B3 (q4, q8), B4 and
+               ``splitk_reduce`` launched at every position of every
+               config (counts printed per position), ms per decode
+               iteration and tokens/s of a warm pass beside one device's,
+               peak GB and KV pool bytes per position (the pool's over
+               the data ranks); the kernel phase then times B3 and B4 at
+               its launch shapes that no other row has;
   4. parity  — the smoke-size model's prefill + decode logits on the card
                (kernels) agree with the same model on the CPU (the
                kernels' plain versions);
@@ -2519,6 +2537,221 @@ def phase_mesh(torch, np, seed: int, card: str, distinct: bool = False):
 
 
 # --------------------------------------------------------------------------
+# phase 11: the adaptive engine on a (data, model) mesh that splits the
+# dense compute
+# --------------------------------------------------------------------------
+
+ENGINE_MESH = (2, 2)
+#: the engine configs of 11, each serving the same prompts across one replan
+ENGINE_MESH_CONFIGS = {"paged": {}, "slot": {"paged_kv": False},
+                       "overlap": {"overlap": True},
+                       "speculate": {"speculate": 2}}
+#: a router near-tie: a live row's k-th minus (k+1)-th probability below
+#: this, where the split's bf16 rounding may pick the other expert
+ROUTER_TIE = 2 ** -8
+
+
+def _pool_bytes(engine):
+    """The KV pool's (or slot cache's) bytes held at each mesh position."""
+    from repro_torch.dist import sharding as SH
+    kv = engine.kv_pool if engine.paged else engine.cache
+    n = len(engine.mesh.devices)
+    return [sum(v.shards[p].numel() * v.shards[p].element_size()
+                for v in kv.values() if isinstance(v, SH.Sharded))
+            for p in range(n)]
+
+
+def _engine_mesh_points(frontier, total):
+    """A: the serve phase's rule on the ep = 2 frontier; B: a point with
+    every rung and other bank sizes (a bank-split replan), the most
+    resident."""
+    a = pick_point(frontier, total)
+    cand = [p for p in frontier.points
+            if p.plan.bank_sizes() != a.plan.bank_sizes()
+            and all(c > 0 for c in p.counts_per_rung)]
+    if not cand:
+        cand = [p for p in frontier.points
+                if p.plan.bank_sizes() != a.plan.bank_sizes()]
+    if not cand:
+        raise AssertionError("11: no second frontier point")
+    return a, max(cand, key=lambda p: (p.resident_experts,
+                                       -p.num_q_experts))
+
+
+def phase_engine_mesh(torch, np, seed: int, card: str,
+                      distinct: bool = False):
+    """11: ``build_engine`` on full-width Mixtral-8x7B (depth 2) over a
+    (2, 2) mesh of repeated ``cuda:0`` (``distinct``: position p on
+    ``cuda:(p % cards)``), the kernels on, serving the same prompts in
+    the paged, slot, overlap and speculative (K = 2) configs across one
+    replan A -> B: paged == slot and overlap == sync (every sampled
+    logit bit-equal), speculative == plain greedy tokens, a rerun
+    bit-equal, the one-device engine's tokens held by 9c's rule
+    (``near_ties.hold_tokens``), B3, B4 and splitk_reduce launched at
+    every position; ms per iteration, tokens/s, peak GB and KV bytes per
+    position beside one device's."""
+    from repro_torch.dist import sharding as SH
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models.model import init_params
+    from repro_torch.serving.api import EngineConfig, build_engine
+    from repro_torch.serving.near_ties import EngineRecorder, hold_tokens
+    t_phase = time.perf_counter()
+    cfg = serving_config()
+    total = cfg.num_layers * cfg.moe.num_experts
+    n = math.prod(ENGINE_MESH)
+    mesh = make_test_mesh(ENGINE_MESH, devices=_mesh_devices(n, distinct))
+    if not SH.splits_dense(cfg, mesh):
+        raise AssertionError("11: the mesh does not split the dense compute")
+    log(f"engine mesh: {cfg.arch_id} depth {cfg.num_layers}, full width, on "
+        f"{ENGINE_MESH} of {'distinct cards' if distinct else 'cuda:0'}")
+    params = init_params(cfg, seed, device="cuda")
+    rng = np.random.default_rng(seed + 11)
+    first = [rng.integers(1, cfg.vocab_size, size=16) for _ in range(4)]
+    second = [rng.integers(1, cfg.vocab_size, size=16) for _ in range(4)]
+    runs, out = {}, {"mesh": list(ENGINE_MESH)}
+    points = None
+
+    def serve(name, extra, on_mesh=True, ties=False, rerun=False):
+        nonlocal points
+        _peak_reset(torch)
+        eng = build_engine(cfg, params, EngineConfig(**SERVE_CFG, **extra),
+                           **({"mesh": mesh} if on_mesh else
+                              {"device": "cuda"}))
+        if points is None:
+            points = _engine_mesh_points(eng.frontier, total)
+        a, b = points
+        rec = {"config": name, "mesh": on_mesh}
+        with EngineRecorder(eng, ROUTER_TIE if ties else None) as seen, \
+                _PositionLaunches() as book:
+            eng.apply_frontier_point(a)
+            pa = serve_pass(torch, eng, first)
+            eng.apply_frontier_point(b)
+            pb = serve_pass(torch, eng, second)
+        rec.update(tokens=(pa["tokens"], pb["tokens"]), logits=seen.calls,
+                   rows=seen.rows, ties=seen.ties, book=book,
+                   launches={k: pa["launches"][k] + pb["launches"][k]
+                             for k in pa["launches"]},
+                   iterations=pa["iterations"] + pb["iterations"],
+                   bits=eng.current_plan.bits.copy())
+        if rerun:                   # the B traffic again, warm, timed
+            r = serve_pass(torch, eng, second)
+            rec["warm"] = r
+        _, rec["peak_gb"] = _mem_gb(torch)
+        if on_mesh:
+            rec["kv_bytes_per_position"] = _pool_bytes(eng)
+            rec["kv_total_bytes"] = sum(
+                v.numel() * v.dtype.itemsize if not isinstance(v, SH.Sharded)
+                else math.prod(v.shape) * v.dtype.itemsize
+                for v in (eng.kv_pool if eng.paged else eng.cache).values())
+            rec["data_ranks"] = eng.kv_meta.data_ranks if eng.paged else None
+        eng.close()
+        del eng
+        _release(torch)
+        return rec
+
+    runs["paged"] = serve("paged", {}, ties=True, rerun=True)
+    for name in ("slot", "overlap", "speculate"):
+        runs[name] = serve(name, ENGINE_MESH_CONFIGS[name])
+    one = serve("one device", {}, on_mesh=False, rerun=True)
+    a, b = points
+    paged = runs["paged"]
+
+    def bit_equal(x, y):
+        return len(x) == len(y) and all(_bits_equal(torch, u, v)
+                                        for u, v in zip(x, y))
+
+    for name, other in (("slot", runs["slot"]), ("overlap",
+                                                 runs["overlap"])):
+        if other["tokens"] != paged["tokens"] or \
+                not bit_equal(other["logits"], paged["logits"]):
+            raise AssertionError(f"11: {name} differs from paged: "
+                                 f"{other['tokens']} != {paged['tokens']}")
+    if runs["speculate"]["tokens"] != paged["tokens"]:
+        raise AssertionError(f"11: speculative tokens "
+                             f"{runs['speculate']['tokens']} != plain "
+                             f"{paged['tokens']}")
+    if paged["warm"]["tokens"] != paged["tokens"][1] or \
+            one["warm"]["tokens"] != one["tokens"][1]:
+        raise AssertionError("11: a warm rerun gave other tokens")
+    if (one["bits"] != paged["bits"]).any():
+        raise AssertionError("11: one device serves other bits at B")
+    # one device against the split by 9c's rule: over the rows both ran
+    # from the same tokens, less those whose own row met a router
+    # near-tie, logits within MESH_BAR of max |logit| and greedy ids
+    # equal wherever one device's margin exceeds twice the gap
+    held = hold_tokens(paged["tokens"][0] + paged["tokens"][1],
+                       one["tokens"][0] + one["tokens"][1], paged["rows"],
+                       one["rows"], bar=MESH_BAR, exempt=paged["ties"])
+    faults = held.faults(min_equal=6)
+    if faults:
+        raise AssertionError(f"11: the split against one device: "
+                             f"{'; '.join(faults)} ({held.summary()})")
+    # launches: every position ran B3 (q4, q8), B4 and the split-K
+    # reduction on every path
+    by_path = {}
+    for name, rec in runs.items():
+        rec["book"].require(n, {4: 1, 8: 1, 16: 1}, f"11 {name}",
+                            splits=True)
+        by_path[name] = rec["book"].table()
+        require_launches(rec["launches"], f"11 {name}",
+                         MAIN_KERNELS + ("splitk_reduce",))
+    shapes = sorted({k for rec in runs.values()
+                     for book in rec["book"].by_pos.values() for k in book
+                     if k != "splitk_reduce"}, key=str)
+    kv = paged["kv_bytes_per_position"]
+    if len(set(kv)) != 1 or kv[0] * ENGINE_MESH[0] != paged["kv_total_bytes"]:
+        raise AssertionError(f"11: KV pool bytes per position {kv}, total "
+                             f"{paged['kv_total_bytes']}")
+    w, w1 = paged["warm"], one["warm"]
+    log(f"  11 points: A {a.summary()} (banks {a.plan.bank_sizes()}), B "
+        f"{b.summary()} (banks {b.plan.bank_sizes()}); 8 requests x 16 "
+        f"prompt x {MAX_NEW} new tokens across the replan")
+    log(f"  11 paged == slot and overlap == sync: {len(paged['logits'])} "
+        "sampled logits bit-equal; speculative == plain greedy tokens; "
+        "warm rerun equal")
+    log(f"  11 one device: {held.summary()}; router near-ties at "
+        f"{sorted(paged['ties'])}")
+    log(f"  11 {ENGINE_MESH} on {card}: {w['decode_ms_per_iter']:.3f} ms per "
+        f"decode iteration, {w['tokens_per_s']:.2f} decode tok/s (one "
+        f"device {w1['decode_ms_per_iter']:.3f} ms, "
+        f"{w1['tokens_per_s']:.2f} tok/s); peak {paged['peak_gb']:.2f} GB "
+        f"(one device {one['peak_gb']:.2f} GB); KV pool "
+        f"{kv[0] / 2**20:.3f} MiB per position of "
+        f"{paged['kv_total_bytes'] / 2**20:.3f} MiB")
+    for name, table in by_path.items():
+        books = {}
+        for p, book in table.items():
+            books.setdefault(json.dumps(book, sort_keys=True), []).append(p)
+        for book, where in books.items():
+            log(f"    11 {name} launches at positions {where}: {book}")
+    for name, rec in runs.items():
+        per = {k: v / max(rec["iterations"], 1)
+               for k, v in rec["launches"].items()}
+        out[name] = {"tokens": rec["tokens"], "peak_gb": rec["peak_gb"],
+                     "launches_by_position": by_path[name],
+                     "path": _path_record(torch, f"11 {name}",
+                                          rec["launches"], per)}
+    out.update(points={"A": a.summary(), "B": b.summary()},
+               one_device={"tokens": one["tokens"], "peak_gb": one["peak_gb"],
+                           "decode_ms_per_iter": w1["decode_ms_per_iter"],
+                           "tokens_per_s": w1["tokens_per_s"]},
+               warm={"decode_ms_per_iter": w["decode_ms_per_iter"],
+                     "tokens_per_s": w["tokens_per_s"],
+                     "launches_per_decode_iter":
+                     w["launches_per_decode_iter"]},
+               parted=held.parted, ties=sorted(paged["ties"]),
+               one_device_gap=held.gap, one_device_max_logit=held.scale,
+               rows_held=held.held, rows_compared=held.compared,
+               kv_bytes_per_position=kv,
+               kv_total_bytes=paged["kv_total_bytes"],
+               launch_shapes=[list(k) for k in shapes],
+               seconds=time.perf_counter() - t_phase)
+    del params
+    log(f"  engine mesh: {out['seconds']:.1f} s")
+    return out
+
+
+# --------------------------------------------------------------------------
 # phase 10: the roofline's anchor cell, op counts of whole steps
 # --------------------------------------------------------------------------
 
@@ -4476,7 +4709,11 @@ def _kimi_rows(torch, gen, gk, ops, qk, reps):
     return out
 
 
-def phase_kernels(torch, np, sizes, seed: int, reps: int):
+def phase_kernels(torch, np, sizes, seed: int, reps: int, more=()):
+    """5: every kernel against its plain version at ``SHAPES``, the draft
+    bank, Kimi-K2's widths and phase 9's shard shapes, then the launch
+    shapes ``more`` ((kernel, G, C, K, N), phase 11's) whose (kernel, C,
+    K, N) no row above has, each at its first G."""
     from repro_torch.core.quantization import QTensor, dequantize
     from repro_torch.kernels import grouped_matmul as gk
     from repro_torch.kernels import ops
@@ -4622,6 +4859,29 @@ def phase_kernels(torch, np, sizes, seed: int, reps: int):
                 f"{r['max_abs_err']:.2e}")
             next(e for e in extra if e["name"] == name)[label] = r
             torch.cuda.empty_cache()
+    timed = {(e["name"], r.get("C"), r.get("K"), r.get("N"))
+             for e in extra for r in e.values() if isinstance(r, dict)}
+    new = {}
+    for name, g, c, k, n in more:
+        new.setdefault((name, c, k, n), g)
+    new = {key: g for key, g in new.items() if key not in timed}
+    if new:
+        log("kernels: B3 and B4 at phase 11's launch shapes not timed above "
+            "(the split engine's token-gather shards)")
+    for (name, c, k, n), g in sorted(new.items()):
+        bits = int(name[len("grouped_q"):]) if name != "grouped_bf16" else 16
+        r = bf16_case(g, c, k, n) if bits == 16 \
+            else q_case(bits, g, c, k, n, True)
+        label = f"11 G{g} {c}x{k}x{n}"
+        log(f"  {name:13s} {label:18s} x{r['copies']} splits "
+            f"{r['plan']['splits']}: {r['ms']:.4f} ms (bound "
+            f"{r['bound_ms']:.4f} ms by {r['bound_by']}, "
+            f"{r['bound_ms'] / r['ms']:.1%} of bound), plain "
+            f"{r['plain_ms']:.4f} ms, bmm {r['library_ms']:.4f} ms "
+            f"({r['library_ms'] / r['ms']:.2f}x), max|err| "
+            f"{r['max_abs_err']:.2e}")
+        next(e for e in extra if e["name"] == name)[label] = r
+        torch.cuda.empty_cache()
     return records, extra
 
 
@@ -4879,6 +5139,12 @@ def main(argv=None) -> int:
         for name in MESH_SERVE:
             paths[f"9c {name}"] = mesh["serve"][name]["path"]
     _release(torch)
+    engine_mesh = run("engine mesh", phase_engine_mesh, torch, np,
+                      args.seed, smi) if built else None
+    if engine_mesh is not None:
+        for name in ENGINE_MESH_CONFIGS:
+            paths[f"11 {name}"] = engine_mesh[name]["path"]
+    _release(torch)
     roofline = run("roofline", phase_roofline, torch, np, args.seed, smi)
     _release(torch)
     kimi = run("kimi", phase_kimi, torch, np, args.seed, smi) \
@@ -4899,7 +5165,8 @@ def main(argv=None) -> int:
     parity_err = run("parity", phase_parity, torch, np, args.seed) \
         if built else None
     kern = run("kernels", phase_kernels, torch, np, sizes, args.seed,
-               args.reps) if sizes else None
+               args.reps, [tuple(k) for k in (engine_mesh or {}).get(
+                   "launch_shapes", [])]) if sizes else None
     records, extra = kern if kern else ([], [])
     for rec in records:
         rec["launches"] = paths["serve"]["launches"][rec["name"]]
@@ -4920,7 +5187,8 @@ def main(argv=None) -> int:
     out.write_text(json.dumps({
         "nvidia_smi": smi, "device": torch.cuda.get_device_name(0),
         "build_s": build_s, "ptxas": ptxas, "serve": serve, "cli": cli,
-        "train": train, "mesh": mesh, "roofline": roofline, "kimi": kimi,
+        "train": train, "mesh": mesh, "engine_mesh": engine_mesh,
+        "roofline": roofline, "kimi": kimi,
         "qwen3": qwen3,
         "families": families, "families_train": families_train,
         "families_mesh": families_mesh,

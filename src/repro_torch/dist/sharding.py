@@ -22,7 +22,9 @@ may repeat a device), so a rule here is explicit storage:
   slices) and :func:`reduce_scatter` (RWKV's gated channel mix) are the
   collectives between the positions' work, each an f32 sum (or a
   concatenation) in rank order, rounded once, with a backward of the same
-  kind, and each booked with ``roofline.op_count``.
+  kind, and each booked with ``roofline.op_count``. :class:`Owner` runs
+  a call of one batch row (the engine's slot prefill) at one data rank's
+  model group, with its MoE tokens spread over every data rank.
 
 * **Parameter rules** — ``param_specs`` walks a param tree and assigns
   the reference's megatron-style specs by leaf name (column-parallel
@@ -773,6 +775,86 @@ def rows(x, split: Split):
         got = {p: OC.nbytes(t) for p, t in enumerate(out)}
         OC.collective("scatter", got, {0: sum(got.values())})
     return out
+
+
+class Owner:
+    """A call of one batch row, which does not split over the data ranks
+    (the engine's slot prefill: batch 1, S the power-of-two bucket),
+    placed as the reference's GSPMD places it:
+
+    * the dense compute (embedding, attention, norms, router, head) runs
+      the row at data rank ``r``'s model group (``group``, in model-rank
+      order) only, heads and vocab slices split over model as in the
+      batched split, its model-axis sums in rank order: :attr:`sub` is
+      that group as a :class:`Split` of a (1, m) mesh, whose position
+      ``i`` is global position ``group[i]``. Its model ranks hold
+      bit-equal copies of the row, as a data rank's positions do;
+    * the MoE's S tokens split over every data rank (:meth:`spread`):
+      data rank ``i``'s positions get token block ``i`` from the group's
+      position of their own model rank, so the token-gather regime's
+      d_ff slices, which live on different data ranks, each see their
+      tokens, as ``shard_map`` splits the flattened B*S tokens; where S
+      does not divide by the data ranks (a bucket cut to a KV window),
+      the tokens are padded to a multiple of them with idle rows (the
+      sentinel expert id, zero weight), as the reference's GSPMD pads;
+    * each token block's output comes back to the group (:meth:`collect`),
+      concatenated in data-rank order at every model rank's position and
+      cut back to the S tokens.
+
+    The other data ranks run only their share of the MoE."""
+
+    def __init__(self, split: Split, r: int):
+        self.split = split
+        self.group = next(g for g in split.model_groups
+                          if split.dp[g[0]] == r)
+        devs = tuple(split.devices[p] for p in self.group)
+        self.sub = split_of(type(split.mesh)((1, len(devs)),
+                                             ("data", MODEL_AXIS), devs),
+                            ("data",))
+        # (data rank, model rank) -> its first position
+        self._at: Dict[Tuple[int, int], int] = {}
+        for p in range(split.n):
+            self._at.setdefault((split.dp[p], split.rank[p]), p)
+
+    def spread(self, parts, fill=0):
+        """The group's copies (one per model rank, dim 0 the tokens) ->
+        each mesh position's block of its data rank (dim 0, padded with
+        rows of ``fill`` to a multiple of ``split.n_dp``, split in that
+        many blocks), copied from its model rank's copy."""
+        s = self.split
+        t = parts[0].shape[0]
+        loc = -(-t // s.n_dp)
+
+        def block(p):
+            x = parts[s.rank[p]][s.dp[p] * loc:(s.dp[p] + 1) * loc]
+            out = torch.full((loc,) + tuple(x.shape[1:]), fill,
+                             dtype=x.dtype, device=s.devices[p])
+            out[:x.shape[0]].copy_(x)
+            return out
+        out = s.each(block)
+        if OC.counting():
+            OC.collective("scatter", {p: OC.nbytes(v)
+                                      for p, v in enumerate(out)},
+                          {q: OC.nbytes(parts[i])
+                           for i, q in enumerate(self.group)})
+        return out
+
+    def collect(self, parts, rows: int):
+        """Each mesh position's block -> at each group position the
+        blocks of its model rank, concatenated in data-rank order, its
+        first ``rows`` (the tokens :meth:`spread` was given)."""
+        s = self.split
+        out = []
+        for i, q in enumerate(self.group):
+            with OC.at_position(q):
+                out.append(torch.cat([
+                    parts[self._at[(d, s.rank[q])]].to(s.devices[q])
+                    for d in range(s.n_dp)])[:rows])
+        if OC.counting():
+            OC.collective("all-gather", {q: OC.nbytes(v)
+                                         for q, v in zip(self.group, out)},
+                          {p: OC.nbytes(v) for p, v in enumerate(parts)})
+        return out
 
 
 def rank_sum(parts, device, dtype=None) -> torch.Tensor:

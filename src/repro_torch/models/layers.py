@@ -349,8 +349,8 @@ def position_tables(acfg: AttentionConfig, poss, split: "SH.Split",
 
 
 def attention_split(ps, xs, acfg: AttentionConfig, *, poss, caches,
-                    split: "SH.Split", tables, kv_xs=None):
-    """:func:`attention` (no ``spec``) per mesh position: ``ps``, ``xs``
+                    split: "SH.Split", tables, kv_xs=None, spec=False):
+    """:func:`attention` per mesh position: ``ps``, ``xs``
     (B_i, S, d), ``poss`` (B_i, S) and ``caches`` (each position's ring
     {k, v, pos} of its data rank's rows, all KV heads; ``None``: no
     cache) are per-position lists. Returns (the outputs, the new rings or
@@ -400,7 +400,7 @@ def attention_split(ps, xs, acfg: AttentionConfig, *, poss, caches,
         q = SH.all_gather(q, groups, devs, -1)
     s, sk = xs[0].shape[1], k[0].shape[1]
     block = q_split and not heads and m > 1 and s % m == 0 and \
-        (caches is None or s > 1)
+        (caches is None or (s > 1 and not spec))
     nothing = [None] * split.n
 
     def one(p, x, w, qp, kp, vp, pos, cache, tab):
@@ -409,7 +409,7 @@ def attention_split(ps, xs, acfg: AttentionConfig, *, poss, caches,
         out, new = _attend(
             w, qp.reshape(b, s, hl, hd), kp.reshape(b, sk, hkv, hd),
             vp.reshape(b, sk, hkv, hd), acfg, pos, cache, cross=cross,
-            tables=tab,
+            spec=spec, tables=tab,
             kv_heads=_kv_heads(h, hkv, hl, j) if heads else slice(None),
             rows=slice(j * n, (j + 1) * n) if block else slice(None),
             chunk=_split_chunk(b, hl, sk))

@@ -16,8 +16,9 @@ of ``mixed_moe.moe_apply``, on params placed by ``dist.sharding.
 shard_tree`` (each position holds its ``param_specs`` shard) or by
 ``apply_precision_plan(..., mesh=)`` (the serve banks' per-position
 shards, the other leaves by ``place_params``); every family's dense
-compute splits over the mesh by the reference's rules (see
-``build_model``).
+compute splits over the mesh by the reference's rules, and the decoder's
+serving hooks with it, over caches and page pools placed per data rank
+(see ``build_model``).
 Parameters are nested dicts of tensors with a leading layer axis on every
 ``layers/...`` leaf, as in the reference. Caches and page pools are
 updated in place (the engine holds the only reference); the reference
@@ -45,6 +46,8 @@ from repro_torch.models.encdec import encdec_forward, encdec_forward_split
 from repro_torch.models.transformer import (FORWARDS, FORWARDS_SPLIT,
                                             _hybrid_layout, by_column,
                                             decoder_block, decoder_forward,
+                                            decoder_forward_split,
+                                            decoder_layer_split,
                                             layer_slice)
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
@@ -242,6 +245,21 @@ class PagedKVMeta:
     page_size: int        # tokens per page
     chunks_per_slot: int  # ceil(window / page_size)
     num_pages: int        # physical pages incl. the reserved null page 0
+    #: data ranks the pool is placed over (a class attribute here, so the
+    #: fields stay the reference's; :class:`SplitPagedKVMeta` sets it)
+    data_ranks = 1
+
+    @property
+    def pages_per_rank(self) -> int:
+        return self.num_pages // self.data_ranks
+
+
+@dataclasses.dataclass(frozen=True)
+class SplitPagedKVMeta(PagedKVMeta):
+    """A pool placed per data rank: rank ``r`` holds the page range ``[r *
+    n, (r + 1) * n)`` (``n = num_pages / data_ranks``), its first page its
+    own null page."""
+    data_ranks: int = 1
 
 
 def init_paged_cache(cfg: ModelConfig, batch: int, max_len: int, *,
@@ -279,6 +297,19 @@ class PageTable:
     gather: torch.Tensor    # (B, nc) int64: each chunk's page, 0 = null
     chunk: torch.Tensor     # (M,) int64: b * nc + c of each MAPPED chunk
     page: torch.Tensor      # (M,) int64: that chunk's page (never 0)
+
+
+@dataclasses.dataclass(frozen=True)
+class SplitPageTable:
+    """The page table of a pool placed per data rank (``PagedKVMeta.
+    data_ranks`` > 1), as each mesh position's :class:`PageTable` of its
+    data rank's slots in the local page ids of its pool shard (a global
+    page ``g`` of rank ``r`` is local page ``g - r * pages_per_rank``;
+    0 stays the null page). One slot's row (the prefill's) has a table
+    at its owning data rank's positions only (``None`` elsewhere) and
+    names that rank ``owner``."""
+    parts: Tuple[Optional[PageTable], ...]
+    owner: Optional[int] = None
 
 
 def _index(a: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -446,6 +477,11 @@ class Model:
     # (cache, keep (B,)) -> cache with tags > keep[b] invalidated per slot
     paged_rollback: Optional[Callable] = None
     # (pool, page_table, keep (B,)) -> pool, same contract
+    page_table: Optional[Callable] = None
+    # (table (B, nc), device, *, meta, slot=None) -> the paged hooks' page
+    # table of the allocator's table (``slot``: that slot's row, the
+    # prefill's): a PageTable on one device, a SplitPageTable on a mesh
+    # that splits the dense compute
 
 
 def _embed_scaled(params, cfg: ModelConfig, tokens: torch.Tensor):
@@ -591,25 +627,68 @@ def _placed_like(like, parts):
     return SH.Sharded(like.placement, shape, parts)
 
 
-def _split_logits(logits, rows: int, split):
-    """Per-position (B_i, V or V/m) logits as one :class:`dist.sharding.
-    Sharded` (B, V): rows over the data axes, vocab slices over model
-    where the head is vocab-sharded."""
-    b = logits[0].shape[0] * split.n_dp
-    sharded = logits[0].shape[-1] < rows
-    spec = SH.P(split.batch_entry, SH.MODEL_AXIS if sharded else None)
-    return SH.Sharded(SH.Placement(split.mesh, spec), (b, rows), logits)
+def _batch_sharded(parts, split, dim: int = 0, vocab: Optional[int] = None):
+    """Per-position blocks as one :class:`dist.sharding.Sharded`: dim
+    ``dim`` (the batch, or an (L, B*S) stack's rows) over the data axes,
+    and, where ``vocab`` is given and a block holds a slice of it, the
+    last dim over model (the vocab-sharded head's logits)."""
+    spec = [None] * parts[0].ndim
+    shape = list(parts[0].shape)
+    spec[dim] = split.batch_entry
+    shape[dim] *= split.n_dp
+    if vocab is not None and shape[-1] < vocab:
+        spec[-1] = SH.MODEL_AXIS
+        shape[-1] = vocab
+    return SH.Sharded(SH.Placement(split.mesh, SH.P(*spec)), shape, parts)
 
 
-def _whole_only(name: str):
-    """A serving hook that raises: the slot, paged and speculative hooks
-    run the whole-batch forwards (one device, or the pure-EP serving
-    mesh), which a mesh that splits the dense compute does not take."""
-    def refuse(*args, **kwargs):
-        raise ValueError(f"Model.{name} serves on one device or the pure-EP "
-                         "(1, ep) mesh; this mesh splits the dense compute: "
-                         "use prefill and decode_step")
-    return refuse
+def split_page_table(table: np.ndarray, meta: PagedKVMeta, split,
+                     slot: Optional[int] = None) -> SplitPageTable:
+    """The allocator's table (B, nc) of a pool placed per data rank as
+    each position's :class:`PageTable` of its data rank's rows, in its
+    shard's local page ids; ``slot`` takes that slot's row only, at its
+    owning data rank's positions. A table is built once per (data rank,
+    device), so positions that repeat a device share it."""
+    table = np.asarray(table)
+    loc = table.shape[0] // split.n_dp
+    per = meta.pages_per_rank
+    owner = None if slot is None else slot // loc
+    built: Dict[Tuple[int, Any], PageTable] = {}
+    parts = []
+    for p in range(split.n):
+        r = split.dp[p]
+        if owner is not None and r != owner:
+            parts.append(None)
+            continue
+        key = (r, split.devices[p])
+        if key not in built:
+            rows = table[r * loc:(r + 1) * loc] if slot is None \
+                else table[slot]
+            built[key] = page_table(np.where(rows > 0, rows - r * per, 0),
+                                    split.devices[p])
+        parts.append(built[key])
+    return SplitPageTable(tuple(parts), owner)
+
+
+def _whole_page_table(table, device, *, meta=None, slot=None) -> PageTable:
+    """``Model.page_table`` on one device: :func:`page_table` of the
+    table, or of ``slot``'s row."""
+    return page_table(table if slot is None else table[slot], device)
+
+
+def _rollback_slots(cache, keep):
+    cache["pos"].masked_fill_(cache["pos"] > keep[None, :, None], -1)
+    return cache
+
+
+def _rollback_pages(pool, pt: PageTable, keep):
+    pos = pool["pos"][:, pt.gather]                  # (L, B, nc, ps)
+    pos = torch.where(pos > keep[None, :, None, None],
+                      torch.full_like(pos, -1), pos)
+    l, b, nc, ps = pos.shape
+    pool["pos"].index_copy_(
+        1, pt.page, pos.reshape(l, b * nc, ps).index_select(1, pt.chunk))
+    return pool
 
 
 def build_model(cfg: ModelConfig, mesh=None, *,
@@ -645,11 +724,13 @@ def build_model(cfg: ModelConfig, mesh=None, *,
     over model; ``.full()`` gathers them) and the cache as ``Sharded``
     leaves, and ``loss_fn`` sums the data ranks' NLL in rank order.
     Nothing is gathered onto ``mesh.devices[0]``; a plain cache or an
-    unplaced dense leaf raises, and so do the slot, paged and
-    speculative serving hooks (``_whole_only``). On the pure-EP serving
-    mesh (params of ``apply_precision_plan(mesh=)``: the banks' shards,
-    every other leaf on ``mesh.devices[0]``) the dense compute runs
-    whole there (``_mesh_params``)."""
+    unplaced dense leaf raises. The slot, overlap, paged and speculative
+    serving hooks run split there too (``split_hooks``: each data rank's
+    slot rows or page range at its positions, a slot prefill at its
+    slot's data rank, ``Model.page_table`` a :class:`SplitPageTable`).
+    On the pure-EP serving mesh (params of ``apply_precision_plan(
+    mesh=)``: the banks' shards, every other leaf on ``mesh.devices[0]``)
+    the dense compute runs whole there (``_mesh_params``)."""
     fwd = encdec_forward if cfg.family == "encdec" else FORWARDS[cfg.family]
     par = None
     if mesh is not None and cfg.moe is not None:
@@ -690,15 +771,18 @@ def build_model(cfg: ModelConfig, mesh=None, *,
         return encdec_forward_split(pp, cfg, xs, poss, caches=caches,
                                     split=split, par=par, **kw)
 
+    def split_embed(pp, tokens, split):
+        """Each position's scaled token embeddings of its rows."""
+        xs = L.embed_split([t["embed"]["table"] for t in pp],
+                           SH.rows(tokens, split), cfg.padded_vocab, split)
+        return split.each(lambda p, x: x * torch.tensor(
+            math.sqrt(cfg.d_model), dtype=x.dtype, device=x.device), xs)
+
     def split_inputs(params, batch, split):
         """Each position's params, token embeddings (+ frontend) and
         positions."""
         pp = _position_params(params, split)
-        tok = SH.rows(batch["tokens"], split)
-        xs = L.embed_split([t["embed"]["table"] for t in pp], tok,
-                           cfg.padded_vocab, split)
-        xs = split.each(lambda p, x: x * torch.tensor(
-            math.sqrt(cfg.d_model), dtype=x.dtype, device=x.device), xs)
+        xs = split_embed(pp, batch["tokens"], split)
         if cfg.frontend == "vision" and "frontend" in batch:
             fr = SH.rows(batch["frontend"], split)
             xs = split.each(lambda p, f, x: torch.cat([f.to(x.dtype), x],
@@ -707,10 +791,13 @@ def build_model(cfg: ModelConfig, mesh=None, *,
             x.shape[1], device=x.device)[None].expand(x.shape[:2]), xs)
         return pp, xs, poss
 
-    def split_head(pp, ys, split):
-        return split.each(lambda p, t, y: L.unembed(
-            t["lm_head"]["table"], L.rms_norm(y, t["final_norm"]["scale"])),
-            pp, ys)
+    def split_head(pp, ys, split, spec: bool = False):
+        """Each position's logits of its rows ``ys``; ``spec``: column by
+        column, at plain decode's shapes."""
+        if spec:
+            return split.each(lambda p, t, y: by_column(
+                lambda yc: _head(t, yc), y), pp, ys)
+        return split.each(lambda p, t, y: _head(t, y), pp, ys)
 
     def split_cache_parts(cache, split):
         if not isinstance(cache, dict) or _plain_leaf(cache):
@@ -738,20 +825,34 @@ def build_model(cfg: ModelConfig, mesh=None, *,
             logits = split_head(pp, split.each(lambda p, y: y[:, -1:], ys),
                                 split)
         logits = split.each(lambda p, lg: lg[:, 0], logits)
-        return _split_logits(logits, cfg.padded_vocab, split), \
+        return _batch_sharded(logits, split, 0, cfg.padded_vocab), \
             _placed_like(cache, new)
 
-    def decode_split(params, cache, tokens, positions, split):
-        parts = split_cache_parts(cache, split)
+    def decode_split(params, cache, tokens, positions, split, *,
+                     collect_routes: bool = False, spec: bool = False):
+        """A decode step (``positions`` (B,)) or, with ``spec``, a
+        speculative step (``positions`` (B, S)) over ``cache`` (a placed
+        cache, or each position's cache rows as a list): (the logits as a
+        ``Sharded``, rows over data and vocab slices over model, the cache,
+        and with ``collect_routes`` the route ids (L, B*S, top_k) as a
+        ``Sharded`` over data)."""
+        parts = cache if isinstance(cache, list) else \
+            split_cache_parts(cache, split)
+        poss = SH.rows(positions, split)
+        if poss[0].dim() == 1:
+            poss = split.each(lambda p, q: q[:, None], poss)
+        kw = dict(collect_routes=True, spec=spec) if collect_routes else {}
         with rules():
             pp, xs, _ = split_inputs(params, {"tokens": tokens}, split)
-            poss = split.each(lambda p, q: q[:, None],
-                              SH.rows(positions, split))
-            ys, _, _ = split_fwd(pp, xs, poss, parts, split,
-                                 use_kernel=use_kernel)
-            logits = split_head(pp, ys, split)
-        logits = split.each(lambda p, lg: lg[:, 0], logits)
-        return _split_logits(logits, cfg.padded_vocab, split), cache
+            ys, _, aux = split_fwd(pp, xs, poss, parts, split,
+                                   use_kernel=use_kernel, **kw)
+            logits = split_head(pp, ys, split, spec)
+        if not spec:
+            logits = split.each(lambda p, lg: lg[:, 0], logits)
+        logits = _batch_sharded(logits, split, 0, cfg.padded_vocab)
+        if not collect_routes:
+            return logits, cache
+        return logits, cache, _batch_sharded(aux["route_ids"], split, 1)
 
     def _head(params, y):
         y = L.rms_norm(y, params["final_norm"]["scale"])
@@ -997,19 +1098,239 @@ def build_model(cfg: ModelConfig, mesh=None, *,
         absolute position per slot): rejected speculative tokens become
         dead tags. Slots outside the speculative batch pass a large
         ``keep``."""
-        cache["pos"].masked_fill_(cache["pos"] > keep[None, :, None], -1)
-        return cache
+        return _rollback_slots(cache, keep)
 
     def paged_rollback(pool, pt: PageTable, keep):
         """Paged ``rollback_slots``: the slots' page views' tags are
         gathered, bounded and written back to the mapped pages."""
-        pos = pool["pos"][:, pt.gather]                  # (L, B, nc, ps)
-        pos = torch.where(pos > keep[None, :, None, None],
-                          torch.full_like(pos, -1), pos)
-        l, b, nc, ps = pos.shape
-        pool["pos"].index_copy_(
-            1, pt.page, pos.reshape(l, b * nc, ps).index_select(1, pt.chunk))
-        return pool
+        return _rollback_pages(pool, pt, keep)
+
+    # -- the serving hooks over a mesh that splits the dense compute -------
+    def split_hooks(split):
+        """The slot, overlap, paged and speculative hooks where the
+        serving rules split the dense compute (the hooks above run whole
+        batches on one device). Params come placed (``apply_precision_
+        plan(mesh=)``), caches from ``init_cache`` and pools from
+        ``init_paged_cache`` (each position holds its data rank's slot
+        rows or page range); a plain cache, pool or dense leaf raises.
+        Decode, overlap and speculative steps run the batch split as
+        ``decode_step`` does and return the logits and the route ids as
+        :class:`dist.sharding.Sharded` (rows over data; the logits'
+        vocab slices over model), never gathering a cache or pool leaf.
+        A slot prefill (one row) runs at the slot's owning data rank's
+        model group, its MoE tokens over every data rank
+        (``dist.sharding.Owner``); its logits are a ``Sharded`` (1, V)
+        over that group. Each position's ring or page rows are written
+        in place by the positions that hold them."""
+        n_dp = split.n_dp
+        dt = _DTYPES[cfg.dtype]
+
+        def pool_parts(pool):
+            if not isinstance(pool, dict) or _plain_leaf(pool):
+                raise ValueError("on this mesh the page pool is placed per "
+                                 "data rank: make it with Model."
+                                 "init_paged_cache")
+            return [SH.at_position(pool, p) for p in range(split.n)]
+
+        def layer_step(params, x, positions, rings, layer: int):
+            """One decoder layer over each position's ring of it."""
+            with rules():
+                pp = _position_params(params, split)
+                poss = SH.rows(positions[:, None], split)
+                tables = L.position_tables(cfg.attention, poss, split, True)
+                xs, new, ids = decoder_layer_split(
+                    pp, cfg, layer, SH.rows(x, split), poss, rings, split,
+                    tables, use_kernel=use_kernel, par=par)
+            return _batch_sharded(xs, split), new, _batch_sharded(ids, split)
+
+        def prefill_owner(params, tokens, positions, last_idx: int,
+                          window: int, r: int):
+            """The slot prefill of one row at data rank ``r``'s model
+            group: (the next-token logits, a ``Sharded`` (1, V) over the
+            group, the group, each group position's fresh ring (L, 1, W,
+            ...))."""
+            own = SH.Owner(split, r)
+            sub = own.sub
+            a = cfg.attention
+            with rules():
+                pp = _position_params(params, split)
+                gp = [pp[q] for q in own.group]
+                xs = split_embed(gp, tokens, sub)
+                rings = sub.each(lambda i: {
+                    "k": torch.zeros((cfg.num_layers, 1, window,
+                                      a.num_kv_heads, a.head_dim),
+                                     dtype=dt, device=sub.devices[i]),
+                    "v": torch.zeros((cfg.num_layers, 1, window,
+                                      a.num_kv_heads, a.head_dim),
+                                     dtype=dt, device=sub.devices[i]),
+                    "pos": torch.full((cfg.num_layers, 1, window), -1,
+                                      dtype=torch.int32,
+                                      device=sub.devices[i])})
+                ys, new, _ = decoder_forward_split(
+                    pp, cfg, xs, SH.rows(positions, sub), caches=rings,
+                    split=split, use_kernel=use_kernel, par=par, owner=own)
+                j = min(max(int(last_idx), 0), ys[0].shape[1] - 1)
+                logits = split_head(gp, sub.each(
+                    lambda i, y: y[:, j:j + 1], ys), sub)
+                logits = sub.each(lambda i, lg: lg[:, 0], logits)
+            return _batch_sharded(logits, sub, 0, cfg.padded_vocab), \
+                own.group, new
+
+        def prefill_into_slot(params, cache, tokens, positions, slot: int,
+                              last_idx: int):
+            parts = split_cache_parts(cache, split)
+            loc = cache["pos"].shape[1] // n_dp
+            logits, group, new = prefill_owner(
+                params, tokens, positions, last_idx, cache["k"].shape[2],
+                slot // loc)
+            for q, ring in zip(group, new):
+                for key in ("k", "v", "pos"):
+                    parts[q][key][:, slot % loc] = ring[key][:, 0]
+            return logits, cache
+
+        def reset_slot(cache, slot: int):
+            parts = split_cache_parts(cache, split)
+            loc = cache["pos"].shape[1] // n_dp
+            for q in range(split.n):
+                if split.dp[q] == slot // loc:
+                    parts[q]["pos"][:, slot % loc] = -1
+            return cache
+
+        def decode_step_routed(params, cache, tokens, positions):
+            return decode_split(params, cache, tokens, positions, split,
+                                collect_routes=True)
+
+        def spec_step_routed(params, cache, tokens, positions):
+            return decode_split(params, cache, tokens, positions, split,
+                                collect_routes=True, spec=True)
+
+        def rollback_slots(cache, keep):
+            parts = split_cache_parts(cache, split)
+            for c, k in zip(parts, SH.rows(keep, split)):
+                _rollback_slots(c, k)
+            return cache
+
+        def decode_embed(params, tokens):
+            with rules():
+                _, xs, _ = split_inputs(params, {"tokens": tokens}, split)
+            return _batch_sharded(xs, split)
+
+        def decode_layer_routed(params, cache, x, positions, layer: int):
+            rings = [{k: c[k][layer] for k in ("k", "v", "pos")}
+                     for c in split_cache_parts(cache, split)]
+            x, _, ids = layer_step(params, x, positions, rings, layer)
+            return x, cache, ids
+
+        def decode_logits(params, x):
+            with rules():
+                pp = _position_params(params, split)
+                logits = split_head(pp, SH.rows(x, split), split)
+            logits = split.each(lambda p, lg: lg[:, 0], logits)
+            return _batch_sharded(logits, split, 0, cfg.padded_vocab)
+
+        def init_paged(batch: int, max_len: int, *, page_size: int = 16,
+                       num_pages: Optional[int] = None, device=None):
+            """Each data rank's page range at its positions: ``num_pages``
+            (default: every slot fully windowed plus a null page per
+            rank) splits into ``n_dp`` ranges of ``num_pages / n_dp``
+            pages, each with its own null page and room for one full
+            window; ``device`` is the mesh's."""
+            if batch % n_dp:
+                raise ValueError(f"{batch} slots do not split over {n_dp} "
+                                 "data ranks")
+            window = min(max_len, cfg.attention.sliding_window or max_len)
+            chunks = -(-window // page_size)
+            if num_pages is None:
+                num_pages = n_dp * (batch // n_dp * chunks + 1)
+            if num_pages % n_dp:
+                raise ValueError(f"pool of {num_pages} pages does not "
+                                 f"split over {n_dp} data ranks")
+            parts = split.each(lambda p: init_paged_cache(
+                cfg, batch // n_dp, max_len, page_size=page_size,
+                num_pages=num_pages // n_dp, device=split.devices[p])[0])
+            pool = {k: _batch_sharded([q[k] for q in parts], split, 1)
+                    for k in parts[0]}
+            return pool, SplitPagedKVMeta(
+                window=window, page_size=page_size, chunks_per_slot=chunks,
+                num_pages=num_pages, data_ranks=n_dp)
+
+        def paged_table(table, device, *, meta, slot=None):
+            return split_page_table(table, meta, split, slot)
+
+        def paged_prefill_into_slot(params, pool, page_row, tokens,
+                                    positions, last_idx: int, *,
+                                    window: int):
+            parts = pool_parts(pool)
+            logits, group, new = prefill_owner(params, tokens, positions,
+                                               last_idx, window,
+                                               page_row.owner)
+            for q, ring in zip(group, new):
+                _scatter_prefill_paged(parts[q], page_row.parts[q],
+                                       {k: ring[k][:, 0] for k in ring},
+                                       window)
+            return logits, pool
+
+        def paged_step(params, pool, pt, tokens, positions, window, spec):
+            parts = pool_parts(pool)
+            rings = split.each(lambda p, c: _gather_paged(
+                c, pt.parts[p], window), parts)
+            logits, _, ids = decode_split(params, rings, tokens, positions,
+                                          split, collect_routes=True,
+                                          spec=spec)
+            split.each(lambda p, c, ring: _scatter_paged(
+                c, pt.parts[p], ring, window), parts, rings)
+            return logits, pool, ids
+
+        def paged_decode_step_routed(params, pool, pt, tokens, positions, *,
+                                     window: int):
+            return paged_step(params, pool, pt, tokens, positions, window,
+                              False)
+
+        def paged_spec_step_routed(params, pool, pt, tokens, positions, *,
+                                   window: int):
+            return paged_step(params, pool, pt, tokens, positions, window,
+                              True)
+
+        def paged_decode_layer_routed(params, pool, pt, x, positions,
+                                      layer: int, *, window: int):
+            parts = pool_parts(pool)
+            rings = split.each(lambda p, c: _gather_paged_layer(
+                c, pt.parts[p], window, layer), parts)
+            x, rings, ids = layer_step(params, x, positions, rings, layer)
+            split.each(lambda p, c, ring: _scatter_paged_layer(
+                c, pt.parts[p], ring, window, layer), parts, rings)
+            return x, pool, ids
+
+        def paged_reset(pool, pages):
+            parts = pool_parts(pool)
+            pages = np.asarray(pages).reshape(-1)
+            per = parts[0]["pos"].shape[1]
+            for p, c in enumerate(parts):
+                r = split.dp[p]
+                paged_reset_pages(c, pages[pages // per == r] - r * per)
+            return pool
+
+        def paged_rollback(pool, pt, keep):
+            parts = pool_parts(pool)
+            for p, (c, k) in enumerate(zip(parts, SH.rows(keep, split))):
+                _rollback_pages(c, pt.parts[p], k)
+            return pool
+
+        no_grad = torch.no_grad()
+        return {k: no_grad(f) for k, f in dict(
+            prefill_into_slot=prefill_into_slot,
+            decode_step_routed=decode_step_routed, reset_slot=reset_slot,
+            decode_embed=decode_embed,
+            decode_layer_routed=decode_layer_routed,
+            decode_logits=decode_logits, init_paged_cache=init_paged,
+            paged_prefill_into_slot=paged_prefill_into_slot,
+            paged_decode_step_routed=paged_decode_step_routed,
+            paged_decode_layer_routed=paged_decode_layer_routed,
+            paged_reset_pages=paged_reset,
+            spec_step_routed=spec_step_routed,
+            paged_spec_step_routed=paged_spec_step_routed,
+            rollback_slots=rollback_slots, paged_rollback=paged_rollback,
+            page_table=paged_table).items()}
 
     hooks = dict(prefill_into_slot=prefill_into_slot,
                  decode_step_routed=decode_step_routed,
@@ -1025,9 +1346,10 @@ def build_model(cfg: ModelConfig, mesh=None, *,
                  spec_step_routed=spec_step_routed,
                  paged_spec_step_routed=paged_spec_step_routed,
                  rollback_slots=rollback_slots,
-                 paged_rollback=paged_rollback)
+                 paged_rollback=paged_rollback,
+                 page_table=_whole_page_table)
     if SH.splits_dense(cfg, mesh):
-        hooks = {k: _whole_only(k) for k in hooks}
+        hooks = split_hooks(SH.split_of(mesh, tuple(dp_axes)))
     return Model(**entry, **hooks)
 
 

@@ -154,9 +154,23 @@ def _add_split(xs, hs, split):
     return split.each(lambda i, x, h: x + h, xs, hs)
 
 
+def _columns(fn, split, xs, *rest):
+    """:func:`by_column` over per-position lists: ``fn`` on each column
+    ``j`` (each position's ``x[:, j:j+1]``, contiguous, and the same
+    column of each list of ``rest``), the per-position results
+    concatenated back along the column axis."""
+    def col(lst, j):
+        return [x[:, j:j + 1].contiguous() for x in lst]
+
+    cols = [fn(col(xs, j), *(col(r, j) for r in rest))
+            for j in range(xs[0].shape[1])]
+    return split.each(lambda p: torch.cat([c[p] for c in cols], dim=1))
+
+
 def decoder_block_split(ps, cfg: ModelConfig, xs, poss, rings, split,
                         tables, *, use_kernel=False, stats=None, par=None,
-                        enc_outs=None):
+                        enc_outs=None, spec=False, capacity=None,
+                        owner=None, banks=None):
     """:func:`decoder_block` over a (data, model) mesh: ``ps`` (each
     position's layer params: its shards), ``xs`` (its data rank's
     residual rows), ``poss`` and ``rings`` (its cache rows, or ``None``)
@@ -167,74 +181,145 @@ def decoder_block_split(ps, cfg: ModelConfig, xs, poss, rings, split,
     forward's ``layers.position_tables``; ``enc_outs`` (the enc-dec
     family: each position's rows of the encoder output) adds
     cross-attention after the self-attention, under ``cross_attn_norm``.
-    Returns (x', the new rings)."""
+
+    ``spec`` with S > 1 (the speculative verify) runs attention, the
+    norms and the router column by column at plain decode's shapes, as
+    :func:`decoder_block` does, and the expert FFN once over all tokens
+    with ``capacity`` (B*S of the whole batch: drop-free). ``owner``
+    (``dist.sharding.Owner``; ``split`` is then its ``sub``) runs one
+    row at a data rank's model group and the MoE's tokens over the whole
+    mesh, whose positions' layer banks ``banks`` gives. Returns (x', the
+    new rings, each position's route ids (B_i*S, top_k) in bank order,
+    idle slots and pads remapped to the sentinel ``num_experts``, or
+    ``None`` for a dense block)."""
     lead = set(split.lead)
-    hs, new = L.attention_split(
-        [p["attn"] for p in ps], _norm_split(xs, ps, "attn_norm", split),
-        cfg.attention, poss=poss, caches=rings, split=split, tables=tables)
-    xs = _add_split(xs, hs, split)
-    if enc_outs is not None:
-        hs, _ = L.attention_split(
-            [p["cross_attn"] for p in ps],
-            _norm_split(xs, ps, "cross_attn_norm", split), cfg.attention,
-            poss=None, caches=None, split=split, tables=None,
-            kv_xs=enc_outs)
-        xs = _add_split(xs, hs, split)
-    xns = split.each(lambda i, x, p: L.rms_norm(x, p["ffn_norm"]["scale"]),
-                     xs, ps)
+
+    def attend(xs, poss):
+        hs, new = L.attention_split(
+            [p["attn"] for p in ps], _norm_split(xs, ps, "attn_norm", split),
+            cfg.attention, poss=poss, caches=rings, split=split,
+            tables=None if spec else tables, spec=spec)
+        return _add_split(xs, hs, split), new
+
+    def norm(xs):
+        return _norm_split(xs, ps, "ffn_norm", split)
+
+    columns = spec and xs[0].shape[1] > 1
+    if columns:                 # each column's ring write goes in place
+        xs, new = _columns(lambda x, q: attend(x, q)[0], split, xs,
+                           poss), rings
+        xns = _columns(norm, split, xs)
+    else:
+        xs, new = attend(xs, poss)
+        if enc_outs is not None:
+            hs, _ = L.attention_split(
+                [p["cross_attn"] for p in ps],
+                _norm_split(xs, ps, "cross_attn_norm", split),
+                cfg.attention, poss=None, caches=None, split=split,
+                tables=None, kv_xs=enc_outs)
+            xs = _add_split(xs, hs, split)
+        xns = norm(xs)
     if cfg.moe is None:
         ys = L.mlp_split([p["mlp"] for p in ps], xns, cfg.act, cfg.d_ff,
                          split)
-        return split.each(lambda i, x, y: x + y, xs, ys), new
+        return split.each(lambda i, x, y: x + y, xs, ys), new, None
 
     def routed(i, xn, p, pos):
-        x2 = xn.reshape(-1, xn.shape[-1])
-        w, ids = mixed_moe.route(
-            p["moe"]["router"], x2, cfg.moe,
-            stats=stats if stats is not None and i in lead else None)
+        b, s, d = xn.shape
+        router = p["moe"]["router"]
+        if columns:             # the router at plain decode's M = B_i
+            got = [mixed_moe.route(router, xn[:, j].contiguous(), cfg.moe)
+                   for j in range(s)]
+            w = torch.stack([g[0] for g in got], 1).reshape(b * s, -1)
+            ids = torch.stack([g[1] for g in got], 1).reshape(b * s, -1)
+        else:
+            w, ids = mixed_moe.route(
+                router, xn.reshape(b * s, d), cfg.moe,
+                stats=stats if stats is not None and i in lead else None)
         if rings is not None:       # idle slots and pads take no capacity
             v = (pos >= 0).reshape(-1)[:, None]
             ids = torch.where(v, ids, torch.full_like(ids,
                                                       cfg.moe.num_experts))
             w = torch.where(v, w, torch.zeros_like(w))
-        return x2, w, ids
+        return xn.reshape(b * s, d), w, ids
 
     r = split.each(routed, xns, ps, poss)
-    ys = mixed_moe.moe_apply([p["moe"]["banks"] for p in ps],
-                             [a for a, _, _ in r], [w for _, w, _ in r],
-                             [i for _, _, i in r], cfg.moe, par,
-                             act=cfg.act, use_kernel=use_kernel)
-    return split.each(lambda i, x, y: x + y.reshape(x.shape), xs, ys), new
+    x2s, ws, ids = ([t[k] for t in r] for k in range(3))
+    if banks is None:
+        banks = [p["moe"]["banks"] for p in ps]
+    if owner is not None:
+        rows = x2s[0].shape[0]
+        x2s, ws = owner.spread(x2s), owner.spread(ws)
+        tok_ids = owner.spread(ids, cfg.moe.num_experts)
+    else:
+        tok_ids = ids
+    ys = mixed_moe.moe_apply(banks, x2s, ws, tok_ids, cfg.moe, par,
+                             act=cfg.act, use_kernel=use_kernel,
+                             capacity=capacity)
+    if owner is not None:
+        ys = owner.collect(ys, rows)
+    return split.each(lambda i, x, y: x + y.reshape(x.shape), xs, ys), \
+        new, ids
+
+
+def decoder_layer_split(pos_params, cfg: ModelConfig, li: int, xs, poss,
+                        rings, split, tables, *, owner=None, **kw):
+    """Layer ``li`` of :func:`decoder_forward_split` (the overlap
+    pipeline's one-layer entry, and the stack's body): each position's
+    layer params sliced from ``pos_params``, the dense ones of
+    ``owner``'s group where one is given, the MoE banks of every
+    position. Returns what :func:`decoder_block_split` returns."""
+    ps = [layer_slice(t["layers"], li) for t in pos_params]
+    banks = None
+    if owner is not None:
+        if cfg.moe is not None:
+            banks = [p["moe"]["banks"] for p in ps]
+        ps = [ps[p] for p in owner.group]
+    return decoder_block_split(ps, cfg, xs, poss, rings, split, tables,
+                               owner=owner, banks=banks, **kw)
 
 
 def decoder_forward_split(pos_params, cfg: ModelConfig, xs, poss, *,
                           caches, split, use_kernel=False, train=False,
-                          par=None, enc_outs=None):
+                          par=None, enc_outs=None, collect_routes=False,
+                          spec=False, owner=None):
     """:func:`decoder_forward` over a (data, model) mesh: ``pos_params``
     (each position's param tree of its own shards), ``xs``, ``poss``,
     ``caches`` (each position's {k, v, pos} stacks of its data rank's
     rows) and ``enc_outs`` (the enc-dec decoder's cross-attention source)
     are per-position lists, and the residual stays per position through
     the layers. Returns (ys, new caches, aux): the router losses of the
-    whole batch (``train``) at position 0."""
+    whole batch (``train``) at position 0.
+
+    ``collect_routes`` puts each position's per-layer route ids (L,
+    B_i*S, top_k) under ``aux["route_ids"]``; ``spec`` is
+    :func:`decoder_forward`'s speculative step (S >= 1 new tokens into
+    the live caches, the MoE capacity pinned at the whole batch's B*S).
+    ``owner`` (``dist.sharding.Owner`` over ``split``) runs one batch row
+    (a slot prefill): ``xs``, ``poss`` and ``caches`` are then lists over
+    its group's positions, which compute the dense layers, and the MoE
+    runs over every position of ``split``."""
+    if collect_routes and (cfg.moe is None or caches is None):
+        raise ValueError("collect_routes needs routed experts and a cache")
+    dense = split if owner is None else owner.sub
     aux: Dict[str, Any] = {}
     if train and cfg.moe is not None:
         zero = torch.zeros((), dtype=torch.float32, device=split.devices[0])
         aux.update(load_balance=zero, router_z=zero)
 
-    tables = L.position_tables(cfg.attention, poss, split,
+    tables = L.position_tables(cfg.attention, poss, dense,
                                caches is not None)
     # every layer's cross-attention reads enc_out: its gradient sums over
     # the layers in their order
-    encs = None if enc_outs is None else list(zip(*split.each(
+    encs = None if enc_outs is None else list(zip(*dense.each(
         lambda p, e: SH.fan_out(e, cfg.num_layers), enc_outs)))
 
     def train_block(xs, ps, enc=None):
         stats: list = []
-        xs, _ = decoder_block_split(ps, cfg, xs, poss, None, split, tables,
-                                    use_kernel=use_kernel,
-                                    stats=stats if train else None,
-                                    par=par, enc_outs=enc)
+        xs, _, _ = decoder_block_split(ps, cfg, xs, poss, None, split,
+                                       tables, use_kernel=use_kernel,
+                                       stats=stats if train else None,
+                                       par=par, enc_outs=enc)
         if not stats:
             return xs, {}
         lb, z = mixed_moe.router_losses(stats, split.lead, cfg.moe,
@@ -242,26 +327,35 @@ def decoder_forward_split(pos_params, cfg: ModelConfig, xs, poss, *,
         return xs, {"load_balance": lb, "router_z": z}
 
     train_body = _maybe_remat(train_block, cfg)
-    new = [[] for _ in range(split.n)]
+    capacity = xs[0].shape[0] * dense.n_dp * xs[0].shape[1] if spec \
+        else None
+    new = [[] for _ in range(dense.n)]
+    routes = [[] for _ in range(dense.n)]
     for li in range(cfg.num_layers):
-        ps = [layer_slice(t["layers"], li) for t in pos_params]
         enc = None if encs is None else list(encs[li])
         if caches is None:
+            ps = [layer_slice(t["layers"], li) for t in pos_params]
             xs, layer_aux = train_body(xs, ps, enc)
             for k, v in layer_aux.items():
                 aux[k] = aux[k] + v
             continue
         rings = [{k: c[k][li] for k in ("k", "v", "pos")} for c in caches]
-        xs, rings = decoder_block_split(ps, cfg, xs, poss, rings, split,
-                                        tables, use_kernel=use_kernel,
-                                        par=par, enc_outs=enc)
+        xs, rings, ids = decoder_layer_split(
+            pos_params, cfg, li, xs, poss, rings, dense, tables,
+            owner=owner, use_kernel=use_kernel, par=par, enc_outs=enc,
+            spec=spec, capacity=capacity)
         for p, ring in enumerate(rings):
             new[p].append(ring)
+        if collect_routes:
+            for p, i in enumerate(ids):
+                routes[p].append(i)
+    if collect_routes:
+        aux["route_ids"] = dense.each(lambda p, r: torch.stack(r), routes)
     if caches is None:
         return xs, None, aux
-    if xs[0].shape[1] == 1:
+    if xs[0].shape[1] == 1 or spec:
         return xs, caches, aux          # written in place layer by layer
-    stacked = split.each(lambda p, rs: {k: torch.stack([r[k] for r in rs])
+    stacked = dense.each(lambda p, rs: {k: torch.stack([r[k] for r in rs])
                                         for k in ("k", "v", "pos")}, new)
     return xs, stacked, aux
 

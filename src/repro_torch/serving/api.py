@@ -68,9 +68,9 @@ class EngineConfig:
     otherwise.
 
     Expert parallelism: ``ep`` — the EP shard count the planner rounds
-    every bank to (DESIGN.md §16); an engine built with a (1, ep) mesh
+    every bank to (DESIGN.md §16); an engine built with a mesh
     (``build_engine(..., mesh=)``, ``serving.ep.build_ep_engine``) takes
-    the mesh's.
+    the mesh's model size.
     """
     max_slots: int = 8
     max_len: int = 256
@@ -139,8 +139,15 @@ def build_engine(cfg, params, config: Optional[EngineConfig] = None, *,
     """Construct an :class:`~repro_torch.serving.engine.
     AdaptiveServingEngine` from an :class:`EngineConfig` on ``device``
     (default: the card; raises on a host without one unless
-    ``device="cpu"``), or over the devices of a (1, ep) ``mesh``
-    (``repro_torch.launch.mesh.make_ep_mesh``). ``expert_cache`` attaches
+    ``device="cpu"``), or over the devices of a (data, model) ``mesh``
+    (``repro_torch.launch.mesh``): the pure-EP (1, ep) mesh
+    (``make_ep_mesh``) shards the expert banks and runs the rest on its
+    first device; any other mesh of more than one position (``make_test_
+    mesh((2, 2), devices=...)``) also splits the dense compute, the slot
+    cache or page pool placed per data rank (``max_slots`` and a given
+    ``kv_pool_pages`` must divide over the data ranks, and admission is
+    capped per rank), the way the reference's GSPMD serves such a mesh.
+    The engine's ``ep`` is the mesh's model size. ``expert_cache`` attaches
     a tenant-scoped view of a shared swap space
     (:meth:`~repro_torch.core.expert_cache.ExpertCache.scoped`) for
     multi-tenant deployments (DESIGN.md §10)."""

@@ -52,11 +52,19 @@ through ``mixed_moe.moe_apply``'s sharded path — each rung bank's rank
 shards live on their mesh devices, built there by ``apply_precision_plan``
 at every bank rebuild, so a replan that changes bank membership migrates
 experts between ranks — and the planner rounds every bank to a multiple
-of ``ep`` and gains the PEER placement tier. Attention, the KV cache, the
-router and sampling run on ``mesh.devices[0]`` (the engine's device), as
-do the expert swap cache's copies; the host store keeps one blob per
-(layer, expert) at the plan's rung, dropped with the banks. Greedy tokens
-are the single-device engine's.
+of ``ep`` (the mesh's model size) and gains the PEER placement tier. On
+the pure-EP (1, ep) mesh attention, the KV cache, the router and sampling
+run on ``mesh.devices[0]`` (the engine's device). On a (data, model) mesh
+that splits the dense compute (``dist.sharding.splits_dense``), the model
+hooks run it split: the slots' rows over the data ranks, heads and vocab
+slices over model; the slot cache and the page pool are placed per data
+rank (each position holds its data rank's slot rows or page range, with
+the admission cap held per rank), a slot prefill runs at the slot's data
+rank, and only the logits (sampled on the engine's device) and the route
+ids (the expert cache's feed, the data ranks' rows in rank order) are
+gathered. The expert swap cache's copies run on the engine's device; the
+host store keeps one blob per (layer, expert) at the plan's rung, dropped
+with the banks. Greedy tokens are the single-device engine's.
 """
 from __future__ import annotations
 
@@ -82,8 +90,8 @@ from repro_torch.core.precision_plan import (DEVICE, HOST, PrecisionPlan,
                                              quantized_rungs)
 from repro_torch.core.quantization import quantize
 from repro_torch.device import resolve_device
-from repro_torch.models.model import (Model, apply_precision_plan,
-                                      build_model, page_table)
+from repro_torch.dist.sharding import Sharded
+from repro_torch.models.model import Model, apply_precision_plan, build_model
 from repro_torch.serving.api import EngineConfig, ServeRequest, ServeResult
 from repro_torch.serving.metrics import base_metrics
 from repro_torch.serving.paged_kv import PageAllocator
@@ -144,8 +152,9 @@ class AdaptiveServingEngine:
 
     Construct through :func:`repro_torch.serving.api.build_engine` or
     ``AdaptiveServingEngine(cfg, params, config=EngineConfig(...))``;
-    ``device=None`` means the card, and ``mesh`` (a (1, ep)
-    ``launch.mesh.Mesh``) serves over its devices, the first of them the
+    ``device=None`` means the card, and ``mesh`` (a (data, model)
+    ``launch.mesh.Mesh``: the pure-EP (1, ep) mesh, or one that splits
+    the dense compute) serves over its devices, the first of them the
     engine's device. The flat keyword arguments
     (``max_batch`` — the number of decode slots —, ``max_len``, ...) are
     the reference's backward-compatible spelling and populate an
@@ -220,24 +229,31 @@ class AdaptiveServingEngine:
         # slot cache that paged_kv=False keeps as the A/B baseline
         self.paged = bool(config.paged_kv)
         max_active = config.max_active_tokens
+        group_cap = None
         if self.paged:
             self.kv_pool, self.kv_meta = self.model.init_paged_cache(
                 self.max_slots, self.max_len, page_size=config.page_size,
                 num_pages=config.kv_pool_pages, device=self.device)
             self.window = self.kv_meta.window
+            ranks = self.kv_meta.data_ranks
             self.kv_alloc = PageAllocator(
                 self.max_slots, self.kv_meta.chunks_per_slot,
-                self.kv_meta.num_pages, self.kv_meta.page_size)
+                self.kv_meta.num_pages, self.kv_meta.page_size, ranks)
             self.cache = None
             worst = self.max_slots * self.kv_meta.chunks_per_slot
-            if self.kv_meta.num_pages - 1 < worst:
+            if self.kv_alloc.usable_pages < worst:
                 # sub-worst-case pool: cap admitted tokens so ensure() can
                 # never dead-end mid-flight (per-slot ceil rounding costs
-                # at most one page each, hence the max_slots term)
-                derived = (self.kv_meta.num_pages - 1 - self.max_slots) \
+                # at most one page each, hence the slots term); a pool
+                # placed per data rank caps each rank's slots
+                derived = (self.kv_meta.pages_per_rank - 1
+                           - self.max_slots // ranks) \
                     * self.kv_meta.page_size
-                max_active = derived if max_active is None \
-                    else min(max_active, derived)
+                if ranks == 1:
+                    max_active = derived if max_active is None \
+                        else min(max_active, derived)
+                else:
+                    group_cap = derived
         else:
             self.kv_pool = self.kv_meta = self.kv_alloc = None
             self.cache = self.model.init_cache(self.max_slots, self.max_len,
@@ -247,6 +263,8 @@ class AdaptiveServingEngine:
             max_slots=self.max_slots, max_len=self.max_len,
             max_prompt_len=self.window,
             max_active_tokens=max_active,
+            slot_groups=self.kv_meta.data_ranks if self.paged else 1,
+            max_group_tokens=group_cap,
             max_queue=config.max_queue))
         # runtime expert streaming: the engine's own swap cache, or a
         # tenant-scoped VIEW of a shared swap space (same interface,
@@ -307,7 +325,7 @@ class AdaptiveServingEngine:
         self._stage_lock = threading.Lock()
         self.metrics: Dict[str, Any] = base_metrics()
         self.metrics["kv_capacity_bytes"] = (
-            (self.kv_meta.num_pages - 1) * self.kv_meta.page_size
+            self.kv_alloc.usable_pages * self.kv_meta.page_size
             * self._kv_token_bytes if self.paged
             else kv_bytes_bucketed(cfg, self.max_slots, self.window))
 
@@ -722,8 +740,7 @@ class AdaptiveServingEngine:
         cache = self.expert_cache
         st = cache.stats
         pos_t = self._tensor(pos)
-        pt = page_table(self.kv_alloc.table, self.device) if self.paged \
-            else None
+        pt = self._page_table() if self.paged else None
         n_layers = self.cfg.num_layers
         predicted = self._prev_layer_keys
         misses0 = st.misses
@@ -746,7 +763,7 @@ class AdaptiveServingEngine:
                 # the host reads layer li's routes (that read waits for
                 # layer li's compute)
                 cache.prefetch(predicted[li + 1])
-            ids_np = ids.cpu().numpy()
+            ids_np = self._host(ids)
             order = self._order[li]
             np.add.at(self.route_counts[li],
                       order[ids_np[rows].astype(np.int64).ravel()], 1)
@@ -758,7 +775,7 @@ class AdaptiveServingEngine:
             cache.wait(need)
             exposed += time.perf_counter() - t0
             new_layer_keys.append(need)
-        logits = m.decode_logits(params, x)
+        logits = self._gathered(m.decode_logits(params, x))
         _sync(self.device)
         t_loop = time.perf_counter() - t_loop0
         self.metrics["decode_s"] += max(t_loop - exposed, 0.0)
@@ -779,6 +796,21 @@ class AdaptiveServingEngine:
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(a).to(self.device)
 
+    def _gathered(self, t) -> torch.Tensor:
+        """A hook's logits or route ids whole on the engine's device (a
+        split mesh's :class:`dist.sharding.Sharded` gathered in rank
+        order; never a cache or pool leaf)."""
+        return t.full(self.device) if isinstance(t, Sharded) else t
+
+    def _host(self, t) -> np.ndarray:
+        return self._gathered(t).cpu().numpy()
+
+    def _page_table(self, slot: Optional[int] = None):
+        """The paged hooks' page table of the allocator's table, or of
+        ``slot``'s row (the prefill's)."""
+        return self.model.page_table(self.kv_alloc.table, self.device,
+                                     meta=self.kv_meta, slot=slot)
+
     def _prefill_slot(self, slot: int, req: Request,
                       temperature: float) -> Optional[int]:
         """Join ``req`` into ``slot``; returns its rid if it already
@@ -797,14 +829,14 @@ class AdaptiveServingEngine:
         if self.paged:
             self.kv_alloc.ensure_prefix(slot, min(s, self.window))
             logits, self.kv_pool = self.model.paged_prefill_into_slot(
-                self._serve_params, self.kv_pool,
-                page_table(self.kv_alloc.table[slot], self.device),
+                self._serve_params, self.kv_pool, self._page_table(slot),
                 self._tensor(toks), self._tensor(pos), s - 1,
                 window=self.window)
         else:
             logits, self.cache = self.model.prefill_into_slot(
                 self._serve_params, self.cache, self._tensor(toks),
                 self._tensor(pos), slot, s - 1)
+        logits = self._gathered(logits)
         _sync(self.device)
         self.metrics["prefill_s"] += time.perf_counter() - t0
         temp, top_k = self._sampling_of(req, temperature)
@@ -937,7 +969,7 @@ class AdaptiveServingEngine:
                 for j in range(depth[i] + 1):
                     self.kv_alloc.ensure_index(
                         i, (st.position + j) % self.window)
-            pt = page_table(self.kv_alloc.table, self.device)
+            pt = self._page_table()
 
         def run_step(params, toks, pos):
             # one step serves both shapes: draft (B,1), verify (B,S)
@@ -949,7 +981,7 @@ class AdaptiveServingEngine:
                 logits, self.cache, ids = self.model.spec_step_routed(
                     params, self.cache, self._tensor(toks),
                     self._tensor(pos))
-            return logits, ids
+            return self._gathered(logits), ids
 
         u_draft = u_acc = u_res = None
         t0 = time.perf_counter()
@@ -999,7 +1031,7 @@ class AdaptiveServingEngine:
         # the draft banks are resident by construction
         rows = [i * S + j for i, _ in active
                 for j in range(depth[i] + 1)]
-        self._stream_experts(route_ids.cpu().numpy(), rows)
+        self._stream_experts(self._host(route_ids), rows)
         n_tok = sum(depth[i] + 1 for i, _ in active)
         e = self.cfg.moe.num_experts
         d = self.cfg.moe.top_k * n_tok
@@ -1112,14 +1144,14 @@ class AdaptiveServingEngine:
                 logits, self.kv_pool, route_ids = \
                     self.model.paged_decode_step_routed(
                         self._serve_params, self.kv_pool,
-                        page_table(self.kv_alloc.table, self.device),
-                        self._tensor(toks), self._tensor(pos),
-                        window=self.window)
+                        self._page_table(), self._tensor(toks),
+                        self._tensor(pos), window=self.window)
             else:
                 logits, self.cache, route_ids = \
                     self.model.decode_step_routed(
                         self._serve_params, self.cache, self._tensor(toks),
                         self._tensor(pos))
+            logits = self._gathered(logits)
             _sync(self.device)
             self.metrics["decode_s"] += time.perf_counter() - t0
         self._update_kv_metrics(active)
@@ -1137,7 +1169,7 @@ class AdaptiveServingEngine:
                               temperature=temperature,
                               vocab_size=self.cfg.vocab_size).cpu().numpy()
         if route_ids is not None:     # the pipeline streams inline
-            self._stream_experts(route_ids.cpu().numpy(),
+            self._stream_experts(self._host(route_ids),
                                  [i for i, _ in active])
         # analytical cross-check: expected UNIQUE streamed bytes of this
         # iteration under uniform routing

@@ -12,6 +12,14 @@ Allocation never dead-ends mid-flight: the engine derives an admission
 cap (``max_active_tokens``) from the pool size whenever the pool is
 smaller than worst case, so ``ensure()`` failing is a logic error, not an
 operational state.
+
+A pool placed per data rank (``ranks`` > 1: a mesh that splits the dense
+compute, where each data rank's positions hold its slots' pages only)
+splits the slots and the pages alike: slot ``s`` belongs to rank ``s //
+(num_slots / ranks)`` and takes pages from that rank's range ``[r * n, (r
++ 1) * n)`` (``n = num_pages / ranks``), whose first page is the rank's
+own null page; the engine's admission cap then holds per rank. With one
+rank the page ids and the allocator's behaviour are the reference's.
 """
 from __future__ import annotations
 
@@ -33,22 +41,38 @@ class PageAllocator:
     """
 
     def __init__(self, num_slots: int, chunks_per_slot: int,
-                 num_pages: int, page_size: int):
+                 num_pages: int, page_size: int, ranks: int = 1):
+        if num_slots % ranks or num_pages % ranks:
+            raise ValueError(f"{num_slots} slots and {num_pages} pages must "
+                             f"split over {ranks} data ranks")
         self.num_slots = num_slots
         self.chunks_per_slot = chunks_per_slot
         self.num_pages = num_pages
         self.page_size = page_size
+        self.ranks = ranks
         #: chunk -> physical page; 0 = unmapped (the null page)
         self.table = np.zeros((num_slots, chunks_per_slot), np.int32)
-        self._free: Deque[int] = deque(range(1, num_pages))
+        per = num_pages // ranks
+        #: each data rank's free list over its own page range
+        self._frees: List[Deque[int]] = [
+            deque(range(r * per + 1, (r + 1) * per)) for r in range(ranks)]
+
+    def rank_of(self, slot: int) -> int:
+        """The data rank whose pages ``slot`` takes."""
+        return slot // (self.num_slots // self.ranks)
+
+    @property
+    def usable_pages(self) -> int:
+        """Pages that can be handed out (every rank's null page aside)."""
+        return self.num_pages - self.ranks
 
     @property
     def free_pages(self) -> int:
-        return len(self._free)
+        return sum(len(f) for f in self._frees)
 
     @property
     def pages_in_use(self) -> int:
-        return (self.num_pages - 1) - len(self._free)
+        return self.usable_pages - self.free_pages
 
     def ensure(self, slot: int, chunk: int) -> int:
         """Map ``chunk`` of ``slot`` (no-op if already mapped); returns
@@ -56,11 +80,13 @@ class PageAllocator:
         page = int(self.table[slot, chunk])
         if page:
             return page
-        if not self._free:
+        free = self._frees[self.rank_of(slot)]
+        if not free:
             raise RuntimeError(
-                f"KV page pool exhausted ({self.num_pages - 1} pages); "
-                "the admission cap should have prevented this")
-        page = self._free.popleft()
+                f"KV page pool exhausted ({self.usable_pages // self.ranks} "
+                "pages per data rank); the admission cap should have "
+                "prevented this")
+        page = free.popleft()
         self.table[slot, chunk] = page
         return page
 
@@ -94,7 +120,7 @@ class PageAllocator:
                    self.chunks_per_slot)
         freed = [int(p) for p in self.table[slot, keep:] if p]
         self.table[slot, keep:] = 0
-        self._free.extend(freed)
+        self._frees[self.rank_of(slot)].extend(freed)
         return freed
 
     def free_slot(self, slot: int) -> List[int]:
@@ -103,7 +129,7 @@ class PageAllocator:
         device before they can be re-handed out)."""
         pages = [int(p) for p in self.table[slot] if p]
         self.table[slot] = 0
-        self._free.extend(pages)
+        self._frees[self.rank_of(slot)].extend(pages)
         return pages
 
     def slot_pages(self, slot: int) -> List[int]:

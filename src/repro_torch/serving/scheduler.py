@@ -14,7 +14,10 @@ Admission policy (``SchedulerConfig``):
   * ``max_len``    — per-slot KV window: prompt + max_new_tokens must fit;
   * ``max_active_tokens`` — optional cap on the summed token claim
     (prompt + max_new) of all in-flight requests, the knob that trades
-    batch occupancy against KV memory under a tight budget.
+    batch occupancy against KV memory under a tight budget;
+  * ``max_group_tokens`` (the port's, for a page pool placed per data
+    rank) — the same cap within each of ``slot_groups`` equal slot
+    ranges: a request joins the first free slot whose range can take it.
 
 Variable tokens per iteration (DESIGN.md §17): under speculative decode
 an iteration may emit anywhere from 1 to ``speculate + 1`` tokens per
@@ -136,6 +139,12 @@ class SchedulerConfig:
     max_prompt_len: Optional[int] = None
     max_queue: Optional[int] = None
     max_active_tokens: Optional[int] = None
+    # Slot groups (a page pool placed per data rank): the slots split into
+    # ``slot_groups`` equal ranges, each with its own pages, and
+    # ``max_group_tokens`` caps the summed claim within each range, so a
+    # request joins the first free slot whose group can take it
+    slot_groups: int = 1
+    max_group_tokens: Optional[int] = None
     # Starvation control (DESIGN.md §9.2): every ``aging_s`` seconds a
     # request waits in the queue, its EFFECTIVE priority rises one class,
     # so a sustained stream of high-priority arrivals cannot starve
@@ -239,15 +248,18 @@ class ContinuousScheduler:
         key_now = now
         if key_now is None and self.cfg.aging_s is not None:
             key_now = time.perf_counter()
-        for slot in self.free_slots():
-            if not self.queue:
-                break
+        free = self.free_slots()
+        while free and self.queue:
             nxt = min(self.queue,
                       key=lambda r: self._admission_key(r, key_now))
             if self.cfg.max_active_tokens is not None and \
                     claim + nxt.token_claim > self.cfg.max_active_tokens \
                     and self.num_active > 0:
                 break                      # wait for retirements
+            slot = self._slot_for(nxt, free)
+            if slot is None:
+                break                      # every group with a free slot
+            free.remove(slot)              # is full: wait for retirements
             self.queue.remove(nxt)
             req = nxt
             req.t_admit = time.perf_counter() if now is None else now
@@ -259,6 +271,22 @@ class ContinuousScheduler:
             claim += req.token_claim
             joined.append((slot, req))
         return joined
+
+    def _slot_for(self, req: Request, free: List[int]) -> Optional[int]:
+        """The first free slot whose group can take ``req``'s claim (a
+        group with no request in flight takes any), or None."""
+        cap = self.cfg.max_group_tokens
+        if cap is None:
+            return free[0]
+        size = self.cfg.max_slots // self.cfg.slot_groups
+        for slot in free:
+            group = [s for s in self.slots[slot // size * size:
+                                           (slot // size + 1) * size]
+                     if s is not None]
+            if not group or sum(s.req.token_claim for s in group) \
+                    + req.token_claim <= cap:
+                return slot
+        return None
 
     def retire(self, slot: int, now: Optional[float] = None) -> Request:
         st = self.slots[slot]

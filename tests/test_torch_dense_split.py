@@ -19,8 +19,8 @@ the port runs the same params and inputs on ``["cpu"] * 4``:
 * placement: on the split path no :class:`dist.sharding.Sharded` leaf is
   gathered (``Sharded.full`` raises), each position's cache holds its
   data rank's rows, and the logits come back as per-position shards;
-* refusals: on such a mesh unplaced params and the slot, paged and
-  speculative serving hooks raise;
+* refusals: on such a mesh unplaced params and a plain cache raise; the
+  slot, paged and speculative serving hooks run split there;
 * counts: on a (2, 2) mesh of ``meta`` positions the op count's
   per-position FLOPs and argument bytes are within 1.2x of each other,
   and the model-axis all-reduces (attention, MoE, embedding) and the K/V
@@ -350,24 +350,96 @@ def test_meta_counts_are_balanced(kind):
 
 
 def test_whole_paths_refuse_a_splitting_mesh():
-    """On a mesh that splits the dense compute, unplaced params and the
-    slot, paged and speculative serving hooks raise instead of running
-    whole; the pure-EP (1, 4) serving mesh keeps the hooks."""
-    from repro_torch.models.model import init_params
+    """On a mesh that splits the dense compute, unplaced params and a
+    plain cache raise instead of running whole; the pure-EP (1, 4)
+    serving mesh keeps the whole-batch hooks."""
+    from repro_torch.models.model import init_cache, init_params
     cfg = reduce_for_smoke(get_config("mixtral-8x7b"))
     params = init_params(cfg, 0, device="cpu")
-    model = build_model(cfg, make_test_mesh((2, 2), devices=["cpu"] * 4))
+    mesh = make_test_mesh((2, 2), devices=["cpu"] * 4)
+    model = build_model(cfg, mesh)
     tok = torch.ones((4, 8), dtype=torch.long)
     with pytest.raises(ValueError, match="not placed on the mesh"):
         model.prefill(params, {"tokens": tok}, model.init_cache(4, 24))
-    for hook in ("prefill_into_slot", "decode_step_routed",
-                 "init_paged_cache", "paged_decode_step_routed",
-                 "spec_step_routed", "reset_slot"):
-        with pytest.raises(ValueError, match="splits the dense compute"):
-            getattr(model, hook)(None, None)
+    sp = SH.shard_tree(params, SH.param_shardings(cfg, mesh, params))
+    with pytest.raises(ValueError, match="make it with Model.init_cache"):
+        model.decode_step_routed(sp, init_cache(cfg, 4, 24, device="cpu"),
+                                 tok[:, :1], torch.full((4,), 8))
     ep = build_model(cfg, make_test_mesh((1, 4), devices=["cpu"] * 4))
     pool, meta = ep.init_paged_cache(2, 24, page_size=8, device="cpu")
     assert pool["k"].shape[0] == cfg.num_layers
+    assert not isinstance(pool["k"], SH.Sharded) and meta.data_ranks == 1
+
+
+HOOKS = ("prefill_into_slot", "decode_step_routed", "init_paged_cache",
+         "paged_decode_step_routed", "spec_step_routed", "reset_slot")
+
+
+@pytest.mark.parametrize("hook", HOOKS)
+def test_serving_hook_runs_split(no_gather, hook):
+    """Each serving hook runs split on a (2, 2) mesh: each position
+    computes and writes only its data rank's slot rows or pages, and the
+    logits and route ids come back as shards (the engine over such a
+    mesh: ``tests/test_torch_engine_split.py``)."""
+    from repro_torch.models.model import init_params
+    from repro_torch.serving.paged_kv import PageAllocator
+    cfg = reduce_for_smoke(get_config("mixtral-8x7b")).replace(
+        dtype="float32")
+    mesh = make_test_mesh((2, 2), devices=["cpu"] * 4)
+    params = init_params(cfg, 0, device="cpu")
+    sp = SH.shard_tree(params, SH.param_shardings(cfg, mesh, params))
+    model = build_model(cfg, mesh)
+    split = SH.split_of(mesh, ("data",))
+    cache = model.init_cache(4, 24)
+    tok = torch.arange(1, 5)[:, None]
+    pos = torch.tensor([3, -1, 5, 2])
+    no_gather(True)
+    if hook in ("prefill_into_slot", "reset_slot"):
+        t = torch.arange(1, 9)[None]
+        q = torch.arange(8)[None].masked_fill(torch.arange(8)[None] > 5, -1)
+        lg, cache = model.prefill_into_slot(sp, cache, t, q, 3, 5)
+        assert isinstance(lg, SH.Sharded) and lg.shape == (1,
+                                                           cfg.padded_vocab)
+        if hook == "reset_slot":
+            cache = model.reset_slot(cache, 3)
+        for p in range(split.n):           # slot 3 is data rank 1's row 1
+            tags = cache["pos"].shards[p]
+            live = bool((tags[:, 1] >= 0).any())
+            assert live == (split.dp[p] == 1 and hook != "reset_slot")
+            assert not (tags[:, 0] >= 0).any()
+    elif hook == "init_paged_cache":
+        pool, meta = model.init_paged_cache(4, 24, page_size=8)
+        assert meta.data_ranks == 2 and meta.num_pages == 2 * (2 * 3 + 1)
+        for leaf in pool.values():
+            assert isinstance(leaf, SH.Sharded)
+            assert [s.shape[1] for s in leaf.shards] == [7] * 4
+    elif hook == "spec_step_routed":
+        toks = torch.cat([tok, tok + 1], 1)
+        poss = torch.where(pos[:, None] >= 0, pos[:, None] + torch.arange(2),
+                           -1)
+        lg, cache, ids = model.spec_step_routed(sp, cache, toks, poss)
+        assert lg.shape == (4, 2, cfg.padded_vocab)
+        assert ids.shape == (cfg.num_layers, 8, cfg.moe.top_k)
+        assert all(s.shape[1] == 4 for s in ids.shards)
+    else:
+        lg, cache, ids = model.decode_step_routed(sp, cache, tok, pos)
+        assert isinstance(lg, SH.Sharded) and isinstance(ids, SH.Sharded)
+        assert ids.shape == (cfg.num_layers, 4, cfg.moe.top_k)
+        if hook == "paged_decode_step_routed":
+            pool, meta = model.init_paged_cache(4, 24, page_size=8)
+            al = PageAllocator(4, meta.chunks_per_slot, meta.num_pages, 8,
+                               meta.data_ranks)
+            for slot, p in enumerate(pos.tolist()):
+                if p >= 0:
+                    al.ensure_index(slot, p)
+            lg2, pool, ids2 = model.paged_decode_step_routed(
+                sp, pool, model.page_table(al.table, "cpu", meta=meta), tok,
+                pos, window=meta.window)
+            no_gather(False)
+            live = pos >= 0
+            assert torch.equal(lg.full()[live], lg2.full()[live])
+            assert torch.equal(ids.full(), ids2.full())
+    no_gather(False)
 
 
 def test_init_kv_cache_like_the_reference():

@@ -10,6 +10,8 @@ iterate on a phase without the whole script:
     python3 tools/chip_phases.py mesh-cards    # on a host with 4 cards
     python3 tools/chip_phases.py families-mesh
     python3 tools/chip_phases.py families-mesh-cards   # 4 cards
+    python3 tools/chip_phases.py engine-mesh
+    python3 tools/chip_phases.py engine-mesh-cards     # 4 cards
     python3 tools/chip_phases.py roofline dry-cell
 
 ``poisson``, ``ep`` (8) and ``ep-cards`` (8 with rank r on ``cuda:r``)
@@ -21,7 +23,10 @@ repeated ``cuda:0``) and ``mesh-cards`` 9 with mesh position p on
 SeamlessM4T split over (2, 2) of repeated ``cuda:0``) and
 ``families-mesh-cards`` 9e with position p on ``cuda:(p % cards)``
 (no count: the card-vs-meta count runs on repeated ``cuda:0``);
-``roofline`` is 10 (the anchor steps' op counts on
+``engine-mesh`` is 11 (the adaptive engine over (2, 2) of repeated
+``cuda:0``, the dense compute split: paged, slot, overlap and
+speculative configs) and ``engine-mesh-cards`` 11 with position p on
+``cuda:(p % cards)``; ``roofline`` is 10 (the anchor steps' op counts on
 the card and on ``meta``, their times and shares of the bound, and the
 split (2, 2) decode's count) and ``dry-cell`` one dry-run cell on the
 card's host (``run_cell``, Mixtral ``decode_32k`` over the 256-position
@@ -43,8 +48,10 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 PHASES = ("poisson", "ep", "ep-cards", "kimi", "qwen3", "families",
           "families-train", "families-mesh", "families-mesh-cards",
-          "kimi-rows", "mesh", "mesh-cards", "roofline", "dry-cell")
-CARDS = ("ep-cards", "mesh-cards", "families-mesh-cards")   # several cards
+          "kimi-rows", "mesh", "mesh-cards", "engine-mesh",
+          "engine-mesh-cards", "roofline", "dry-cell")
+CARDS = ("ep-cards", "mesh-cards", "families-mesh-cards",
+         "engine-mesh-cards")                              # several cards
 
 
 def main(argv=None) -> int:
@@ -95,6 +102,11 @@ def main(argv=None) -> int:
         run("mesh", cs.phase_mesh, torch, np, args.seed, card)
     if "mesh-cards" in phases:
         run("mesh-cards", cs.phase_mesh, torch, np, args.seed, card, True)
+    if "engine-mesh" in phases:
+        run("engine-mesh", cs.phase_engine_mesh, torch, np, args.seed, card)
+    if "engine-mesh-cards" in phases:
+        run("engine-mesh-cards", cs.phase_engine_mesh, torch, np, args.seed,
+            card, True)
     if "roofline" in phases:
         run("roofline", cs.phase_roofline, torch, np, args.seed, card)
     if "dry-cell" in phases:
