@@ -9,7 +9,9 @@ Phases (each raises on failure, and the script then exits non-zero):
   2. build   — build the CUDA kernels from ``src/repro_torch/kernels/csrc``
                with nvcc for sm_90a, print the build seconds and each
                kernel instantiation's registers, shared memory and spill
-               bytes (``-Xptxas -v``); any spill fails the phase;
+               bytes (``-Xptxas -v``) and ptxas's notes on the wgmma body
+               (serialized wgmmas, injected waits); any spill fails the
+               phase;
   3. serve   — the main path: full-width Mixtral-8x7B (d_model 4096,
                32/8 heads of 128, 8 experts top-2, d_ff_expert 14336,
                vocab 32000 padded to 32768) with depth cut to 2 layers,
@@ -33,6 +35,18 @@ Phases (each raises on failure, and the script then exits non-zero):
                tokens equal to plain decode's, the G = 8 int4 draft bank
                launched, the acceptance rate printed, and a per-op probe
                of whether a verify row is bit-equal to the decode row;
+     3p. prefill — long prompts on the serve point (``max_slots=2,
+               max_len=544``): two of 512 tokens (bucket 512, expert
+               capacity C = 160, padded to 256) and two of 200 (bucket 256,
+               C = 80), 4 new tokens each, a cold pass and a warm rerun:
+               every prefill launches B3 (q4, q8) and B4 through the wgmma
+               body and only through it, every decode iteration (C = 8)
+               through the mma.sync body only (launches booked per body,
+               prefills apart from decode iterations); prefill ms per
+               request; a ``use_kernel=False`` engine at the same plan:
+               prefill logits within 2e-2 of max |logit| (7b's rule), the
+               greedy tokens equal or their first divergence reported with
+               its logit margins;
      3f. calibrate — ``calibrate_sensitivity`` on the full-width model
                twice with one seed: byte-identical profiles, seconds of
                each run; the card's per-rung quantize of one expert
@@ -270,27 +284,33 @@ Phases (each raises on failure, and the script then exits non-zero):
                at the serving bank layout (G experts per rung) and the
                shapes of ``SHAPES``: C = 8 padded decode rows, up/gate
                (G, 4096, 14336) and down (G, 14336, 4096), C = 16 decode,
-               and a prefill-sized C = 128; within one bf16 ulp of
+               and prefill at C = 128 (up and down), 80 and 160 (up),
+               which the wgmma body serves; within one bf16 ulp of
                |plain| + 1e-3, and two launches bit-equal; the split-K
                reduction bit-equal to its plain version; bit-exact checks
-               (grouped == per-expert, integer-friendly inputs, empty
-               group == zeros, f32 dequant), row invariance (rows of a
-               C = 12 verify launch bit-equal to a C = 8 launch), the
+               in both bodies (grouped == per-expert, integer-friendly
+               inputs, empty group == zeros, f32 dequant), row invariance
+               (rows of a C = 12 verify launch bit-equal to a C = 8 launch;
+               rows of a C = 80 launch bit-equal to a C = 128 launch), the
                G = 8 draft bank at C = 12; device times (CUDA graphs)
                beside the plain version, the bound and a library yardstick
                (``torch.bmm`` on the dequantized bf16 weights, and
                ``torch.sum`` over the split axis for the reduction, which
                the port never calls); B3 (int4 and int8) at Kimi-K2's widths
                and G = 384, C = 8 (up: K 7168, N 2048; down: K 2048, N
-               7168), held against its plain version on the first, a
-               middle and the last expert of the bank; B3 and B4 at phase
+               7168), and the int4 bank's up-projection at C = 108 (a
+               4096-token prefill bucket), held against its plain version
+               on the first, a middle and the last expert of the bank; B3
+               and B4 at phase
                9's shard shapes (token-gather up K 4096, N 7168 and down
                K 7168, N 4096 at G = bank / 2; TP up N 896 and down K 896
                at G = bank), C = 8.
 
 A failed phase is reported and the phases that do not need its result
 still run; the script then exits 1 and prints no result. Otherwise the
-line before the last is the kernels' JSON record; the last line is
+line before the last is the kernels' JSON record (an entry per kernel
+and body: the mma.sync entries count the serve phase's launches, the
+wgmma entries, ``<wrapper>@wgmma``, phase 3p's); the last line is
 ``{"ok": true, "device": {...}}``. ``--out`` also writes the records to a
 JSON file (default ``chiprun_out/chip_smoke.json``).
 """
@@ -317,12 +337,17 @@ C_PREFILL = 128
 GROUP = 64
 #: (C, K, N) of every timed kernel shape: the decode up- and down-
 #: projections at C = 8; decode at C = 16, which is where 26-51 slots pad
-#: to under capacity factor 1.25; and a prefill-sized C = 128 tile
+#: to under capacity factor 1.25; and prefill at C = 128 (up and down), C
+#: = 80 (a 200-token prompt's bucket of 256) and C = 160 (bucket 512,
+#: padded to 256 rows), which the wgmma body serves
 SHAPES = {
     "up": (C_DECODE, D_MODEL, D_FF),
     "down": (C_DECODE, D_FF, D_MODEL),
     "decode16": (16, D_MODEL, D_FF),
     "prefill_up": (C_PREFILL, D_MODEL, D_FF),
+    "prefill_down": (C_PREFILL, D_FF, D_MODEL),
+    "prefill80_up": (80, D_MODEL, D_FF),
+    "prefill160_up": (160, D_MODEL, D_FF),
 }
 #: the speculative verify's drop-free capacity B * (K + 1) = 4 * 3 rows per
 #: expert, at which the draft's int4 bank of all 8 experts is also timed
@@ -422,6 +447,15 @@ def phase_build():
                if r["spill_stores"] or r["spill_loads"]]
     if spilled:
         raise AssertionError(f"kernels spill registers: {spilled}")
+    # ptxas's notes on the wgmma body: serialized wgmmas, injected waits or
+    # an ignored setmaxnreg would each cost the body its overlap
+    notes = [line.strip() for line in cuda_lib.BUILD_LOG.splitlines()
+             if any(w in line for w in ("C7508", "C7510", "C7513", "C7515",
+                                        "C7517", "C7520"))]
+    log(f"  ptxas wgmma notes: {len(notes)}"
+        + "".join(f"\n    {n[:200]}" for n in notes))
+    if not any("wg_matmul_kernel" in r["kernel"] for r in rows):
+        raise AssertionError("the wgmma body is not in the build")
     return secs, rows
 
 
@@ -482,6 +516,7 @@ def serve_pass(torch, engine, prompts):
             "launches": dict(ops.LAUNCHES),
             "group_launches": {f"{k}@G={g}": v for (k, g), v
                                in sorted(ops.GROUP_LAUNCHES.items())},
+            "body_launches": body_launches(ops.BODY_LAUNCHES),
             "launches_per_decode_iter": {
                 k: (ops.LAUNCHES[k] - before[k]) / n for k in before},
             "iterations": m["iterations"],
@@ -491,6 +526,11 @@ def serve_pass(torch, engine, prompts):
             "prefill_ms_per_request": m["prefill_s"] / len(prompts) * 1e3,
             "transfer_s": m["transfer_s"], "stage_s": m["stage_s"],
             "summary": engine.summary()}
+
+
+def body_launches(counter) -> dict:
+    """``cuda_lib.BODY_LAUNCHES`` as {"wrapper/body": n}."""
+    return {f"{k}/{b}": v for (k, b), v in sorted(counter.items())}
 
 
 def require_launches(launches, what: str, names=MAIN_KERNELS):
@@ -750,6 +790,180 @@ def phase_spec(torch, np, ctx, card: str, seed: int):
     del engine
     torch.cuda.empty_cache()
     log("speculative: greedy tokens equal to plain decode's")
+    return out
+
+
+#: 3p: long prompts whose MoE capacity passes 64 rows per expert. A
+#: prompt's prefill runs at its power-of-two bucket t, capacity ceil(t *
+#: top_k * 1.25 / E) rounded up to 4: bucket 512 -> C = 160 (padded to 256
+#: by ops._with_padded_m), bucket 256 -> C = 80; decode stays at C = 8
+PREFILL_CFG = dict(SERVE_CFG, max_slots=2, max_len=544)
+PREFILL_PROMPTS = (512, 512, 200, 200)
+PREFILL_NEW = 4
+PREFILL_LOGIT_BAR = 2e-2      # of max |logit|: phase 7b's kernel-vs-plain rule
+
+
+def _prefill_pass(torch, engine, prompts):
+    """Serve ``prompts`` (``PREFILL_NEW`` tokens each) with the counters
+    zeroed just before and read just after; each prefill is timed (card
+    synchronized), its logits kept and its launches booked by body apart
+    from the decode iterations'."""
+    import collections
+    import dataclasses
+    from repro_torch.kernels import ops
+    from repro_torch.serving.api import ServeRequest
+    pre, pre_all = collections.Counter(), collections.Counter()
+    pre_ms, logits, each = [], [], []
+    run_prefill = engine._prefill_slot
+    model = engine.model
+    hook = model.paged_prefill_into_slot
+
+    def prefill(slot, req, temperature):
+        before = collections.Counter(ops.BODY_LAUNCHES)
+        launched = collections.Counter(ops.LAUNCHES)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rid = run_prefill(slot, req, temperature)
+        torch.cuda.synchronize()
+        pre_ms.append((time.perf_counter() - t0) * 1e3)
+        each.append(collections.Counter(ops.BODY_LAUNCHES) - before)
+        pre.update(each[-1])
+        pre_all.update(collections.Counter(ops.LAUNCHES) - launched)
+        return rid
+
+    def paged_prefill(*a, **kw):
+        lg, pool = hook(*a, **kw)
+        logits.append(lg.float().clone())
+        return lg, pool
+
+    engine._prefill_slot = prefill
+    engine.model = dataclasses.replace(model,
+                                       paged_prefill_into_slot=paged_prefill)
+    try:
+        engine.reset_counters()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        rids = [engine.submit_request(ServeRequest(p, max_new_tokens=
+                                                   PREFILL_NEW))
+                for p in prompts]
+        engine.step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        del engine._prefill_slot
+        engine.model = model
+    tokens = [engine.result(r).tokens for r in rids]
+    for r, t in zip(rids, tokens):
+        if len(t) != PREFILL_NEW:
+            raise AssertionError(f"request {r}: bad tokens {t}")
+    iters = max(engine.metrics["iterations"], 1)
+    dec = collections.Counter(ops.BODY_LAUNCHES) - pre
+    dec_launches = {k: v - pre_all[k] for k, v in ops.LAUNCHES.items()}
+    return {"tokens": tokens, "wall_s": wall, "prefill_ms": pre_ms,
+            "logits": logits, "launches": dict(ops.LAUNCHES),
+            "body_launches": body_launches(ops.BODY_LAUNCHES),
+            "prefill_body_launches": body_launches(pre),
+            "each_prefill_body_launches": [body_launches(c) for c in each],
+            "decode_body_launches": body_launches(dec),
+            "launches_per_decode_iter": {k: v / iters
+                                         for k, v in dec_launches.items()},
+            "iterations": engine.metrics["iterations"],
+            "decode_ms_per_iter": engine.metrics["decode_s"] / iters * 1e3}
+
+
+def phase_prefill(torch, np, ctx, card: str, seed: int):
+    """3p: prompts of 512 and 200 tokens on the serve phase's params and
+    point (``max_slots=2, max_len=544``, kernels on): every prefill
+    launches the wgmma body (its banks at C = 160 padded to 256, or C =
+    80) and no decode iteration does (C = 8, the mma.sync body); prefill
+    ms per request, cold and warm; then a ``use_kernel=False`` engine at
+    the same plan: each prefill's logits within 2e-2 of max |logit| of the
+    kernel engine's (phase 7b's rule), greedy tokens equal or the first
+    divergence reported with its logit margins."""
+    from repro_torch.serving.api import EngineConfig, build_engine
+    cfg = ctx["cfg"]
+    rng = np.random.default_rng(seed + 7)
+    prompts = [rng.integers(1, cfg.vocab_size, size=n)
+               for n in PREFILL_PROMPTS]
+    moe = cfg.moe
+    caps = {}
+    for n in sorted(set(PREFILL_PROMPTS)):
+        t = 8
+        while t < n:
+            t *= 2
+        cap = math.ceil(t * moe.top_k * moe.capacity_factor
+                        / moe.num_experts)
+        caps[n] = (t, -(-cap // 4) * 4)
+    log(f"prefill: prompts {list(PREFILL_PROMPTS)} tokens -> (bucket, "
+        f"capacity C) {caps}; EngineConfig({PREFILL_CFG}) at the serve "
+        f"point; {PREFILL_NEW} new tokens each")
+    out, runs = {}, {}
+    for name, uk in (("kernel", True), ("plain", False)):
+        eng = build_engine(cfg, ctx["params"], EngineConfig(
+            **dict(PREFILL_CFG, use_kernel=uk)), device="cuda")
+        eng.apply_frontier_point(ctx["point"])
+        passes = ("cold", "warm") if uk else ("plain",)
+        for label in passes:
+            r = _prefill_pass(torch, eng, prompts)
+            pre, dec = r["prefill_body_launches"], r["decode_body_launches"]
+            log(f"  {label} pass on {card}: prefill ms per request "
+                f"{[round(v, 3) for v in r['prefill_ms']]}, "
+                f"{r['decode_ms_per_iter']:.3f} ms per decode iteration "
+                f"({r['iterations']} iterations); launches by body: "
+                f"prefills {pre}, decode {dec}")
+            if uk:
+                for i, one in enumerate(r["each_prefill_body_launches"]):
+                    missing = [k for k in MAIN_KERNELS
+                               if one.get(f"{k}/wgmma", 0) <= 0]
+                    if missing:
+                        raise AssertionError(f"{label}: prefill {i} never "
+                                             f"launched the wgmma body of "
+                                             f"{missing}: {one}")
+                for k in MAIN_KERNELS:
+                    if dec.get(f"{k}/mma_sync", 0) <= 0:
+                        raise AssertionError(f"{label}: {k} never launched "
+                                             f"on a decode iteration: {dec}")
+                if any(b.endswith("/mma_sync") and v for b, v in pre.items()):
+                    raise AssertionError(f"{label}: a prefill launched the "
+                                         f"mma.sync body: {pre}")
+                if any(b.endswith("/wgmma") and v for b, v in dec.items()):
+                    raise AssertionError(f"{label}: a decode iteration "
+                                         f"launched the wgmma body: {dec}")
+            elif sum(r["launches"].values()):
+                raise AssertionError("the use_kernel=False engine launched "
+                                     f"kernels: {r['launches']}")
+            runs[label] = r
+        if uk:
+            if runs["warm"]["tokens"] != runs["cold"]["tokens"]:
+                raise AssertionError("warm rerun gave other tokens")
+            eng.close()
+            del eng
+            torch.cuda.empty_cache()
+    worst = 0.0
+    for a, b in zip(runs["warm"]["logits"], runs["plain"]["logits"]):
+        if not bool(torch.isfinite(a).all()):
+            raise AssertionError("non-finite kernel-engine prefill logits")
+        worst = max(worst, float((a - b).abs().max() / b.abs().max()))
+    if worst > PREFILL_LOGIT_BAR:
+        raise AssertionError(f"kernel vs plain prefill logits differ by "
+                             f"{worst:.3e} of max |logit| (bar "
+                             f"{PREFILL_LOGIT_BAR})")
+    from repro_torch.models.model import build_model
+    div = _first_divergence(
+        torch, np, [(build_model(cfg, use_kernel=True), eng._serve_params),
+                    (eng.model, eng._serve_params)],
+        prompts, [runs["warm"]["tokens"], runs["plain"]["tokens"]])
+    eng.close()
+    del eng
+    torch.cuda.empty_cache()
+    log(f"  kernel vs plain engine: prefill logits within {worst:.3e} of "
+        f"max |logit| (bar {PREFILL_LOGIT_BAR}); greedy tokens "
+        + ("equal" if div is None else f"first differ at {div}"))
+    for label, r in runs.items():
+        r.pop("logits")
+        out[label] = r
+    out.update(capacities={str(k): v for k, v in caps.items()},
+               logit_rel_diff=worst, first_divergence=div)
     return out
 
 
@@ -1956,9 +2170,9 @@ class _PositionLaunches:
             self.checked += 1
             self.worst = max(self.worst, err)
 
-        def dq(x, wq, scales, *, bits, group_size, n):
+        def dq(x, wq, scales, *, bits, group_size, n, **kw):
             out = self._dq(x, wq, scales, bits=bits, group_size=group_size,
-                           n=n)
+                           n=n, **kw)
             key = (f"grouped_q{bits}", *x.shape, n)
             self.by_pos[at["p"]][key] += 1
             if self.check:
@@ -4618,6 +4832,9 @@ KIMI_SHAPES = {
     "kimi_up": (C_DECODE, 7168, 2048),
     "kimi_down": (C_DECODE, 2048, 7168),
 }
+#: the int4 bank's up-projection at a 4096-token prefill bucket: 4096 x
+#: top-8 x 1.25 / 384 = 106.7 -> C = 108 (the wgmma body)
+KIMI_PREFILL_SHAPES = {"kimi_prefill_up": (108, 7168, 2048)}
 
 
 def _kimi_bank(torch, gen, g, k, n, bits):
@@ -4651,7 +4868,9 @@ def _kimi_rows(torch, gen, gk, ops, qk, reps):
     the split-K partials' bytes are recorded."""
     out = {}
     for bits in (4, 8):
-        for label, (c, k, n) in KIMI_SHAPES.items():
+        shapes = dict(KIMI_SHAPES, **(KIMI_PREFILL_SHAPES if bits == 4
+                                      else {}))
+        for label, (c, k, n) in shapes.items():
             g = KIMI_G
             qt, deq = _kimi_bank(torch, gen, g, k, n, bits)
             x = torch.randn((g, c, k), generator=gen, device="cuda").to(
@@ -4822,17 +5041,28 @@ def phase_kernels(torch, np, sizes, seed: int, reps: int, more=()):
                 f"({r['library_ms'] / r['ms']:.2f}x), max|err| "
                 f"{r['max_abs_err']:.2e}")
             torch.cuda.empty_cache()
-        up = rows["up"]
-        records.append({
-            "name": name, "route": route, "source":
-            "src/repro_torch/kernels/csrc/dequant_matmul.cu",
-            "replaces": replaces, "launches": None,
-            "max_abs_err": max(r["max_abs_err"] for r in rows.values()),
-            "ms": up["ms"], "plain_ms": up["plain_ms"],
-            "bound_ms": up["bound_ms"], "bound_by": up["bound_by"],
-            "library_ms": up["library_ms"],
-            "shape": {"G": up["G"], "C": up["C"], "K": up["K"],
-                      "N": up["N"]}})
+        # one record per body: the mma.sync body at the decode up-
+        # projection, and for the grouped wrappers (the prefill path's
+        # kernels) the wgmma body at prefill_up
+        for body, label, source in (
+                ("mma_sync", "up", "dequant_matmul.cu"),
+                ("wgmma", "prefill_up", "wgmma_body.cuh")):
+            if body == "wgmma" and not name.startswith("grouped"):
+                continue
+            r = rows[label]
+            records.append({
+                "name": name if body == "mma_sync" else f"{name}@wgmma",
+                "route": route,
+                "source": f"src/repro_torch/kernels/csrc/{source}",
+                "replaces": replaces, "launches": None,
+                "max_abs_err": max(v["max_abs_err"] for v in rows.values()
+                                   if (v["C"] > 64) == (body == "wgmma")),
+                "ms": r["ms"], "plain_ms": r["plain_ms"],
+                "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                "library_ms": r["library_ms"], "wrapper": name,
+                "body": body,
+                "shape": {"G": r["G"], "C": r["C"], "K": r["K"],
+                          "N": r["N"]}})
         extra.append({"name": name, "tag": tag, **{
             lbl: r for lbl, r in rows.items()}})
     records.append(_reduce_record(torch, gen, qk, sizes, reps, extra))
@@ -4891,38 +5121,43 @@ def _row_invariance(torch, gen, ops, sizes):
     up- and down-projection (and the G = 8 draft bank): a token's result
     depends neither on how many tokens share its expert nor on its place,
     so the speculative verify scores a token as plain decode does."""
-    def check(what, fn, x):
+    def check(what, fn, x, c_part=C_DECODE):
         full = fn(x)
-        # the first C_DECODE rows, in reverse order: a row's result depends
+        # the first c_part rows, in reverse order: a row's result depends
         # neither on the row count nor on its place in the tile
-        rows = list(range(C_DECODE - 1, -1, -1))
+        rows = list(range(c_part - 1, -1, -1))
         part = fn(x[..., rows, :].contiguous())
         if not _bits_equal(torch, full[..., rows, :].contiguous(), part):
-            raise AssertionError(f"{what}: rows of a C={C_VERIFY} launch "
-                                 f"differ from a C={C_DECODE} launch")
+            raise AssertionError(f"{what}: rows of a C={x.shape[-2]} launch "
+                                 f"differ from a C={c_part} launch")
 
     cases = [("q4_matmul", 4, 1, False), ("q8_matmul", 8, 1, False),
              ("grouped_q4", 4, sizes[4], True),
              ("grouped_q8", 8, sizes[8], True),
              ("grouped_q4 draft", 4, DRAFT_G, True),
              ("grouped_bf16", 16, sizes[16], True)]
-    for name, bits, g, grouped in cases:
-        for label in ("up", "down"):
-            _, k, n = SHAPES[label]
-            x, w = _make_bank(torch, gen, g, C_VERIFY, k, n, bits)
-            if bits == 16:
-                check(f"{name} {label}",
-                      lambda t: ops.grouped_bf16_matmul(t, w), x)
-            elif grouped:
-                check(f"{name} {label}",
-                      lambda t: ops.grouped_q_matmul(t, w), x)
-            else:
-                w1 = w.map(lambda t: t[0])
-                check(f"{name} {label}", lambda t: ops.q_matmul(t, w1), x[0])
-            del x, w
-            torch.cuda.empty_cache()
+    # the mma.sync body at the verify's C = 12 against C = 8, and the
+    # wgmma body at C = 128 against C = 80 (one 128-token tile, one plan)
+    for c_full, c_part in ((C_VERIFY, C_DECODE), (C_PREFILL, 80)):
+        for name, bits, g, grouped in cases:
+            for label in ("up", "down"):
+                _, k, n = SHAPES[label]
+                x, w = _make_bank(torch, gen, g, c_full, k, n, bits)
+                what = f"{name} {label}"
+                if bits == 16:
+                    check(what, lambda t: ops.grouped_bf16_matmul(t, w), x,
+                          c_part)
+                elif grouped:
+                    check(what, lambda t: ops.grouped_q_matmul(t, w), x,
+                          c_part)
+                else:
+                    w1 = w.map(lambda t: t[0])
+                    check(what, lambda t: ops.q_matmul(t, w1), x[0], c_part)
+                del x, w
+                torch.cuda.empty_cache()
     log(f"kernels: row invariance holds for every kernel (rows of C = "
-        f"{C_VERIFY} launches bit-equal to C = {C_DECODE} launches)")
+        f"{C_VERIFY} launches bit-equal to C = {C_DECODE} launches, rows of "
+        f"C = {C_PREFILL} launches bit-equal to C = 80 launches)")
 
 
 def _reduce_record(torch, gen, qk, sizes, reps, extra):
@@ -5001,49 +5236,59 @@ def _exact_checks(torch, gen, gk, ops, QTensor):
                 and _bits_equal(torch, plain, exact)):
             raise AssertionError(f"{what} q{bits} not exact")
 
+    # each contract in both bodies: the mma.sync body (C <= 64) and the
+    # wgmma body (C > 64)
     for bits in (4, 8):
-        x, qt = _make_bank(torch, gen, 3, C_DECODE, D_MODEL, D_FF, bits)
-        grouped = ops.grouped_q_matmul(x, qt)
-        loop = torch.stack([ops.q_matmul(x[e], qt.map(lambda t: t[e]))
-                            for e in range(3)])
-        if not _bits_equal(torch, grouped, loop):
-            raise AssertionError(f"grouped q{bits} != per-expert loop")
-        x[1] = 0
-        z = ops.grouped_q_matmul(x, qt)
-        if not bool((z[1].float() == 0).all()):
-            raise AssertionError(f"empty group q{bits} not exactly zero")
-        # integer-friendly: small integer x, power-of-two scales, K = 256
+        for c in (C_DECODE, C_PREFILL):
+            x, qt = _make_bank(torch, gen, 3, c, D_MODEL, D_FF, bits)
+            grouped = ops.grouped_q_matmul(x, qt)
+            loop = torch.stack([ops.q_matmul(x[e], qt.map(lambda t: t[e]))
+                                for e in range(3)])
+            if not _bits_equal(torch, grouped, loop):
+                raise AssertionError(f"grouped q{bits} != per-expert loop "
+                                     f"at C={c}")
+            x[1] = 0
+            z = ops.grouped_q_matmul(x, qt)
+            if not bool((z[1].float() == 0).all()):
+                raise AssertionError(f"empty group q{bits} not exactly zero "
+                                     f"at C={c}")
+            del x, qt, grouped, loop, z
         qmax = 7 if bits == 4 else 127
-        xi = torch.randint(-3, 4, (2, 5, 256), generator=gen,
+        for c_int, c_f32 in ((5, 8), (100, 72)):
+            # integer-friendly: small integer x, power-of-two scales, K = 256
+            xi = torch.randint(-3, 4, (2, c_int, 256), generator=gen,
+                               device="cuda").to(torch.bfloat16)
+            codes = torch.randint(-qmax - 1, qmax + 1, (2, 256, 128),
+                                  generator=gen, device="cuda").to(torch.int8)
+            exact_case(bits, xi, codes, 0.125, f"integer-friendly C={c_int}")
+            # f32 dequant: scale 1 + 2^-7 (a bf16) times codes near +-qmax
+            # needs up to 14 significant bits, more than bf16's 8, yet with
+            # x in {-1, 0, 1} and K = 64 every product and sum is exact in
+            # f32. A kernel that rounded W to bf16 gets a large share of
+            # these outputs wrong (tests/test_torch_kernels.py counts them).
+            xi = torch.randint(-1, 2, (2, c_f32, GROUP), generator=gen,
+                               device="cuda").to(torch.bfloat16)
+            mag = torch.randint(qmax - 3, qmax + 1, (2, GROUP, 256),
+                                generator=gen, device="cuda")
+            sign = torch.randint(0, 2, (2, GROUP, 256), generator=gen,
+                                 device="cuda") * 2 - 1
+            exact_case(bits, xi, (mag * sign).to(torch.int8), 1 + 2 ** -7,
+                       f"f32-dequant C={c_f32}")
+    torch.cuda.empty_cache()
+    for c in (5, 100):
+        xb = torch.randint(-3, 4, (2, c, 256), generator=gen,
                            device="cuda").to(torch.bfloat16)
-        codes = torch.randint(-qmax - 1, qmax + 1, (2, 256, 128),
-                              generator=gen, device="cuda").to(torch.int8)
-        exact_case(bits, xi, codes, 0.125, "integer-friendly")
-        # f32 dequant: scale 1 + 2^-7 (a bf16) times codes near +-qmax
-        # needs up to 14 significant bits, more than bf16's 8, yet with x
-        # in {-1, 0, 1} and K = 64 every product and sum is exact in f32.
-        # A kernel that rounded W to bf16 gets a large share of these
-        # outputs wrong (tests/test_torch_kernels.py counts them).
-        xi = torch.randint(-1, 2, (2, 8, GROUP), generator=gen,
-                           device="cuda").to(torch.bfloat16)
-        mag = torch.randint(qmax - 3, qmax + 1, (2, GROUP, 256),
-                            generator=gen, device="cuda")
-        sign = torch.randint(0, 2, (2, GROUP, 256), generator=gen,
-                             device="cuda") * 2 - 1
-        exact_case(bits, xi, (mag * sign).to(torch.int8), 1 + 2 ** -7,
-                   "f32-dequant")
-    xb = torch.randint(-3, 4, (2, 5, 256), generator=gen,
-                       device="cuda").to(torch.bfloat16)
-    wb = (torch.randint(-8, 8, (2, 256, 128), generator=gen,
-                        device="cuda") * 0.25).to(torch.bfloat16)
-    exact = (xb.double() @ wb.double()).to(torch.bfloat16)
-    if not _bits_equal(torch, ops.grouped_bf16_matmul(xb, wb), exact):
-        raise AssertionError("integer-friendly bf16 not exact")
-    xb[0] = 0
-    if not bool((ops.grouped_bf16_matmul(xb, wb)[0].float() == 0).all()):
-        raise AssertionError("empty group bf16 not exactly zero")
-    log("kernels: bit-exact checks passed (grouped == per-expert, "
-        "integer-friendly inputs, f32 dequant, empty groups)")
+        wb = (torch.randint(-8, 8, (2, 256, 128), generator=gen,
+                            device="cuda") * 0.25).to(torch.bfloat16)
+        exact = (xb.double() @ wb.double()).to(torch.bfloat16)
+        if not _bits_equal(torch, ops.grouped_bf16_matmul(xb, wb), exact):
+            raise AssertionError(f"integer-friendly bf16 not exact at C={c}")
+        xb[0] = 0
+        if not bool((ops.grouped_bf16_matmul(xb, wb)[0].float() == 0).all()):
+            raise AssertionError(f"empty group bf16 not exactly zero at C={c}")
+    log("kernels: bit-exact checks passed in both bodies (grouped == "
+        "per-expert, integer-friendly inputs, f32 dequant, empty groups; C "
+        f"= {C_DECODE} and {C_PREFILL}, 5 and 100, 8 and 72)")
 
 
 # --------------------------------------------------------------------------
@@ -5091,10 +5336,12 @@ def main(argv=None) -> int:
         for name, fn, extra in (
                 ("paged == slot", phase_paged_slot, ()),
                 ("overlap", phase_overlap, ()),
-                ("speculative", phase_spec, (args.seed,))):
+                ("speculative", phase_spec, (args.seed,)),
+                ("prefill", phase_prefill, (args.seed,))):
             r = run(name, fn, torch, np, ctx, smi, *extra)
             if r is not None:
-                paths[name] = r.get("cold", r)
+                paths[name] = r.get("warm" if name == "prefill" else "cold",
+                                    r)
             serve[name] = r
         # the control loop: 3e needs 3f's calibrated profile, so 3f runs
         # first; 3e is not run (and counts as failed) without it
@@ -5169,6 +5416,17 @@ def main(argv=None) -> int:
                    "launch_shapes", [])]) if sizes else None
     records, extra = kern if kern else ([], [])
     for rec in records:
+        if rec.get("body") == "wgmma":
+            # the wgmma body's path is 3p's prefills; every path that books
+            # launches by body shows where else it ran
+            key = f"{rec['wrapper']}/wgmma"
+            rec["launches"] = paths.get("prefill", {}).get(
+                "body_launches", {}).get(key, 0)
+            rec["launches_by_path"] = {
+                path: r["body_launches"].get(key, 0)
+                for path, r in paths.items() if "body_launches" in r}
+            rec["on_main_path"] = rec["launches"] > 0
+            continue
         rec["launches"] = paths["serve"]["launches"][rec["name"]]
         rec["launches_per_decode_iter"] = {
             path: r["launches_per_decode_iter"][rec["name"]]

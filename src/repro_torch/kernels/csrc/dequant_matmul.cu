@@ -15,7 +15,13 @@
 // G = 1 through the same code, so the grouped result equals the per-expert
 // result bit for bit.
 //
-// Design: one templated tensor-core body, swap-AB. The kernel computes
+// Two bodies, chosen by the plan's token tile (launch_plan in
+// kernels/q4_matmul.py names it): the mma.sync body below for tiles of 8,
+// 16, 32 and 64 tokens (C <= 64: decode, the speculative verify), and the
+// wgmma body of wgmma_body.cuh for the 128-token tile (C > 64: prefill).
+// Both compute the same arithmetic and replace the same TPU kernels.
+//
+// The mma.sync body: one templated tensor-core body, swap-AB. The kernel computes
 // out[g]^T = W[g]^T . x[g]^T with mma.sync.m16n8k16 (bf16 x bf16 -> f32):
 // weight columns N are the mma's M side (16 per fragment), tokens C its N
 // side (8 per fragment), so a decode buffer of C = 8 rows is exactly one
@@ -26,7 +32,15 @@
 // the K pair (2b, 2b+1) of a column in one byte: one bf16x2 A register).
 // B comes from the x rows of the stage with ldmatrix.
 //
-// Arithmetic. Integer codes enter the tensor core as bf16 integers
+// The wgmma body: three warpgroups over 128 columns and 128 tokens. A
+// producer warp keeps TMA loads (cp.async.bulk.tensor, 3-D tensor maps over
+// (G, rows, cols), 128-byte swizzle) of 64-K stages in flight on mbarriers;
+// two consumer warpgroups of 64 columns issue wgmma.m64n128k16, swap-AB as
+// above, x the B operand from shared memory, int4/int8 codes converted in
+// registers (the conversions below) as the register A operand, bf16 weights
+// the A operand from shared memory (MN-major).
+//
+// Arithmetic (both bodies). Integer codes enter the tensor core as bf16 integers
 // (|code| <= 128 is exact in bf16's 8-bit significand): int4 through the
 // 0x4300 magic number (bf16 128 + nibble, minus 136), int8 as the bf16
 // difference (128 + low 7 bits) - (128 or 256 by the sign bit). Each
@@ -42,7 +56,7 @@
 // order within each k16 step, ascending k16 steps).
 //
 // Split-K. launch_plan(c, k, n, bits) in kernels/q4_matmul.py fixes the
-// tile and the K splits from the shape alone (no G): split boundaries are
+// body, the tile and the K splits from the shape alone (no G): split boundaries are
 // multiples of 64, at most 16 splits. With one split the kernel writes
 // bf16; with more, each split writes its f32 partial to a workspace
 // (splits, G, M, N) that the wrapper allocates, and splitk_reduce (the
@@ -53,7 +67,7 @@
 // development and was slower at the decode shapes.)
 //
 // What bounds it on the H100, and what the design does about it:
-//   * decode (C <= 16): the weight bytes. ~2*C FLOPs per weight element is
+//   * decode (C <= 16, the mma.sync body): the weight bytes. ~2*C FLOPs per weight element is
 //     far below the card's ~295 FLOP/byte ridge. Weights stream through a
 //     per-block ring of cp.async (16-byte, .cg) stages, 64 K deep, as many
 //     as fit 72 KB (up to 8, so up to 7 in flight) with one __syncthreads
@@ -63,12 +77,21 @@
 //     to registers to the mma. At int4 the per-byte instruction count
 //     (conversion, ldmatrix, mma, group flush), not the bytes, is what
 //     is left.
-//   * prefill (C = 128): the tensor-core operations (0.046 ms for three
-//     int4 up-projection experts against 0.028 ms of bytes). A CUDA-core
-//     f32 path is capped at 67 TFLOP/s and cannot approach that bound; here
-//     each converted weight fragment feeds NT = 8 token fragments. wgmma
-//     and TMA (64-row tiles) are left for a later version.
+//   * prefill (C > 64, the wgmma body): the tensor-core operations at
+//     int4 (0.046 ms for three up-projection experts at C = 128 against
+//     0.028 ms of bytes), the weight bytes at int8 and bf16. mma.sync at
+//     64-token tiles converted and loaded every weight tile twice at C =
+//     128 (four times at C = 256), fed one converted fragment to at most 8
+//     token fragments and issued every copy from the threads. The wgmma
+//     body converts each weight fragment once for 128 tokens, leaves the
+//     x operand to the tensor core's own shared-memory reads and the copies
+//     to the TMA unit, and gives the registers the producer does not need
+//     to the consumers' f32 partials and accumulator (64 + 2 x 64 a
+//     thread). What is left at int4 and int8 is the conversions and group
+//     flushes on the CUDA cores, which overlap the tensor core only in part
+//     (wgmma_body.cuh).
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -164,18 +187,22 @@ __device__ __forceinline__ uint32_t int4_pair(uint32_t w, uint32_t u, int j) {
   return *reinterpret_cast<uint32_t*>(&r);
 }
 
-// Int8 byte j of ``lo`` and of ``hi`` -> bf16x2 (code_lo, code_hi),
+// Int8 codes in bytes 0 and 2 of ``p`` -> bf16x2 (code_0, code_2),
 // exactly: a code b is (b & 0x7F) - 128 * sign, so bf16 (128 + (b & 0x7F))
 // minus bf16 (128 or 256, by the sign bit) is b.
-__device__ __forceinline__ uint32_t int8_pair(uint32_t lo, uint32_t hi,
-                                              int j) {
-  const uint32_t sel = j | (j << 4) | ((4 + j) << 8) | ((4 + j) << 12);
-  const uint32_t p = __byte_perm(lo, hi, sel);
+__device__ __forceinline__ uint32_t int8_bf16x2(uint32_t p) {
   const uint32_t mag = (p & 0x007F007Fu) | 0x43004300u;
   const uint32_t sub = (p & 0x00800080u) | 0x43004300u;
   __nv_bfloat162 r = __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&mag),
                              *reinterpret_cast<const __nv_bfloat162*>(&sub));
   return *reinterpret_cast<uint32_t*>(&r);
+}
+
+// Int8 byte j of ``lo`` and of ``hi`` -> bf16x2 (code_lo, code_hi).
+__device__ __forceinline__ uint32_t int8_pair(uint32_t lo, uint32_t hi,
+                                              int j) {
+  const uint32_t sel = j | (j << 4) | ((4 + j) << 8) | ((4 + j) << 12);
+  return int8_bf16x2(__byte_perm(lo, hi, sel));
 }
 
 __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
@@ -486,6 +513,8 @@ int launch(const Args& a, cudaStream_t s) {
   return static_cast<int>(cudaGetLastError());
 }
 
+#include "wgmma_body.cuh"
+
 template <int BITS>
 int launch_bits(const Args& a, int block_c, cudaStream_t s) {
   switch (block_c) {
@@ -493,13 +522,15 @@ int launch_bits(const Args& a, int block_c, cudaStream_t s) {
     case 16: return launch<BITS, 2>(a, s);
     case 32: return launch<BITS, 4>(a, s);
     case 64: return launch<BITS, 8>(a, s);
+    case 128: return wg::launch<BITS>(a, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 // The plan must be one launch_plan gives: 128-column tiles, a supported
-// token tile, 64-aligned K splits that cover K exactly (at most
-// MAX_SPLITS), and a workspace when there is more than one.
+// token tile (8, 16, 32 or 64: mma.sync; 128: wgmma), 64-aligned K splits
+// that cover K exactly (at most MAX_SPLITS), and a workspace when there is
+// more than one.
 bool plan_ok(const Args& a, int block_n) {
   if (block_n != BN || a.k_chunk <= 0 || a.k_chunk % BK) return false;
   if (a.splits < 1 || a.splits > MAX_SPLITS) return false;

@@ -1,0 +1,595 @@
+// The Hopper body of dequant_matmul<4|8> and bf16_matmul: every launch whose
+// plan has a 128-token tile (C > 64). dequant_matmul.cu includes this file;
+// its head note describes both bodies and what each replaces.
+//
+// A block is three warpgroups over 128 weight columns and 128 tokens of one
+// expert and one K split. Warpgroup 2 is the producer: one thread keeps TMA
+// loads in flight into a ring of 64-K stages (the x rows, the weight rows and
+// the scale rows of a stage complete on one mbarrier) and gives its
+// registers to the consumers (setmaxnreg). Warpgroups 0 and 1 are the
+// consumers, 64 columns each, and issue wgmma.m64n128k16 (bf16 x bf16 ->
+// f32) swap-AB: weight columns are the M side, tokens the N side. x is the
+// B operand, read by the tensor core from the stage (K-major, 128-byte
+// swizzle). bf16 weights are the A operand from the stage as well (MN-major,
+// the transpose bit of 16-bit types). Int4 and int8 codes are the A operand
+// from registers: ldmatrix.trans hands a consumer thread its two columns'
+// codes, which dequant_matmul.cu's exact conversions turn into the m16n8k16
+// A fragment layout that wgmma takes per warp (row gid is the thread's
+// column 2 * gid, row gid + 8 its column 2 * gid + 1 of the warp's 16).
+// Each group of min(group, 64) K runs its k16 steps into a fresh f32
+// partial (scale-d 0 on its first step) that is then added as acc =
+// fmaf(part, scale[n], acc): the arithmetic of the mma.sync body. Two
+// partials take turns, so a group's flush runs while the next group's
+// wgmmas do; the next stage's codes are converted once a stage's wgmmas
+// are done (their fragments are registers the wgmmas read). The tensor
+// maps are 3-D over (G, rows, cols), so a ragged token, column or K edge is
+// zero-filled by the TMA unit and never reads the next expert.
+//
+// On the card (tools/kernel_ab.py) the conversions and flushes, not the
+// bytes, set the int4 and int8 time: they overlap the tensor core only in
+// part, and a variant that multicast the x tile over a cluster of two or
+// four blocks (half or a quarter of its L2 reads) ran no faster.
+
+#pragma once
+
+// (included inside dequant_matmul.cu's anonymous namespace, after <cuda.h>,
+// Args, int4_pair, int8_bf16x2, bf16_lo and bf16_hi)
+namespace wg {
+
+constexpr int BC = 128;                // tokens per block (wgmma's N)
+constexpr int BN = 128;                // weight columns per block
+constexpr int BK = 64;                 // K per stage
+constexpr int CONSUMERS = 2;           // warpgroups of 64 columns
+constexpr int THREADS = 128 * (CONSUMERS + 1);
+constexpr int SMEM_BUDGET = 200 * 1024;
+constexpr int MAX_STAGES = 8;
+constexpr int PRODUCER_REGS = 40;      // setmaxnreg: 2 x 128 x 232 + 128 x 40
+constexpr int CONSUMER_REGS = 232;     // fit the SM's 65,536 registers
+
+// One stage: x (128 tokens x 64 K bf16, 128-byte rows, swizzled), the
+// weight rows of 128 columns (int4: 32 K pairs of 128 bytes; int8: 64 rows
+// of 128 bytes; bf16: two 64-column boxes of 64 rows of 128 bytes, all
+// swizzled), then up to four scale rows of 128 bf16. Every offset is a
+// multiple of 1024, the period of the 128-byte swizzle.
+template <int BITS>
+struct Tile {
+  static constexpr int X_BYTES = BC * BK * 2;
+  static constexpr int W_BYTES = BITS == 4 ? BK / 2 * BN
+                                           : BK * BN * (BITS == 16 ? 2 : 1);
+  static constexpr int S_BYTES = BITS == 16 ? 0 : 4 * BN * 2;
+  static constexpr int STAGE_BYTES = X_BYTES + W_BYTES + S_BYTES;
+  static constexpr int STAGES_FIT = SMEM_BUDGET / STAGE_BYTES;
+  static constexpr int STAGES =
+      STAGES_FIT > MAX_STAGES ? MAX_STAGES : STAGES_FIT;
+  // the ring, its full and empty barriers, and slack to align it to 1024
+  static constexpr int SMEM = STAGES * STAGE_BYTES + 2 * STAGES * 8 + 1024;
+  static_assert(STAGE_BYTES % 1024 == 0 && X_BYTES % 1024 == 0,
+                "stages and their weight rows start on the swizzle period");
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
+  } while (!done);
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(smem_u32(bar)) : "memory");
+}
+
+// One box of a 3-D tensor map into shared memory, completing on ``bar``.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         int c0, int c1, int c2,
+                                         uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4}], [%5];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0),
+         "r"(c1), "r"(c2), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// Shared-memory matrix descriptor of a 128-byte-swizzled tile: start
+// address, leading and stride byte offsets in 16-byte units.
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4)
+       | static_cast<uint64_t>(lbo) << 16
+       | static_cast<uint64_t>(sbo) << 32
+       | 1ull << 62;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+
+// Keep the compiler from moving an accumulator while a wgmma owns it.
+__device__ __forceinline__ void fence_regs(float (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+
+#define WG_D64                                                             \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "          \
+  "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "           \
+  "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "           \
+  "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "           \
+  "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "           \
+  "%62, %63}"
+#define WG_D64_OPS(d)                                                      \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),              \
+  "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),              \
+  "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),         \
+  "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),         \
+  "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),         \
+  "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),         \
+  "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),         \
+  "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),         \
+  "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),         \
+  "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),         \
+  "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),         \
+  "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),         \
+  "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+
+// d (+)= A (64 x 16, registers) . B (16 x 128, shared memory); ``accumulate``
+// 0 ignores d's old value (a group's first k16 step).
+__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
+                                         uint64_t b_desc, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " WG_D64
+      ", {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      : WG_D64_OPS(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b_desc),
+        "r"(accumulate));
+}
+
+// d += A (64 x 16, shared memory, MN-major) . B (16 x 128, shared memory).
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t a_desc,
+                                         uint64_t b_desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " WG_D64
+      ", %64, %65, p, 1, 1, 1, 0;\n}\n"
+      : WG_D64_OPS(d)
+      : "l"(a_desc), "l"(b_desc), "r"(1));
+}
+
+#undef WG_D64
+#undef WG_D64_OPS
+
+// Byte ``b`` of row ``r`` of a 128-byte-swizzled tile (16-byte chunks XOR
+// the row's index mod 8).
+__device__ __forceinline__ int swz(int r, int b) {
+  return r * 128 + ((((b >> 4) ^ (r & 7)) << 4) | (b & 15));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
+                                              const char* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+// Int8 bytes j and j + 2 of ``r`` -> bf16x2 (code_j, code_j+2), exactly.
+__device__ __forceinline__ uint32_t int8_pair2(uint32_t r, int j) {
+  const uint32_t sel = j | (j << 4) | ((2 + j) << 8) | ((2 + j) << 12);
+  return int8_bf16x2(__byte_perm(r, 0, sel));
+}
+
+// The A fragments of a stage's four k16 steps for this thread's columns
+// ``col`` and ``col + 1`` (wgmma rows gid and gid + 8 of its warp): a[s][0]
+// and a[s][2] are column col at K (2 tig, +1) and (2 tig + 8, +9) of step
+// s, a[s][1] and a[s][3] column col + 1. ldmatrix.trans reads them: each
+// 8 x 8 matrix of 16-bit elements is 8 weight rows of the warp's 16
+// columns (two codes an element), and hands thread (gid, tig) element gid
+// of its rows 2 tig and 2 tig + 1, i.e. both its columns at two rows.
+template <int BITS>
+__device__ __forceinline__ void load_a(uint32_t (&a)[BK / 16][4],
+                                       const char* wsm, int warp_col,
+                                       int lane) {
+  const int m = lane >> 3, i = lane & 7;       // the row this lane names
+  if constexpr (BITS == 4) {
+    // matrix m = step m; its row i is K pair 8 m + i / 2 + 4 (i % 2), so
+    // rows 2 tig, 2 tig + 1 are K pairs tig, tig + 4 (K 2 tig.. and +8..)
+    uint32_t r[4];
+    ldsm_x4_trans(r, wsm + swz(8 * m + (i >> 1) + 4 * (i & 1), warp_col));
+#pragma unroll
+    for (int s = 0; s < BK / 16; ++s) {
+      const uint32_t u = r[s] >> 4;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) a[s][j] = int4_pair(r[s], u, j);
+    }
+  } else {
+    // matrices 2 h + (0, 1) = K rows 16 s + (0..7, 8..15) of step s = 2 q +
+    // h, for the q-th load
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      uint32_t r[4];
+      ldsm_x4_trans(r, wsm + swz(32 * q + 16 * (m >> 1) + 8 * (m & 1) + i,
+                                 warp_col));
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        a[2 * q + h][0] = int8_pair2(r[2 * h], 0);
+        a[2 * q + h][1] = int8_pair2(r[2 * h], 1);
+        a[2 * q + h][2] = int8_pair2(r[2 * h + 1], 0);
+        a[2 * q + h][3] = int8_pair2(r[2 * h + 1], 1);
+      }
+    }
+  }
+}
+
+// The flush of one group's partial into the accumulator: acc[i] holds
+// column col + ((i >> 1) & 1), whose scale is at ``srow`` of the stage.
+template <int BITS>
+__device__ __forceinline__ void flush(float (&acc)[64], float (&part)[64],
+                                      const char* wsm, int srow, int col) {
+  using T = Tile<BITS>;
+  const uint32_t sv = *reinterpret_cast<const uint32_t*>(
+      wsm + T::W_BYTES + srow * BN * 2 + col * 2);
+  const float s0 = bf16_lo(sv), s1 = bf16_hi(sv);
+#pragma unroll
+  for (int i = 0; i < 64; ++i)
+    acc[i] = fmaf(part[i], (i & 2) ? s1 : s0, acc[i]);
+}
+
+__device__ __forceinline__ void release(uint64_t* empty, int lane) {
+  __syncwarp();
+  if (lane == 0) mbar_arrive(empty);      // this warp is done with the stage
+}
+
+// One group of a stage: its wgmmas into ``cur``, and meanwhile the
+// previous group's partial ``prev`` flushed into acc.
+template <int BITS, int SPF, int S, int NG>
+__device__ __forceinline__ void int_group(
+    float (&acc)[64], float (&cur)[64], float (&prev)[64],
+    const uint32_t (&f)[BK / 16][4], char* smem, uint64_t* empty,
+    const char* st, uint32_t xs, int grp, int it, int lane, int col) {
+  using T = Tile<BITS>;
+  wgmma_fence();
+#pragma unroll
+  for (int j = 0; j < SPF; ++j) {
+    const int step = grp * SPF + j;
+    wgmma_rs(cur, f[step], desc_sw128(xs + step * 32, 1, 64), j != 0);
+  }
+  wgmma_commit();
+  wgmma_wait<1>();                 // the previous group's wgmmas are done
+  if (grp > 0) {
+    fence_regs(prev);
+    flush<BITS>(acc, prev, st + T::X_BYTES, grp - 1, col);
+  } else if (it > 0) {
+    const int pv = it - 1;
+    fence_regs(prev);
+    flush<BITS>(acc, prev, smem + (pv % S) * T::STAGE_BYTES + T::X_BYTES,
+                NG - 1, col);
+    release(empty + pv % S, lane);
+  }
+}
+
+// One stage of the int4/int8 consumer, PAR its parity: each group's
+// wgmmas run into one of two partials in turn while the previous group's
+// partial is flushed into acc (the previous stage's last one releases that
+// stage); once the stage's wgmmas are done, the next stage's fragments are
+// converted into ``f``.
+template <int BITS, int SPF, int S, int PAR>
+__device__ __forceinline__ void int_stage(
+    float (&acc)[64], float (&p0)[64], float (&p1)[64],
+    uint32_t (&f)[BK / 16][4], char* smem, uint64_t* full, uint64_t* empty,
+    int it, int nst, int warp_col, int lane, int col) {
+  using T = Tile<BITS>;
+  constexpr int NG = BK / 16 / SPF;          // groups per stage
+  const char* st = smem + (it % S) * T::STAGE_BYTES;
+  const uint32_t xs = smem_u32(st);
+#pragma unroll
+  for (int grp = 0; grp < NG; ++grp) {
+    // this group's partial and the previous group's: p0 and p1 in turn
+    if ((PAR * NG + grp) % 2)
+      int_group<BITS, SPF, S, NG>(acc, p1, p0, f, smem, empty, st, xs, grp,
+                                  it, lane, col);
+    else
+      int_group<BITS, SPF, S, NG>(acc, p0, p1, f, smem, empty, st, xs, grp,
+                                  it, lane, col);
+  }
+  wgmma_wait<0>();                 // f is free again
+  if (it + 1 < nst) {
+    const int nx = it + 1;
+    mbar_wait(full + nx % S, (nx / S) & 1);
+    load_a<BITS>(f, smem + (nx % S) * T::STAGE_BYTES + T::X_BYTES, warp_col,
+                 lane);
+  }
+}
+
+// SPF: k16 steps per group flush, min(group, 64) / 16 (bf16: 4, unused).
+template <int BITS, int SPF>
+__global__ void __launch_bounds__(THREADS, 1)
+wg_matmul_kernel(const __grid_constant__ CUtensorMap tm_x,
+                 const __grid_constant__ CUtensorMap tm_w,
+                 const __grid_constant__ CUtensorMap tm_s, Args a) {
+  using T = Tile<BITS>;
+  constexpr int S = T::STAGES;
+  extern __shared__ __align__(16) char smem_raw[];
+  char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + S * T::STAGE_BYTES);
+  uint64_t* empty = full + S;
+
+  const int g = blockIdx.z;
+  const int split = blockIdx.y % a.splits;
+  const int m0 = (blockIdx.y / a.splits) * BC;
+  const int n0 = blockIdx.x * BN;
+  const int kbeg = split * a.k_chunk;
+  const int kend = min(a.K, kbeg + a.k_chunk);
+  const int nst = (kend - kbeg + BK - 1) / BK;
+  const int srows = a.gs >= BK ? 1 : BK / a.gs;   // scale rows per stage
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, CONSUMERS * 4);      // one arrival per warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int role = threadIdx.x / 128;
+  if (role == CONSUMERS) {
+    // producer: one thread keeps the ring full
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n"
+                 :: "n"(PRODUCER_REGS));
+    if (threadIdx.x == CONSUMERS * 128) {
+      const uint32_t tx = T::X_BYTES + T::W_BYTES
+          + (BITS == 16 ? 0 : srows * BN * 2);
+      for (int it = 0; it < nst; ++it) {
+        const int s = it % S;
+        mbar_wait(empty + s, ((it / S) & 1) ^ 1);
+        char* st = smem + s * T::STAGE_BYTES;
+        const int k0 = kbeg + it * BK;
+        mbar_expect_tx(full + s, tx);
+        tma_load(st, &tm_x, k0, m0, g, full + s);
+        char* wst = st + T::X_BYTES;
+        if constexpr (BITS == 4) {
+          tma_load(wst, &tm_w, n0, k0 / 2, g, full + s);
+        } else if constexpr (BITS == 8) {
+          tma_load(wst, &tm_w, n0, k0, g, full + s);
+        } else {
+          tma_load(wst, &tm_w, n0, k0, g, full + s);
+          tma_load(wst + T::W_BYTES / 2, &tm_w, n0 + 64, k0, g, full + s);
+        }
+        if constexpr (BITS != 16)
+          tma_load(wst + T::W_BYTES, &tm_s, n0, k0 / a.gs, g, full + s);
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup ``role`` owns the block's columns 64 role ..
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(CONSUMER_REGS));
+  const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int warp_col = role * 64 + warp * 16;        // the warp's 16 columns
+  const int col = warp_col + 2 * gid;                // codes: columns col, +1
+  float acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.0f;
+
+  if constexpr (BITS == 16) {
+    for (int it = 0; it < nst; ++it) {
+      const int s = it % S;
+      mbar_wait(full + s, (it / S) & 1);
+      const char* st = smem + s * T::STAGE_BYTES;
+      const uint32_t xs = smem_u32(st);
+      const uint32_t ws = smem_u32(st + T::X_BYTES + role * (T::W_BYTES / 2));
+      // both operands in the stage: four k16 steps in flight at once
+      fence_regs(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int step = 0; step < BK / 16; ++step)
+        wgmma_ss(acc, desc_sw128(ws + step * 2048, 64, 64),
+                 desc_sw128(xs + step * 32, 1, 64));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+      release(empty + s, lane);
+    }
+  } else {
+    // codes -> registers -> wgmma; two partials in turn (register arrays
+    // are indexed at compile time only, so stages go in pairs)
+    float p0[64], p1[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) p0[i] = p1[i] = 0.0f;
+    uint32_t f[BK / 16][4];
+    mbar_wait(full, 0);
+    load_a<BITS>(f, smem + T::X_BYTES, warp_col, lane);
+    for (int it = 0; it < nst; it += 2) {
+      int_stage<BITS, SPF, S, 0>(acc, p0, p1, f, smem, full, empty, it,
+                                 nst, warp_col, lane, col);
+      if (it + 1 < nst)
+        int_stage<BITS, SPF, S, 1>(acc, p0, p1, f, smem, full, empty,
+                                   it + 1, nst, warp_col, lane, col);
+    }
+    // the last group's partial: stage nst - 1's last group
+    constexpr int NG = BK / 16 / SPF;
+    const int last = nst - 1;
+    const char* ws_last = smem + (last % S) * T::STAGE_BYTES + T::X_BYTES;
+    if (((last % 2) * NG + NG - 1) % 2) {
+      fence_regs(p1);
+      flush<BITS>(acc, p1, ws_last, NG - 1, col);
+    } else {
+      fence_regs(p0);
+      flush<BITS>(acc, p0, ws_last, NG - 1, col);
+    }
+    release(empty + last % S, lane);
+  }
+
+  // acc[4 j + 2 r + h] is token m0 + 8 j + 2 tig + h of wgmma row gid + 8 r
+  // of this warp: column col + r for codes (the fragments' permutation),
+  // column 16 warp + gid + 8 r of the warpgroup's 64 for bf16 weights (the
+  // stage's own order)
+  const int base = n0 + role * 64 + warp * 16;
+  if (base >= a.N) return;              // N % 16 == 0: a warp's 16 or none
+  const int c0 = BITS == 16 ? base + gid : n0 + col;
+  const int c1 = BITS == 16 ? c0 + 8 : c0 + 1;
+  const size_t plane = static_cast<size_t>(a.G) * a.M * a.N;
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = m0 + 8 * j + 2 * tig + h;
+      if (m >= a.M) continue;
+      const size_t row = (static_cast<size_t>(g) * a.M + m) * a.N;
+      const float v0 = acc[4 * j + h], v1 = acc[4 * j + 2 + h];
+      if (a.splits == 1) {
+        if constexpr (BITS == 16) {
+          a.out[row + c0] = __bfloat16_as_ushort(__float2bfloat16_rn(v0));
+          a.out[row + c1] = __bfloat16_as_ushort(__float2bfloat16_rn(v1));
+        } else {
+          *reinterpret_cast<__nv_bfloat162*>(a.out + row + c0) =
+              __floats2bfloat162_rn(v0, v1);
+        }
+      } else {
+        float* w = a.ws + split * plane + row;
+        if constexpr (BITS == 16) {
+          w[c0] = v0;
+          w[c1] = v1;
+        } else {
+          *reinterpret_cast<float2*>(w + c0) = make_float2(v0, v1);
+        }
+      }
+    }
+}
+
+// cuTensorMapEncodeTiled, reached through the runtime so the library needs
+// no -lcuda
+typedef CUresult (*EncodeTiled)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A 3-D map over (G, rows, cols) of a contiguous tensor, box (1, box_rows,
+// box_cols); elements outside the tensor read as zero.
+inline bool make_map(CUtensorMap* map, const void* base,
+                     CUtensorMapDataType type, int elem_bytes, int cols,
+                     int rows, int experts, int box_cols, int box_rows,
+                     CUtensorMapSwizzle swizzle) {
+  EncodeTiled enc = encoder();
+  if (enc == nullptr) return false;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(cols),
+                              static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(experts)};
+  const cuuint64_t strides[2] = {
+      static_cast<cuuint64_t>(cols) * elem_bytes,
+      static_cast<cuuint64_t>(cols) * rows * elem_bytes};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(box_cols),
+                             static_cast<cuuint32_t>(box_rows), 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return enc(map, type, 3, const_cast<void*>(base), dims, strides, box, unit,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int BITS, int SPF>
+int launch_spf(const Args& a, const CUtensorMap& tx, const CUtensorMap& tw,
+               const CUtensorMap& ts, cudaStream_t s) {
+  using T = Tile<BITS>;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  static unsigned long long smem_set = 0;   // bit d: set on device d
+  const unsigned long long bit = dev < 64 ? 1ull << dev : 0;
+  if (!(smem_set & bit)) {
+    e = cudaFuncSetAttribute(wg_matmul_kernel<BITS, SPF>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             T::SMEM);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    smem_set |= bit;
+  }
+  const dim3 grid((a.N + BN - 1) / BN, ((a.M + BC - 1) / BC) * a.splits, a.G);
+  wg_matmul_kernel<BITS, SPF><<<grid, THREADS, T::SMEM, s>>>(tx, tw, ts, a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int BITS>
+int launch(const Args& a, cudaStream_t s) {
+  const auto sw = CU_TENSOR_MAP_SWIZZLE_128B;
+  CUtensorMap tx, tw, ts;
+  bool ok = make_map(&tx, a.x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, a.K, a.M,
+                     a.G, BK, BC, sw);
+  if constexpr (BITS == 4)
+    ok = ok && make_map(&tw, a.w, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, a.N,
+                        a.K / 2, a.G, BN, BK / 2, sw);
+  else if constexpr (BITS == 8)
+    ok = ok && make_map(&tw, a.w, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, a.N, a.K,
+                        a.G, BN, BK, sw);
+  else
+    ok = ok && make_map(&tw, a.w, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, a.N,
+                        a.K, a.G, BN / 2, BK, sw);
+  if constexpr (BITS != 16)
+    ok = ok && make_map(&ts, a.scales, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                        a.N, a.K / a.gs, a.G, BN, a.gs >= BK ? 1 : BK / a.gs,
+                        CU_TENSOR_MAP_SWIZZLE_NONE);
+  else
+    ts = tx;                            // unused by the bf16 body
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  if constexpr (BITS == 16) {
+    return launch_spf<16, BK / 16>(a, tx, tw, ts, s);
+  } else {
+    switch (a.gs >= BK ? BK / 16 : a.gs / 16) {
+      case 1: return launch_spf<BITS, 1>(a, tx, tw, ts, s);
+      case 2: return launch_spf<BITS, 2>(a, tx, tw, ts, s);
+      case 4: return launch_spf<BITS, 4>(a, tx, tw, ts, s);
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
+}
+
+}  // namespace wg

@@ -1,17 +1,22 @@
 """Build, load and launch the port's CUDA kernels.
 
-``csrc/dequant_matmul.cu`` is compiled by hand with ``nvcc`` for ``sm_90a``
-into a shared library with a plain C interface and loaded with ``ctypes``
-(no PyTorch headers, so a build takes seconds). The build happens at first
-use, from the sources in the checkout, into ``build/kernels/`` at the repo
-root (listed in ``.gitignore``); the library's file name carries a digest
-of the source and the flags, so a changed source never loads a stale
-library. There is no fallback: a missing ``nvcc``, a failed build or a
-refused launch raises.
+The ``.cu`` files of ``csrc/`` (``dequant_matmul.cu``, which includes the
+wgmma body ``wgmma_body.cuh``) are compiled by hand with ``nvcc`` for
+``sm_90a`` into one shared library with a plain C interface and loaded with
+``ctypes`` (no PyTorch headers, so a build takes seconds). The build
+happens at first use, from the sources in the checkout, into
+``build/kernels/`` at the repo root (listed in ``.gitignore``); the
+library's file name carries a digest of every file under ``csrc/`` and the
+flags, so a changed source or header never loads a stale library. There
+is no fallback: a missing ``nvcc``, a failed build or a refused launch
+raises.
 
 ``LAUNCHES`` holds one plain integer per kernel wrapper; a wrapper adds one
 where it launches its kernel and nowhere else. ``GROUP_LAUNCHES`` splits
-the grouped wrappers' launches by the bank's expert count G.
+the grouped wrappers' launches by the bank's expert count G, and
+``BODY_LAUNCHES`` every dequant-matmul launch by (wrapper, body): the
+``mma_sync`` body serves token tiles up to 64, the ``wgmma`` body the
+128-token tile (``q4_matmul.launch_plan``).
 """
 from __future__ import annotations
 
@@ -22,9 +27,10 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "dequant_matmul.cu"
+CSRC = Path(__file__).resolve().parent / "csrc"
+LIB_STEM = "dequant_matmul"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -43,6 +49,10 @@ LAUNCHES: Dict[str, int] = {
 #: int4 bank of the speculative draft: ("grouped_q4", 8)
 GROUP_LAUNCHES: "collections.Counter[Tuple[str, int]]" = collections.Counter()
 
+#: launches of every matmul wrapper by (wrapper, body), e.g. the int4 bank
+#: of a prefill: ("grouped_q4", "wgmma")
+BODY_LAUNCHES: "collections.Counter[Tuple[str, str]]" = collections.Counter()
+
 #: nvcc's output (ptxas registers, shared memory, spills) of the library
 #: in use: set by the build, or read back from the log kept beside it
 BUILD_LOG = ""
@@ -54,6 +64,7 @@ def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
     GROUP_LAUNCHES.clear()
+    BODY_LAUNCHES.clear()
 
 
 def _nvcc() -> str:
@@ -64,15 +75,22 @@ def _nvcc() -> str:
     return path
 
 
+def _sources() -> List[Path]:
+    """Every file under ``csrc/``, in name order."""
+    return sorted(p for p in CSRC.iterdir() if p.is_file())
+
+
 def _lib_path() -> Path:
-    h = hashlib.sha256(SOURCE.read_bytes())
+    h = hashlib.sha256()
+    for p in _sources():
+        h.update(p.name.encode() + b"\0" + p.read_bytes() + b"\0")
     h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"{SOURCE.stem}-{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"{LIB_STEM}-{h.hexdigest()[:16]}.so"
 
 
 def build() -> Path:
-    """Compile ``dequant_matmul.cu`` unless an up-to-date library exists;
-    returns the library's path."""
+    """Compile the ``.cu`` files of ``csrc/`` unless an up-to-date library
+    exists; returns the library's path."""
     global BUILD_LOG
     lib = _lib_path()
     log = lib.with_suffix(".log")
@@ -82,19 +100,20 @@ def build() -> Path:
     cmd = [_nvcc(), *NVCC_FLAGS]
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    proc = subprocess.run([*cmd, "-o", str(tmp), str(SOURCE)],
+    units = [str(p) for p in _sources() if p.suffix == ".cu"]
+    proc = subprocess.run([*cmd, "-o", str(tmp), *units],
                           stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                           text=True)
     BUILD_LOG = proc.stdout
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {SOURCE.name}:\n{proc.stdout}")
+        raise RuntimeError(f"nvcc failed for {units}:\n{proc.stdout}")
     log.write_text(proc.stdout)
     os.replace(tmp, lib)
     return lib
 
 
 def dequant_lib() -> ctypes.CDLL:
-    """The loaded ``dequant_matmul.cu`` library (built at first use)."""
+    """The loaded kernel library (built at first use)."""
     global _LIB
     if _LIB is None:
         lib = ctypes.CDLL(str(build()))

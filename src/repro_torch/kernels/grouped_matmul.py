@@ -78,7 +78,7 @@ def grouped_quantized_matmul(
     cuda_lib.LAUNCHES[f"grouped_q{bits}"] += 1
     cuda_lib.GROUP_LAUNCHES[(f"grouped_q{bits}", g)] += 1
     return launch_dequant(x, wq, scales, bits=bits, group_size=group_size,
-                          n=n)
+                          n=n, name=f"grouped_q{bits}")
 
 
 def grouped_bf16_matmul_plain(x: torch.Tensor, w: torch.Tensor, *,

@@ -7,7 +7,8 @@ kept unchanged so both packages see identical tile contracts.
 
 A CPU tensor takes each kernel's plain PyTorch version; a CUDA tensor
 launches the kernel or raises. ``LAUNCHES`` counts launches per kernel
-wrapper (``LAUNCHES["grouped_q4"]`` and so on).
+wrapper (``LAUNCHES["grouped_q4"]`` and so on), ``BODY_LAUNCHES`` the
+matmul launches by (wrapper, body).
 """
 from __future__ import annotations
 
@@ -18,7 +19,7 @@ from repro_torch.core.quantization import QTensor
 from repro_torch.kernels import grouped_matmul as _gk
 from repro_torch.kernels import q4_matmul as _k
 from repro_torch.kernels.cuda_lib import (  # noqa: F401
-    GROUP_LAUNCHES, LAUNCHES, reset_launches,
+    BODY_LAUNCHES, GROUP_LAUNCHES, LAUNCHES, reset_launches,
 )
 
 

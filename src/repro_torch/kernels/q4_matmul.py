@@ -10,11 +10,13 @@ it per expert. On a CPU tensor it takes the plain PyTorch version beside
 it, :func:`quantized_matmul_plain`, which computes the same function: f32
 dequant (``code * scale``, no bf16 rounding), f32 matmul, one cast.
 
-:func:`launch_plan` is the one place that fixes a launch's tiles and K
-splits, from the shape alone (no expert count G), so the grouped launch
-and the per-expert loop run the same arithmetic. With more than one split
-the partials go through an f32 workspace and :func:`splitk_reduce` adds
-them in split order.
+:func:`launch_plan` is the one place that fixes a launch's body, tiles and
+K splits, from the shape alone (no expert count G), so the grouped launch
+and the per-expert loop run the same arithmetic. Up to 64 tokens (decode,
+the speculative verify) a plan names the ``mma_sync`` body; above 64
+(prefill) the ``wgmma`` body with its 128-token tile. With more than one
+split the partials go through an f32 workspace and :func:`splitk_reduce`
+adds them in split order.
 """
 from __future__ import annotations
 
@@ -69,14 +71,21 @@ def check_cuda_operands(x: torch.Tensor, wq: torch.Tensor,
         raise ValueError(f"CUDA dequant-matmul needs N % 16 == 0, got {n}")
 
 
-#: columns of W per block (4 warps x 32), the kernels' one tile width
+#: columns of W per block (mma.sync: 4 warps x 32; wgmma: 2 x m64), the
+#: kernels' one tile width
 BLOCK_N = 128
-#: token tiles the kernels are built for (one n8 mma fragment per 8)
-BLOCK_C = (8, 16, 32, 64)
+#: token tiles the kernels are built for: one n8 mma.sync fragment per 8
+#: up to 64, and the wgmma body's n128 tile
+BLOCK_C = (8, 16, 32, 64, 128)
+#: the wgmma body's token tile: it serves every launch with C > 64
+WGMMA_BLOCK_C = 128
 #: K split boundaries are multiples of this (the kernels' pipeline stage)
 SPLIT_GRAIN = 64
-#: blocks a launch should reach at G = 1: two per SM of an H100 (132 SMs)
+#: blocks an mma.sync launch should reach at G = 1: two per SM of an H100
+#: (132 SMs)
 MIN_BLOCKS = 2 * 132
+#: blocks of one wave of the wgmma body at G = 1: one per SM
+WAVE = 132
 #: at most this many K splits (the kernels check it too)
 MAX_SPLITS = 16
 
@@ -86,26 +95,58 @@ class LaunchPlan(NamedTuple):
     block_c: int       # tokens per block
     k_chunk: int       # K per split, a multiple of SPLIT_GRAIN
     splits: int        # ceil(K / k_chunk)
+    body: str          # "mma_sync" (block_c <= 64) or "wgmma" (128)
 
 
 def launch_plan(c: int, k: int, n: int, bits: int) -> LaunchPlan:
-    """Tiles and K splits of one dequant-matmul launch on (C, K) x (K, N).
+    """Body, tiles and K splits of one dequant-matmul launch on (C, K) x
+    (K, N).
 
-    The smallest token tile that holds C; then as many K splits (on
+    C <= 64 (decode, the speculative verify): the ``mma_sync`` body with
+    the smallest token tile that holds C; then as many K splits (on
     64-aligned boundaries) as it takes for ceil(N / 128) x ceil(C /
     block_c) x splits to reach MIN_BLOCKS, so that even a narrow N (the
-    down-projection's 4096 columns are 32 tiles) fills the card. It takes
-    no expert count: a bank of G experts runs each expert exactly as a
-    launch of one would. ``bits`` (4, 8 or 16) is checked; the tiles do
-    not depend on it."""
+    down-projection's 4096 columns are 32 tiles) fills the card.
+
+    C > 64 (prefill): the ``wgmma`` body with its 128-token tile, one
+    block per SM. K splits only while the tiles at G = 1 are fewer than
+    half a wave of WAVE blocks, only as far as one wave holds, and only as
+    far as the f32 partials (written and read back: 8 bytes a token and
+    column per split) stay within half the weight bytes (K * bits / 8 a
+    column). The up- and gate-projections (112 column tiles) run unsplit:
+    on the card their splits lost to no split at every bank size timed;
+    the down-projection's 32 tiles fill a quarter of the card at G = 1
+    unsplit, and Kimi-K2's int4 bank (16 tiles, G = 384) would move more
+    partial bytes than code bytes split.
+
+    It takes no expert count: a bank of G experts runs each expert exactly
+    as a launch of one would. ``bits`` (4, 8 or 16) is checked; only the
+    wgmma body's byte cap on its splits depends on it.
+
+    Row invariance: a token's output row is bit-equal across launches
+    whose plans share a body and K splits, whatever its place in the tile
+    and however many other rows the launch has. For every (K, N), every C
+    in 1..64 gets the ``mma_sync`` body with one set of splits (its token
+    tile of 8 to 64 does not change a row's arithmetic: the verify scores
+    a token as decode does), and every C in 65..128 the ``wgmma`` body
+    with another (one 128-token tile: a C = 80 row equals its C = 128
+    row). Past 128 the token tiles multiply and the splits may change."""
     if bits not in (4, 8, 16):
         raise ValueError(f"bits must be 4, 8 or 16, got {bits}")
     block_c = next((b for b in BLOCK_C if c <= b), BLOCK_C[-1])
     tiles = math.ceil(n / BLOCK_N) * math.ceil(c / block_c)
     grains = max(1, math.ceil(k / SPLIT_GRAIN))
-    want = max(1, min(grains, MAX_SPLITS, math.ceil(MIN_BLOCKS / tiles)))
+    if block_c == WGMMA_BLOCK_C:
+        body = "wgmma"
+        want = 1 if 2 * tiles >= WAVE else WAVE // tiles
+        want = min(want, k * bits // (16 * 8 * block_c))
+    else:
+        body = "mma_sync"
+        want = math.ceil(MIN_BLOCKS / tiles)
+    want = max(1, min(grains, MAX_SPLITS, want))
     k_chunk = math.ceil(grains / want) * SPLIT_GRAIN
-    return LaunchPlan(BLOCK_N, block_c, k_chunk, math.ceil(k / k_chunk))
+    return LaunchPlan(BLOCK_N, block_c, k_chunk, math.ceil(k / k_chunk),
+                      body)
 
 
 def check_cuda_shape(kdim: int, group_size: int) -> None:
@@ -128,20 +169,28 @@ def _workspace(plan: LaunchPlan, out: torch.Tensor):
                        device=out.device)
 
 
+def _plan_args(plan: LaunchPlan):
+    """The C entry points' plan arguments (the body rides on block_c)."""
+    return plan.block_n, plan.block_c, plan.k_chunk, plan.splits
+
+
 def launch_dequant(x: torch.Tensor, wq: torch.Tensor, scales: torch.Tensor,
-                   *, bits: int, group_size: int, n: int) -> torch.Tensor:
+                   *, bits: int, group_size: int, n: int,
+                   name: str) -> torch.Tensor:
     """Launch ``dequant_matmul<bits>`` on (G, M, K) activations with the
-    plan of :func:`launch_plan`, then the split-K reduction when the plan
-    splits K; the caller has validated shapes and counted the matmul."""
+    plan of :func:`launch_plan` (its body counted under wrapper ``name``),
+    then the split-K reduction when the plan splits K; the caller has
+    validated shapes and counted the matmul."""
     g, m, kdim = x.shape
     plan = launch_plan(m, kdim, n, bits)
     out = torch.empty((g, m, n), dtype=torch.bfloat16, device=x.device)
     ws = _workspace(plan, out)
     stream = torch.cuda.current_stream(x.device).cuda_stream
+    cuda_lib.BODY_LAUNCHES[(name, plan.body)] += 1
     rc = cuda_lib.dequant_lib().repro_dequant_matmul(
         bits, x.data_ptr(), wq.data_ptr(), scales.data_ptr(),
         out.data_ptr(), None if ws is None else ws.data_ptr(), g, m, kdim,
-        n, group_size, *plan, stream)
+        n, group_size, *_plan_args(plan), stream)
     cuda_lib.check(rc, f"dequant_matmul<{bits}>")
     if ws is not None:
         splitk_reduce(ws, out)
@@ -158,9 +207,11 @@ def launch_bf16(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     out = torch.empty((g, m, n), dtype=torch.bfloat16, device=x.device)
     ws = _workspace(plan, out)
     stream = torch.cuda.current_stream(x.device).cuda_stream
+    cuda_lib.BODY_LAUNCHES[("grouped_bf16", plan.body)] += 1
     rc = cuda_lib.dequant_lib().repro_bf16_matmul(
         x.data_ptr(), w.data_ptr(), out.data_ptr(),
-        None if ws is None else ws.data_ptr(), g, m, kdim, n, *plan, stream)
+        None if ws is None else ws.data_ptr(), g, m, kdim, n,
+        *_plan_args(plan), stream)
     cuda_lib.check(rc, "bf16_matmul")
     if ws is not None:
         splitk_reduce(ws, out)
@@ -251,4 +302,5 @@ def quantized_matmul(
     check_cuda_shape(kdim, group_size)
     cuda_lib.LAUNCHES[f"q{bits}_matmul"] += 1
     return launch_dequant(x[None], wq, scales, bits=bits,
-                          group_size=group_size, n=n)[0]
+                          group_size=group_size, n=n,
+                          name=f"q{bits}_matmul")[0]

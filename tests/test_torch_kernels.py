@@ -356,8 +356,9 @@ def emulate_bank(x, codes, scales, *, group, bits):
                 group=group, bits=bits) for e in range(x.shape[0])])
 
 
-#: the reference's cases plus one whose K the plan splits 16 ways
-EMU_CASES = CASES + [(2, 8, 1024, 128, 64)]
+#: the reference's cases plus one whose K the plan splits 16 ways and one
+#: that the wgmma body serves (C > 64)
+EMU_CASES = CASES + [(2, 8, 1024, 128, 64), (2, 100, 256, 128, 64)]
 
 #: shapes with the port's tile contract (N % 16, K % 16, group 16/32/64k)
 PLAN_SHAPES = [(8, 4096, 14336), (8, 14336, 4096), (16, 4096, 14336),
@@ -450,12 +451,19 @@ def test_launch_plan_takes_no_group_count():
 @pytest.mark.parametrize("label", ["up", "down", "decode16", "prefill_up"])
 @pytest.mark.parametrize("bits", [4, 8, 16])
 def test_launch_plan_fills_the_card(label, bits):
-    """Every shape chip_smoke.py times gets >= 2 blocks per SM at G = 1."""
+    """The mma.sync body's shapes (C <= 64) get >= 2 blocks per SM at G =
+    1; the wgmma body's prefill_up (112 column tiles, one block per SM)
+    runs unsplit in one wave, the rule the card's split-vs-unsplit timings
+    chose."""
     c, k, n = _chip_smoke().SHAPES[label]
     plan = tk.launch_plan(c, k, n, bits)
     blocks = (math.ceil(n / plan.block_n) * math.ceil(c / plan.block_c)
               * plan.splits)
-    assert blocks >= 264
+    if c <= 64:
+        assert plan.body == "mma_sync" and blocks >= 264
+    else:
+        assert plan.body == "wgmma" and plan.splits == 1
+        assert blocks <= tk.WAVE
 
 
 def test_splitk_reduce_adds_in_split_order():
@@ -481,3 +489,88 @@ def test_cuda_shape_contract(k, group, ok):
     else:
         with pytest.raises(ValueError, match="CUDA dequant-matmul needs"):
             tk.check_cuda_shape(k, group)
+
+
+# --------------------------------------------------------------------------
+# The two bodies: which one a plan names, and where row invariance holds.
+# --------------------------------------------------------------------------
+
+#: (K, N) of every matmul the port launches at full width: Mixtral's
+#: up/gate and down, Kimi-K2's, phase 9's token-gather and TP shards
+FULL_KN = [(4096, 14336), (14336, 4096), (7168, 2048), (2048, 7168),
+           (4096, 7168), (7168, 4096), (4096, 896), (896, 4096)]
+
+
+@pytest.mark.parametrize("c", [65, 80, 108, 128, 160, 256])
+@pytest.mark.parametrize("k,n", FULL_KN)
+def test_launch_plan_wgmma_body(c, k, n):
+    """C > 64 takes the wgmma body's 128-token tile; its splits cover K on
+    64-aligned boundaries, fit one wave at G = 1 and keep the f32 partials
+    within half the weight bytes."""
+    for bits in (4, 8, 16):
+        plan = tk.launch_plan(c, k, n, bits)
+        assert plan.body == "wgmma" and plan.block_c == 128
+        assert plan.block_n == tk.BLOCK_N
+        assert plan.k_chunk % tk.SPLIT_GRAIN == 0
+        bounds = [min(k, s * plan.k_chunk) for s in range(plan.splits + 1)]
+        assert bounds[0] == 0 and bounds[-1] == k
+        assert all(lo < hi for lo, hi in zip(bounds, bounds[1:]))
+        tiles = math.ceil(n / 128) * math.ceil(c / 128)
+        if 2 * tiles >= tk.WAVE:
+            assert plan.splits == 1
+        else:
+            assert plan.splits * tiles <= tk.WAVE
+        if plan.splits > 1:
+            assert plan.splits * 8 * 128 <= k * bits / 16
+
+
+@pytest.mark.parametrize("label", list(_chip_smoke().SHAPES))
+def test_launch_plan_row_invariance_domain(label):
+    """For every timed (K, N): all C in 1..64 share one body and one K
+    split (a decode row equals its verify row), and so do all C in
+    65..128 (one 128-token wgmma tile: a C = 80 row equals its C = 128
+    row)."""
+    _, k, n = _chip_smoke().SHAPES[label]
+    for bits in (4, 8, 16):
+        for lo, hi, body in ((1, 64, "mma_sync"), (65, 128, "wgmma")):
+            plans = {tk.launch_plan(c, k, n, bits)._replace(block_c=0)
+                     for c in range(lo, hi + 1)}
+            assert len(plans) == 1
+            assert plans.pop().body == body
+
+
+def test_launch_plan_below_65_unchanged():
+    """C <= 64 plans follow the mma.sync body's rule: the smallest token
+    tile, then K splits until the tiles reach 264 blocks."""
+    for c in (1, 8, 12, 16, 24, 40, 64):
+        for k, n in FULL_KN:
+            plan = tk.launch_plan(c, k, n, 4)
+            block_c = next(b for b in (8, 16, 32, 64) if c <= b)
+            grains = math.ceil(k / 64)
+            want = max(1, min(grains, 16, math.ceil(
+                264 / (math.ceil(n / 128) * math.ceil(c / block_c)))))
+            k_chunk = math.ceil(grains / want) * 64
+            assert tuple(plan) == (128, block_c, k_chunk,
+                                   math.ceil(k / k_chunk), "mma_sync")
+
+
+@pytest.mark.parametrize("name", sorted(
+    p.name for p in cuda_lib.CSRC.iterdir() if p.is_file()))
+def test_library_digest_covers_every_source(name, tmp_path, monkeypatch):
+    """The library's file name changes when any file under csrc/ changes
+    (a header included by the .cu file too), so no stale build loads."""
+    import shutil
+    src = tmp_path / "csrc"
+    shutil.copytree(cuda_lib.CSRC, src)
+    monkeypatch.setattr(cuda_lib, "CSRC", src)
+    before = cuda_lib._lib_path()
+    with open(src / name, "a") as f:
+        f.write("\n// edited\n")
+    assert cuda_lib._lib_path() != before
+
+
+def test_reset_clears_body_launches():
+    cuda_lib.BODY_LAUNCHES[("grouped_q4", "wgmma")] += 1
+    ops.reset_launches()
+    assert not cuda_lib.BODY_LAUNCHES and ops.BODY_LAUNCHES is \
+        cuda_lib.BODY_LAUNCHES

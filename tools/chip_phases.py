@@ -3,6 +3,7 @@
 iterate on a phase without the whole script:
 
     python3 tools/chip_phases.py poisson kimi qwen3 kimi-rows
+    python3 tools/chip_phases.py prefill kernels
     python3 tools/chip_phases.py families families-train
     python3 tools/chip_phases.py ep
     python3 tools/chip_phases.py ep-cards      # on a host with 4 cards
@@ -14,8 +15,10 @@ iterate on a phase without the whole script:
     python3 tools/chip_phases.py engine-mesh-cards     # 4 cards
     python3 tools/chip_phases.py roofline dry-cell
 
-``poisson``, ``ep`` (8) and ``ep-cards`` (8 with rank r on ``cuda:r``)
-first run the serve phase (3), whose params and point they drive; ``kimi`` is 7b, ``qwen3`` 7c, ``families`` 7d, ``families-train``
+``poisson``, ``ep`` (8), ``ep-cards`` (8 with rank r on ``cuda:r``),
+``prefill`` (3p, long prompts through the wgmma body) and ``kernels`` (5,
+every kernel row at the serve phase's bank sizes) first run the serve
+phase (3), whose params, point and bank sizes they use; ``kimi`` is 7b, ``qwen3`` 7c, ``families`` 7d, ``families-train``
 7e and ``kimi-rows`` the kernel phase's B3 rows at Kimi-K2's widths;
 ``mesh`` is 9 (sharded training and MoE over (data, model) meshes on
 repeated ``cuda:0``) and ``mesh-cards`` 9 with mesh position p on
@@ -46,7 +49,8 @@ import traceback
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
-PHASES = ("poisson", "ep", "ep-cards", "kimi", "qwen3", "families",
+PHASES = ("poisson", "prefill", "ep", "ep-cards", "kernels", "kimi",
+          "qwen3", "families",
           "families-train", "families-mesh", "families-mesh-cards",
           "kimi-rows", "mesh", "mesh-cards", "engine-mesh",
           "engine-mesh-cards", "roofline", "dry-cell")
@@ -84,9 +88,13 @@ def main(argv=None) -> int:
         cs.log(f"== {name}: {time.perf_counter() - t0:.1f} s")
         cs._release(torch)
 
-    if {"poisson", "ep", "ep-cards"} & set(phases):
+    sizes = None
+    if {"poisson", "prefill", "ep", "ep-cards", "kernels"} & set(phases):
         served = cs.phase_serve(torch, np, args.seed, card)
-        ctx = served[2]
+        sizes, ctx = served[1], served[2]
+        if "prefill" in phases:
+            run("prefill", cs.phase_prefill, torch, np, ctx, card,
+                args.seed)
         if "poisson" in phases:
             run("poisson", cs.phase_poisson, torch, np, ctx, card,
                 args.seed)
@@ -98,6 +106,9 @@ def main(argv=None) -> int:
         ctx["engine"].close()
         del ctx, served
         cs._release(torch)
+    if "kernels" in phases:
+        run("kernels", cs.phase_kernels, torch, np, sizes, args.seed,
+            args.reps)
     if "mesh" in phases:
         run("mesh", cs.phase_mesh, torch, np, args.seed, card)
     if "mesh-cards" in phases:

@@ -12,8 +12,10 @@ the wrappers ``ops.q_matmul``, ``ops.grouped_q_matmul`` and
 ``ops.grouped_bf16_matmul``. For every kernel and shape the main process
 asks parent, this, this, parent and reports the mean of each pair. Then, on
 this checkout alone, it times the launch that ``launch_plan`` chooses
-against the same launch with K unsplit, in turns (plan, one split, one
-split, plan). Each worker holds every result against its plain version
+(its body: ``mma_sync`` up to 64 tokens, ``wgmma`` above) against the
+same launch with another K split, in turns (plan, other, other, plan):
+unsplit where the plan splits, two splits where it does not.
+Each worker holds every result against its plain version
 (``chip_smoke._close``) before it times it. Times are device times as in
 ``chip_smoke.py``: a CUDA graph of 20 launches cycling through input
 copies that exceed twice the L2. Inputs come from a seed per case, so both
@@ -40,7 +42,8 @@ REPLY = "@@ab "                 # marks the worker's answers on its stdout
 
 def worker(tree: Path) -> None:
     """Answer one JSON request per stdin line: ``{"kernel", "shape",
-    "one_split"}`` -> ``{"ms", "splits", "max_abs_err"}``."""
+    "splits"}`` -> ``{"ms", "splits", "body", "max_abs_err"}``; ``splits``
+    None times the plan, a number the plan with that many K splits."""
     sys.path[:0] = [str(tree / "src"), str(ROOT)]
     import torch
 
@@ -91,26 +94,28 @@ def worker(tree: Path) -> None:
             cached[key] = build(*key)
         (bits, c, k, n), cases = cached[key]
         plan_fn = getattr(qk, "launch_plan", None)
-        splits = plan_fn(c, k, n, bits).splits if plan_fn else None
-        if req["one_split"]:
+        plan = plan_fn(ops._round_up(c, 8) if c <= 128 else
+                       -(-c // 128) * 128, k, n, bits) if plan_fn else None
+        splits = plan.splits if plan else None
+        body = getattr(plan, "body", "mma_sync")
+        if req["splits"] is not None:
             if plan_fn is None:
-                raise SystemExit("one_split: this checkout has no launch_plan")
-            grain = qk.SPLIT_GRAIN
+                raise SystemExit("splits: this checkout has no launch_plan")
+            grains = -(-k // qk.SPLIT_GRAIN)
+            k_chunk = -(-grains // req["splits"]) * qk.SPLIT_GRAIN
+            splits = -(-k // k_chunk)
             qk.launch_plan = lambda c_, k_, n_, b_: plan_fn(
-                c_, k_, n_, b_)._replace(k_chunk=-(-k_ // grain) * grain,
-                                         splits=1)
-            splits = 1
+                c_, k_, n_, b_)._replace(k_chunk=k_chunk, splits=splits)
         try:
             err, ok = cs._close(torch, cases[0][0](), cases[0][1]())
             if not ok:
-                raise AssertionError(f"{key} one_split={req['one_split']} "
-                                     f"disagrees with its plain version: "
-                                     f"max |diff| {err}")
+                raise AssertionError(f"{key} splits={splits} disagrees with "
+                                     f"its plain version: max |diff| {err}")
             ms = cs._graph_ms(torch, [f for f, _ in cases], REPS)
         finally:
             if plan_fn is not None:
                 qk.launch_plan = plan_fn
-        print(REPLY + json.dumps({"ms": ms, "splits": splits,
+        print(REPLY + json.dumps({"ms": ms, "splits": splits, "body": body,
                                   "max_abs_err": err}), flush=True)
 
 
@@ -121,9 +126,9 @@ class Worker:
              str(tree)], stdin=subprocess.PIPE, stdout=subprocess.PIPE,
             text=True)
 
-    def ask(self, kernel: str, shape: str, one_split: bool = False) -> dict:
+    def ask(self, kernel: str, shape: str, splits=None) -> dict:
         self.proc.stdin.write(json.dumps({"kernel": kernel, "shape": shape,
-                                          "one_split": one_split}) + "\n")
+                                          "splits": splits}) + "\n")
         self.proc.stdin.flush()
         for line in self.proc.stdout:
             if line.startswith(REPLY):
@@ -173,24 +178,32 @@ def main(argv=None) -> int:
             for shape in cs.SHAPES:
                 ab = [workers[w].ask(name, shape)
                       for w in ("parent", "this", "this", "parent")]
-                split = [workers["this"].ask(name, shape, one)
-                         for one in (False, True, True, False)]
+                first = workers["this"].ask(name, shape)
+                other = 1 if first["splits"] > 1 else 2
+                split = [first, *(workers["this"].ask(name, shape, other)
+                                  for _ in range(2)),
+                         workers["this"].ask(name, shape)]
                 row = {"kernel": name, "shape": shape,
                        "parent_ms": (ab[0]["ms"] + ab[3]["ms"]) / 2,
                        "ms": (ab[1]["ms"] + ab[2]["ms"]) / 2,
                        "splits": split[0]["splits"],
+                       "body": split[0]["body"],
                        "plan_ms": (split[0]["ms"] + split[3]["ms"]) / 2,
-                       "one_split_ms": (split[1]["ms"] + split[2]["ms"]) / 2,
+                       "other_splits": split[1]["splits"],
+                       "other_ms": (split[1]["ms"] + split[2]["ms"]) / 2,
                        "turns": {"ab": [r["ms"] for r in ab],
                                  "split": [r["ms"] for r in split]},
                        "max_abs_err": max(r["max_abs_err"]
                                           for r in ab + split)}
                 rows.append(row)
-                print(f"{name:13s} {shape:10s} parent {row['parent_ms']:.4f}"
+                print(f"{name:13s} {shape:13s} parent {row['parent_ms']:.4f}"
                       f" ms, this {row['ms']:.4f} ms "
-                      f"({row['parent_ms'] / row['ms']:.2f}x); plan "
-                      f"({row['splits']} splits) {row['plan_ms']:.4f} ms, one "
-                      f"split {row['one_split_ms']:.4f} ms", flush=True)
+                      f"({row['parent_ms'] / row['ms']:.2f}x; turns "
+                      f"{[round(t, 4) for t in row['turns']['ab']]}); "
+                      f"{row['body']} plan "
+                      f"({row['splits']} splits) {row['plan_ms']:.4f} ms, "
+                      f"{row['other_splits']} splits {row['other_ms']:.4f} "
+                      "ms", flush=True)
     finally:
         for w in workers.values():
             w.close()
