@@ -9,8 +9,9 @@ Phases (each raises on failure, and the script then exits non-zero):
   2. build   — build the CUDA kernels from ``src/repro_torch/kernels/csrc``
                with nvcc for sm_90a, print the build seconds and each
                kernel instantiation's registers, shared memory and spill
-               bytes (``-Xptxas -v``) and ptxas's notes on the wgmma body
-               (serialized wgmmas, injected waits); any spill fails the
+               bytes (``-Xptxas -v``) and ptxas's notes on the wgmma
+               bodies (serialized wgmmas, injected waits); any spill, and
+               any note that ptxas serialized a kernel's wgmmas, fails the
                phase;
   3. serve   — the main path: full-width Mixtral-8x7B (d_model 4096,
                32/8 heads of 128, 8 experts top-2, d_ff_expert 14336,
@@ -37,11 +38,13 @@ Phases (each raises on failure, and the script then exits non-zero):
                of whether a verify row is bit-equal to the decode row;
      3p. prefill — long prompts on the serve point (``max_slots=2,
                max_len=544``): two of 512 tokens (bucket 512, expert
-               capacity C = 160, padded to 256) and two of 200 (bucket 256,
-               C = 80), 4 new tokens each, a cold pass and a warm rerun:
-               every prefill launches B3 (q4, q8) and B4 through the wgmma
-               body and only through it, every decode iteration (C = 8)
-               through the mma.sync body only (launches booked per body,
+               capacity C = 160) and two of 200 (bucket 256, C = 80), 4 new
+               tokens each, a cold pass and a warm rerun: every 512-token
+               prefill launches B3 (q4, q8) and B4 through the wide wgmma
+               body (its 160-token tile) and only through it, every
+               200-token prefill through the 128-token wgmma body only,
+               every decode iteration (C = 4 rows on the card) through the
+               mma.sync body only (launches booked per body and prompt,
                prefills apart from decode iterations); prefill ms per
                request; a ``use_kernel=False`` engine at the same plan:
                prefill logits within 2e-2 of max |logit| (7b's rule), the
@@ -282,16 +285,19 @@ Phases (each raises on failure, and the script then exits non-zero):
                kernels' plain versions);
   5. kernels — each kernel against its plain PyTorch version on the card
                at the serving bank layout (G experts per rung) and the
-               shapes of ``SHAPES``: C = 8 padded decode rows, up/gate
-               (G, 4096, 14336) and down (G, 14336, 4096), C = 16 decode,
-               and prefill at C = 128 (up and down), 80 and 160 (up),
-               which the wgmma body serves; within one bf16 ulp of
-               |plain| + 1e-3, and two launches bit-equal; the split-K
-               reduction bit-equal to its plain version; bit-exact checks
-               in both bodies (grouped == per-expert, integer-friendly
+               shapes of ``SHAPES``: C = 8 decode rows, up/gate (G, 4096,
+               14336) and down (G, 14336, 4096), C = 16 decode, prefill at
+               C = 128 (up and down) and 80 (up), which the wgmma body
+               serves, and at C = 160 (up and down) and 320 (up), which
+               the wide wgmma body serves; within one bf16 ulp of |plain|
+               + 1e-3, and two launches bit-equal; the split-K reduction
+               bit-equal to its plain version; bit-exact checks in the
+               three bodies (grouped == per-expert, integer-friendly
                inputs, empty group == zeros, f32 dequant), row invariance
                (rows of a C = 12 verify launch bit-equal to a C = 8 launch;
-               rows of a C = 80 launch bit-equal to a C = 128 launch), the
+               rows of a C = 80 launch bit-equal to a C = 128 launch, of a
+               C = 160 launch to a C = 256 launch, and of a C = 128 launch
+               to a C = 160 launch where the two plans split K alike), the
                G = 8 draft bank at C = 12; device times (CUDA graphs)
                beside the plain version, the bound and a library yardstick
                (``torch.bmm`` on the dequantized bf16 weights, and
@@ -310,7 +316,8 @@ A failed phase is reported and the phases that do not need its result
 still run; the script then exits 1 and prints no result. Otherwise the
 line before the last is the kernels' JSON record (an entry per kernel
 and body: the mma.sync entries count the serve phase's launches, the
-wgmma entries, ``<wrapper>@wgmma``, phase 3p's); the last line is
+wgmma entries, ``<wrapper>@wgmma`` and ``<wrapper>@wgmma_wide``, phase
+3p's); the last line is
 ``{"ok": true, "device": {...}}``. ``--out`` also writes the records to a
 JSON file (default ``chiprun_out/chip_smoke.json``).
 """
@@ -332,14 +339,15 @@ SRC = ROOT / "src"
 PEAK_BF16_FLOPS = 989e12
 PEAK_HBM_BYTES_PER_S = 3.35e12
 D_MODEL, D_FF = 4096, 14336     # Mixtral-8x7B expert widths
-C_DECODE = 8          # padded dispatch rows per expert on the serving path
+C_DECODE = 8          # decode rows per expert timed: 13-25 tokens' capacity
 C_PREFILL = 128
 GROUP = 64
 #: (C, K, N) of every timed kernel shape: the decode up- and down-
 #: projections at C = 8; decode at C = 16, which is where 26-51 slots pad
-#: to under capacity factor 1.25; and prefill at C = 128 (up and down), C
-#: = 80 (a 200-token prompt's bucket of 256) and C = 160 (bucket 512,
-#: padded to 256 rows), which the wgmma body serves
+#: to under capacity factor 1.25; prefill at C = 128 (up and down) and C =
+#: 80 (a 200-token prompt's bucket of 256), which the wgmma body serves;
+#: and C = 160 (bucket 512, up and down) and C = 320 (bucket 1024), which
+#: the wide wgmma body serves in one and two 160-token tiles
 SHAPES = {
     "up": (C_DECODE, D_MODEL, D_FF),
     "down": (C_DECODE, D_FF, D_MODEL),
@@ -348,7 +356,11 @@ SHAPES = {
     "prefill_down": (C_PREFILL, D_FF, D_MODEL),
     "prefill80_up": (80, D_MODEL, D_FF),
     "prefill160_up": (160, D_MODEL, D_FF),
+    "prefill160_down": (160, D_FF, D_MODEL),
+    "prefill320_up": (320, D_MODEL, D_FF),
 }
+#: the wide wgmma body's token tile
+C_WIDE = 160
 #: the speculative verify's drop-free capacity B * (K + 1) = 4 * 3 rows per
 #: expert, at which the draft's int4 bank of all 8 experts is also timed
 C_VERIFY = 12
@@ -447,15 +459,20 @@ def phase_build():
                if r["spill_stores"] or r["spill_loads"]]
     if spilled:
         raise AssertionError(f"kernels spill registers: {spilled}")
-    # ptxas's notes on the wgmma body: serialized wgmmas, injected waits or
-    # an ignored setmaxnreg would each cost the body its overlap
+    # ptxas's notes on the wgmma bodies: serialized wgmmas, injected waits
+    # or an ignored setmaxnreg would each cost a body its overlap
     notes = [line.strip() for line in cuda_lib.BUILD_LOG.splitlines()
-             if any(w in line for w in ("C7508", "C7510", "C7513", "C7515",
-                                        "C7517", "C7520"))]
+             if any(w in line for w in ("C7508", "C7510", "C7513", "C7514",
+                                        "C7515", "C7517", "C7520"))]
     log(f"  ptxas wgmma notes: {len(notes)}"
         + "".join(f"\n    {n[:200]}" for n in notes))
-    if not any("wg_matmul_kernel" in r["kernel"] for r in rows):
-        raise AssertionError("the wgmma body is not in the build")
+    for body in ("wg_matmul_kernel", "wide_kernel"):
+        if not any(body in r["kernel"] for r in rows):
+            raise AssertionError(f"the {body} body is not in the build")
+    serialized = [n for n in notes
+                  if any(c in n for c in ("C7513", "C7514", "C7517"))]
+    if serialized:
+        raise AssertionError(f"ptxas serialized wgmmas: {serialized[:3]}")
     return secs, rows
 
 
@@ -795,8 +812,9 @@ def phase_spec(torch, np, ctx, card: str, seed: int):
 
 #: 3p: long prompts whose MoE capacity passes 64 rows per expert. A
 #: prompt's prefill runs at its power-of-two bucket t, capacity ceil(t *
-#: top_k * 1.25 / E) rounded up to 4: bucket 512 -> C = 160 (padded to 256
-#: by ops._with_padded_m), bucket 256 -> C = 80; decode stays at C = 8
+#: top_k * 1.25 / E) rounded up to 4: bucket 512 -> C = 160 (the wide
+#: body's one tile), bucket 256 -> C = 80 (the wgmma body); decode stays at
+#: the minimum capacity C = 4
 PREFILL_CFG = dict(SERVE_CFG, max_slots=2, max_len=544)
 PREFILL_PROMPTS = (512, 512, 200, 200)
 PREFILL_NEW = 4
@@ -813,7 +831,7 @@ def _prefill_pass(torch, engine, prompts):
     from repro_torch.kernels import ops
     from repro_torch.serving.api import ServeRequest
     pre, pre_all = collections.Counter(), collections.Counter()
-    pre_ms, logits, each = [], [], []
+    pre_ms, logits, each, lens = [], [], [], []
     run_prefill = engine._prefill_slot
     model = engine.model
     hook = model.paged_prefill_into_slot
@@ -827,6 +845,7 @@ def _prefill_pass(torch, engine, prompts):
         torch.cuda.synchronize()
         pre_ms.append((time.perf_counter() - t0) * 1e3)
         each.append(collections.Counter(ops.BODY_LAUNCHES) - before)
+        lens.append(len(req.prompt))
         pre.update(each[-1])
         pre_all.update(collections.Counter(ops.LAUNCHES) - launched)
         return rid
@@ -864,6 +883,7 @@ def _prefill_pass(torch, engine, prompts):
             "body_launches": body_launches(ops.BODY_LAUNCHES),
             "prefill_body_launches": body_launches(pre),
             "each_prefill_body_launches": [body_launches(c) for c in each],
+            "each_prefill_prompt_len": lens,
             "decode_body_launches": body_launches(dec),
             "launches_per_decode_iter": {k: v / iters
                                          for k, v in dec_launches.items()},
@@ -873,13 +893,15 @@ def _prefill_pass(torch, engine, prompts):
 
 def phase_prefill(torch, np, ctx, card: str, seed: int):
     """3p: prompts of 512 and 200 tokens on the serve phase's params and
-    point (``max_slots=2, max_len=544``, kernels on): every prefill
-    launches the wgmma body (its banks at C = 160 padded to 256, or C =
-    80) and no decode iteration does (C = 8, the mma.sync body); prefill
-    ms per request, cold and warm; then a ``use_kernel=False`` engine at
-    the same plan: each prefill's logits within 2e-2 of max |logit| of the
-    kernel engine's (phase 7b's rule), greedy tokens equal or the first
-    divergence reported with its logit margins."""
+    point (``max_slots=2, max_len=544``, kernels on): every 512-token
+    prefill launches the wide wgmma body (its banks at C = 160, one tile)
+    and no other, every 200-token prefill the 128-token wgmma body (C =
+    80) and no other, and no decode iteration either (C = 4, the mma.sync
+    body); prefill ms per request, cold and warm; then a
+    ``use_kernel=False`` engine at the same plan: each prefill's logits
+    within 2e-2 of max |logit| of the kernel engine's (phase 7b's rule),
+    greedy tokens equal or the first divergence reported with its logit
+    margins."""
     from repro_torch.serving.api import EngineConfig, build_engine
     cfg = ctx["cfg"]
     rng = np.random.default_rng(seed + 7)
@@ -912,13 +934,26 @@ def phase_prefill(torch, np, ctx, card: str, seed: int):
                 f"({r['iterations']} iterations); launches by body: "
                 f"prefills {pre}, decode {dec}")
             if uk:
-                for i, one in enumerate(r["each_prefill_body_launches"]):
+                for i, (one, n) in enumerate(zip(
+                        r["each_prefill_body_launches"],
+                        r["each_prefill_prompt_len"])):
+                    # the body that the bank's capacity C names, and no
+                    # other wgmma body
+                    body, other = (("wgmma_wide", "wgmma")
+                                   if caps[n][1] > C_PREFILL
+                                   else ("wgmma", "wgmma_wide"))
                     missing = [k for k in MAIN_KERNELS
-                               if one.get(f"{k}/wgmma", 0) <= 0]
+                               if one.get(f"{k}/{body}", 0) <= 0]
                     if missing:
-                        raise AssertionError(f"{label}: prefill {i} never "
-                                             f"launched the wgmma body of "
-                                             f"{missing}: {one}")
+                        raise AssertionError(f"{label}: prefill {i} ({n} "
+                                             f"tokens) never launched the "
+                                             f"{body} body of {missing}: "
+                                             f"{one}")
+                    if any(b.endswith(f"/{other}") and v
+                           for b, v in one.items()):
+                        raise AssertionError(f"{label}: prefill {i} ({n} "
+                                             f"tokens) launched the {other}"
+                                             f" body: {one}")
                 for k in MAIN_KERNELS:
                     if dec.get(f"{k}/mma_sync", 0) <= 0:
                         raise AssertionError(f"{label}: {k} never launched "
@@ -926,9 +961,10 @@ def phase_prefill(torch, np, ctx, card: str, seed: int):
                 if any(b.endswith("/mma_sync") and v for b, v in pre.items()):
                     raise AssertionError(f"{label}: a prefill launched the "
                                          f"mma.sync body: {pre}")
-                if any(b.endswith("/wgmma") and v for b, v in dec.items()):
+                if any(b.endswith(("/wgmma", "/wgmma_wide")) and v
+                       for b, v in dec.items()):
                     raise AssertionError(f"{label}: a decode iteration "
-                                         f"launched the wgmma body: {dec}")
+                                         f"launched a wgmma body: {dec}")
             elif sum(r["launches"].values()):
                 raise AssertionError("the use_kernel=False engine launched "
                                      f"kernels: {r['launches']}")
@@ -5043,20 +5079,23 @@ def phase_kernels(torch, np, sizes, seed: int, reps: int, more=()):
             torch.cuda.empty_cache()
         # one record per body: the mma.sync body at the decode up-
         # projection, and for the grouped wrappers (the prefill path's
-        # kernels) the wgmma body at prefill_up
+        # kernels) the wgmma body at prefill_up and the wide wgmma body at
+        # prefill160_up
         for body, label, source in (
                 ("mma_sync", "up", "dequant_matmul.cu"),
-                ("wgmma", "prefill_up", "wgmma_body.cuh")):
-            if body == "wgmma" and not name.startswith("grouped"):
+                ("wgmma", "prefill_up", "wgmma_body.cuh"),
+                ("wgmma_wide", "prefill160_up", "wgmma_wide.cu")):
+            if body != "mma_sync" and not name.startswith("grouped"):
                 continue
             r = rows[label]
             records.append({
-                "name": name if body == "mma_sync" else f"{name}@wgmma",
+                "name": name if body == "mma_sync" else f"{name}@{body}",
                 "route": route,
                 "source": f"src/repro_torch/kernels/csrc/{source}",
                 "replaces": replaces, "launches": None,
                 "max_abs_err": max(v["max_abs_err"] for v in rows.values()
-                                   if (v["C"] > 64) == (body == "wgmma")),
+                                   if qk.launch_plan(v["C"], v["K"], v["N"],
+                                                     16).body == body),
                 "ms": r["ms"], "plain_ms": r["plain_ms"],
                 "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                 "library_ms": r["library_ms"], "wrapper": name,
@@ -5120,7 +5159,11 @@ def _row_invariance(torch, gen, ops, sizes):
     row in a C = 8 launch (placed at another row), for every kernel at the
     up- and down-projection (and the G = 8 draft bank): a token's result
     depends neither on how many tokens share its expert nor on its place,
-    so the speculative verify scores a token as plain decode does."""
+    so the speculative verify scores a token as plain decode does. So are
+    rows of C = 128 and 80 launches (the wgmma body), of C = 256 and 160
+    launches (the wide body: two tiles and one), and of C = 160 and 128
+    launches (the two wgmma bodies) where their plans split K alike."""
+    from repro_torch.kernels import q4_matmul as qk
     def check(what, fn, x, c_part=C_DECODE):
         full = fn(x)
         # the first c_part rows, in reverse order: a row's result depends
@@ -5136,12 +5179,22 @@ def _row_invariance(torch, gen, ops, sizes):
              ("grouped_q8", 8, sizes[8], True),
              ("grouped_q4 draft", 4, DRAFT_G, True),
              ("grouped_bf16", 16, sizes[16], True)]
-    # the mma.sync body at the verify's C = 12 against C = 8, and the
-    # wgmma body at C = 128 against C = 80 (one 128-token tile, one plan)
-    for c_full, c_part in ((C_VERIFY, C_DECODE), (C_PREFILL, 80)):
+    # the mma.sync body at the verify's C = 12 against C = 8, the wgmma
+    # body at C = 128 against C = 80 (one 128-token tile, one plan), the
+    # wide body at C = 256 against C = 160, and the wide body against the
+    # wgmma body where their plans split K alike
+    across = []
+    for c_full, c_part in ((C_VERIFY, C_DECODE), (C_PREFILL, 80),
+                           (256, C_WIDE), (C_WIDE, C_PREFILL)):
         for name, bits, g, grouped in cases:
             for label in ("up", "down"):
                 _, k, n = SHAPES[label]
+                splits = {qk.launch_plan(c, k, n, bits)[2:4]
+                          for c in (c_full, c_part)}
+                if len(splits) > 1:
+                    continue
+                if c_full == C_WIDE:
+                    across.append(f"{name} {label}")
                 x, w = _make_bank(torch, gen, g, c_full, k, n, bits)
                 what = f"{name} {label}"
                 if bits == 16:
@@ -5155,9 +5208,15 @@ def _row_invariance(torch, gen, ops, sizes):
                     check(what, lambda t: ops.q_matmul(t, w1), x[0], c_part)
                 del x, w
                 torch.cuda.empty_cache()
+    if not across:
+        raise AssertionError("no kernel's plans at C = 128 and 160 split K "
+                             "alike")
     log(f"kernels: row invariance holds for every kernel (rows of C = "
         f"{C_VERIFY} launches bit-equal to C = {C_DECODE} launches, rows of "
-        f"C = {C_PREFILL} launches bit-equal to C = 80 launches)")
+        f"C = {C_PREFILL} launches to C = 80 launches, rows of C = 256 "
+        f"launches to C = {C_WIDE} launches), and rows of C = {C_WIDE} "
+        f"launches to C = {C_PREFILL} launches where the two bodies split K "
+        f"alike: {across}")
 
 
 def _reduce_record(torch, gen, qk, sizes, reps, extra):
@@ -5236,10 +5295,10 @@ def _exact_checks(torch, gen, gk, ops, QTensor):
                 and _bits_equal(torch, plain, exact)):
             raise AssertionError(f"{what} q{bits} not exact")
 
-    # each contract in both bodies: the mma.sync body (C <= 64) and the
-    # wgmma body (C > 64)
+    # each contract in the three bodies: the mma.sync body (C <= 64), the
+    # wgmma body (64 < C <= 128) and the wide wgmma body (C > 128)
     for bits in (4, 8):
-        for c in (C_DECODE, C_PREFILL):
+        for c in (C_DECODE, C_PREFILL, C_WIDE):
             x, qt = _make_bank(torch, gen, 3, c, D_MODEL, D_FF, bits)
             grouped = ops.grouped_q_matmul(x, qt)
             loop = torch.stack([ops.q_matmul(x[e], qt.map(lambda t: t[e]))
@@ -5254,7 +5313,7 @@ def _exact_checks(torch, gen, gk, ops, QTensor):
                                      f"at C={c}")
             del x, qt, grouped, loop, z
         qmax = 7 if bits == 4 else 127
-        for c_int, c_f32 in ((5, 8), (100, 72)):
+        for c_int, c_f32 in ((5, 8), (100, 72), (C_WIDE, 300)):
             # integer-friendly: small integer x, power-of-two scales, K = 256
             xi = torch.randint(-3, 4, (2, c_int, 256), generator=gen,
                                device="cuda").to(torch.bfloat16)
@@ -5275,7 +5334,7 @@ def _exact_checks(torch, gen, gk, ops, QTensor):
             exact_case(bits, xi, (mag * sign).to(torch.int8), 1 + 2 ** -7,
                        f"f32-dequant C={c_f32}")
     torch.cuda.empty_cache()
-    for c in (5, 100):
+    for c in (5, 100, C_WIDE, 300):
         xb = torch.randint(-3, 4, (2, c, 256), generator=gen,
                            device="cuda").to(torch.bfloat16)
         wb = (torch.randint(-8, 8, (2, 256, 128), generator=gen,
@@ -5286,9 +5345,10 @@ def _exact_checks(torch, gen, gk, ops, QTensor):
         xb[0] = 0
         if not bool((ops.grouped_bf16_matmul(xb, wb)[0].float() == 0).all()):
             raise AssertionError(f"empty group bf16 not exactly zero at C={c}")
-    log("kernels: bit-exact checks passed in both bodies (grouped == "
+    log("kernels: bit-exact checks passed in the three bodies (grouped == "
         "per-expert, integer-friendly inputs, f32 dequant, empty groups; C "
-        f"= {C_DECODE} and {C_PREFILL}, 5 and 100, 8 and 72)")
+        f"= {C_DECODE}, {C_PREFILL} and {C_WIDE}, 5, 100 and {C_WIDE}, 8, 72 "
+        "and 300)")
 
 
 # --------------------------------------------------------------------------
@@ -5416,10 +5476,10 @@ def main(argv=None) -> int:
                    "launch_shapes", [])]) if sizes else None
     records, extra = kern if kern else ([], [])
     for rec in records:
-        if rec.get("body") == "wgmma":
-            # the wgmma body's path is 3p's prefills; every path that books
-            # launches by body shows where else it ran
-            key = f"{rec['wrapper']}/wgmma"
+        if rec.get("body") in ("wgmma", "wgmma_wide"):
+            # the wgmma bodies' path is 3p's prefills; every path that books
+            # launches by body shows where else they ran
+            key = f"{rec['wrapper']}/{rec['body']}"
             rec["launches"] = paths.get("prefill", {}).get(
                 "body_launches", {}).get(key, 0)
             rec["launches_by_path"] = {

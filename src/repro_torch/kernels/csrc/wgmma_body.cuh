@@ -32,8 +32,9 @@
 
 #pragma once
 
-// (included inside dequant_matmul.cu's anonymous namespace, after <cuda.h>,
-// Args, int4_pair, int8_bf16x2, bf16_lo and bf16_hi)
+// (included inside an anonymous namespace after dequant_common.cuh and
+// ``using namespace dq``: by dequant_matmul.cu for this body, and by
+// wgmma_wide.cu for its mbarrier, TMA and wgmma helpers)
 namespace wg {
 
 constexpr int BC = 128;                // tokens per block (wgmma's N)

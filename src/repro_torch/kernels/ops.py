@@ -3,7 +3,8 @@
 They handle padding to tile boundaries, the QTensor container and batching
 over experts, with the reference's tile choices (``repro.kernels.ops``):
 ``_pad_to``, ``_with_padded_m``, ``_largest_divisor`` and ``_round_up`` are
-kept unchanged so both packages see identical tile contracts.
+kept so both packages see identical tile contracts on the CPU; on the
+card the kernels take the true token count (``_m_tile``).
 
 A CPU tensor takes each kernel's plain PyTorch version; a CUDA tensor
 launches the kernel or raises. ``LAUNCHES`` counts launches per kernel
@@ -32,15 +33,28 @@ def _pad_to(x: torch.Tensor, mult: int, axis: int) -> torch.Tensor:
     return F.pad(x, cfg)
 
 
+def _m_tile(m: int, block_m: int, device_type: str):
+    """(rows the call is given, the M tile it is told) for M rows: the
+    reference's choice, M padded to a multiple of min(block_m, M rounded
+    up to 8), everywhere but on the card, whose kernels mask any M through
+    their tensor maps and bounds and so take the true M as one tile of M
+    (C = 160 runs 160 rows, not 256)."""
+    if device_type == "cuda":
+        return m, m
+    block_m_eff = min(block_m, _round_up(m, 8))
+    return _round_up(m, block_m_eff), block_m_eff
+
+
 def _with_padded_m(call, x: torch.Tensor, *, block_m: int, m_axis: int):
     """Centralized padded-M wrapper (decode batches are small and rarely
-    tile-aligned). Picks the effective M tile, zero-pads ``x`` along
-    ``m_axis`` to it, runs ``call(x_padded, block_m_eff)`` and slices the
-    result back to the true M. Shared by the per-expert and grouped paths
-    so both see identical tile choices (a parity requirement)."""
+    tile-aligned). Picks the effective M tile (:func:`_m_tile`), zero-pads
+    ``x`` along ``m_axis`` to it, runs ``call(x_padded, block_m_eff)`` and
+    slices the result back to the true M. Shared by the per-expert and
+    grouped paths so both see identical tile choices (a parity
+    requirement)."""
     m = x.shape[m_axis]
-    block_m_eff = min(block_m, _round_up(m, 8))
-    xp = _pad_to(x, block_m_eff, m_axis).contiguous()
+    rows, block_m_eff = _m_tile(m, block_m, x.device.type)
+    xp = _pad_to(x, rows, m_axis).contiguous()
     out = call(xp, block_m_eff)
     return out.narrow(m_axis, 0, m)
 

@@ -14,7 +14,8 @@ dequant (``code * scale``, no bf16 rounding), f32 matmul, one cast.
 K splits, from the shape alone (no expert count G), so the grouped launch
 and the per-expert loop run the same arithmetic. Up to 64 tokens (decode,
 the speculative verify) a plan names the ``mma_sync`` body; above 64
-(prefill) the ``wgmma`` body with its 128-token tile. With more than one
+(prefill) the ``wgmma`` body with its 128-token tile, and above 128 the
+``wgmma_wide`` body with its 160-token tile. With more than one
 split the partials go through an f32 workspace and :func:`splitk_reduce`
 adds them in split order.
 """
@@ -75,10 +76,13 @@ def check_cuda_operands(x: torch.Tensor, wq: torch.Tensor,
 #: kernels' one tile width
 BLOCK_N = 128
 #: token tiles the kernels are built for: one n8 mma.sync fragment per 8
-#: up to 64, and the wgmma body's n128 tile
-BLOCK_C = (8, 16, 32, 64, 128)
-#: the wgmma body's token tile: it serves every launch with C > 64
+#: up to 64, the wgmma body's n128 tile and the wide body's n160 tile
+BLOCK_C = (8, 16, 32, 64, 128, 160)
+#: the wgmma body's token tile: it serves every launch with 64 < C <= 128
 WGMMA_BLOCK_C = 128
+#: the wide wgmma body's token tile: it serves every launch with C > 128,
+#: in ceil(C / 160) tiles
+WIDE_BLOCK_C = 160
 #: K split boundaries are multiples of this (the kernels' pipeline stage)
 SPLIT_GRAIN = 64
 #: blocks an mma.sync launch should reach at G = 1: two per SM of an H100
@@ -95,7 +99,8 @@ class LaunchPlan(NamedTuple):
     block_c: int       # tokens per block
     k_chunk: int       # K per split, a multiple of SPLIT_GRAIN
     splits: int        # ceil(K / k_chunk)
-    body: str          # "mma_sync" (block_c <= 64) or "wgmma" (128)
+    body: str          # "mma_sync" (block_c <= 64), "wgmma" (128) or
+                       # "wgmma_wide" (160)
 
 
 def launch_plan(c: int, k: int, n: int, bits: int) -> LaunchPlan:
@@ -108,8 +113,8 @@ def launch_plan(c: int, k: int, n: int, bits: int) -> LaunchPlan:
     block_c) x splits to reach MIN_BLOCKS, so that even a narrow N (the
     down-projection's 4096 columns are 32 tiles) fills the card.
 
-    C > 64 (prefill): the ``wgmma`` body with its 128-token tile, one
-    block per SM. K splits only while the tiles at G = 1 are fewer than
+    64 < C <= 128 (prefill): the ``wgmma`` body with its 128-token tile,
+    one block per SM. K splits only while the tiles at G = 1 are fewer than
     half a wave of WAVE blocks, only as far as one wave holds, and only as
     far as the f32 partials (written and read back: 8 bytes a token and
     column per split) stay within half the weight bytes (K * bits / 8 a
@@ -119,30 +124,41 @@ def launch_plan(c: int, k: int, n: int, bits: int) -> LaunchPlan:
     unsplit, and Kimi-K2's int4 bank (16 tiles, G = 384) would move more
     partial bytes than code bytes split.
 
+    C > 128 (the prompts of a 512-token bucket and longer): the
+    ``wgmma_wide`` body with its 160-token tile, in ceil(C / 160) tiles
+    (C = 160, 320, 640: the 512-, 1024- and 2048-token buckets at top-2 of
+    8 and capacity factor 1.25 fill whole tiles). K splits by the same two
+    caps, counted over the column tiles alone and the byte cap at 160
+    tokens, so that every C > 128 shares one set of splits.
+
     It takes no expert count: a bank of G experts runs each expert exactly
     as a launch of one would. ``bits`` (4, 8 or 16) is checked; only the
-    wgmma body's byte cap on its splits depends on it.
+    wgmma bodies' byte cap on their splits depends on it.
 
     Row invariance: a token's output row is bit-equal across launches
     whose plans share a body and K splits, whatever its place in the tile
     and however many other rows the launch has. For every (K, N), every C
     in 1..64 gets the ``mma_sync`` body with one set of splits (its token
     tile of 8 to 64 does not change a row's arithmetic: the verify scores
-    a token as decode does), and every C in 65..128 the ``wgmma`` body
-    with another (one 128-token tile: a C = 80 row equals its C = 128
-    row). Past 128 the token tiles multiply and the splits may change."""
+    a token as decode does), every C in 65..128 the ``wgmma`` body with
+    another (one 128-token tile: a C = 80 row equals its C = 128 row), and
+    every C > 128, 129..256 among them, the ``wgmma_wide`` body with a third
+    (a C = 160 row equals its C = 256 and its C = 320 row)."""
     if bits not in (4, 8, 16):
         raise ValueError(f"bits must be 4, 8 or 16, got {bits}")
-    block_c = next((b for b in BLOCK_C if c <= b), BLOCK_C[-1])
-    tiles = math.ceil(n / BLOCK_N) * math.ceil(c / block_c)
     grains = max(1, math.ceil(k / SPLIT_GRAIN))
-    if block_c == WGMMA_BLOCK_C:
-        body = "wgmma"
-        want = 1 if 2 * tiles >= WAVE else WAVE // tiles
-        want = min(want, k * bits // (16 * 8 * block_c))
-    else:
+    block_c = next((b for b in BLOCK_C if c <= b), WIDE_BLOCK_C)
+    tiles = math.ceil(n / BLOCK_N)
+    if block_c < WGMMA_BLOCK_C:
         body = "mma_sync"
-        want = math.ceil(MIN_BLOCKS / tiles)
+        want = math.ceil(MIN_BLOCKS / (tiles * math.ceil(c / block_c)))
+    else:
+        # one token tile at C <= 128; the wide body's splits count its
+        # column tiles alone, and its partials may reach the weight bytes
+        body = "wgmma" if block_c == WGMMA_BLOCK_C else "wgmma_wide"
+        want = 1 if 2 * tiles >= WAVE else WAVE // tiles
+        cap = 16 if body == "wgmma" else 8
+        want = min(want, k * bits // (cap * 8 * block_c))
     want = max(1, min(grains, MAX_SPLITS, want))
     k_chunk = math.ceil(grains / want) * SPLIT_GRAIN
     return LaunchPlan(BLOCK_N, block_c, k_chunk, math.ceil(k / k_chunk),

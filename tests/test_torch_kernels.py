@@ -356,9 +356,11 @@ def emulate_bank(x, codes, scales, *, group, bits):
                 group=group, bits=bits) for e in range(x.shape[0])])
 
 
-#: the reference's cases plus one whose K the plan splits 16 ways and one
-#: that the wgmma body serves (C > 64)
-EMU_CASES = CASES + [(2, 8, 1024, 128, 64), (2, 100, 256, 128, 64)]
+#: the reference's cases plus one whose K the plan splits 16 ways, one
+#: that the wgmma body serves (C > 64) and two that the wide body serves
+#: (C > 128: one 160-token tile, and two for C = 300)
+EMU_CASES = CASES + [(2, 8, 1024, 128, 64), (2, 100, 256, 128, 64),
+                     (2, 160, 256, 128, 64), (1, 300, 512, 256, 64)]
 
 #: shapes with the port's tile contract (N % 16, K % 16, group 16/32/64k)
 PLAN_SHAPES = [(8, 4096, 14336), (8, 14336, 4096), (16, 4096, 14336),
@@ -504,24 +506,29 @@ FULL_KN = [(4096, 14336), (14336, 4096), (7168, 2048), (2048, 7168),
 @pytest.mark.parametrize("c", [65, 80, 108, 128, 160, 256])
 @pytest.mark.parametrize("k,n", FULL_KN)
 def test_launch_plan_wgmma_body(c, k, n):
-    """C > 64 takes the wgmma body's 128-token tile; its splits cover K on
-    64-aligned boundaries, fit one wave at G = 1 and keep the f32 partials
-    within half the weight bytes."""
+    """64 < C <= 128 takes the wgmma body's 128-token tile, C > 128 the
+    wide body's 160-token tile in ceil(C / 160) tiles; the splits cover K
+    on 64-aligned boundaries and fit one wave of column tiles at G = 1,
+    and the f32 partials stay within half the weight bytes (128-token
+    tile) or within the weight bytes (160-token tile)."""
     for bits in (4, 8, 16):
         plan = tk.launch_plan(c, k, n, bits)
-        assert plan.body == "wgmma" and plan.block_c == 128
+        wide = c > 128
+        assert plan.body == ("wgmma_wide" if wide else "wgmma")
+        assert plan.block_c == (160 if wide else 128)
         assert plan.block_n == tk.BLOCK_N
         assert plan.k_chunk % tk.SPLIT_GRAIN == 0
         bounds = [min(k, s * plan.k_chunk) for s in range(plan.splits + 1)]
         assert bounds[0] == 0 and bounds[-1] == k
         assert all(lo < hi for lo, hi in zip(bounds, bounds[1:]))
-        tiles = math.ceil(n / 128) * math.ceil(c / 128)
+        tiles = math.ceil(n / 128)
         if 2 * tiles >= tk.WAVE:
             assert plan.splits == 1
         else:
             assert plan.splits * tiles <= tk.WAVE
         if plan.splits > 1:
-            assert plan.splits * 8 * 128 <= k * bits / 16
+            assert plan.splits * 8 * plan.block_c <= k * bits / (
+                8 if wide else 16)
 
 
 @pytest.mark.parametrize("label", list(_chip_smoke().SHAPES))
@@ -529,14 +536,84 @@ def test_launch_plan_row_invariance_domain(label):
     """For every timed (K, N): all C in 1..64 share one body and one K
     split (a decode row equals its verify row), and so do all C in
     65..128 (one 128-token wgmma tile: a C = 80 row equals its C = 128
-    row)."""
+    row) and all C in 129..256 (the wide body: a C = 160 row equals its
+    C = 256 row)."""
     _, k, n = _chip_smoke().SHAPES[label]
     for bits in (4, 8, 16):
-        for lo, hi, body in ((1, 64, "mma_sync"), (65, 128, "wgmma")):
+        for lo, hi, body in ((1, 64, "mma_sync"), (65, 128, "wgmma"),
+                             (129, 256, "wgmma_wide")):
             plans = {tk.launch_plan(c, k, n, bits)._replace(block_c=0)
                      for c in range(lo, hi + 1)}
             assert len(plans) == 1
             assert plans.pop().body == body
+
+
+@pytest.mark.parametrize("c", [320, 640])
+@pytest.mark.parametrize("k,n", FULL_KN)
+def test_launch_plan_wide_token_tiles(c, k, n):
+    """Past 160 tokens the wide body's tiles multiply: C = 320 and 640
+    (the 1024- and 2048-token buckets at Mixtral's top-2 of 8) run two and
+    four 160-token tiles with the splits of C = 160, whatever the expert
+    count: K covered on 64-aligned boundaries, at most one wave of column
+    tiles at G = 1, f32 partials within the weight bytes."""
+    for bits in (4, 8, 16):
+        plan = tk.launch_plan(c, k, n, bits)
+        assert plan == tk.launch_plan(160, k, n, bits)
+        assert plan.body == "wgmma_wide" and plan.block_c == 160
+        assert math.ceil(c / plan.block_c) == c // 160
+        bounds = [min(k, s * plan.k_chunk) for s in range(plan.splits + 1)]
+        assert bounds[0] == 0 and bounds[-1] == k
+        assert all(b % tk.SPLIT_GRAIN == 0 for b in bounds[:-1])
+        assert plan.splits * math.ceil(n / 128) <= max(tk.WAVE,
+                                                       math.ceil(n / 128))
+        if plan.splits > 1:
+            assert plan.splits * 8 * 160 <= k * bits / 8
+
+
+def test_m_tile_pads_on_the_cpu_only():
+    """The reference's pad of M (``_with_padded_m``) holds on the CPU and
+    for any device but the card, whose kernels take the true token count:
+    C = 160 runs 160 rows there, not 256, and C = 5 five, not 8."""
+    for m in (1, 5, 8, 12, 20, 100, 128, 130, 160, 300, 640):
+        for block_m in (8, 128):
+            eff = min(block_m, ops._round_up(m, 8))
+            want = (ops._round_up(m, eff), eff)
+            assert ops._m_tile(m, block_m, "cpu") == want
+            assert ops._m_tile(m, block_m, "meta") == want
+            assert ops._m_tile(m, block_m, "cuda") == (m, m)
+    seen = []
+
+    def call(xp, bm):
+        seen.append((tuple(xp.shape), bm))
+        return xp
+    out = ops._with_padded_m(call, torch.ones(3, 160, 16), block_m=128,
+                             m_axis=1)
+    assert seen == [((3, 256, 16), 128)] and tuple(out.shape) == (3, 160, 16)
+
+
+@pytest.mark.parametrize("bits", [4, 8, 16])
+@pytest.mark.parametrize("c", [160, 300])
+def test_kernel_arithmetic_wide_tile_exact(bits, c):
+    """Integer-friendly inputs at the wide tile's token counts (one tile of
+    160, two of 160 for 300) over the plan's splits: bit-equal to
+    float64."""
+    rng = np.random.default_rng(30 + bits + c)
+    g, k, n = 2, 512, 128
+    x = rng.integers(-3, 4, size=(g, c, k)).astype(np.float64)
+    qmax = {4: 7, 8: 127, 16: 7}[bits]
+    codes = rng.integers(-qmax - 1, qmax + 1, size=(g, k, n))
+    scale = 0.25 if bits == 16 else 0.125
+    exact = torch.from_numpy(x @ (codes * scale)).to(torch.bfloat16)
+    assert tk.launch_plan(c, k, n, bits).body == "wgmma_wide"
+    tx = torch.from_numpy(x).to(torch.bfloat16)
+    if bits == 16:
+        w = torch.from_numpy(codes * scale).to(torch.bfloat16)
+        got = emulate_bank(tx, w, None, group=64, bits=16)
+    else:
+        scales = torch.full((g, k // 64, n), scale).to(torch.bfloat16)
+        got = emulate_bank(tx, torch.from_numpy(codes), scales, group=64,
+                           bits=bits)
+    np.testing.assert_array_equal(bits16(got), bits16(exact))
 
 
 def test_launch_plan_below_65_unchanged():

@@ -16,7 +16,7 @@ iterate on a phase without the whole script:
     python3 tools/chip_phases.py roofline dry-cell
 
 ``poisson``, ``ep`` (8), ``ep-cards`` (8 with rank r on ``cuda:r``),
-``prefill`` (3p, long prompts through the wgmma body) and ``kernels`` (5,
+``prefill`` (3p, long prompts through the wgmma bodies) and ``kernels`` (5,
 every kernel row at the serve phase's bank sizes) first run the serve
 phase (3), whose params, point and bank sizes they use; ``kimi`` is 7b, ``qwen3`` 7c, ``families`` 7d, ``families-train``
 7e and ``kimi-rows`` the kernel phase's B3 rows at Kimi-K2's widths;

@@ -12,9 +12,12 @@ the wrappers ``ops.q_matmul``, ``ops.grouped_q_matmul`` and
 ``ops.grouped_bf16_matmul``. For every kernel and shape the main process
 asks parent, this, this, parent and reports the mean of each pair. Then, on
 this checkout alone, it times the launch that ``launch_plan`` chooses
-(its body: ``mma_sync`` up to 64 tokens, ``wgmma`` above) against the
-same launch with another K split, in turns (plan, other, other, plan):
-unsplit where the plan splits, two splits where it does not.
+(its body: ``mma_sync`` up to 64 tokens, ``wgmma`` up to 128,
+``wgmma_wide`` above) against the same launch with another K split, in
+turns (plan, other, other, plan): unsplit where the plan splits, two
+splits where it does not. Each checkout's wrappers choose the token count
+they hand the kernels (this one the true C on the card) and the plan is
+read from their own call.
 Each worker holds every result against its plain version
 (``chip_smoke._close``) before it times it. Times are device times as in
 ``chip_smoke.py``: a CUDA graph of 20 launches cycling through input
@@ -94,20 +97,28 @@ def worker(tree: Path) -> None:
             cached[key] = build(*key)
         (bits, c, k, n), cases = cached[key]
         plan_fn = getattr(qk, "launch_plan", None)
-        plan = plan_fn(ops._round_up(c, 8) if c <= 128 else
-                       -(-c // 128) * 128, k, n, bits) if plan_fn else None
-        splits = plan.splits if plan else None
-        body = getattr(plan, "body", "mma_sync")
-        if req["splits"] is not None:
-            if plan_fn is None:
-                raise SystemExit("splits: this checkout has no launch_plan")
-            grains = -(-k // qk.SPLIT_GRAIN)
-            k_chunk = -(-grains // req["splits"]) * qk.SPLIT_GRAIN
-            splits = -(-k // k_chunk)
-            qk.launch_plan = lambda c_, k_, n_, b_: plan_fn(
-                c_, k_, n_, b_)._replace(k_chunk=k_chunk, splits=splits)
+        if req["splits"] is not None and plan_fn is None:
+            raise SystemExit("splits: this checkout has no launch_plan")
+        # the plan each checkout's wrapper asks for (for the C it hands the
+        # kernel, padded or not), or it with req["splits"] K splits
+        seen = {}
+
+        def plan_of(c_, k_, n_, b_):
+            plan = plan_fn(c_, k_, n_, b_)
+            if req["splits"] is not None:
+                grains = -(-k_ // qk.SPLIT_GRAIN)
+                k_chunk = -(-grains // req["splits"]) * qk.SPLIT_GRAIN
+                plan = plan._replace(k_chunk=k_chunk,
+                                     splits=-(-k_ // k_chunk))
+            seen["plan"] = plan
+            return plan
+        if plan_fn is not None:
+            qk.launch_plan = plan_of
         try:
             err, ok = cs._close(torch, cases[0][0](), cases[0][1]())
+            plan = seen.get("plan")
+            splits = plan.splits if plan else None
+            body = getattr(plan, "body", "mma_sync")
             if not ok:
                 raise AssertionError(f"{key} splits={splits} disagrees with "
                                      f"its plain version: max |diff| {err}")
