@@ -285,19 +285,22 @@ Phases (each raises on failure, and the script then exits non-zero):
                kernels' plain versions);
   5. kernels — each kernel against its plain PyTorch version on the card
                at the serving bank layout (G experts per rung) and the
-               shapes of ``SHAPES``: C = 8 decode rows, up/gate (G, 4096,
-               14336) and down (G, 14336, 4096), C = 16 decode, prefill at
-               C = 128 (up and down) and 80 (up), which the wgmma body
-               serves, and at C = 160 (up and down) and 320 (up), which
-               the wide wgmma body serves; within one bf16 ulp of |plain|
-               + 1e-3, and two launches bit-equal; the split-K reduction
-               bit-equal to its plain version; bit-exact checks in the
-               three bodies (grouped == per-expert, integer-friendly
-               inputs, empty group == zeros, f32 dequant), row invariance
-               (rows of a C = 12 verify launch bit-equal to a C = 8 launch;
-               rows of a C = 80 launch bit-equal to a C = 128 launch, of a
-               C = 160 launch to a C = 256 launch, and of a C = 128 launch
-               to a C = 160 launch where the two plans split K alike), the
+               shapes of ``SHAPES``: decode rows at the serve point's C =
+               4 and at C = 8, up/gate (G, 4096, 14336) and down (G, 14336,
+               4096), C = 16 decode, prefill at C = 128 (up and down) and
+               80 (up), which the wgmma body serves, and at C = 160 (up and
+               down), 320 and 256 (up), which the wide wgmma body serves
+               (256: a 160-token tile and an n96 tail); within one bf16 ulp
+               of |plain| + 1e-3, and two launches bit-equal; the split-K
+               reduction (at C = 4) bit-equal to its plain version;
+               bit-exact checks in the three bodies (grouped ==
+               per-expert, integer-friendly inputs, empty group == zeros,
+               f32 dequant), row invariance on one plan (rows of a C = 12
+               verify launch bit-equal to a C = 8 launch, of C = 8 to C =
+               4; rows of a C = 80 launch bit-equal to a C = 128 launch, of
+               a C = 160 launch to a C = 256 launch, of C = 256 to C =
+               320), and of a C = 128 launch to a C = 160 launch where the
+               two plans split K alike, the
                G = 8 draft bank at C = 12; device times (CUDA graphs)
                beside the plain version, the bound and a library yardstick
                (``torch.bmm`` on the dequantized bf16 weights, and
@@ -339,16 +342,22 @@ SRC = ROOT / "src"
 PEAK_BF16_FLOPS = 989e12
 PEAK_HBM_BYTES_PER_S = 3.35e12
 D_MODEL, D_FF = 4096, 14336     # Mixtral-8x7B expert widths
-C_DECODE = 8          # decode rows per expert timed: 13-25 tokens' capacity
+#: decode rows per expert at the serve point (4 slots, top-2 of 8: capacity
+#: rounded up to 4), which the card's kernels take unpadded
+C_SERVE = 4
+C_DECODE = 8          # decode rows per expert at 13-25 tokens' capacity
 C_PREFILL = 128
 GROUP = 64
 #: (C, K, N) of every timed kernel shape: the decode up- and down-
-#: projections at C = 8; decode at C = 16, which is where 26-51 slots pad
-#: to under capacity factor 1.25; prefill at C = 128 (up and down) and C =
-#: 80 (a 200-token prompt's bucket of 256), which the wgmma body serves;
-#: and C = 160 (bucket 512, up and down) and C = 320 (bucket 1024), which
-#: the wide wgmma body serves in one and two 160-token tiles
+#: projections at the serve point's C = 4 and at C = 8; decode at C = 16,
+#: which is where 26-51 slots pad to under capacity factor 1.25; prefill
+#: at C = 128 (up and down) and C = 80 (a 200-token prompt's bucket of
+#: 256), which the wgmma body serves; and C = 160 (bucket 512, up and
+#: down), C = 320 (bucket 1024) and C = 256, which the wide wgmma body
+#: serves in one 160-token tile, two, and one and an n96 tail
 SHAPES = {
+    "decode4_up": (C_SERVE, D_MODEL, D_FF),
+    "decode4_down": (C_SERVE, D_FF, D_MODEL),
     "up": (C_DECODE, D_MODEL, D_FF),
     "down": (C_DECODE, D_FF, D_MODEL),
     "decode16": (16, D_MODEL, D_FF),
@@ -358,6 +367,7 @@ SHAPES = {
     "prefill160_up": (160, D_MODEL, D_FF),
     "prefill160_down": (160, D_FF, D_MODEL),
     "prefill320_up": (320, D_MODEL, D_FF),
+    "prefill256_up": (256, D_MODEL, D_FF),
 }
 #: the wide wgmma body's token tile
 C_WIDE = 160
@@ -442,6 +452,8 @@ def phase_build():
     """Build the kernels and log each instantiation's registers, static
     shared memory and spills; every kernel of the library can be on the
     main path, so any spill fails the phase."""
+    import re
+
     from repro_torch.kernels import cuda_lib
     t0 = time.perf_counter()
     cuda_lib.build()
@@ -466,9 +478,12 @@ def phase_build():
                                         "C7515", "C7517", "C7520"))]
     log(f"  ptxas wgmma notes: {len(notes)}"
         + "".join(f"\n    {n[:200]}" for n in notes))
-    for body in ("wg_matmul_kernel", "wide_kernel"):
-        if not any(body in r["kernel"] for r in rows):
-            raise AssertionError(f"the {body} body is not in the build")
+    # the wgmma kernel's 128- and 160-token instantiations
+    for tile in (128, 160):
+        if not any(re.search(rf"wg_matmul_kernel<\d+, \d+, {tile}>",
+                             r["kernel"]) for r in rows):
+            raise AssertionError(f"the wgmma body's {tile}-token tile is not "
+                                 "in the build")
     serialized = [n for n in notes
                   if any(c in n for c in ("C7513", "C7514", "C7517"))]
     if serialized:
@@ -5077,14 +5092,14 @@ def phase_kernels(torch, np, sizes, seed: int, reps: int, more=()):
                 f"({r['library_ms'] / r['ms']:.2f}x), max|err| "
                 f"{r['max_abs_err']:.2e}")
             torch.cuda.empty_cache()
-        # one record per body: the mma.sync body at the decode up-
-        # projection, and for the grouped wrappers (the prefill path's
-        # kernels) the wgmma body at prefill_up and the wide wgmma body at
-        # prefill160_up
+        # one record per body: the mma.sync body at the serve point's
+        # decode up-projection, and for the grouped wrappers (the prefill
+        # path's kernels) the wgmma body at prefill_up and the wide wgmma
+        # body at prefill160_up
         for body, label, source in (
-                ("mma_sync", "up", "dequant_matmul.cu"),
+                ("mma_sync", "decode4_up", "dequant_matmul.cu"),
                 ("wgmma", "prefill_up", "wgmma_body.cuh"),
-                ("wgmma_wide", "prefill160_up", "wgmma_wide.cu")):
+                ("wgmma_wide", "prefill160_up", "wgmma_wide.cuh")):
             if body != "mma_sync" and not name.startswith("grouped"):
                 continue
             r = rows[label]
@@ -5160,9 +5175,11 @@ def _row_invariance(torch, gen, ops, sizes):
     up- and down-projection (and the G = 8 draft bank): a token's result
     depends neither on how many tokens share its expert nor on its place,
     so the speculative verify scores a token as plain decode does. So are
-    rows of C = 128 and 80 launches (the wgmma body), of C = 256 and 160
-    launches (the wide body: two tiles and one), and of C = 160 and 128
-    launches (the two wgmma bodies) where their plans split K alike."""
+    rows of C = 8 and 4 launches (decode at the serve point), of C = 128
+    and 80 launches (the wgmma body), of C = 256 and 160 and of C = 320
+    and 256 launches (the wide body: its n160 tiles and its n96 tail);
+    every such pair must share one plan. Rows of C = 160 and 128 launches
+    (the two wgmma bodies) are checked where their plans split K alike."""
     from repro_torch.kernels import q4_matmul as qk
     def check(what, fn, x, c_part=C_DECODE):
         full = fn(x)
@@ -5179,22 +5196,29 @@ def _row_invariance(torch, gen, ops, sizes):
              ("grouped_q8", 8, sizes[8], True),
              ("grouped_q4 draft", 4, DRAFT_G, True),
              ("grouped_bf16", 16, sizes[16], True)]
-    # the mma.sync body at the verify's C = 12 against C = 8, the wgmma
-    # body at C = 128 against C = 80 (one 128-token tile, one plan), the
-    # wide body at C = 256 against C = 160, and the wide body against the
+    # the mma.sync body at the verify's C = 12 against C = 8 and at C = 8
+    # against the serve point's C = 4, the wgmma body at C = 128 against C
+    # = 80 (one 128-token tile, one plan), the wide body at C = 256 against
+    # C = 160 and at C = 320 against C = 256 (whose tokens 0-95 run the n96
+    # tail reversed), each pair on one plan; and the wide body against the
     # wgmma body where their plans split K alike
     across = []
-    for c_full, c_part in ((C_VERIFY, C_DECODE), (C_PREFILL, 80),
-                           (256, C_WIDE), (C_WIDE, C_PREFILL)):
+    for c_full, c_part in ((C_VERIFY, C_DECODE), (C_DECODE, C_SERVE),
+                           (C_PREFILL, 80), (256, C_WIDE), (320, 256),
+                           (C_WIDE, C_PREFILL)):
         for name, bits, g, grouped in cases:
             for label in ("up", "down"):
                 _, k, n = SHAPES[label]
                 splits = {qk.launch_plan(c, k, n, bits)[2:4]
                           for c in (c_full, c_part)}
-                if len(splits) > 1:
-                    continue
-                if c_full == C_WIDE:
+                if (c_full, c_part) == (C_WIDE, C_PREFILL):
+                    if len(splits) > 1:
+                        continue
                     across.append(f"{name} {label}")
+                elif len(splits) > 1:
+                    raise AssertionError(f"{name} {label}: C = {c_full} and "
+                                         f"{c_part} split K differently: "
+                                         f"{splits}")
                 x, w = _make_bank(torch, gen, g, c_full, k, n, bits)
                 what = f"{name} {label}"
                 if bits == 16:
@@ -5212,20 +5236,22 @@ def _row_invariance(torch, gen, ops, sizes):
         raise AssertionError("no kernel's plans at C = 128 and 160 split K "
                              "alike")
     log(f"kernels: row invariance holds for every kernel (rows of C = "
-        f"{C_VERIFY} launches bit-equal to C = {C_DECODE} launches, rows of "
-        f"C = {C_PREFILL} launches to C = 80 launches, rows of C = 256 "
-        f"launches to C = {C_WIDE} launches), and rows of C = {C_WIDE} "
+        f"{C_VERIFY} launches bit-equal to C = {C_DECODE} launches and of C "
+        f"= {C_DECODE} to C = {C_SERVE}, rows of C = {C_PREFILL} launches to "
+        f"C = 80 launches, rows of C = 256 launches to C = {C_WIDE} launches "
+        f"and of C = 320 to C = 256), and rows of C = {C_WIDE} "
         f"launches to C = {C_PREFILL} launches where the two bodies split K "
         f"alike: {across}")
 
 
 def _reduce_record(torch, gen, qk, sizes, reps, extra):
     """The split-K reduction at the workspaces of the q8 bank's decode up-
-    and down-projections: bit-equal to its plain version (f32 adds in
-    split order, one cast) and to itself on a second launch."""
+    and down-projections, at the serve point's C = 4 (the record) and at C
+    = 8: bit-equal to its plain version (f32 adds in split order, one
+    cast) and to itself on a second launch."""
     rows = {}
     g = sizes[8]
-    for label in ("up", "down"):
+    for label in ("decode4_up", "decode4_down", "up", "down"):
         c, k, n = SHAPES[label]
         splits = qk.launch_plan(c, k, n, 8).splits
         count = g * c * n
@@ -5260,7 +5286,7 @@ def _reduce_record(torch, gen, qk, sizes, reps, extra):
             "bit-equal")
         torch.cuda.empty_cache()
     extra.append({"name": "splitk_reduce", "tag": "split-K", **rows})
-    up = rows["up"]
+    up = rows["decode4_up"]
     return {"name": "splitk_reduce", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/dequant_matmul.cu",
             "replaces": "src/repro/kernels/grouped_matmul.py:63",
@@ -5298,7 +5324,7 @@ def _exact_checks(torch, gen, gk, ops, QTensor):
     # each contract in the three bodies: the mma.sync body (C <= 64), the
     # wgmma body (64 < C <= 128) and the wide wgmma body (C > 128)
     for bits in (4, 8):
-        for c in (C_DECODE, C_PREFILL, C_WIDE):
+        for c in (C_SERVE, C_DECODE, C_PREFILL, C_WIDE, 256):
             x, qt = _make_bank(torch, gen, 3, c, D_MODEL, D_FF, bits)
             grouped = ops.grouped_q_matmul(x, qt)
             loop = torch.stack([ops.q_matmul(x[e], qt.map(lambda t: t[e]))
@@ -5313,7 +5339,8 @@ def _exact_checks(torch, gen, gk, ops, QTensor):
                                      f"at C={c}")
             del x, qt, grouped, loop, z
         qmax = 7 if bits == 4 else 127
-        for c_int, c_f32 in ((5, 8), (100, 72), (C_WIDE, 300)):
+        for c_int, c_f32 in ((5, 8), (100, 72), (C_WIDE, 300),
+                             (C_SERVE, 256)):
             # integer-friendly: small integer x, power-of-two scales, K = 256
             xi = torch.randint(-3, 4, (2, c_int, 256), generator=gen,
                                device="cuda").to(torch.bfloat16)
@@ -5334,7 +5361,7 @@ def _exact_checks(torch, gen, gk, ops, QTensor):
             exact_case(bits, xi, (mag * sign).to(torch.int8), 1 + 2 ** -7,
                        f"f32-dequant C={c_f32}")
     torch.cuda.empty_cache()
-    for c in (5, 100, C_WIDE, 300):
+    for c in (5, 100, C_WIDE, 300, 256):
         xb = torch.randint(-3, 4, (2, c, 256), generator=gen,
                            device="cuda").to(torch.bfloat16)
         wb = (torch.randint(-8, 8, (2, 256, 128), generator=gen,
@@ -5347,8 +5374,8 @@ def _exact_checks(torch, gen, gk, ops, QTensor):
             raise AssertionError(f"empty group bf16 not exactly zero at C={c}")
     log("kernels: bit-exact checks passed in the three bodies (grouped == "
         "per-expert, integer-friendly inputs, f32 dequant, empty groups; C "
-        f"= {C_DECODE}, {C_PREFILL} and {C_WIDE}, 5, 100 and {C_WIDE}, 8, 72 "
-        "and 300)")
+        f"= {C_SERVE}, {C_DECODE}, {C_PREFILL}, {C_WIDE} and 256, 5, 100, "
+        f"{C_WIDE} and {C_SERVE}, 8, 72, 300 and 256)")
 
 
 # --------------------------------------------------------------------------

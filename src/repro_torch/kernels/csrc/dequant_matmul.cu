@@ -19,10 +19,9 @@
 // kernels/q4_matmul.py names it): the mma.sync body below for tiles of 8,
 // 16, 32 and 64 tokens (C <= 64: decode, the speculative verify), the
 // wgmma body of wgmma_body.cuh for the 128-token tile (64 < C <= 128), and
-// the wide wgmma body of wgmma_wide.cu (its own translation unit) for the
-// 160-token tile (C > 128: prompts of 257 tokens and more at Mixtral's
-// top-2 of 8). All compute the same arithmetic and replace the same TPU
-// kernels.
+// its wide variant (wgmma_wide.cuh) for the 160-token tile (C > 128:
+// prompts of 257 tokens and more at Mixtral's top-2 of 8). All compute the
+// same arithmetic and replace the same TPU kernels.
 //
 // The mma.sync body: one templated tensor-core body, swap-AB. The kernel computes
 // out[g]^T = W[g]^T . x[g]^T with mma.sync.m16n8k16 (bf16 x bf16 -> f32):
@@ -94,11 +93,12 @@
 //     flushes on the CUDA cores, which overlap the tensor core only in part
 //     (wgmma_body.cuh).
 
-#include "dequant_common.cuh"
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
-
-using namespace dq;
 
 constexpr int BK = 64;                 // K per pipeline stage
 constexpr int WARPS_N = 4;             // warps across the block's columns
@@ -170,6 +170,36 @@ __device__ __forceinline__ void store_bf16x4(uint16_t* p, float4 v) {
   *reinterpret_cast<uint2*>(p) = o;
 }
 
+__device__ __forceinline__ float bf16_lo(uint32_t v) {
+  return __uint_as_float(v << 16);
+}
+
+__device__ __forceinline__ float bf16_hi(uint32_t v) {
+  return __uint_as_float(v & 0xFFFF0000u);
+}
+
+// Byte j of ``w`` (K pair (2b, 2b+1) of one column as (low, high) nibbles,
+// offset by 8) -> bf16x2 (low - 8, high - 8). ``u`` is w >> 4.
+__device__ __forceinline__ uint32_t int4_pair(uint32_t w, uint32_t u, int j) {
+  const uint32_t sel = j | (j << 4) | ((4 + j) << 8) | ((4 + j) << 12);
+  const uint32_t v = (__byte_perm(w, u, sel) & 0x000F000Fu) | 0x43004300u;
+  const uint32_t bias = 0x43084308u;               // bf16x2 (136, 136)
+  __nv_bfloat162 r = __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&v),
+                             *reinterpret_cast<const __nv_bfloat162*>(&bias));
+  return *reinterpret_cast<uint32_t*>(&r);
+}
+
+// Int8 codes in bytes 0 and 2 of ``p`` -> bf16x2 (code_0, code_2),
+// exactly: a code b is (b & 0x7F) - 128 * sign, so bf16 (128 + (b & 0x7F))
+// minus bf16 (128 or 256, by the sign bit) is b.
+__device__ __forceinline__ uint32_t int8_bf16x2(uint32_t p) {
+  const uint32_t mag = (p & 0x007F007Fu) | 0x43004300u;
+  const uint32_t sub = (p & 0x00800080u) | 0x43004300u;
+  __nv_bfloat162 r = __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&mag),
+                             *reinterpret_cast<const __nv_bfloat162*>(&sub));
+  return *reinterpret_cast<uint32_t*>(&r);
+}
+
 // Int8 byte j of ``lo`` and of ``hi`` -> bf16x2 (code_lo, code_hi).
 __device__ __forceinline__ uint32_t int8_pair(uint32_t lo, uint32_t hi,
                                               int j) {
@@ -201,6 +231,15 @@ __device__ __forceinline__ void ldmatrix_x2(uint32_t (&r)[4], const char* p) {
       "ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
       : "=r"(r[0]), "=r"(r[1]) : "r"(smem_addr(p)));
 }
+
+struct Args {
+  const uint16_t* x;       // (G, M, K)
+  const uint8_t* w;        // the expert bank, BITS-dependent layout
+  const uint16_t* scales;  // (G, K/gs, N) or null
+  uint16_t* out;           // (G, M, N) bf16, written when splits == 1
+  float* ws;               // (splits, G, M, N) f32, written when splits > 1
+  int G, M, K, N, gs, k_chunk, splits;
+};
 
 // Issue the cp.async copies of one 64-K stage starting at ``k0``; rows at
 // or past ``kend`` (and columns past N, tokens past M) are zero-filled.
@@ -485,8 +524,8 @@ int launch_bits(const Args& a, int block_c, cudaStream_t s) {
     case 16: return launch<BITS, 2>(a, s);
     case 32: return launch<BITS, 4>(a, s);
     case 64: return launch<BITS, 8>(a, s);
-    case 128: return wg::launch<BITS>(a, s);
-    case 160: return wide_launch(BITS, a, s);
+    case 128: return wg::launch<BITS, 128>(a, s);
+    case 160: return wg::launch<BITS, 160>(a, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

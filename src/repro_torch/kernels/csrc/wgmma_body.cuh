@@ -1,14 +1,16 @@
 // The Hopper body of dequant_matmul<4|8> and bf16_matmul: every launch whose
-// plan has a 128-token tile (C > 64). dequant_matmul.cu includes this file;
-// its head note describes both bodies and what each replaces.
+// plan has a 128-token tile (64 < C <= 128) or, with the consumers of
+// wgmma_wide.cuh, a 160-token tile (C > 128). dequant_matmul.cu includes
+// this file; its head note describes the bodies and what each replaces.
 //
-// A block is three warpgroups over 128 weight columns and 128 tokens of one
-// expert and one K split. Warpgroup 2 is the producer: one thread keeps TMA
-// loads in flight into a ring of 64-K stages (the x rows, the weight rows and
-// the scale rows of a stage complete on one mbarrier) and gives its
-// registers to the consumers (setmaxnreg). Warpgroups 0 and 1 are the
-// consumers, 64 columns each, and issue wgmma.m64n128k16 (bf16 x bf16 ->
-// f32) swap-AB: weight columns are the M side, tokens the N side. x is the
+// A block is three warpgroups over 128 weight columns and BC tokens (128 or
+// 160) of one expert and one K split; what follows describes BC = 128.
+// Warpgroup 2 is the producer: one thread keeps TMA loads in flight into a
+// ring of 64-K stages (the x rows, the weight rows and the scale rows of a
+// stage complete on one mbarrier) and gives its registers to the consumers
+// (setmaxnreg). Warpgroups 0 and 1 are the consumers, 64 columns each, and
+// issue wgmma.m64n128k16 (bf16 x bf16 -> f32) swap-AB: weight columns are
+// the M side, tokens the N side. x is the
 // B operand, read by the tensor core from the stage (K-major, 128-byte
 // swizzle). bf16 weights are the A operand from the stage as well (MN-major,
 // the transpose bit of 16-bit types). Int4 and int8 codes are the A operand
@@ -32,12 +34,10 @@
 
 #pragma once
 
-// (included inside an anonymous namespace after dequant_common.cuh and
-// ``using namespace dq``: by dequant_matmul.cu for this body, and by
-// wgmma_wide.cu for its mbarrier, TMA and wgmma helpers)
+// (included inside dequant_matmul.cu's anonymous namespace, after <cuda.h>,
+// Args, int4_pair, int8_bf16x2, bf16_lo and bf16_hi)
 namespace wg {
 
-constexpr int BC = 128;                // tokens per block (wgmma's N)
 constexpr int BN = 128;                // weight columns per block
 constexpr int BK = 64;                 // K per stage
 constexpr int CONSUMERS = 2;           // warpgroups of 64 columns
@@ -47,12 +47,12 @@ constexpr int MAX_STAGES = 8;
 constexpr int PRODUCER_REGS = 40;      // setmaxnreg: 2 x 128 x 232 + 128 x 40
 constexpr int CONSUMER_REGS = 232;     // fit the SM's 65,536 registers
 
-// One stage: x (128 tokens x 64 K bf16, 128-byte rows, swizzled), the
+// One stage: x (BC tokens x 64 K bf16, 128-byte rows, swizzled), the
 // weight rows of 128 columns (int4: 32 K pairs of 128 bytes; int8: 64 rows
 // of 128 bytes; bf16: two 64-column boxes of 64 rows of 128 bytes, all
 // swizzled), then up to four scale rows of 128 bf16. Every offset is a
 // multiple of 1024, the period of the 128-byte swizzle.
-template <int BITS>
+template <int BITS, int BC = 128>
 struct Tile {
   static constexpr int X_BYTES = BC * BK * 2;
   static constexpr int W_BYTES = BITS == 4 ? BK / 2 * BN
@@ -134,9 +134,10 @@ __device__ __forceinline__ void wgmma_wait() {
 }
 
 // Keep the compiler from moving an accumulator while a wgmma owns it.
-__device__ __forceinline__ void fence_regs(float (&d)[64]) {
+template <int R>
+__device__ __forceinline__ void fence_regs(float (&d)[R]) {
 #pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
 }
 
 #define WG_D64                                                             \
@@ -253,15 +254,15 @@ __device__ __forceinline__ void load_a(uint32_t (&a)[BK / 16][4],
 
 // The flush of one group's partial into the accumulator: acc[i] holds
 // column col + ((i >> 1) & 1), whose scale is at ``srow`` of the stage.
-template <int BITS>
-__device__ __forceinline__ void flush(float (&acc)[64], float (&part)[64],
+template <int BITS, int R>
+__device__ __forceinline__ void flush(float (&acc)[R], float (&part)[R],
                                       const char* wsm, int srow, int col) {
   using T = Tile<BITS>;
   const uint32_t sv = *reinterpret_cast<const uint32_t*>(
       wsm + T::W_BYTES + srow * BN * 2 + col * 2);
   const float s0 = bf16_lo(sv), s1 = bf16_hi(sv);
 #pragma unroll
-  for (int i = 0; i < 64; ++i)
+  for (int i = 0; i < R; ++i)
     acc[i] = fmaf(part[i], (i & 2) ? s1 : s0, acc[i]);
 }
 
@@ -331,74 +332,95 @@ __device__ __forceinline__ void int_stage(
   }
 }
 
-// SPF: k16 steps per group flush, min(group, 64) / 16 (bf16: 4, unused).
-template <int BITS, int SPF>
-__global__ void __launch_bounds__(THREADS, 1)
-wg_matmul_kernel(const __grid_constant__ CUtensorMap tm_x,
-                 const __grid_constant__ CUtensorMap tm_w,
-                 const __grid_constant__ CUtensorMap tm_s, Args a) {
-  using T = Tile<BITS>;
+// The producer thread: keeps the ring of stages full with TMA loads of x
+// (a box of BC tokens), the weight rows and the scale rows.
+template <int BITS, int BC>
+__device__ __forceinline__ void produce(
+    const CUtensorMap* tm_x, const CUtensorMap* tm_w, const CUtensorMap* tm_s,
+    const Args& a, char* smem, uint64_t* full, uint64_t* empty, int g,
+    int m0, int n0, int kbeg, int nst, int srows) {
+  using T = Tile<BITS, BC>;
   constexpr int S = T::STAGES;
-  extern __shared__ __align__(16) char smem_raw[];
-  char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
-  uint64_t* full = reinterpret_cast<uint64_t*>(smem + S * T::STAGE_BYTES);
-  uint64_t* empty = full + S;
-
-  const int g = blockIdx.z;
-  const int split = blockIdx.y % a.splits;
-  const int m0 = (blockIdx.y / a.splits) * BC;
-  const int n0 = blockIdx.x * BN;
-  const int kbeg = split * a.k_chunk;
-  const int kend = min(a.K, kbeg + a.k_chunk);
-  const int nst = (kend - kbeg + BK - 1) / BK;
-  const int srows = a.gs >= BK ? 1 : BK / a.gs;   // scale rows per stage
-
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < S; ++s) {
-      mbar_init(full + s, 1);
-      mbar_init(empty + s, CONSUMERS * 4);      // one arrival per warp
+  const uint32_t tx = T::X_BYTES + T::W_BYTES
+      + (BITS == 16 ? 0 : srows * BN * 2);
+  for (int it = 0; it < nst; ++it) {
+    const int s = it % S;
+    mbar_wait(empty + s, ((it / S) & 1) ^ 1);
+    char* st = smem + s * T::STAGE_BYTES;
+    const int k0 = kbeg + it * BK;
+    mbar_expect_tx(full + s, tx);
+    tma_load(st, tm_x, k0, m0, g, full + s);
+    char* wst = st + T::X_BYTES;
+    if constexpr (BITS == 4) {
+      tma_load(wst, tm_w, n0, k0 / 2, g, full + s);
+    } else if constexpr (BITS == 8) {
+      tma_load(wst, tm_w, n0, k0, g, full + s);
+    } else {
+      tma_load(wst, tm_w, n0, k0, g, full + s);
+      tma_load(wst + T::W_BYTES / 2, tm_w, n0 + 64, k0, g, full + s);
     }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    if constexpr (BITS != 16)
+      tma_load(wst + T::W_BYTES, tm_s, n0, k0 / a.gs, g, full + s);
   }
-  __syncthreads();
+}
 
-  const int role = threadIdx.x / 128;
-  if (role == CONSUMERS) {
-    // producer: one thread keeps the ring full
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n"
-                 :: "n"(PRODUCER_REGS));
-    if (threadIdx.x == CONSUMERS * 128) {
-      const uint32_t tx = T::X_BYTES + T::W_BYTES
-          + (BITS == 16 ? 0 : srows * BN * 2);
-      for (int it = 0; it < nst; ++it) {
-        const int s = it % S;
-        mbar_wait(empty + s, ((it / S) & 1) ^ 1);
-        char* st = smem + s * T::STAGE_BYTES;
-        const int k0 = kbeg + it * BK;
-        mbar_expect_tx(full + s, tx);
-        tma_load(st, &tm_x, k0, m0, g, full + s);
-        char* wst = st + T::X_BYTES;
-        if constexpr (BITS == 4) {
-          tma_load(wst, &tm_w, n0, k0 / 2, g, full + s);
-        } else if constexpr (BITS == 8) {
-          tma_load(wst, &tm_w, n0, k0, g, full + s);
-        } else {
-          tma_load(wst, &tm_w, n0, k0, g, full + s);
-          tma_load(wst + T::W_BYTES / 2, &tm_w, n0 + 64, k0, g, full + s);
-        }
-        if constexpr (BITS != 16)
-          tma_load(wst + T::W_BYTES, &tm_s, n0, k0 / a.gs, g, full + s);
-      }
-    }
-    return;
-  }
-
-  // consumers: warpgroup ``role`` owns the block's columns 64 role ..
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(CONSUMER_REGS));
+// A consumer thread's tokens into ``out`` (one split) or the f32 workspace:
+// acc[4 j + 2 r + h] is token m0 + 8 j + 2 tig + h of wgmma row gid + 8 r
+// of its warp: column col + r for codes (the fragments' permutation),
+// column 16 warp + gid + 8 r of the warpgroup's 64 for bf16 weights (the
+// stage's own order).
+template <int BITS, int R>
+__device__ __forceinline__ void store(const float (&acc)[R], const Args& a,
+                                      int g, int m0, int n0, int split,
+                                      int role) {
   const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3;
   const int gid = lane >> 2, tig = lane & 3;
+  const int col = role * 64 + warp * 16 + 2 * gid;  // codes: columns col, +1
+  const int base = n0 + role * 64 + warp * 16;
+  if (base >= a.N) return;              // N % 16 == 0: a warp's 16 or none
+  const int c0 = BITS == 16 ? base + gid : n0 + col;
+  const int c1 = BITS == 16 ? c0 + 8 : c0 + 1;
+  const size_t plane = static_cast<size_t>(a.G) * a.M * a.N;
+#pragma unroll
+  for (int j = 0; j < R / 4; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = m0 + 8 * j + 2 * tig + h;
+      if (m >= a.M) continue;
+      const size_t row = (static_cast<size_t>(g) * a.M + m) * a.N;
+      const float v0 = acc[4 * j + h], v1 = acc[4 * j + 2 + h];
+      if (a.splits == 1) {
+        if constexpr (BITS == 16) {
+          a.out[row + c0] = __bfloat16_as_ushort(__float2bfloat16_rn(v0));
+          a.out[row + c1] = __bfloat16_as_ushort(__float2bfloat16_rn(v1));
+        } else {
+          *reinterpret_cast<__nv_bfloat162*>(a.out + row + c0) =
+              __floats2bfloat162_rn(v0, v1);
+        }
+      } else {
+        float* w = a.ws + split * plane + row;
+        if constexpr (BITS == 16) {
+          w[c0] = v0;
+          w[c1] = v1;
+        } else {
+          *reinterpret_cast<float2*>(w + c0) = make_float2(v0, v1);
+        }
+      }
+    }
+}
+
+// A consumer warpgroup's whole K range at the 128-token tile, then its
+// store.
+template <int BITS, int SPF>
+__device__ __forceinline__ void consume(const Args& a, char* smem,
+                                        uint64_t* full, uint64_t* empty,
+                                        int nst, int g, int m0, int n0,
+                                        int split, int role) {
+  using T = Tile<BITS>;
+  constexpr int S = T::STAGES;
+  const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3;
   const int warp_col = role * 64 + warp * 16;        // the warp's 16 columns
-  const int col = warp_col + 2 * gid;                // codes: columns col, +1
+  const int col = warp_col + 2 * (lane >> 2);        // codes: columns col, +1
   float acc[64];
 #pragma unroll
   for (int i = 0; i < 64; ++i) acc[i] = 0.0f;
@@ -452,41 +474,64 @@ wg_matmul_kernel(const __grid_constant__ CUtensorMap tm_x,
     release(empty + last % S, lane);
   }
 
-  // acc[4 j + 2 r + h] is token m0 + 8 j + 2 tig + h of wgmma row gid + 8 r
-  // of this warp: column col + r for codes (the fragments' permutation),
-  // column 16 warp + gid + 8 r of the warpgroup's 64 for bf16 weights (the
-  // stage's own order)
-  const int base = n0 + role * 64 + warp * 16;
-  if (base >= a.N) return;              // N % 16 == 0: a warp's 16 or none
-  const int c0 = BITS == 16 ? base + gid : n0 + col;
-  const int c1 = BITS == 16 ? c0 + 8 : c0 + 1;
-  const size_t plane = static_cast<size_t>(a.G) * a.M * a.N;
-#pragma unroll
-  for (int j = 0; j < 16; ++j)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int m = m0 + 8 * j + 2 * tig + h;
-      if (m >= a.M) continue;
-      const size_t row = (static_cast<size_t>(g) * a.M + m) * a.N;
-      const float v0 = acc[4 * j + h], v1 = acc[4 * j + 2 + h];
-      if (a.splits == 1) {
-        if constexpr (BITS == 16) {
-          a.out[row + c0] = __bfloat16_as_ushort(__float2bfloat16_rn(v0));
-          a.out[row + c1] = __bfloat16_as_ushort(__float2bfloat16_rn(v1));
-        } else {
-          *reinterpret_cast<__nv_bfloat162*>(a.out + row + c0) =
-              __floats2bfloat162_rn(v0, v1);
-        }
-      } else {
-        float* w = a.ws + split * plane + row;
-        if constexpr (BITS == 16) {
-          w[c0] = v0;
-          w[c1] = v1;
-        } else {
-          *reinterpret_cast<float2*>(w + c0) = make_float2(v0, v1);
-        }
-      }
+  store<BITS>(acc, a, g, m0, n0, split, role);
+}
+
+#include "wgmma_wide.cuh"
+
+// SPF: k16 steps per group flush, min(group, 64) / 16 (bf16: 4, unused).
+// BC: the token tile, 128 (this file's consumers) or 160 (wgmma_wide.cuh's).
+template <int BITS, int SPF, int BC>
+__global__ void __launch_bounds__(THREADS, 1)
+wg_matmul_kernel(const __grid_constant__ CUtensorMap tm_x,
+                 const __grid_constant__ CUtensorMap tm_w,
+                 const __grid_constant__ CUtensorMap tm_s, Args a) {
+  using T = Tile<BITS, BC>;
+  constexpr int S = T::STAGES;
+  extern __shared__ __align__(16) char smem_raw[];
+  char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + S * T::STAGE_BYTES);
+  uint64_t* empty = full + S;
+
+  const int g = blockIdx.z;
+  const int split = blockIdx.y % a.splits;
+  const int m0 = (blockIdx.y / a.splits) * BC;
+  const int n0 = blockIdx.x * BN;
+  const int kbeg = split * a.k_chunk;
+  const int kend = min(a.K, kbeg + a.k_chunk);
+  const int nst = (kend - kbeg + BK - 1) / BK;
+  const int srows = a.gs >= BK ? 1 : BK / a.gs;   // scale rows per stage
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, CONSUMERS * 4);      // one arrival per warp
     }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int role = threadIdx.x / 128;
+  if (role == CONSUMERS) {
+    // producer: one thread keeps the ring full
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n"
+                 :: "n"(PRODUCER_REGS));
+    if (threadIdx.x == CONSUMERS * 128)
+      produce<BITS, BC>(&tm_x, &tm_w, &tm_s, a, smem, full, empty, g, m0, n0,
+                        kbeg, nst, srows);
+    return;
+  }
+
+  // consumers: warpgroup ``role`` owns the block's columns 64 role ..
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(CONSUMER_REGS));
+  if constexpr (BC == 128)
+    consume<BITS, SPF>(a, smem, full, empty, nst, g, m0, n0, split, role);
+  else if (a.M - m0 <= WIDE_TAIL)     // a short last tile runs wgmma's n96
+    consume_wide<BITS, SPF, BC, WIDE_TAIL / 2>(a, smem, full, empty, nst, g,
+                                               m0, n0, split, role);
+  else
+    consume_wide<BITS, SPF, BC, BC / 2>(a, smem, full, empty, nst, g, m0, n0,
+                                        split, role);
 }
 
 // cuTensorMapEncodeTiled, reached through the runtime so the library needs
@@ -538,28 +583,29 @@ inline bool make_map(CUtensorMap* map, const void* base,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int BITS, int SPF>
+template <int BITS, int SPF, int BC>
 int launch_spf(const Args& a, const CUtensorMap& tx, const CUtensorMap& tw,
                const CUtensorMap& ts, cudaStream_t s) {
-  using T = Tile<BITS>;
+  using T = Tile<BITS, BC>;
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return static_cast<int>(e);
   static unsigned long long smem_set = 0;   // bit d: set on device d
   const unsigned long long bit = dev < 64 ? 1ull << dev : 0;
   if (!(smem_set & bit)) {
-    e = cudaFuncSetAttribute(wg_matmul_kernel<BITS, SPF>,
+    e = cudaFuncSetAttribute(wg_matmul_kernel<BITS, SPF, BC>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              T::SMEM);
     if (e != cudaSuccess) return static_cast<int>(e);
     smem_set |= bit;
   }
   const dim3 grid((a.N + BN - 1) / BN, ((a.M + BC - 1) / BC) * a.splits, a.G);
-  wg_matmul_kernel<BITS, SPF><<<grid, THREADS, T::SMEM, s>>>(tx, tw, ts, a);
+  wg_matmul_kernel<BITS, SPF, BC><<<grid, THREADS, T::SMEM, s>>>(tx, tw, ts,
+                                                                a);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int BITS>
+template <int BITS, int BC>
 int launch(const Args& a, cudaStream_t s) {
   const auto sw = CU_TENSOR_MAP_SWIZZLE_128B;
   CUtensorMap tx, tw, ts;
@@ -582,12 +628,12 @@ int launch(const Args& a, cudaStream_t s) {
     ts = tx;                            // unused by the bf16 body
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   if constexpr (BITS == 16) {
-    return launch_spf<16, BK / 16>(a, tx, tw, ts, s);
+    return launch_spf<16, BK / 16, BC>(a, tx, tw, ts, s);
   } else {
     switch (a.gs >= BK ? BK / 16 : a.gs / 16) {
-      case 1: return launch_spf<BITS, 1>(a, tx, tw, ts, s);
-      case 2: return launch_spf<BITS, 2>(a, tx, tw, ts, s);
-      case 4: return launch_spf<BITS, 4>(a, tx, tw, ts, s);
+      case 1: return launch_spf<BITS, 1, BC>(a, tx, tw, ts, s);
+      case 2: return launch_spf<BITS, 2, BC>(a, tx, tw, ts, s);
+      case 4: return launch_spf<BITS, 4, BC>(a, tx, tw, ts, s);
       default: return static_cast<int>(cudaErrorInvalidValue);
     }
   }

@@ -1,0 +1,218 @@
+// The wide-token consumers of the wgmma body: every launch whose plan has
+// the 160-token tile (C > 128; a prompt of 257-512 tokens gives each of
+// Mixtral's experts C = 160 at top-2 of 8 and capacity factor 1.25, 1024
+// gives 320, 2048 gives 640). The block, its producer, its stages and its
+// epilogue are wgmma_body.cuh's with a 160-token x box; only the consumer
+// loops here differ.
+//
+// Why they differ. The 128-token consumer holds, per thread, 64 f32 of
+// accumulator and two 64-f32 group partials, so m64n128 is as far as it
+// goes: past 128 tokens that tile was only repeated, and a C = 160 launch
+// ran two tiles of 128 rows, converted every code twice and loaded every
+// weight byte twice. Here each consumer warpgroup runs wgmma.m64n160k16
+// over all 160 tokens with one f32 group partial beside the accumulator
+// (80 + 80 a thread): a warpgroup flushes its partial once its group's
+// wgmmas are done, and converts the next stage's codes into a second set of
+// fragments while they run. Each code is converted once and each weight
+// byte loaded once per 160 tokens.
+//
+// The last token tile of a launch that holds at most WIDE_TAIL tokens (C =
+// 161-256, and any C whose last tile is that short) runs the same loops
+// with wgmma.m64n96k16, so C = 256 flushes 256 rows, not 320.
+//
+// What the card showed on the way (the numbers are in PERF.md): a block of
+// 64 columns by up to 256 tokens, its two warpgroups splitting the tokens
+// and sharing one A operand converted into shared memory, ran no faster
+// than two 128-token tiles. Its TMA loads alone took half that time, each x
+// row feeding only 64 columns, and multicasting x over a 2- or 4-block
+// cluster changed nothing. 128 columns halve the x bytes each product
+// needs. The flushes set the int time: without them the int4 bank ran in
+// the time of its TMA loads alone, and neither turn-taking between the two
+// warpgroups nor an x cluster made them overlap the other warpgroup's
+// wgmmas.
+//
+// Arithmetic as in the other bodies: codes are exact bf16 integers; each
+// group of min(group, 64) K runs its k16 steps into a fresh f32 partial
+// (scale-d 0 on its first step), then acc = fmaf(part, scale[n], acc) in
+// ascending K; bf16 weights accumulate straight into acc. wgmma computes
+// each output element on its own, so a token's row depends neither on the
+// row's place in the tile, nor on the token count, nor on n96 or n160.
+
+#pragma once
+
+// (included by wgmma_body.cuh inside namespace wg, before the kernel)
+
+// a last token tile of at most this many tokens runs wgmma's n96
+constexpr int WIDE_TAIL = 96;
+
+#define WG_D0_47                                                           \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "           \
+  "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, "      \
+  "%27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, "      \
+  "%40, %41, %42, %43, %44, %45, %46, %47"
+#define WG_D48_79                                                          \
+  ", %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, "    \
+  "%61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, "      \
+  "%74, %75, %76, %77, %78, %79"
+#define WG_OPS8(d, i)                                                      \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),              \
+  "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+#define WG_OPS48(d)                                                        \
+  WG_OPS8(d, 0), WG_OPS8(d, 8), WG_OPS8(d, 16), WG_OPS8(d, 24),            \
+  WG_OPS8(d, 32), WG_OPS8(d, 40)
+#define WG_OPS80(d)                                                        \
+  WG_OPS48(d), WG_OPS8(d, 48), WG_OPS8(d, 56), WG_OPS8(d, 64),             \
+  WG_OPS8(d, 72)
+
+// d (+)= A (64 x 16, registers) . B (16 x 96 or 160, shared memory);
+// ``accumulate`` 0 ignores d's old value (a group's first k16 step).
+__device__ __forceinline__ void wgmma_rs(float (&d)[48], const uint32_t (&a)[4],
+                                         uint64_t b_desc, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {" WG_D0_47
+      "}, {%48, %49, %50, %51}, %52, p, 1, 1, 0;\n}\n"
+      : WG_OPS48(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b_desc),
+        "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[80], const uint32_t (&a)[4],
+                                         uint64_t b_desc, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %85, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n160k16.f32.bf16.bf16 {" WG_D0_47
+      WG_D48_79 "}, {%80, %81, %82, %83}, %84, p, 1, 1, 0;\n}\n"
+      : WG_OPS80(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b_desc),
+        "r"(accumulate));
+}
+
+// d += A (64 x 16, shared memory, MN-major) . B (16 x 96 or 160, shared
+// memory).
+__device__ __forceinline__ void wgmma_ss(float (&d)[48], uint64_t a_desc,
+                                         uint64_t b_desc) {
+  asm volatile(
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {" WG_D0_47
+      "}, %48, %49, 1, 1, 1, 1, 0;\n"
+      : WG_OPS48(d)
+      : "l"(a_desc), "l"(b_desc));
+}
+
+__device__ __forceinline__ void wgmma_ss(float (&d)[80], uint64_t a_desc,
+                                         uint64_t b_desc) {
+  asm volatile(
+      "wgmma.mma_async.sync.aligned.m64n160k16.f32.bf16.bf16 {" WG_D0_47
+      WG_D48_79 "}, %80, %81, 1, 1, 1, 1, 0;\n"
+      : WG_OPS80(d)
+      : "l"(a_desc), "l"(b_desc));
+}
+
+#undef WG_D0_47
+#undef WG_D48_79
+#undef WG_OPS8
+#undef WG_OPS48
+#undef WG_OPS80
+
+// One stage of the int4/int8 consumer with fragments ``f`` (converted
+// before): each group's wgmmas run into the partial, which is flushed into
+// acc once they are done; while the stage's first group runs, the next
+// stage's codes are converted into ``fn``. BC is the block's token tile
+// (the stage's x rows), R the accumulator registers (the wgmma's N / 2).
+template <int BITS, int SPF, int BC, int R>
+__device__ __forceinline__ void wide_stage(
+    float (&acc)[R], float (&part)[R], const uint32_t (&f)[BK / 16][4],
+    uint32_t (&fn)[BK / 16][4], char* smem, uint64_t* full, uint64_t* empty,
+    int it, int nst, int warp_col, int lane, int col) {
+  using T = Tile<BITS, BC>;
+  constexpr int S = T::STAGES;
+  constexpr int NG = BK / 16 / SPF;          // groups per stage
+  const char* st = smem + (it % S) * T::STAGE_BYTES;
+  const uint32_t xs = smem_u32(st);
+#pragma unroll
+  for (int grp = 0; grp < NG; ++grp) {
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < SPF; ++j) {
+      const int step = grp * SPF + j;
+      wgmma_rs(part, f[step], desc_sw128(xs + step * 32, 1, 64), j != 0);
+    }
+    wgmma_commit();
+    if (grp == 0 && it + 1 < nst) {
+      const int nx = it + 1;
+      mbar_wait(full + nx % S, (nx / S) & 1);
+      load_a<BITS>(fn, smem + (nx % S) * T::STAGE_BYTES + T::X_BYTES,
+                   warp_col, lane);
+    }
+    wgmma_wait<0>();
+    fence_regs(part);
+    flush<BITS>(acc, part, st + T::X_BYTES, grp, col);
+  }
+  release(empty + it % S, lane);
+}
+
+// Issue one bf16 stage's wgmmas into acc once the stage has landed.
+template <int BC, int R>
+__device__ __forceinline__ void wide_bf16_stage(float (&acc)[R], char* smem,
+                                                uint64_t* full, int it,
+                                                int role) {
+  using T = Tile<16, BC>;
+  const int s = it % T::STAGES;
+  mbar_wait(full + s, (it / T::STAGES) & 1);
+  const char* st = smem + s * T::STAGE_BYTES;
+  const uint32_t xs = smem_u32(st);
+  const uint32_t ws = smem_u32(st + T::X_BYTES + role * (T::W_BYTES / 2));
+  wgmma_fence();
+#pragma unroll
+  for (int step = 0; step < BK / 16; ++step)
+    wgmma_ss(acc, desc_sw128(ws + step * 2048, 64, 64),
+             desc_sw128(xs + step * 32, 1, 64));
+  wgmma_commit();
+}
+
+// A consumer warpgroup's whole K range at wgmma N = 2 R, then its store.
+template <int BITS, int SPF, int BC, int R>
+__device__ __forceinline__ void consume_wide(
+    const Args& a, char* smem, uint64_t* full, uint64_t* empty, int nst,
+    int g, int m0, int n0, int split, int role) {
+  using T = Tile<BITS, BC>;
+  constexpr int S = T::STAGES;
+  const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3;
+  const int warp_col = role * 64 + warp * 16;        // the warp's 16 columns
+  const int col = warp_col + 2 * (lane >> 2);        // codes: columns col, +1
+  float acc[R];
+#pragma unroll
+  for (int i = 0; i < R; ++i) acc[i] = 0.0f;
+
+  if constexpr (BITS == 16) {
+    // both operands in the stage; a stage's wgmmas run while the next
+    // stage's are issued (stage 0 before the loop, so one group is in
+    // flight on every path into the loop's head)
+    wide_bf16_stage<BC>(acc, smem, full, 0, role);
+    for (int it = 1; it < nst; ++it) {
+      wide_bf16_stage<BC>(acc, smem, full, it, role);
+      wgmma_wait<1>();             // the previous stage's wgmmas are done
+      release(empty + (it - 1) % S, lane);
+    }
+    wgmma_wait<0>();
+    fence_regs(acc);
+    release(empty + (nst - 1) % S, lane);
+  } else {
+    // codes -> registers -> wgmma; two fragment sets in turn (register
+    // arrays are indexed at compile time only, so stages go in pairs)
+    float part[R];
+#pragma unroll
+    for (int i = 0; i < R; ++i) part[i] = 0.0f;
+    uint32_t f0[BK / 16][4], f1[BK / 16][4];
+    mbar_wait(full, 0);
+    load_a<BITS>(f0, smem + T::X_BYTES, warp_col, lane);
+    for (int it = 0; it < nst; it += 2) {
+      wide_stage<BITS, SPF, BC>(acc, part, f0, f1, smem, full, empty, it, nst,
+                                warp_col, lane, col);
+      if (it + 1 < nst)
+        wide_stage<BITS, SPF, BC>(acc, part, f1, f0, smem, full, empty,
+                                  it + 1, nst, warp_col, lane, col);
+    }
+  }
+  store<BITS>(acc, a, g, m0, n0, split, role);
+}

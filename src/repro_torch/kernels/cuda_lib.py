@@ -1,23 +1,23 @@
 """Build, load and launch the port's CUDA kernels.
 
 The ``.cu`` files of ``csrc/`` (``dequant_matmul.cu``, which includes the
-wgmma body ``wgmma_body.cuh``, and ``wgmma_wide.cu``, the wide-token
-wgmma body) are compiled by hand with ``nvcc`` for ``sm_90a``, one
-``nvcc`` process per file, all started together, and linked into one
-shared library with a plain C interface, loaded with ``ctypes`` (no
-PyTorch headers, so a build takes seconds). The build happens at first
-use, from the sources in the checkout, into ``build/kernels/`` at the repo
-root (listed in ``.gitignore``); the library's file name carries a digest
-of every file under ``csrc/`` and the flags, so a changed source or header
-never loads a stale library. There is no fallback: a missing ``nvcc``, a
-failed build or a refused launch raises.
+wgmma body ``wgmma_body.cuh`` and its wide-token consumers
+``wgmma_wide.cuh``) are compiled by hand with ``nvcc`` for
+``sm_90a`` into one shared library with a plain C interface and loaded with
+``ctypes`` (no PyTorch headers, so a build takes seconds). The build
+happens at first use, from the sources in the checkout, into
+``build/kernels/`` at the repo root (listed in ``.gitignore``); the
+library's file name carries a digest of every file under ``csrc/`` and the
+flags, so a changed source or header never loads a stale library. There
+is no fallback: a missing ``nvcc``, a failed build or a refused launch
+raises.
 
 ``LAUNCHES`` holds one plain integer per kernel wrapper; a wrapper adds one
 where it launches its kernel and nowhere else. ``GROUP_LAUNCHES`` splits
 the grouped wrappers' launches by the bank's expert count G, and
 ``BODY_LAUNCHES`` every dequant-matmul launch by (wrapper, body): the
 ``mma_sync`` body serves token tiles up to 64, the ``wgmma`` body the
-128-token tile and the ``wgmma_wide`` body tiles of 160 to 256 tokens
+128-token tile and the ``wgmma_wide`` body the 160-token tile
 (``q4_matmul.launch_plan``).
 """
 from __future__ import annotations
@@ -35,9 +35,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 LIB_STEM = "dequant_matmul"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-#: the link of the objects into the library
-LINK_FLAGS = ("-shared",)
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 #: launches per kernel wrapper (see module docstring)
 LAUNCHES: Dict[str, int] = {
@@ -88,7 +86,7 @@ def _lib_path() -> Path:
     h = hashlib.sha256()
     for p in _sources():
         h.update(p.name.encode() + b"\0" + p.read_bytes() + b"\0")
-    h.update(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
+    h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{LIB_STEM}-{h.hexdigest()[:16]}.so"
 
 
@@ -101,34 +99,17 @@ def build() -> Path:
     if lib.exists():
         BUILD_LOG = log.read_text() if log.exists() else ""
         return lib
-    nvcc = _nvcc()
+    cmd = [_nvcc(), *NVCC_FLAGS]
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    stem = lib.with_suffix(f".{os.getpid()}")
-    units = [p for p in _sources() if p.suffix == ".cu"]
-    objs = [Path(f"{stem}.{p.stem}.o") for p in units]
-    logs = [o.with_suffix(".log") for o in objs]
-    procs = []
-    for u, o, lg in zip(units, objs, logs):
-        with open(lg, "w") as f:         # a file each: no pipe fills up
-            procs.append(subprocess.Popen(
-                [nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(u)], stdout=f,
-                stderr=subprocess.STDOUT))
-    rcs = [p.wait() for p in procs]
-    BUILD_LOG = "".join(lg.read_text() for lg in logs)
-    failed = [str(u) for u, rc in zip(units, rcs) if rc != 0]
-    tmp = Path(f"{stem}.tmp")
-    if not failed:
-        proc = subprocess.run([nvcc, *LINK_FLAGS, "-o", str(tmp),
-                               *map(str, objs)], stdout=subprocess.PIPE,
-                              stderr=subprocess.STDOUT, text=True)
-        BUILD_LOG += proc.stdout
-        if proc.returncode != 0:
-            failed = ["the link"]
-    for o in objs + logs:
-        o.unlink(missing_ok=True)
-    if failed:
-        raise RuntimeError(f"nvcc failed for {failed}:\n{BUILD_LOG}")
-    log.write_text(BUILD_LOG)
+    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+    units = [str(p) for p in _sources() if p.suffix == ".cu"]
+    proc = subprocess.run([*cmd, "-o", str(tmp), *units],
+                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                          text=True)
+    BUILD_LOG = proc.stdout
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {units}:\n{proc.stdout}")
+    log.write_text(proc.stdout)
     os.replace(tmp, lib)
     return lib
 

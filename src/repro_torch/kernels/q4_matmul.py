@@ -129,7 +129,10 @@ def launch_plan(c: int, k: int, n: int, bits: int) -> LaunchPlan:
     (C = 160, 320, 640: the 512-, 1024- and 2048-token buckets at top-2 of
     8 and capacity factor 1.25 fill whole tiles). K splits by the same two
     caps, counted over the column tiles alone and the byte cap at 160
-    tokens, so that every C > 128 shares one set of splits.
+    tokens, so that every C > 128 shares one set of splits. A last tile of
+    at most 96 tokens (C = 161-256 among others) runs the body's n96
+    consumers inside the same launch, so C = 256 computes 256 rows, not
+    320.
 
     It takes no expert count: a bank of G experts runs each expert exactly
     as a launch of one would. ``bits`` (4, 8 or 16) is checked; only the
