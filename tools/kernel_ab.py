@@ -4,7 +4,7 @@ checkout on one NVIDIA card, in turns, at ``chip_smoke.py``'s shapes.
 
     mkdir -p build/ab/parent                # build/ is ignored by git
     git archive <commit> | tar -x -C build/ab/parent
-    python3 tools/kernel_ab.py --parent build/ab/parent [--shapes a,b]
+    python3 tools/kernel_ab.py --parent build/ab/parent
 
 Two worker processes, one per checkout, each import their own
 ``repro_torch`` (so each builds its own kernels) and reach them through
@@ -161,8 +161,6 @@ def main(argv=None) -> int:
     ap.add_argument("--parent", help="an unpacked earlier checkout")
     ap.add_argument("--out", default=str(ROOT / "chiprun_out"
                                          / "kernel_ab.json"))
-    ap.add_argument("--shapes", help="comma-separated labels of "
-                    "chip_smoke.SHAPES to time (default: every one)")
     ap.add_argument("--worker", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.worker:
@@ -178,10 +176,6 @@ def main(argv=None) -> int:
                          "src/repro_torch")
     sys.path.insert(0, str(ROOT))
     import chip_smoke as cs
-    shapes = args.shapes.split(",") if args.shapes else list(cs.SHAPES)
-    unknown = sorted(set(shapes) - set(cs.SHAPES))
-    if unknown:
-        raise SystemExit(f"kernel_ab: no such shapes {unknown}")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -192,7 +186,7 @@ def main(argv=None) -> int:
     rows = []
     try:
         for name in KERNELS:
-            for shape in shapes:
+            for shape in cs.SHAPES:
                 ab = [workers[w].ask(name, shape)
                       for w in ("parent", "this", "this", "parent")]
                 first = workers["this"].ask(name, shape)
