@@ -22,7 +22,10 @@ Phases (each raises on failure, and the script then exits non-zero):
                has q4, q8 and bf16 experts: 4 requests of 16 prompt tokens
                x 8 new tokens, a cold pass and a warm rerun. Every serve
                pass zeroes the kernels' launch counters just before and
-               reads them just after, and requires B3 (q4, q8) and B4;
+               reads them just after, and requires B3 (q4, q8), B4 and
+               launches whose plan splits K (``SPLIT_LAUNCHES``: each
+               reduces its splits in its own epilogue; there is no
+               stand-alone reduction kernel or counter);
      3b. paged == slot — the model hooks give bit-equal prefill and
                first-decode logits through pages and slot rows; a
                ``paged_kv=False`` engine serves the same greedy tokens;
@@ -112,8 +115,9 @@ Phases (each raises on failure, and the script then exits non-zero):
                ``Model.prefill`` of 2 x 8 tokens + 4 greedy decode steps
                with the kernels on, logits bytes equal to ep 1; each rank
                launches each of its bank shards at G = bank / ep (3
-               matrices x 2 layers x 5 forwards) and the split-K
-               reduction, booked per rank;
+               matrices x 2 layers x 5 forwards), and launches whose
+               plan splits K (reduced in their own epilogue), booked per
+               rank;
      8b. engine — default paged engines at ep 1, 2, 4: a three-rung point
                A of the ep 2 frontier, 4 requests, a replan to a point B
                of the ep 4 frontier that moves experts between the ranks
@@ -273,8 +277,8 @@ Phases (each raises on failure, and the script then exits non-zero):
                tokens, a warm rerun equal, the one-device engine's tokens
                equal up to near-ties (a router top-k boundary below 2**-8
                or a top-2 logit margin below twice 9c's bar, met by that
-               request on the split path), B3 (q4, q8), B4 and
-               ``splitk_reduce`` launched at every position of every
+               request on the split path), B3 (q4, q8), B4 and launches
+               that split K launched at every position of every
                config (counts printed per position), ms per decode
                iteration and tokens/s of a warm pass beside one device's,
                peak GB and KV pool bytes per position (the pool's over
@@ -292,7 +296,10 @@ Phases (each raises on failure, and the script then exits non-zero):
                down), 320 and 256 (up), which the wide wgmma body serves
                (256: a 160-token tile and an n96 tail); within one bf16 ulp
                of |plain| + 1e-3, and two launches bit-equal; the split-K
-               reduction (at C = 4) bit-equal to its plain version;
+               epilogue at every row that splits K and every bank: ``out``
+               byte-equal to ``splitk_reduce_plain`` of the partials left
+               in a caller-given workspace, eager, on a second launch and
+               after a CUDA-graph replay;
                bit-exact checks in the three bodies (grouped ==
                per-expert, integer-friendly inputs, empty group == zeros,
                f32 dequant), row invariance on one plan (rows of a C = 12
@@ -303,9 +310,8 @@ Phases (each raises on failure, and the script then exits non-zero):
                two plans split K alike, the
                G = 8 draft bank at C = 12; device times (CUDA graphs)
                beside the plain version, the bound and a library yardstick
-               (``torch.bmm`` on the dequantized bf16 weights, and
-               ``torch.sum`` over the split axis for the reduction, which
-               the port never calls); B3 (int4 and int8) at Kimi-K2's widths
+               (``torch.bmm`` on the dequantized bf16 weights, which the
+               port never calls); B3 (int4 and int8) at Kimi-K2's widths
                and G = 384, C = 8 (up: K 7168, N 2048; down: K 2048, N
                7168), and the int4 bank's up-projection at C = 108 (a
                4096-token prefill bucket), held against its plain version
@@ -488,6 +494,12 @@ def phase_build():
                   if any(c in n for c in ("C7513", "C7514", "C7517"))]
     if serialized:
         raise AssertionError(f"ptxas serialized wgmmas: {serialized[:3]}")
+    # the split-K reduction lives in the matmuls' epilogues: no kernel of
+    # its own
+    reduce = [r["kernel"] for r in rows if "splitk" in r["kernel"]]
+    if reduce:
+        raise AssertionError(f"a stand-alone split-K kernel is built: "
+                             f"{reduce}")
     return secs, rows
 
 
@@ -534,6 +546,7 @@ def serve_pass(torch, engine, prompts):
             for p in prompts]
     engine.run_iteration()
     before, iters = dict(ops.LAUNCHES), engine.metrics["iterations"]
+    split0 = split_count(ops)
     engine.step()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -549,8 +562,12 @@ def serve_pass(torch, engine, prompts):
             "group_launches": {f"{k}@G={g}": v for (k, g), v
                                in sorted(ops.GROUP_LAUNCHES.items())},
             "body_launches": body_launches(ops.BODY_LAUNCHES),
+            "split_launches": split_count(ops),
+            "split_body_launches": body_launches(ops.SPLIT_LAUNCHES),
             "launches_per_decode_iter": {
                 k: (ops.LAUNCHES[k] - before[k]) / n for k in before},
+            "split_launches_per_decode_iter":
+            (split_count(ops) - split0) / n,
             "iterations": m["iterations"],
             "decode_ms_per_iter": m["decode_s"] / max(m["iterations"], 1)
             * 1e3,
@@ -561,8 +578,28 @@ def serve_pass(torch, engine, prompts):
 
 
 def body_launches(counter) -> dict:
-    """``cuda_lib.BODY_LAUNCHES`` as {"wrapper/body": n}."""
+    """``cuda_lib.BODY_LAUNCHES`` (or ``SPLIT_LAUNCHES``) as
+    {"wrapper/body": n}."""
     return {f"{k}/{b}": v for (k, b), v in sorted(counter.items())}
+
+
+def split_count(ops) -> int:
+    """The matmul launches booked so far whose plan split K: each reduced
+    its split partials in its own epilogue."""
+    return sum(ops.SPLIT_LAUNCHES.values())
+
+
+def require_split_launches(n: int, what: str) -> None:
+    """A path that split K booked its launches, and no stand-alone
+    reduction kernel is counted anywhere."""
+    from repro_torch.kernels import ops
+    if "splitk_reduce" in ops.LAUNCHES:
+        raise AssertionError(f"{what}: a stand-alone splitk_reduce is still "
+                             "counted")
+    if n <= 0:
+        raise AssertionError(f"{what}: no launch split K (the split-K "
+                             "epilogue never ran): "
+                             f"{dict(ops.SPLIT_LAUNCHES)}")
 
 
 def require_launches(launches, what: str, names=MAIN_KERNELS):
@@ -579,8 +616,11 @@ def log_pass(what: str, card: str, r) -> None:
         f"({r['iterations']} iterations), prefill "
         f"{r['prefill_ms_per_request']:.3f} ms per request, expert transfer "
         f"{r['transfer_s']:.3f} s, staging {r['stage_s']:.3f} s; launches "
-        f"{r['launches']}, per decode iteration "
-        f"{r['launches_per_decode_iter']}")
+        f"{r['launches']} ({sum(r['launches'].values())} in all), per "
+        f"decode iteration {r['launches_per_decode_iter']} "
+        f"({sum(r['launches_per_decode_iter'].values()):g} in all); split K "
+        f"{r['split_launches']} ({r['split_launches_per_decode_iter']:g} "
+        f"per decode iteration, each reduced in its epilogue)")
     log(f"    {r['summary']}")
 
 
@@ -626,7 +666,7 @@ def phase_serve(torch, np, seed: int, card: str, profile: bool = False):
     prompts = [rng.integers(1, cfg.vocab_size, size=16) for _ in range(4)]
     cold = serve_pass(torch, engine, prompts)
     require_launches(cold["launches"], "serve")
-    require_launches(cold["launches"], "serve", ("splitk_reduce",))
+    require_split_launches(cold["split_launches"], "serve")
     log_pass("cold pass", card, cold)
     log(f"  tokens: {cold['tokens']}")
     # the same traffic again on the warm engine (host blobs and the swap
@@ -1762,7 +1802,8 @@ class _RankLaunches:
     runs: ``mixed_moe._dispatch_local`` is given each rank's index just
     before that rank's ``_expert_ffn``, so the launches an FFN call makes
     belong to the rank dispatched last. ``by_rank[r]`` counts
-    ``(wrapper, G)`` and ``("splitk_reduce", 0)``."""
+    ``(wrapper, G)`` and, as ``("split_k", 0)``, the launches among them
+    whose plan split K."""
 
     def __enter__(self):
         import collections
@@ -1779,13 +1820,13 @@ class _RankLaunches:
 
         def ffn(*a, **kw):
             before = collections.Counter(ops.GROUP_LAUNCHES)
-            s0 = ops.LAUNCHES["splitk_reduce"]
+            s0 = split_count(ops)
             out = self._ffn(*a, **kw)
             delta = collections.Counter(ops.GROUP_LAUNCHES)
             delta.subtract(before)
             book = self.by_rank[rank["r"]]
             book.update(+delta)
-            book[("splitk_reduce", 0)] += ops.LAUNCHES["splitk_reduce"] - s0
+            book[("split_k", 0)] += split_count(ops) - s0
             return out
 
         mixed_moe._dispatch_local, mixed_moe._expert_ffn = dispatch, ffn
@@ -1805,8 +1846,8 @@ def _shard_keys(plan, ep: int):
 def _require_rank_launches(by_rank, plan, ep: int, what: str,
                            per_bank=None):
     """Every rank launched each of its bank shards at G = bank / ep (and
-    nothing at another G), ``per_bank`` times where given, and the split-K
-    reduction."""
+    nothing at another G), ``per_bank`` times where given, and split K in
+    some of them (the split-K epilogue)."""
     if sorted(by_rank) != list(range(ep)):
         raise AssertionError(f"{what}: launches by rank {sorted(by_rank)}, "
                              f"want ranks 0..{ep - 1}")
@@ -1814,14 +1855,12 @@ def _require_rank_launches(by_rank, plan, ep: int, what: str,
     for r in range(ep):
         book = by_rank[r]
         got = sorted(k for k, v in book.items()
-                     if k[0] != "splitk_reduce" and v)
+                     if k[0] != "split_k" and v)
         if got != want or (per_bank is not None
                            and any(book[k] != per_bank for k in want)):
             raise AssertionError(f"{what}: rank {r} launched {dict(book)}, "
                                  f"want {want} x {per_bank}")
-        if book[("splitk_reduce", 0)] <= 0:
-            raise AssertionError(f"{what}: rank {r} never launched "
-                                 f"splitk_reduce: {dict(book)}")
+        require_split_launches(book[("split_k", 0)], f"{what}: rank {r}")
 
 
 def _ep_decode(torch, cfg, params, mesh, tokens):
@@ -1888,7 +1927,7 @@ def _ep_model_level(torch, np, ctx, seed: int, distinct: bool = False):
                                  "ep=1")
         _require_rank_launches(ranks.by_rank, plan, ep, f"8a ep={ep}",
                                3 * L * EP_FORWARDS)
-        per_rank = {r: {f"{k}@G={g}" if k != "splitk_reduce" else k: v
+        per_rank = {r: {f"{k}@G={g}" if k != "split_k" else k: v
                         for (k, g), v in sorted(b.items())}
                     for r, b in sorted(ranks.by_rank.items())}
         log(f"  8a ep={ep}: plan per layer {per_layer} (ladder {ladder}), "
@@ -2047,7 +2086,7 @@ def _ep_group_and_cli(torch, np, ctx, seed: int, distinct: bool = False):
             decisions.append(d)
             drained = drained or (d == -1 and g.metrics["draining"] == 1)
         tick += 1.0
-    launches = dict(ops.LAUNCHES)
+    launches, splits = dict(ops.LAUNCHES), split_count(ops)
     group_launches = {f"{k}@G={n}": ops.GROUP_LAUNCHES[(k, n)]
                       for k, n in shard_keys}
     got = [len(g.result(r).tokens) for r in rids]
@@ -2055,16 +2094,17 @@ def _ep_group_and_cli(torch, np, ctx, seed: int, distinct: bool = False):
         raise AssertionError(f"8c: tokens {got} (want {lengths}), drained "
                              f"with work {drained}, {len(g.engines)} "
                              f"engines left, decisions {decisions}")
-    if not all(group_launches.values()) or not launches["splitk_reduce"]:
+    if not all(group_launches.values()):
         raise AssertionError(f"8c group: shards {shard_keys} not all "
                              f"launched: {dict(ops.GROUP_LAUNCHES)}")
+    require_split_launches(splits, "8c group")
     secs = time.perf_counter() - t0
     log(f"  8c dp=2 x ep=2 over {'cuda:0-3' if distinct else 'cuda:0 x 4'}"
         f" ({secs:.2f} s): point "
         f"{points[0].summary()}; autoscaler decisions {decisions}, a "
         f"replica drained with a request in flight; {len(rids)} requests "
         f"retired with {got} tokens; shard launches {group_launches}, "
-        f"splitk_reduce {launches['splitk_reduce']}")
+        f"split K {splits} (reduced in their epilogues)")
     g.close()
     del g
     _release(torch)
@@ -2185,7 +2225,8 @@ class _PositionLaunches:
     """Books the grouped kernels' launches by mesh position while
     ``moe_apply`` runs: ``mixed_moe._local_fn`` is given each position's
     index, and the launch functions record ``(kernel, G, C, K, N)`` under
-    the position whose FFN is running, plus its ``splitk_reduce``s. With
+    the position whose FFN is running, plus, as ``split_k``, how many of
+    them split K (reduced in their own epilogue). With
     ``check``, every launch's output is held against its plain version on
     the same inputs (those plain calls launch nothing)."""
 
@@ -2206,10 +2247,9 @@ class _PositionLaunches:
 
         def local(pos, *a, **kw):
             at["p"] = pos
-            s0 = cuda_lib.LAUNCHES["splitk_reduce"]
+            s0 = split_count(cuda_lib)
             out = self._local(pos, *a, **kw)
-            self.by_pos[pos]["splitk_reduce"] += \
-                cuda_lib.LAUNCHES["splitk_reduce"] - s0
+            self.by_pos[pos]["split_k"] += split_count(cuda_lib) - s0
             return out
 
         def held(key, out, want):
@@ -2231,8 +2271,8 @@ class _PositionLaunches:
                     x, wq, scales, bits=bits, group_size=group_size))
             return out
 
-        def bf(x, w):
-            out = self._bf(x, w)
+        def bf(x, w, **kw):
+            out = self._bf(x, w, **kw)
             key = ("grouped_bf16", *x.shape, w.shape[2])
             self.by_pos[at["p"]][key] += 1
             if self.check:
@@ -2248,15 +2288,15 @@ class _PositionLaunches:
         self.gk.launch_dequant, self.gk.launch_bf16 = self._dq, self._bf
 
     def table(self):
-        """Position -> {"kernel@G=g CxKxN": launches, "splitk_reduce": n}."""
-        return {p: {(k if k == "splitk_reduce" else
+        """Position -> {"kernel@G=g CxKxN": launches, "split_k": n}."""
+        return {p: {(k if k == "split_k" else
                      f"{k[0]}@G={k[1]} {k[2]}x{k[3]}x{k[4]}"): v
                     for k, v in sorted(book.items(), key=str) if v}
                 for p, book in sorted(self.by_pos.items())}
 
     def require(self, n_pos: int, banks, what: str, splits: bool):
-        """Every position launched each bank's three matrices (and the
-        split-K reduction where the plans split K)."""
+        """Every position launched each bank's three matrices (and, where
+        the plans split K, launches that did)."""
         if sorted(self.by_pos) != list(range(n_pos)):
             raise AssertionError(f"{what}: launches at positions "
                                  f"{sorted(self.by_pos)}, want 0..{n_pos - 1}")
@@ -2264,13 +2304,13 @@ class _PositionLaunches:
         for p, book in self.by_pos.items():
             for bits in banks:
                 n = sum(v for k, v in book.items()
-                        if k != "splitk_reduce" and k[0] == names[bits])
+                        if k != "split_k" and k[0] == names[bits])
                 if n < 3:
                     raise AssertionError(f"{what}: position {p} launched "
                                          f"{names[bits]} {n} times")
-            if splits and book["splitk_reduce"] <= 0:
-                raise AssertionError(f"{what}: position {p} never launched "
-                                     "splitk_reduce")
+            if splits:
+                require_split_launches(book["split_k"],
+                                       f"{what}: position {p}")
 
 
 def _path_record(torch, what: str, launches: dict, per_iter=None):
@@ -2852,7 +2892,7 @@ def phase_engine_mesh(torch, np, seed: int, card: str,
     replan A -> B: paged == slot and overlap == sync (every sampled
     logit bit-equal), speculative == plain greedy tokens, a rerun
     bit-equal, the one-device engine's tokens held by 9c's rule
-    (``near_ties.hold_tokens``), B3, B4 and splitk_reduce launched at
+    (``near_ties.hold_tokens``), B3, B4 and split-K launches at
     every position; ms per iteration, tokens/s, peak GB and KV bytes per
     position beside one device's."""
     from repro_torch.dist import sharding as SH
@@ -2896,6 +2936,8 @@ def phase_engine_mesh(torch, np, seed: int, card: str,
                    rows=seen.rows, ties=seen.ties, book=book,
                    launches={k: pa["launches"][k] + pb["launches"][k]
                              for k in pa["launches"]},
+                   split_launches=pa["split_launches"]
+                   + pb["split_launches"],
                    iterations=pa["iterations"] + pb["iterations"],
                    bits=eng.current_plan.bits.copy())
         if rerun:                   # the B traffic again, warm, timed
@@ -2951,18 +2993,18 @@ def phase_engine_mesh(torch, np, seed: int, card: str,
     if faults:
         raise AssertionError(f"11: the split against one device: "
                              f"{'; '.join(faults)} ({held.summary()})")
-    # launches: every position ran B3 (q4, q8), B4 and the split-K
-    # reduction on every path
+    # launches: every position ran B3 (q4, q8), B4 and launches that split
+    # K (reduced in their epilogues) on every path
     by_path = {}
     for name, rec in runs.items():
         rec["book"].require(n, {4: 1, 8: 1, 16: 1}, f"11 {name}",
                             splits=True)
         by_path[name] = rec["book"].table()
-        require_launches(rec["launches"], f"11 {name}",
-                         MAIN_KERNELS + ("splitk_reduce",))
+        require_launches(rec["launches"], f"11 {name}")
+        require_split_launches(rec["split_launches"], f"11 {name}")
     shapes = sorted({k for rec in runs.values()
                      for book in rec["book"].by_pos.values() for k in book
-                     if k != "splitk_reduce"}, key=str)
+                     if k != "split_k"}, key=str)
     kv = paged["kv_bytes_per_position"]
     if len(set(kv)) != 1 or kv[0] * ENGINE_MESH[0] != paged["kv_total_bytes"]:
         raise AssertionError(f"11: KV pool bytes per position {kv}, total "
@@ -5119,7 +5161,10 @@ def phase_kernels(torch, np, sizes, seed: int, reps: int, more=()):
                           "N": r["N"]}})
         extra.append({"name": name, "tag": tag, **{
             lbl: r for lbl, r in rows.items()}})
-    records.append(_reduce_record(torch, gen, qk, sizes, reps, extra))
+    # the split-K reduction has no kernel of its own (it is the matmuls'
+    # epilogue), so it has no record: only its check
+    extra.append({"name": "split-K epilogue", "checked":
+                  _split_epilogue_check(torch, gen, qk, sizes)})
     _exact_checks(torch, gen, gk, ops, QTensor)
     _row_invariance(torch, gen, ops, sizes)
     log(f"kernels: B3 at Kimi-K2's widths, G = {KIMI_G}")
@@ -5244,59 +5289,67 @@ def _row_invariance(torch, gen, ops, sizes):
         f"alike: {across}")
 
 
-def _reduce_record(torch, gen, qk, sizes, reps, extra):
-    """The split-K reduction at the workspaces of the q8 bank's decode up-
-    and down-projections, at the serve point's C = 4 (the record) and at C
-    = 8: bit-equal to its plain version (f32 adds in split order, one
-    cast) and to itself on a second launch."""
-    rows = {}
-    g = sizes[8]
-    for label in ("decode4_up", "decode4_down", "up", "down"):
-        c, k, n = SHAPES[label]
-        splits = qk.launch_plan(c, k, n, 8).splits
-        count = g * c * n
-        cases = [torch.randn((splits, g, c, n), generator=gen,
+def _split_epilogue_check(torch, gen, qk, sizes):
+    """The split-K epilogue at every row of ``SHAPES`` whose plan splits K,
+    for every bank (B1 and B2 at G = 1, B3 q4 and q8 and B4 at the serving
+    layout's G): the launch on a caller-given workspace leaves the split
+    partials there, and ``out`` is byte-equal to ``splitk_reduce_plain`` of
+    them, eager, on a second launch, and as the last of two launches in a
+    replayed CUDA graph (the workspace poisoned before the replay).
+    Returns the (bank, row) cases checked."""
+    banks = (("q4_matmul", 4, 1), ("q8_matmul", 8, 1),
+             ("grouped_q4", 4, sizes[4]), ("grouped_q8", 8, sizes[8]),
+             ("grouped_bf16", 16, sizes[16]))
+    checked = []
+    for label, (c, k, n) in SHAPES.items():
+        for name, bits, g in banks:
+            plan = qk.launch_plan(c, k, n, bits)
+            if plan.splits == 1:
+                continue
+            x, w = _make_bank(torch, gen, g, c, k, n, bits)
+            if bits == 16:
+                def run(ws, x=x, w=w):
+                    return qk.launch_bf16(x, w, ws=ws)
+            else:
+                def run(ws, x=x, w=w, bits=bits, name=name, n=n):
+                    return qk.launch_dequant(
+                        x, w.q, w.scales, bits=bits, group_size=GROUP,
+                        n=n, name=name, ws=ws)
+            ws = torch.empty((plan.splits, g, c, n), dtype=torch.float32,
                              device="cuda")
-                 for _ in range(_copies(torch, splits * count * 4))]
-        got = qk.splitk_reduce(cases[0])
-        again = qk.splitk_reduce(cases[0])
-        want = qk.splitk_reduce_plain(cases[0])
-        err = float((got.float() - want.float()).abs().max())
-        if not (_bits_equal(torch, got, want)
-                and _bits_equal(torch, got, again)):
-            raise AssertionError(f"splitk_reduce ({label}) differs from its "
-                                 "plain version or between launches")
-        ms = _graph_ms(torch, [lambda w=w: qk.splitk_reduce(w)
-                               for w in cases], reps)
-        plain_ms = _time_ms(torch, [lambda w=w: qk.splitk_reduce_plain(w)
-                                    for w in cases], reps)
-        # the library's one call for the sum (f32 out, no bf16 cast)
-        library_ms = _graph_ms(torch, [lambda w=w: torch.sum(w, dim=0)
-                                       for w in cases], reps)
-        # bytes dominate: (splits - 1) f32 adds per output at 67 TFLOP/s
-        bound, by = _bound_ms(splits * count * 4 + count * 2, 0.0)
-        rows[label] = {"G": g, "C": c, "N": n, "splits": splits, "ms": ms,
-                       "plain_ms": plain_ms, "library_ms": library_ms,
-                       "bound_ms": bound, "bound_by": by,
-                       "max_abs_err": err}
-        log(f"  splitk_reduce {label:10s} G={g} C={c} N={n} splits "
-            f"{splits}: {ms:.4f} ms (bound {bound:.4f} ms by {by}, "
-            f"{bound / ms:.1%} of bound), plain {plain_ms:.4f} ms, "
-            f"torch.sum {library_ms:.4f} ms ({library_ms / ms:.2f}x), "
-            "bit-equal")
-        torch.cuda.empty_cache()
-    extra.append({"name": "splitk_reduce", "tag": "split-K", **rows})
-    up = rows["decode4_up"]
-    return {"name": "splitk_reduce", "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/dequant_matmul.cu",
-            "replaces": "src/repro/kernels/grouped_matmul.py:63",
-            "launches": None,
-            "max_abs_err": max(r["max_abs_err"] for r in rows.values()),
-            "ms": up["ms"],
-            "plain_ms": up["plain_ms"], "bound_ms": up["bound_ms"],
-            "bound_by": up["bound_by"], "library_ms": up["library_ms"],
-            "shape": {"splits": up["splits"], "G": up["G"], "C": up["C"],
-                      "N": up["N"]}}
+            got = run(ws)
+            want = qk.splitk_reduce_plain(ws)
+            again = run(ws)
+            what = f"{name} {label} (G={g}, {plan.splits} splits)"
+            if not (_bits_equal(torch, got, want)
+                    and _bits_equal(torch, again, want)):
+                raise AssertionError(f"{what}: out differs from the plain "
+                                     "sum of its split partials, or between "
+                                     "two launches")
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                run(ws)
+            torch.cuda.current_stream().wait_stream(side)
+            torch.cuda.synchronize()
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                run(ws)
+                last = run(ws)
+            ws.fill_(float("nan"))
+            graph.replay()
+            torch.cuda.synchronize()
+            if not (_bits_equal(torch, last, want) and _bits_equal(
+                    torch, qk.splitk_reduce_plain(ws), want)):
+                raise AssertionError(f"{what}: a replayed CUDA graph's "
+                                     "out differs from the eager launch's")
+            del graph, last, x, w, ws
+            checked.append(f"{name} {label}")
+            torch.cuda.empty_cache()
+    log(f"kernels: split-K epilogue byte-equal to splitk_reduce_plain of "
+        f"its partials (eager, a second launch, a replayed graph) at "
+        f"{len(checked)} bank x row cases: {checked}")
+    return checked
 
 
 def _exact_checks(torch, gen, gk, ops, QTensor):

@@ -7,8 +7,8 @@
 //                         and grouped_matmul.py _grouped_q_kernel, bits=8 (B3)
 //   bf16_matmul        <- src/repro/kernels/grouped_matmul.py
 //                         _grouped_bf16_kernel (B4)
-//   splitk_reduce      <- the f32 accumulator that those kernels carry
-//                         across their sequential K grid axis
+// and, in the epilogue of each, the f32 accumulator that those kernels
+// carry across their sequential K grid axis and flush once (_flush).
 // The matmuls compute out[g] = x[g] @ W[g] for a bank of G experts in one
 // launch: x (G, M, K) bf16, W (G, K/2, N) uint8 | (G, K, N) int8 |
 // (G, K, N) bf16, scales (G, K/group, N) bf16, out (G, M, N) bf16. B1/B2 are a launch with
@@ -58,15 +58,23 @@
 // order within each k16 step, ascending k16 steps).
 //
 // Split-K. launch_plan(c, k, n, bits) in kernels/q4_matmul.py fixes the
-// body, the tile and the K splits from the shape alone (no G): split boundaries are
-// multiples of 64, at most 16 splits. With one split the kernel writes
-// bf16; with more, each split writes its f32 partial to a workspace
-// (splits, G, M, N) that the wrapper allocates, and splitk_reduce (the
-// fifth kernel here, counted on its own) adds the splits in order 0, 1,
-// ... and rounds once to bf16. No float atomics: the same inputs give the
-// same bits on every run and for every G. (A reduction inside a thread-
-// block cluster, through distributed shared memory, was tried during
-// development and was slower at the decode shapes.)
+// body, the tile and the K splits from the shape alone (no G): split
+// boundaries are multiples of 64, at most 16 splits. With one split the
+// kernel writes bf16. With more, each split block writes its f32 partial
+// to a workspace (splits, G, M, N) that the wrapper allocates and counts
+// itself in on its tile's counter (one int per (expert, token tile, column
+// tile), handed in by the wrapper). The block that arrives last reads
+// every split's partial of its tile back, adds them in order 0, 1, ...
+// and rounds once to bf16 (split_last and the two bodies' epilogues; the
+// mma.sync body loads several planes of its outputs at once, the wgmma
+// body brings the planes into shared memory with TMA). The order of the
+// adds does not depend on the order in which the blocks arrive, and there
+// are no float atomics: the same inputs give the same bits on every run
+// and for every G. No second kernel runs: a stand-alone reduction cost a
+// launch of its own, more than its bound, after every split launch. (A
+// reduction inside a thread-block cluster, through distributed shared
+// memory, was tried during development and was slower at the decode
+// shapes.)
 //
 // What bounds it on the H100, and what the design does about it:
 //   * decode (C <= 16, the mma.sync body): the weight bytes. ~2*C FLOPs per weight element is
@@ -236,10 +244,57 @@ struct Args {
   const uint16_t* x;       // (G, M, K)
   const uint8_t* w;        // the expert bank, BITS-dependent layout
   const uint16_t* scales;  // (G, K/gs, N) or null
-  uint16_t* out;           // (G, M, N) bf16, written when splits == 1
+  uint16_t* out;           // (G, M, N) bf16
   float* ws;               // (splits, G, M, N) f32, written when splits > 1
+  unsigned* counters;      // one per tile, zero between launches (splits > 1)
   int G, M, K, N, gs, k_chunk, splits;
 };
+
+// The tile of this block, (g, token tile, column tile), as an index into
+// the counters: the grid is (column tiles, token tiles x splits, G).
+__device__ __forceinline__ int tile_index(const Args& a) {
+  return (blockIdx.z * (gridDim.y / a.splits) + blockIdx.y / a.splits)
+      * gridDim.x + blockIdx.x;
+}
+
+// A barrier over the threads that write the block's partial: the whole
+// block (THREADS = 0: __syncthreads), or named barrier 1 over the first
+// THREADS threads (the wgmma body's consumer warpgroups; its producer
+// warpgroup may have exited).
+template <int THREADS>
+__device__ __forceinline__ void split_sync() {
+  if constexpr (THREADS == 0) __syncthreads();
+  else asm volatile("bar.sync 1, %0;\n" :: "n"(THREADS) : "memory");
+}
+
+// The split-K arrival, called by every writing thread once its partial is
+// in the workspace: after a barrier one thread counts the block in on its
+// tile's counter with an acquire-release atomic (release: the block's
+// partial, ordered before it by the barrier; acquire: the partials of the
+// blocks counted before), and every thread learns through ``slot`` (a word
+// of the caller's dynamic shared memory that no thread uses past the first
+// barrier) whether the block arrived last: then it reduces the tile. inc
+// with limit splits - 1 wraps the counter to 0 on the last arrival, so it
+// is zero again for the next launch and for the next replay of a captured
+// graph. Hazard: two split launches on one device running at once on
+// different streams would share the counters; the port launches its
+// matmuls on the current stream only. (A static __shared__ word here would
+// move the mma.sync body's dynamic shared memory off its 128-byte
+// alignment, which cost its decode launches ~10% on the card.)
+template <int THREADS>
+__device__ __forceinline__ bool split_last(const Args& a, int* slot) {
+  split_sync<THREADS>();
+  if (threadIdx.x == 0) {
+    unsigned old;
+    asm volatile("atom.acq_rel.gpu.global.inc.u32 %0, [%1], %2;\n"
+                 : "=r"(old)
+                 : "l"(a.counters + tile_index(a)), "r"(a.splits - 1)
+                 : "memory");
+    *slot = old == static_cast<unsigned>(a.splits - 1);
+  }
+  split_sync<THREADS>();
+  return *slot;
+}
 
 // Issue the cp.async copies of one 64-K stage starting at ``k0``; rows at
 // or past ``kend`` (and columns past N, tokens past M) are zero-filled.
@@ -441,8 +496,9 @@ tc_matmul_kernel(Args a) {
 
   // thread's outputs: columns n .. n+3, tokens m and m+1 per fragment
   const int n = n0 + wn * WN + 4 * gid;
+  const bool cols = n < a.N;             // N % 16 == 0: all four or none
   if (a.splits == 1) {
-    if (n >= a.N) return;                // N % 16 == 0: all four or none
+    if (!cols) return;
 #pragma unroll
     for (int t = 0; t < NT; ++t)
 #pragma unroll
@@ -456,40 +512,64 @@ tc_matmul_kernel(Args a) {
     return;
   }
   // K split: this split's f32 partial goes to the workspace (splits, G,
-  // M, N); splitk_reduce adds the splits in order
-  if (n >= a.N) return;
+  // M, N); the tile's last block adds the splits in order
   const size_t plane = static_cast<size_t>(a.G) * a.M * a.N;
 #pragma unroll
   for (int t = 0; t < NT; ++t)
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int m = m0 + t * 8 + 2 * tig + h;
-      if (m < a.M)
+      if (cols && m < a.M)
         *reinterpret_cast<float4*>(
             a.ws + split * plane + (static_cast<size_t>(g) * a.M + m) * a.N
             + n) = make_float4(acc[0][t][h], acc[0][t][2 + h], acc[1][t][h],
                                acc[1][t][2 + h]);
     }
-}
-
-// out = bf16(ws[0] + ws[1] + ... ) in split order, four outputs a thread.
-__global__ void __launch_bounds__(256) splitk_reduce_kernel(
-    const float4* __restrict__ ws, uint2* __restrict__ out, int splits,
-    long long count4) {
-  for (long long i = blockIdx.x * 256LL + threadIdx.x; i < count4;
-       i += static_cast<long long>(gridDim.x) * 256) {
-    float4 v[MAX_SPLITS];                // all loads in flight at once
+  // the ring's first word: every thread is past its last stage
+  if (!split_last<0>(a, reinterpret_cast<int*>(smem)) || !cols) return;
+  // the tile's last block: the split planes in order, U planes of all the
+  // thread's outputs in flight at once (64 registers of loads)
+  constexpr int U = NT >= 8 ? 1 : 8 / NT;
+  const float* wt = a.ws + static_cast<size_t>(g) * a.M * a.N + n;
+  float4 sum[NT][2];
+#pragma unroll 1
+  for (int p0 = 0; p0 < a.splits; p0 += U) {
+    float4 v[U][NT][2];
 #pragma unroll
-    for (int p = 0; p < MAX_SPLITS; ++p)
-      if (p < splits) v[p] = ws[p * count4 + i];
-    float4 s = v[0];
+    for (int u = 0; u < U; ++u)
 #pragma unroll
-    for (int p = 1; p < MAX_SPLITS; ++p)
-      if (p < splits) {
-        s.x += v[p].x; s.y += v[p].y; s.z += v[p].z; s.w += v[p].w;
-      }
-    store_bf16x4(reinterpret_cast<uint16_t*>(out + i), s);
+      for (int t = 0; t < NT; ++t)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int m = m0 + t * 8 + 2 * tig + h;
+          if (p0 + u < a.splits && m < a.M)
+            v[u][t][h] = __ldcg(reinterpret_cast<const float4*>(
+                wt + (p0 + u) * plane + static_cast<size_t>(m) * a.N));
+        }
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+#pragma unroll
+      for (int t = 0; t < NT; ++t)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          if (p0 + u >= a.splits) continue;
+          if (p0 + u == 0) {
+            sum[t][h] = v[u][t][h];
+          } else {
+            sum[t][h].x += v[u][t][h].x; sum[t][h].y += v[u][t][h].y;
+            sum[t][h].z += v[u][t][h].z; sum[t][h].w += v[u][t][h].w;
+          }
+        }
   }
+#pragma unroll
+  for (int t = 0; t < NT; ++t)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = m0 + t * 8 + 2 * tig + h;
+      if (m < a.M)
+        store_bf16x4(a.out + (static_cast<size_t>(g) * a.M + m) * a.N + n,
+                     sum[t][h]);
+    }
 }
 
 template <int BITS, int NT>
@@ -533,12 +613,13 @@ int launch_bits(const Args& a, int block_c, cudaStream_t s) {
 // The plan must be one launch_plan gives: 128-column tiles, a supported
 // token tile (8, 16, 32 or 64: mma.sync; 128: wgmma; 160: the wide wgmma
 // body), 64-aligned K splits that cover K exactly (at most MAX_SPLITS), and
-// a workspace when there is more than one.
+// a workspace and the tiles' counters when there is more than one.
 bool plan_ok(const Args& a, int block_n) {
   if (block_n != BN || a.k_chunk <= 0 || a.k_chunk % BK) return false;
   if (a.splits < 1 || a.splits > MAX_SPLITS) return false;
   if (a.splits != (a.K + a.k_chunk - 1) / a.k_chunk) return false;
-  if (a.splits > 1 && a.ws == nullptr) return false;
+  if (a.splits > 1 && (a.ws == nullptr || a.counters == nullptr))
+    return false;
   return a.K % 16 == 0 && a.N % 16 == 0;
 }
 
@@ -550,17 +631,19 @@ bool plan_ok(const Args& a, int block_n) {
 // K % 16 == 0, the quantization group a multiple of 16 that divides 64 or
 // that 64 divides, group | K, all tensors contiguous and 16-byte aligned.
 // The tile and split arguments come from launch_plan; with more than one
-// split the kernel writes the f32 workspace ``ws`` (splits, G, M, N) and
-// the caller then launches repro_splitk_reduce into ``out``.
+// split the kernel writes the f32 workspace ``ws`` (splits, G, M, N), and
+// ``counters`` holds one zeroed int per tile, G * ceil(M / block_c) *
+// ceil(N / block_n) of them, which the launch leaves zeroed.
 extern "C" int repro_dequant_matmul(
     int bits, const void* x, const void* w, const void* scales, void* out,
-    void* ws, int G, int M, int K, int N, int group_size, int block_n,
-    int block_c, int k_chunk, int splits, void* stream) {
+    void* ws, void* counters, int G, int M, int K, int N, int group_size,
+    int block_n, int block_c, int k_chunk, int splits, void* stream) {
   const Args a{static_cast<const uint16_t*>(x),
                static_cast<const uint8_t*>(w),
                static_cast<const uint16_t*>(scales),
-               static_cast<uint16_t*>(out), static_cast<float*>(ws), G, M, K,
-               N, group_size, k_chunk, splits};
+               static_cast<uint16_t*>(out), static_cast<float*>(ws),
+               static_cast<unsigned*>(counters), G, M, K, N, group_size,
+               k_chunk, splits};
   const bool gs_ok = group_size >= 16 && group_size % 16 == 0
       && (BK % group_size == 0 || group_size % BK == 0)
       && K % group_size == 0;
@@ -573,29 +656,16 @@ extern "C" int repro_dequant_matmul(
 }
 
 extern "C" int repro_bf16_matmul(const void* x, const void* w, void* out,
-                                 void* ws, int G, int M, int K, int N,
-                                 int block_n, int block_c, int k_chunk,
-                                 int splits, void* stream) {
+                                 void* ws, void* counters, int G, int M,
+                                 int K, int N, int block_n, int block_c,
+                                 int k_chunk, int splits, void* stream) {
   const Args a{static_cast<const uint16_t*>(x),
                static_cast<const uint8_t*>(w), nullptr,
-               static_cast<uint16_t*>(out), static_cast<float*>(ws), G, M, K,
-               N, BK, k_chunk, splits};
+               static_cast<uint16_t*>(out), static_cast<float*>(ws),
+               static_cast<unsigned*>(counters), G, M, K, N, BK, k_chunk,
+               splits};
   if (!plan_ok(a, block_n)) return static_cast<int>(cudaErrorInvalidValue);
   return launch_bits<16>(a, block_c, static_cast<cudaStream_t>(stream));
-}
-
-// out (count bf16) = the splits of ws (splits, count) f32 added in order.
-extern "C" int repro_splitk_reduce(const void* ws, void* out, int splits,
-                                   long long count, void* stream) {
-  if (count % 4 || splits < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const long long count4 = count / 4;
-  long long blocks = (count4 + 255) / 256;
-  if (blocks > 132 * 16) blocks = 132 * 16;
-  splitk_reduce_kernel<<<static_cast<unsigned>(blocks < 1 ? 1 : blocks), 256,
-                         0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float4*>(ws), static_cast<uint2*>(out), splits,
-      count4);
-  return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" const char* repro_error_string(int code) {

@@ -35,7 +35,8 @@
 #pragma once
 
 // (included inside dequant_matmul.cu's anonymous namespace, after <cuda.h>,
-// Args, int4_pair, int8_bf16x2, bf16_lo and bf16_hi)
+// Args, split_last, store_bf16x4, int4_pair, int8_bf16x2, bf16_lo and
+// bf16_hi)
 namespace wg {
 
 constexpr int BN = 128;                // weight columns per block
@@ -62,10 +63,16 @@ struct Tile {
   static constexpr int STAGES_FIT = SMEM_BUDGET / STAGE_BYTES;
   static constexpr int STAGES =
       STAGES_FIT > MAX_STAGES ? MAX_STAGES : STAGES_FIT;
-  // the ring, its full and empty barriers, and slack to align it to 1024
-  static constexpr int SMEM = STAGES * STAGE_BYTES + 2 * STAGES * 8 + 1024;
+  // the ring, its full and empty barriers, the split-K epilogue's two
+  // plane barriers and its arrival word, and slack to align it to 1024
+  static constexpr int SMEM =
+      STAGES * STAGE_BYTES + (2 * STAGES + 3) * 8 + 1024;
+  // f32 bytes of one split plane of the tile (the epilogue's TMA box)
+  static constexpr int PLANE_BYTES = BC * BN * 4;
   static_assert(STAGE_BYTES % 1024 == 0 && X_BYTES % 1024 == 0,
                 "stages and their weight rows start on the swizzle period");
+  static_assert(2 * PLANE_BYTES <= STAGES * STAGE_BYTES,
+                "the idle ring holds two split planes");
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -368,7 +375,8 @@ __device__ __forceinline__ void produce(
 // acc[4 j + 2 r + h] is token m0 + 8 j + 2 tig + h of wgmma row gid + 8 r
 // of its warp: column col + r for codes (the fragments' permutation),
 // column 16 warp + gid + 8 r of the warpgroup's 64 for bf16 weights (the
-// stage's own order).
+// stage's own order). With K split the kernel then counts the block in and
+// the tile's last block reduces it (reduce_tile).
 template <int BITS, int R>
 __device__ __forceinline__ void store(const float (&acc)[R], const Args& a,
                                       int g, int m0, int n0, int split,
@@ -377,16 +385,17 @@ __device__ __forceinline__ void store(const float (&acc)[R], const Args& a,
   const int gid = lane >> 2, tig = lane & 3;
   const int col = role * 64 + warp * 16 + 2 * gid;  // codes: columns col, +1
   const int base = n0 + role * 64 + warp * 16;
-  if (base >= a.N) return;              // N % 16 == 0: a warp's 16 or none
+  const bool cols = base < a.N;         // N % 16 == 0: a warp's 16 or none
   const int c0 = BITS == 16 ? base + gid : n0 + col;
   const int c1 = BITS == 16 ? c0 + 8 : c0 + 1;
   const size_t plane = static_cast<size_t>(a.G) * a.M * a.N;
+  if (a.splits == 1 && !cols) return;
 #pragma unroll
   for (int j = 0; j < R / 4; ++j)
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int m = m0 + 8 * j + 2 * tig + h;
-      if (m >= a.M) continue;
+      if (!cols || m >= a.M) continue;
       const size_t row = (static_cast<size_t>(g) * a.M + m) * a.N;
       const float v0 = acc[4 * j + h], v1 = acc[4 * j + 2 + h];
       if (a.splits == 1) {
@@ -479,19 +488,84 @@ __device__ __forceinline__ void consume(const Args& a, char* smem,
 
 #include "wgmma_wide.cuh"
 
+// The split-K epilogue of the tile's last block (the two consumer
+// warpgroups; the producer may be gone): the tile's split planes (BC tokens
+// by 128 columns of f32 each) added in order 0, 1, ... and rounded once
+// into ``out``. Thread 0 brings the planes into the idle stage ring with
+// TMA, two buffers in turn, and the 256 threads read them in a layout of
+// their own: lane l takes columns 4 l .. 4 l + 3, warp w the tokens w, w +
+// 8, .... A TMA box keeps a whole plane in flight: the threads' own
+// coalesced loads of the same bytes, in the one block per tile that reads
+// them, made the split rows several times slower on the card (PERF.md).
+template <int BC>
+__device__ __forceinline__ void reduce_tile(const CUtensorMap* tm_ws,
+                                            const Args& a, char* smem,
+                                            uint64_t* rbar, int g, int m0,
+                                            int n0) {
+  constexpr int ROWS = BC / 8;
+  constexpr int PLANE = Tile<16, BC>::PLANE_BYTES;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int row0 = g * a.M + m0;        // the tile's first row of a plane
+  if (threadIdx.x == 0) {
+    // the partials were written through the generic proxy, TMA reads
+    // through the async proxy
+    asm volatile("fence.proxy.async.global;\n" ::: "memory");
+    for (int p = 0; p < 2 && p < a.splits; ++p) {
+      mbar_expect_tx(rbar + p, PLANE);
+      tma_load(smem + p * PLANE, tm_ws, n0, row0, p, rbar + p);
+    }
+  }
+  const int rows = min(ROWS, (a.M - m0 - warp + 7) / 8);
+  float4 sum[ROWS];
+  for (int p = 0; p < a.splits; ++p) {
+    const int b = p & 1;
+    mbar_wait(rbar + b, (p >> 1) & 1);
+    const char* buf = smem + b * PLANE + (warp * BN + 4 * lane) * 4;
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r) {
+      if (r >= rows) break;
+      const float4 v =
+          *reinterpret_cast<const float4*>(buf + r * 8 * BN * 4);
+      if (p == 0) {
+        sum[r] = v;
+      } else {
+        sum[r].x += v.x; sum[r].y += v.y; sum[r].z += v.z; sum[r].w += v.w;
+      }
+    }
+    split_sync<CONSUMERS * 128>();      // every thread is done with b
+    if (threadIdx.x == 0 && p + 2 < a.splits) {
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      mbar_expect_tx(rbar + b, PLANE);
+      tma_load(smem + b * PLANE, tm_ws, n0, row0, p + 2, rbar + b);
+    }
+  }
+  const int n = n0 + 4 * lane;
+  if (n >= a.N) return;                 // N % 16 == 0: all four or none
+  uint16_t* out = a.out + (static_cast<size_t>(row0) + warp) * a.N + n;
+#pragma unroll
+  for (int r = 0; r < ROWS; ++r) {
+    if (r >= rows) break;
+    store_bf16x4(out + static_cast<size_t>(r) * 8 * a.N, sum[r]);
+  }
+}
+
 // SPF: k16 steps per group flush, min(group, 64) / 16 (bf16: 4, unused).
 // BC: the token tile, 128 (this file's consumers) or 160 (wgmma_wide.cuh's).
+// tm_ws: the f32 workspace (splits, G * M, N) when K is split.
 template <int BITS, int SPF, int BC>
 __global__ void __launch_bounds__(THREADS, 1)
 wg_matmul_kernel(const __grid_constant__ CUtensorMap tm_x,
                  const __grid_constant__ CUtensorMap tm_w,
-                 const __grid_constant__ CUtensorMap tm_s, Args a) {
+                 const __grid_constant__ CUtensorMap tm_s,
+                 const __grid_constant__ CUtensorMap tm_ws, Args a) {
   using T = Tile<BITS, BC>;
   constexpr int S = T::STAGES;
   extern __shared__ __align__(16) char smem_raw[];
   char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + S * T::STAGE_BYTES);
   uint64_t* empty = full + S;
+  uint64_t* rbar = empty + S;              // the split-K epilogue's planes
+  int* arrival = reinterpret_cast<int*>(rbar + 2);
 
   const int g = blockIdx.z;
   const int split = blockIdx.y % a.splits;
@@ -507,6 +581,8 @@ wg_matmul_kernel(const __grid_constant__ CUtensorMap tm_x,
       mbar_init(full + s, 1);
       mbar_init(empty + s, CONSUMERS * 4);      // one arrival per warp
     }
+    mbar_init(rbar, 1);
+    mbar_init(rbar + 1, 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
@@ -532,6 +608,8 @@ wg_matmul_kernel(const __grid_constant__ CUtensorMap tm_x,
   else
     consume_wide<BITS, SPF, BC, BC / 2>(a, smem, full, empty, nst, g, m0, n0,
                                         split, role);
+  if (a.splits > 1 && split_last<CONSUMERS * 128>(a, arrival))
+    reduce_tile<BC>(&tm_ws, a, smem, rbar, g, m0, n0);
 }
 
 // cuTensorMapEncodeTiled, reached through the runtime so the library needs
@@ -585,7 +663,8 @@ inline bool make_map(CUtensorMap* map, const void* base,
 
 template <int BITS, int SPF, int BC>
 int launch_spf(const Args& a, const CUtensorMap& tx, const CUtensorMap& tw,
-               const CUtensorMap& ts, cudaStream_t s) {
+               const CUtensorMap& ts, const CUtensorMap& tws,
+               cudaStream_t s) {
   using T = Tile<BITS, BC>;
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
@@ -601,14 +680,14 @@ int launch_spf(const Args& a, const CUtensorMap& tx, const CUtensorMap& tw,
   }
   const dim3 grid((a.N + BN - 1) / BN, ((a.M + BC - 1) / BC) * a.splits, a.G);
   wg_matmul_kernel<BITS, SPF, BC><<<grid, THREADS, T::SMEM, s>>>(tx, tw, ts,
-                                                                a);
+                                                                tws, a);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int BITS, int BC>
 int launch(const Args& a, cudaStream_t s) {
   const auto sw = CU_TENSOR_MAP_SWIZZLE_128B;
-  CUtensorMap tx, tw, ts;
+  CUtensorMap tx, tw, ts, tws;
   bool ok = make_map(&tx, a.x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, a.K, a.M,
                      a.G, BK, BC, sw);
   if constexpr (BITS == 4)
@@ -626,14 +705,20 @@ int launch(const Args& a, cudaStream_t s) {
                         CU_TENSOR_MAP_SWIZZLE_NONE);
   else
     ts = tx;                            // unused by the bf16 body
+  if (a.splits > 1)                     // the split planes, box: one tile
+    ok = ok && make_map(&tws, a.ws, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, a.N,
+                        a.G * a.M, a.splits, BN, BC,
+                        CU_TENSOR_MAP_SWIZZLE_NONE);
+  else
+    tws = tx;                           // unused without a split
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   if constexpr (BITS == 16) {
-    return launch_spf<16, BK / 16, BC>(a, tx, tw, ts, s);
+    return launch_spf<16, BK / 16, BC>(a, tx, tw, ts, tws, s);
   } else {
     switch (a.gs >= BK ? BK / 16 : a.gs / 16) {
-      case 1: return launch_spf<BITS, 1, BC>(a, tx, tw, ts, s);
-      case 2: return launch_spf<BITS, 2, BC>(a, tx, tw, ts, s);
-      case 4: return launch_spf<BITS, 4, BC>(a, tx, tw, ts, s);
+      case 1: return launch_spf<BITS, 1, BC>(a, tx, tw, ts, tws, s);
+      case 2: return launch_spf<BITS, 2, BC>(a, tx, tw, ts, tws, s);
+      case 4: return launch_spf<BITS, 4, BC>(a, tx, tw, ts, tws, s);
       default: return static_cast<int>(cudaErrorInvalidValue);
     }
   }

@@ -18,7 +18,9 @@ the grouped wrappers' launches by the bank's expert count G, and
 ``BODY_LAUNCHES`` every dequant-matmul launch by (wrapper, body): the
 ``mma_sync`` body serves token tiles up to 64, the ``wgmma`` body the
 128-token tile and the ``wgmma_wide`` body the 160-token tile
-(``q4_matmul.launch_plan``).
+(``q4_matmul.launch_plan``). ``SPLIT_LAUNCHES`` books, the same way, the
+launches whose plan splits K: each of them reduces its split partials in
+its own epilogue, with no second kernel.
 """
 from __future__ import annotations
 
@@ -44,7 +46,6 @@ LAUNCHES: Dict[str, int] = {
     "grouped_q4": 0,      # B3: grouped_quantized_matmul(bits=4)
     "grouped_q8": 0,      # B3: grouped_quantized_matmul(bits=8)
     "grouped_bf16": 0,    # B4: grouped_bf16_matmul
-    "splitk_reduce": 0,   # the K-split partials of any of the above
 }
 
 #: launches of the grouped wrappers by (wrapper, G), e.g. the 8-expert
@@ -54,6 +55,9 @@ GROUP_LAUNCHES: "collections.Counter[Tuple[str, int]]" = collections.Counter()
 #: launches of every matmul wrapper by (wrapper, body), e.g. the int4 bank
 #: of a prefill: ("grouped_q4", "wgmma")
 BODY_LAUNCHES: "collections.Counter[Tuple[str, str]]" = collections.Counter()
+
+#: the launches of BODY_LAUNCHES whose plan splits K, by (wrapper, body)
+SPLIT_LAUNCHES: "collections.Counter[Tuple[str, str]]" = collections.Counter()
 
 #: nvcc's output (ptxas registers, shared memory, spills) of the library
 #: in use: set by the build, or read back from the log kept beside it
@@ -67,6 +71,7 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
     GROUP_LAUNCHES.clear()
     BODY_LAUNCHES.clear()
+    SPLIT_LAUNCHES.clear()
 
 
 def _nvcc() -> str:
@@ -121,15 +126,13 @@ def dequant_lib() -> ctypes.CDLL:
         lib = ctypes.CDLL(str(build()))
         vp, i32 = ctypes.c_void_p, ctypes.c_int
         plan = [i32] * 4          # block_n, block_c, k_chunk, splits
+        # ..., out, ws, counters, G, M, K, N, [group,] plan, stream
         lib.repro_dequant_matmul.argtypes = [
-            i32, vp, vp, vp, vp, vp, i32, i32, i32, i32, i32, *plan, vp]
+            i32, vp, vp, vp, vp, vp, vp, i32, i32, i32, i32, i32, *plan, vp]
         lib.repro_dequant_matmul.restype = i32
         lib.repro_bf16_matmul.argtypes = [
-            vp, vp, vp, vp, i32, i32, i32, i32, *plan, vp]
+            vp, vp, vp, vp, vp, i32, i32, i32, i32, *plan, vp]
         lib.repro_bf16_matmul.restype = i32
-        lib.repro_splitk_reduce.argtypes = [vp, vp, i32, ctypes.c_longlong,
-                                            vp]
-        lib.repro_splitk_reduce.restype = i32
         lib.repro_error_string.argtypes = [i32]
         lib.repro_error_string.restype = ctypes.c_char_p
         _LIB = lib

@@ -9,7 +9,8 @@ card the kernels take the true token count (``_m_tile``).
 A CPU tensor takes each kernel's plain PyTorch version; a CUDA tensor
 launches the kernel or raises. ``LAUNCHES`` counts launches per kernel
 wrapper (``LAUNCHES["grouped_q4"]`` and so on), ``BODY_LAUNCHES`` the
-matmul launches by (wrapper, body).
+matmul launches by (wrapper, body), ``SPLIT_LAUNCHES`` those of them whose
+plan splits K (and whose epilogue reduces the splits).
 """
 from __future__ import annotations
 
@@ -20,7 +21,7 @@ from repro_torch.core.quantization import QTensor
 from repro_torch.kernels import grouped_matmul as _gk
 from repro_torch.kernels import q4_matmul as _k
 from repro_torch.kernels.cuda_lib import (  # noqa: F401
-    BODY_LAUNCHES, GROUP_LAUNCHES, LAUNCHES, reset_launches,
+    BODY_LAUNCHES, GROUP_LAUNCHES, LAUNCHES, SPLIT_LAUNCHES, reset_launches,
 )
 
 

@@ -16,13 +16,14 @@ and the per-expert loop run the same arithmetic. Up to 64 tokens (decode,
 the speculative verify) a plan names the ``mma_sync`` body; above 64
 (prefill) the ``wgmma`` body with its 128-token tile, and above 128 the
 ``wgmma_wide`` body with its 160-token tile. With more than one
-split the partials go through an f32 workspace and :func:`splitk_reduce`
-adds them in split order.
+split the partials go through an f32 workspace, and the last block of
+each tile to finish adds them in split order in the kernel's own epilogue
+(:func:`splitk_reduce_plain` is that arithmetic in plain PyTorch).
 """
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Optional
+from typing import Dict, List, NamedTuple, Optional
 
 import torch
 
@@ -180,12 +181,70 @@ def check_cuda_shape(kdim: int, group_size: int) -> None:
                          f"multiple of 64, got {group_size}")
 
 
-def _workspace(plan: LaunchPlan, out: torch.Tensor):
-    """The f32 split partials (splits, G, M, N), or None for one split."""
+def split_tiles(plan: LaunchPlan, g: int, m: int, n: int) -> int:
+    """The tiles of a launch, (expert, token tile, column tile): one
+    split-K counter each."""
+    return g * math.ceil(m / plan.block_c) * math.ceil(n / plan.block_n)
+
+
+#: tile counters allocated at least this many at a time (Kimi-K2's decode
+#: bank, 384 experts x 56 column tiles, is 21,504)
+MIN_COUNTERS = 1 << 15
+#: per device index, the split-K epilogue's int32 tile counters. Every
+#: launch leaves them zero (the last block of a tile resets its counter),
+#: so one array serves every launch on its device, eager or replayed from a
+#: CUDA graph. Hazard: two split launches running at once on one device,
+#: on different streams, would share counters; the port launches its
+#: matmuls on the current stream only (the expert cache's streams only
+#: copy).
+_COUNTERS: Dict[int, torch.Tensor] = {}
+#: arrays outgrown by a larger launch: a captured graph may still hold
+#: their addresses, so they are kept
+_OUTGROWN: List[torch.Tensor] = []
+
+
+def _counters(device: torch.device, tiles: int) -> torch.Tensor:
+    """At least ``tiles`` zeroed counters on ``device``, allocated outside
+    any CUDA-graph capture."""
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    have = _COUNTERS.get(index)
+    if have is None or have.numel() < tiles:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                f"split-K counters: a launch of {tiles} tiles outgrows the "
+                f"device's {0 if have is None else have.numel()} during a "
+                "CUDA-graph capture; run it once before capturing")
+        if have is not None:
+            _OUTGROWN.append(have)
+        have = torch.zeros(max(tiles, MIN_COUNTERS), dtype=torch.int32,
+                           device=device)
+        torch.cuda.synchronize(device)      # zeroed before any stream uses it
+        _COUNTERS[index] = have
+    return have
+
+
+def _split_args(plan: LaunchPlan, out: torch.Tensor,
+                ws: Optional[torch.Tensor]):
+    """The workspace and counter pointers of a launch: None for one
+    split; with more, the caller's f32 workspace (splits, G, M, N) or a new
+    one, and the device's counters."""
     if plan.splits == 1:
-        return None
-    return torch.empty((plan.splits, *out.shape), dtype=torch.float32,
-                       device=out.device)
+        if ws is not None:
+            raise ValueError("a workspace was given to a launch whose plan "
+                             "does not split K")
+        return None, None
+    shape = (plan.splits, *out.shape)
+    if ws is None:
+        ws = torch.empty(shape, dtype=torch.float32, device=out.device)
+    elif (tuple(ws.shape) != shape or ws.dtype != torch.float32
+          or ws.device != out.device or not ws.is_contiguous()):
+        raise ValueError(f"workspace must be a contiguous float32 {shape} "
+                         f"tensor on {out.device}, got {ws.dtype} "
+                         f"{tuple(ws.shape)} on {ws.device}")
+    g, m, n = out.shape
+    counters = _counters(out.device, split_tiles(plan, g, m, n))
+    return ws.data_ptr(), counters.data_ptr()
 
 
 def _plan_args(plan: LaunchPlan):
@@ -193,83 +252,62 @@ def _plan_args(plan: LaunchPlan):
     return plan.block_n, plan.block_c, plan.k_chunk, plan.splits
 
 
+def _book(name: str, plan: LaunchPlan) -> None:
+    cuda_lib.BODY_LAUNCHES[(name, plan.body)] += 1
+    if plan.splits > 1:
+        cuda_lib.SPLIT_LAUNCHES[(name, plan.body)] += 1
+
+
 def launch_dequant(x: torch.Tensor, wq: torch.Tensor, scales: torch.Tensor,
-                   *, bits: int, group_size: int, n: int,
-                   name: str) -> torch.Tensor:
+                   *, bits: int, group_size: int, n: int, name: str,
+                   ws: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Launch ``dequant_matmul<bits>`` on (G, M, K) activations with the
-    plan of :func:`launch_plan` (its body counted under wrapper ``name``),
-    then the split-K reduction when the plan splits K; the caller has
+    plan of :func:`launch_plan` (its body counted under wrapper ``name``,
+    and in ``SPLIT_LAUNCHES`` when it splits K: its epilogue then reduces
+    the splits). ``ws`` is an optional caller-given f32 workspace (splits,
+    G, M, N) for the split partials, left holding them; the caller has
     validated shapes and counted the matmul."""
     g, m, kdim = x.shape
     plan = launch_plan(m, kdim, n, bits)
     out = torch.empty((g, m, n), dtype=torch.bfloat16, device=x.device)
-    ws = _workspace(plan, out)
+    ws_ptr, counters = _split_args(plan, out, ws)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    cuda_lib.BODY_LAUNCHES[(name, plan.body)] += 1
+    _book(name, plan)
     rc = cuda_lib.dequant_lib().repro_dequant_matmul(
         bits, x.data_ptr(), wq.data_ptr(), scales.data_ptr(),
-        out.data_ptr(), None if ws is None else ws.data_ptr(), g, m, kdim,
-        n, group_size, *_plan_args(plan), stream)
+        out.data_ptr(), ws_ptr, counters, g, m, kdim, n, group_size,
+        *_plan_args(plan), stream)
     cuda_lib.check(rc, f"dequant_matmul<{bits}>")
-    if ws is not None:
-        splitk_reduce(ws, out)
     return out
 
 
-def launch_bf16(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def launch_bf16(x: torch.Tensor, w: torch.Tensor,
+                ws: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Launch ``bf16_matmul`` on (G, M, K) x (G, K, N) with the plan of
-    :func:`launch_plan`, then the split-K reduction when the plan splits
-    K; the caller has validated shapes and counted the matmul."""
+    :func:`launch_plan`, booked as :func:`launch_dequant` books its
+    launches, ``ws`` as there; the caller has validated shapes and counted
+    the matmul."""
     g, m, kdim = x.shape
     n = w.shape[2]
     plan = launch_plan(m, kdim, n, 16)
     out = torch.empty((g, m, n), dtype=torch.bfloat16, device=x.device)
-    ws = _workspace(plan, out)
+    ws_ptr, counters = _split_args(plan, out, ws)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    cuda_lib.BODY_LAUNCHES[("grouped_bf16", plan.body)] += 1
+    _book("grouped_bf16", plan)
     rc = cuda_lib.dequant_lib().repro_bf16_matmul(
-        x.data_ptr(), w.data_ptr(), out.data_ptr(),
-        None if ws is None else ws.data_ptr(), g, m, kdim, n,
-        *_plan_args(plan), stream)
+        x.data_ptr(), w.data_ptr(), out.data_ptr(), ws_ptr, counters, g, m,
+        kdim, n, *_plan_args(plan), stream)
     cuda_lib.check(rc, "bf16_matmul")
-    if ws is not None:
-        splitk_reduce(ws, out)
     return out
 
 
 def splitk_reduce_plain(ws: torch.Tensor) -> torch.Tensor:
-    """The reduction's arithmetic in plain PyTorch: f32 adds in split
-    order 0, 1, ..., one cast to bf16."""
+    """The split-K epilogue's arithmetic in plain PyTorch: f32 adds in
+    split order 0, 1, ..., one cast to bf16."""
     acc = ws[0].clone()
     for s in range(1, ws.shape[0]):
         acc += ws[s]
     return acc.to(torch.bfloat16)
-
-
-def splitk_reduce(ws: torch.Tensor,
-                  out: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """``bf16(ws[0] + ws[1] + ...)`` over the split axis of an f32
-    workspace (splits, ...), in split order: the ``splitk_reduce`` kernel
-    on a CUDA tensor, :func:`splitk_reduce_plain` on a CPU one."""
-    if ws.device.type == "cpu":
-        return splitk_reduce_plain(ws)
-    if ws.device.type != "cuda":
-        raise ValueError(f"no kernel for device {ws.device}")
-    if ws.dtype != torch.float32 or not ws.is_contiguous():
-        raise TypeError("splitk_reduce takes a contiguous float32 workspace")
-    count = ws[0].numel()
-    if count % 4:
-        raise ValueError(f"splitk_reduce needs a multiple of 4 outputs, got "
-                         f"{count}")
-    if out is None:
-        out = torch.empty(ws.shape[1:], dtype=torch.bfloat16,
-                          device=ws.device)
-    cuda_lib.LAUNCHES["splitk_reduce"] += 1
-    rc = cuda_lib.dequant_lib().repro_splitk_reduce(
-        ws.data_ptr(), out.data_ptr(), ws.shape[0], count,
-        torch.cuda.current_stream(ws.device).cuda_stream)
-    cuda_lib.check(rc, "splitk_reduce")
-    return out
 
 
 def quantized_matmul_plain(x: torch.Tensor, wq: torch.Tensor,

@@ -477,9 +477,161 @@ def test_splitk_reduce_adds_in_split_order():
     want = ws[0].clone()
     for s in range(1, 9):
         want = want + ws[s]
-    np.testing.assert_array_equal(bits16(tk.splitk_reduce(ws)),
+    np.testing.assert_array_equal(bits16(tk.splitk_reduce_plain(ws)),
                                   bits16(want.to(torch.bfloat16)))
     assert all(v == 0 for v in cuda_lib.LAUNCHES.values())
+
+
+def _fused_epilogue(ws: torch.Tensor, order, counter: list):
+    """The split-K epilogue's arrival protocol for one tile: the split
+    blocks of ``ws`` (splits, ...) arrive in ``order``, each counting
+    itself in with atomicInc(counter, splits - 1) (old value back, wrap to
+    0 past the limit); the block whose count returns splits - 1 adds every
+    split in order and rounds once. It takes its own partial from its
+    registers, where the kernels read it back from the workspace with the
+    others: the sum is the same either way. A model in Python: the
+    kernels' own epilogues are held to ``splitk_reduce_plain`` on the card
+    (chip_smoke.py's split-K epilogue check)."""
+    splits = ws.shape[0]
+    out, lasts = None, []
+    for block in order:
+        own = ws[block].clone()               # the block's registers
+        old = counter[0]
+        counter[0] = 0 if old >= splits - 1 else old + 1
+        if old != splits - 1:
+            continue
+        lasts.append(block)
+        s = own if block == 0 else ws[0].clone()
+        for p in range(1, splits):
+            s = s + (own if p == block else ws[p])
+        out = s.to(torch.bfloat16)
+    return out, lasts
+
+
+@pytest.mark.parametrize("splits", [3, 4, 5, 7, 9, 16])
+def test_fused_epilogue_any_arrival_order(splits):
+    """Whatever block of a tile arrives last, its fixed-order sum is
+    bit-equal to splitk_reduce_plain, exactly one block reduces, and the
+    counter is zero again for the next launch (or graph replay)."""
+    rng = np.random.default_rng(splits)
+    ws = torch.from_numpy(rng.standard_normal((splits, 2, 4, 32)).astype(
+        np.float32) * 10.0 ** rng.integers(-3, 4, size=(splits, 1, 1, 1)))
+    want = bits16(tk.splitk_reduce_plain(ws))
+    counter, seen = [0], set()
+    for _ in range(12):
+        order = rng.permutation(splits)
+        got, lasts = _fused_epilogue(ws, order, counter)
+        assert lasts == [order[-1]] and counter == [0]
+        np.testing.assert_array_equal(bits16(got), want)
+        seen.add(int(order[-1]))
+    assert len(seen) > 1
+
+
+def _timed_launches():
+    """(G, (C, K, N)) of every shape chip_smoke.py runs: SHAPES at a whole
+    8-expert bank, the draft bank, Kimi-K2's 384-expert bank, phase 9's
+    shards."""
+    cs = _chip_smoke()
+    cases = [(8, shp) for shp in cs.SHAPES.values()]
+    cases += [(cs.DRAFT_G, shp) for shp in cs.DRAFT_SHAPES.values()]
+    cases += [(cs.KIMI_G, shp) for shp in {**cs.KIMI_SHAPES,
+                                           **cs.KIMI_PREFILL_SHAPES}.values()]
+    cases += [(max(cs.MESH_BANKS.values()), shp)
+              for shp in cs.MESH_SHAPES.values()]
+    return cases
+
+
+def test_split_counters_cover_every_timed_shape():
+    """The counters a split launch asks for are its grid's tiles, G x
+    ceil(C / block_c) x ceil(N / 128), and the first allocation holds those
+    of every shape chip_smoke.py runs, so the main path never grows them."""
+    split = 0
+    for g, (c, k, n) in _timed_launches():
+        for bits in (4, 8, 16):
+            plan = tk.launch_plan(c, k, n, bits)
+            tiles = tk.split_tiles(plan, g, c, n)
+            grid_y = math.ceil(c / plan.block_c) * plan.splits
+            assert tiles * plan.splits == g * grid_y * math.ceil(n / 128)
+            if plan.splits > 1:
+                split += 1
+                assert tiles <= tk.MIN_COUNTERS
+    assert split > 0
+
+
+def _c_expr(text: str, start: str) -> str:
+    """The C expression that follows ``start`` in ``text`` up to its
+    closing parenthesis or semicolon, as Python: integer division, the
+    launch's fields and CUDA's built-ins by plain names."""
+    i = text.index(start) + len(start)
+    depth, j = 0, i
+    while depth > 0 or text[j] not in ");":
+        depth += {"(": 1, ")": -1}.get(text[j], 0)
+        j += 1
+    expr = " ".join(text[i:j].split())
+    for c_name, py in (("T::BC", "BC"), ("a.", ""), ("blockIdx.", "b"),
+                       ("gridDim.", "grid_"), ("/", "//")):
+        expr = expr.replace(c_name, py)
+    return expr
+
+
+@pytest.mark.parametrize("body", ["mma_sync", "wgmma"])
+def test_tile_index_matches_split_tiles(body):
+    """The kernels' ``tile_index`` (dequant_matmul.cu) over every block of
+    the grid their launcher builds (``launch`` there for the mma.sync body,
+    ``launch_spf`` in wgmma_body.cuh for both wgmma tiles), read from the
+    CUDA sources: at every split plan of every timed shape it maps the
+    blocks onto exactly ``split_tiles`` counters, each counter taken by one
+    block of each split, all of one (expert, token tile, column tile)."""
+    csrc = Path(tk.__file__).parent / "csrc"
+    main = (csrc / "dequant_matmul.cu").read_text()
+    launcher = main if body == "mma_sync" else \
+        (csrc / "wgmma_body.cuh").read_text()
+    grid_exprs = _c_expr(launcher, "const dim3 grid(").split(", ")
+    assert len(grid_exprs) == 3
+    tile_expr = _c_expr(main, "int tile_index(const Args& a) {\n  return")
+    checked = 0
+    for g, (c, k, n) in _timed_launches():
+        for bits in (4, 8, 16):
+            plan = tk.launch_plan(c, k, n, bits)
+            if plan.splits == 1 or (plan.body == "mma_sync") != (
+                    body == "mma_sync"):
+                continue
+            env = {"N": n, "M": c, "G": g, "splits": plan.splits,
+                   "BN": plan.block_n, "BC": plan.block_c}
+            grid = [eval(e, {}, env) for e in grid_exprs]
+            assert grid[0] * plan.block_n >= n
+            assert grid[1] // plan.splits * plan.block_c >= c
+            bx, by, bz = (a.ravel() for a in np.meshgrid(
+                *(np.arange(d) for d in grid), indexing="ij"))
+            idx = eval(tile_expr, {}, {
+                **env, "bx": bx, "by": by, "bz": bz, "grid_x": grid[0],
+                "grid_y": grid[1], "grid_z": grid[2]})
+            tiles = tk.split_tiles(plan, g, c, n)
+            assert idx.min() == 0 and idx.max() == tiles - 1
+            assert (np.bincount(idx, minlength=tiles) == plan.splits).all()
+            split = by % plan.splits
+            assert np.unique(idx * plan.splits + split).size == idx.size
+            tile = (bz * grid[1] + by // plan.splits) * grid[0] + bx
+            assert np.unique(np.stack([idx, tile]), axis=1).shape[1] == tiles
+            checked += 1
+    assert checked > 0
+
+
+def test_split_workspace_is_checked():
+    """A caller-given workspace must match the plan: none for one split,
+    a contiguous float32 (splits, G, M, N) for more."""
+    split_plan = tk.launch_plan(8, 4096, 14336, 4)
+    one_plan = tk.launch_plan(128, 4096, 14336, 4)
+    assert split_plan.splits > 1 and one_plan.splits == 1
+    out = torch.empty((2, 8, 14336), dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="does not split"):
+        tk._split_args(one_plan, out, torch.empty(1))
+    for bad in (torch.empty((split_plan.splits + 1, 2, 8, 14336)),
+                torch.empty((split_plan.splits, 2, 8, 14336),
+                            dtype=torch.float16)):
+        with pytest.raises(ValueError, match="workspace must be"):
+            tk._split_args(split_plan, out, bad)
+    assert tk._split_args(one_plan, out, None) == (None, None)
 
 
 @pytest.mark.parametrize("k,group,ok", [
@@ -651,3 +803,13 @@ def test_reset_clears_body_launches():
     ops.reset_launches()
     assert not cuda_lib.BODY_LAUNCHES and ops.BODY_LAUNCHES is \
         cuda_lib.BODY_LAUNCHES
+
+
+def test_reset_clears_split_launches():
+    """The split launches are booked apart from every other counter, and
+    reset_launches clears them; no stand-alone reduction is counted."""
+    cuda_lib.SPLIT_LAUNCHES[("grouped_bf16", "mma_sync")] += 1
+    ops.reset_launches()
+    assert not cuda_lib.SPLIT_LAUNCHES and ops.SPLIT_LAUNCHES is \
+        cuda_lib.SPLIT_LAUNCHES
+    assert "splitk_reduce" not in cuda_lib.LAUNCHES

@@ -65,6 +65,8 @@ def main(argv=None) -> int:
                          f"but {CARDS}, which need four cards)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--profile", action="store_true",
+                    help="profile the serve phase's warm rerun")
     ap.add_argument("--out", default=str(ROOT / "chiprun_out"
                                          / "chip_phases.json"))
     args = ap.parse_args(argv)
@@ -90,7 +92,8 @@ def main(argv=None) -> int:
 
     sizes = None
     if {"poisson", "prefill", "ep", "ep-cards", "kernels"} & set(phases):
-        served = cs.phase_serve(torch, np, args.seed, card)
+        served = cs.phase_serve(torch, np, args.seed, card,
+                                args.profile)
         sizes, ctx = served[1], served[2]
         if "prefill" in phases:
             run("prefill", cs.phase_prefill, torch, np, ctx, card,

@@ -19,10 +19,14 @@ splits where it does not. Each checkout's wrappers choose the token count
 they hand the kernels (this one the true C on the card) and the plan is
 read from their own call.
 Each worker holds every result against its plain version
-(``chip_smoke._close``) before it times it. Times are device times as in
-``chip_smoke.py``: a CUDA graph of 20 launches cycling through input
-copies that exceed twice the L2. Inputs come from a seed per case, so both
-checkouts see the same bytes. The records go to ``--out``.
+(``chip_smoke._close``) before it times it, and answers with a SHA-256 of
+the first input copy's output bytes: where parent and this checkout run
+the same plan (body, tiles and K splits), the outputs must be byte-equal,
+and the script exits 1 after the table if any row is not. Times are
+device times as in ``chip_smoke.py``: a CUDA graph of 20 launches cycling
+through input copies that exceed twice the L2. Inputs come from a seed
+per case, so both checkouts see the same bytes. The records go to
+``--out``.
 """
 from __future__ import annotations
 
@@ -45,9 +49,12 @@ REPLY = "@@ab "                 # marks the worker's answers on its stdout
 
 def worker(tree: Path) -> None:
     """Answer one JSON request per stdin line: ``{"kernel", "shape",
-    "splits"}`` -> ``{"ms", "splits", "body", "max_abs_err"}``; ``splits``
-    None times the plan, a number the plan with that many K splits."""
+    "splits"}`` -> ``{"ms", "splits", "body", "plan", "sha256",
+    "max_abs_err"}``; ``splits`` None times the plan, a number
+    the plan with that many K splits."""
     sys.path[:0] = [str(tree / "src"), str(ROOT)]
+    import hashlib
+
     import torch
 
     import chip_smoke as cs
@@ -115,7 +122,10 @@ def worker(tree: Path) -> None:
         if plan_fn is not None:
             qk.launch_plan = plan_of
         try:
-            err, ok = cs._close(torch, cases[0][0](), cases[0][1]())
+            got = cases[0][0]()
+            err, ok = cs._close(torch, got, cases[0][1]())
+            digest = hashlib.sha256(got.contiguous().view(torch.uint8).cpu()
+                                    .numpy().tobytes()).hexdigest()
             plan = seen.get("plan")
             splits = plan.splits if plan else None
             body = getattr(plan, "body", "mma_sync")
@@ -127,7 +137,9 @@ def worker(tree: Path) -> None:
             if plan_fn is not None:
                 qk.launch_plan = plan_fn
         print(REPLY + json.dumps({"ms": ms, "splits": splits, "body": body,
-                                  "max_abs_err": err}), flush=True)
+                                  "plan": list(plan) if plan else None,
+                                  "sha256": digest, "max_abs_err": err}),
+              flush=True)
 
 
 class Worker:
@@ -183,7 +195,7 @@ def main(argv=None) -> int:
     print(f"{smi}; bank layout {SIZES}; device ms, CUDA graph of {REPS} "
           "launches", flush=True)
     workers = {"parent": Worker(parent), "this": Worker(ROOT)}
-    rows = []
+    rows, differ = [], []
     try:
         for name in KERNELS:
             for shape in cs.SHAPES:
@@ -194,7 +206,12 @@ def main(argv=None) -> int:
                 split = [first, *(workers["this"].ask(name, shape, other)
                                   for _ in range(2)),
                          workers["this"].ask(name, shape)]
+                same_plan = ab[0]["plan"] == ab[1]["plan"]
+                equal = {r["sha256"] for r in ab} == {ab[0]["sha256"]}
+                if same_plan and not equal:
+                    differ.append(f"{name} {shape}")
                 row = {"kernel": name, "shape": shape,
+                       "same_plan": same_plan, "bytes_equal": equal,
                        "parent_ms": (ab[0]["ms"] + ab[3]["ms"]) / 2,
                        "ms": (ab[1]["ms"] + ab[2]["ms"]) / 2,
                        "splits": split[0]["splits"],
@@ -214,14 +231,25 @@ def main(argv=None) -> int:
                       f"{row['body']} plan "
                       f"({row['splits']} splits) {row['plan_ms']:.4f} ms, "
                       f"{row['other_splits']} splits {row['other_ms']:.4f} "
-                      "ms", flush=True)
+                      "ms; outputs "
+                      f"{'byte-equal' if equal else 'DIFFER'} "
+                      f"({'same' if same_plan else 'other'} plan)",
+                      flush=True)
     finally:
         for w in workers.values():
             w.close()
     out = Path(args.out)
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps({"nvidia_smi": smi, "sizes": SIZES,
-                               "reps": REPS, "rows": rows}, indent=1))
+                               "reps": REPS, "rows": rows,
+                               "differ": differ}, indent=1))
+    same = sum(r["same_plan"] for r in rows)
+    if differ:
+        print(f"kernel_ab: outputs differ from the parent's on the same "
+              f"plan at {differ}", flush=True)
+        return 1
+    print(f"kernel_ab: {same} of {len(rows)} rows ran the parent's plan, all "
+          "byte-equal to the parent's output", flush=True)
     return 0
 
 
