@@ -40,16 +40,18 @@ Phases (each raises on failure, and the script then exits non-zero):
                launched, the acceptance rate printed, and a per-op probe
                of whether a verify row is bit-equal to the decode row;
      3p. prefill — long prompts on the serve point (``max_slots=2,
-               max_len=544``): two of 512 tokens (bucket 512, expert
-               capacity C = 160) and two of 200 (bucket 256, C = 80), 4 new
-               tokens each, a cold pass and a warm rerun: every 512-token
-               prefill launches B3 (q4, q8) and B4 through the wide wgmma
-               body (its 160-token tile) and only through it, every
-               200-token prefill through the 128-token wgmma body only,
-               every decode iteration (C = 4 rows on the card) through the
-               mma.sync body only (launches booked per body and prompt,
-               prefills apart from decode iterations); prefill ms per
-               request; a ``use_kernel=False`` engine at the same plan:
+               max_len=2064``): two of 512 tokens (bucket 512, expert
+               capacity C = 160), two of 200 (bucket 256, C = 80), one of
+               1024 (C = 320) and one of 2048 (C = 640), 4 new tokens each,
+               a cold pass and a warm rerun: every prefill launches B3 (q4,
+               q8) and B4 through the body that ``launch_plan`` names for
+               its C and only through it (512, 1024, 2048 tokens: the wide
+               wgmma body in one, two and four 160-token tiles; 200: the
+               128-token wgmma body), every decode iteration (C = 4 rows
+               on the card) through the mma.sync body only (launches
+               booked per body and prompt, prefills apart from decode
+               iterations); prefill ms per request and, warm, per prompt
+               length; a ``use_kernel=False`` engine at the same plan:
                prefill logits within 2e-2 of max |logit| (7b's rule), the
                greedy tokens equal or their first divergence reported with
                its logit margins;
@@ -293,8 +295,10 @@ Phases (each raises on failure, and the script then exits non-zero):
                4 and at C = 8, up/gate (G, 4096, 14336) and down (G, 14336,
                4096), C = 16 decode, prefill at C = 128 (up and down) and
                80 (up), which the wgmma body serves, and at C = 160 (up and
-               down), 320 and 256 (up), which the wide wgmma body serves
-               (256: a 160-token tile and an n96 tail); within one bf16 ulp
+               down), 320 (up and down) and 640 (up), which the wide wgmma
+               body serves in ceil(C / 160) token tiles, and 256 (up), two
+               128-token tiles of the wgmma body on the wide body's K
+               splits; within one bf16 ulp
                of |plain| + 1e-3, and two launches bit-equal; the split-K
                epilogue at every row that splits K and every bank: ``out``
                byte-equal to ``splitk_reduce_plain`` of the partials left
@@ -306,15 +310,18 @@ Phases (each raises on failure, and the script then exits non-zero):
                verify launch bit-equal to a C = 8 launch, of C = 8 to C =
                4; rows of a C = 80 launch bit-equal to a C = 128 launch, of
                a C = 160 launch to a C = 256 launch, of C = 256 to C =
-               320), and of a C = 128 launch to a C = 160 launch where the
+               320, of C = 320 to C = 640, of C = 160 to C = 320 at the
+               down-projection and on Kimi's bank of C = 160 to C = 216),
+               and of a C = 128 launch to a C = 160 launch where the
                two plans split K alike, the
                G = 8 draft bank at C = 12; device times (CUDA graphs)
                beside the plain version, the bound and a library yardstick
                (``torch.bmm`` on the dequantized bf16 weights, which the
                port never calls); B3 (int4 and int8) at Kimi-K2's widths
                and G = 384, C = 8 (up: K 7168, N 2048; down: K 2048, N
-               7168), and the int4 bank's up-projection at C = 108 (a
-               4096-token prefill bucket), held against its plain version
+               7168), and the int4 bank's up-projection at C = 108 and
+               216 (the 4096- and 8192-token prefill buckets), held
+               against its plain version
                on the first, a middle and the last expert of the bank; B3
                and B4 at phase
                9's shard shapes (token-gather up K 4096, N 7168 and down
@@ -359,8 +366,11 @@ GROUP = 64
 #: which is where 26-51 slots pad to under capacity factor 1.25; prefill
 #: at C = 128 (up and down) and C = 80 (a 200-token prompt's bucket of
 #: 256), which the wgmma body serves; and C = 160 (bucket 512, up and
-#: down), C = 320 (bucket 1024) and C = 256, which the wide wgmma body
-#: serves in one 160-token tile, two, and one and an n96 tail
+#: down) and C = 320 (bucket 1024), which the wide wgmma body serves in one
+#: 160-token tile and two, and C = 256, two 128-token tiles of the wgmma
+#: body on the wide body's splits; then C = 320
+#: down and C = 640 (bucket 2048) up, appended last so that every earlier
+#: row keeps its place (tools/kernel_ab.py seeds a case by it)
 SHAPES = {
     "decode4_up": (C_SERVE, D_MODEL, D_FF),
     "decode4_down": (C_SERVE, D_FF, D_MODEL),
@@ -374,6 +384,8 @@ SHAPES = {
     "prefill160_down": (160, D_FF, D_MODEL),
     "prefill320_up": (320, D_MODEL, D_FF),
     "prefill256_up": (256, D_MODEL, D_FF),
+    "prefill320_down": (320, D_FF, D_MODEL),
+    "prefill640_up": (640, D_MODEL, D_FF),
 }
 #: the wide wgmma body's token tile
 C_WIDE = 160
@@ -486,7 +498,7 @@ def phase_build():
         + "".join(f"\n    {n[:200]}" for n in notes))
     # the wgmma kernel's 128- and 160-token instantiations
     for tile in (128, 160):
-        if not any(re.search(rf"wg_matmul_kernel<\d+, \d+, {tile}>",
+        if not any(re.search(rf"wg_matmul_kernel<\d+, \d+, {tile}[,>]",
                              r["kernel"]) for r in rows):
             raise AssertionError(f"the wgmma body's {tile}-token tile is not "
                                  "in the build")
@@ -868,11 +880,15 @@ def phase_spec(torch, np, ctx, card: str, seed: int):
 #: 3p: long prompts whose MoE capacity passes 64 rows per expert. A
 #: prompt's prefill runs at its power-of-two bucket t, capacity ceil(t *
 #: top_k * 1.25 / E) rounded up to 4: bucket 512 -> C = 160 (the wide
-#: body's one tile), bucket 256 -> C = 80 (the wgmma body); decode stays at
-#: the minimum capacity C = 4
-PREFILL_CFG = dict(SERVE_CFG, max_slots=2, max_len=544)
-PREFILL_PROMPTS = (512, 512, 200, 200)
+#: body's one tile), bucket 256 -> C = 80 (the wgmma body), buckets 1024
+#: and 2048 -> C = 320 and 640 (two and four wide tiles); decode stays at
+#: the minimum capacity C = 4. max_len holds the longest prompt and its new
+#: tokens, rounded up to the KV page (16).
+PREFILL_PROMPTS = (512, 512, 200, 200, 1024, 2048)
 PREFILL_NEW = 4
+PREFILL_CFG = dict(SERVE_CFG, max_slots=2,
+                   max_len=-(-(max(PREFILL_PROMPTS) + PREFILL_NEW) // 16)
+                   * 16)
 PREFILL_LOGIT_BAR = 2e-2      # of max |logit|: phase 7b's kernel-vs-plain rule
 
 
@@ -946,17 +962,25 @@ def _prefill_pass(torch, engine, prompts):
             "decode_ms_per_iter": engine.metrics["decode_s"] / iters * 1e3}
 
 
+def _rounded(by_len: dict) -> dict:
+    return {n: [round(v, 3) for v in ms] for n, ms in sorted(by_len.items())}
+
+
 def phase_prefill(torch, np, ctx, card: str, seed: int):
-    """3p: prompts of 512 and 200 tokens on the serve phase's params and
-    point (``max_slots=2, max_len=544``, kernels on): every 512-token
-    prefill launches the wide wgmma body (its banks at C = 160, one tile)
-    and no other, every 200-token prefill the 128-token wgmma body (C =
-    80) and no other, and no decode iteration either (C = 4, the mma.sync
-    body); prefill ms per request, cold and warm; then a
+    """3p: prompts of 512, 200, 1024 and 2048 tokens on the serve phase's
+    params and point (``max_slots=2``, ``max_len`` holding the longest,
+    kernels on): each prefill launches, on every bank, the body that
+    ``launch_plan`` names for its capacity C (512 tokens: C = 160, the
+    wide wgmma body's one tile; 200: C = 80, the 128-token wgmma body;
+    1024 and 2048: C = 320 and 640, two and four wide tiles) and no other
+    body, and no decode iteration a wgmma body (C = 4, the mma.sync body);
+    prefill ms per request, cold and warm, and warm per prompt
+    length; then a
     ``use_kernel=False`` engine at the same plan: each prefill's logits
     within 2e-2 of max |logit| of the kernel engine's (phase 7b's rule),
     greedy tokens equal or the first divergence reported with its logit
     margins."""
+    from repro_torch.kernels.q4_matmul import launch_plan
     from repro_torch.serving.api import EngineConfig, build_engine
     cfg = ctx["cfg"]
     rng = np.random.default_rng(seed + 7)
@@ -971,6 +995,9 @@ def phase_prefill(torch, np, ctx, card: str, seed: int):
         cap = math.ceil(t * moe.top_k * moe.capacity_factor
                         / moe.num_experts)
         caps[n] = (t, -(-cap // 4) * 4)
+    # the body of each prompt's banks: the plan is free of G and bits
+    bodies = {n: launch_plan(c, D_MODEL, D_FF, 16).body
+              for n, (_, c) in caps.items()}
     log(f"prefill: prompts {list(PREFILL_PROMPTS)} tokens -> (bucket, "
         f"capacity C) {caps}; EngineConfig({PREFILL_CFG}) at the serve "
         f"point; {PREFILL_NEW} new tokens each")
@@ -983,8 +1010,12 @@ def phase_prefill(torch, np, ctx, card: str, seed: int):
         for label in passes:
             r = _prefill_pass(torch, eng, prompts)
             pre, dec = r["prefill_body_launches"], r["decode_body_launches"]
+            r["prefill_ms_by_len"] = {}
+            for n, ms in zip(r["each_prefill_prompt_len"], r["prefill_ms"]):
+                r["prefill_ms_by_len"].setdefault(n, []).append(ms)
             log(f"  {label} pass on {card}: prefill ms per request "
-                f"{[round(v, 3) for v in r['prefill_ms']]}, "
+                f"{[round(v, 3) for v in r['prefill_ms']]} (by prompt "
+                f"length {_rounded(r['prefill_ms_by_len'])}), "
                 f"{r['decode_ms_per_iter']:.3f} ms per decode iteration "
                 f"({r['iterations']} iterations); launches by body: "
                 f"prefills {pre}, decode {dec}")
@@ -993,10 +1024,8 @@ def phase_prefill(torch, np, ctx, card: str, seed: int):
                         r["each_prefill_body_launches"],
                         r["each_prefill_prompt_len"])):
                     # the body that the bank's capacity C names, and no
-                    # other wgmma body
-                    body, other = (("wgmma_wide", "wgmma")
-                                   if caps[n][1] > C_PREFILL
-                                   else ("wgmma", "wgmma_wide"))
+                    # other body
+                    body = bodies[n]
                     missing = [k for k in MAIN_KERNELS
                                if one.get(f"{k}/{body}", 0) <= 0]
                     if missing:
@@ -1004,11 +1033,11 @@ def phase_prefill(torch, np, ctx, card: str, seed: int):
                                              f"tokens) never launched the "
                                              f"{body} body of {missing}: "
                                              f"{one}")
-                    if any(b.endswith(f"/{other}") and v
+                    if any(not b.endswith(f"/{body}") and v
                            for b, v in one.items()):
                         raise AssertionError(f"{label}: prefill {i} ({n} "
-                                             f"tokens) launched the {other}"
-                                             f" body: {one}")
+                                             f"tokens) launched another "
+                                             f"body than {body}: {one}")
                 for k in MAIN_KERNELS:
                     if dec.get(f"{k}/mma_sync", 0) <= 0:
                         raise AssertionError(f"{label}: {k} never launched "
@@ -4926,8 +4955,10 @@ KIMI_SHAPES = {
     "kimi_down": (C_DECODE, 2048, 7168),
 }
 #: the int4 bank's up-projection at a 4096-token prefill bucket: 4096 x
-#: top-8 x 1.25 / 384 = 106.7 -> C = 108 (the wgmma body)
-KIMI_PREFILL_SHAPES = {"kimi_prefill_up": (108, 7168, 2048)}
+#: top-8 x 1.25 / 384 = 106.7 -> C = 108 (the wgmma body), and at the
+#: 8192-token bucket: 213.3 -> C = 216 (two token tiles)
+KIMI_PREFILL_SHAPES = {"kimi_prefill_up": (108, 7168, 2048),
+                       "kimi_prefill216_up": (216, 7168, 2048)}
 
 
 def _kimi_bank(torch, gen, g, k, n, bits):
@@ -4986,6 +5017,21 @@ def _kimi_rows(torch, gen, gk, ops, qk, reps):
                         f"{e_err} from its plain version")
                 err = max(err, e_err)
             plan = qk.launch_plan(c, k, n, bits)
+            if c > C_WIDE:
+                # row invariance on Kimi's bank: the first 160 rows,
+                # reversed, as a C = 160 launch (one plan's splits)
+                if qk.launch_plan(C_WIDE, k, n, bits)[2:4] != plan[2:4]:
+                    raise AssertionError(f"q{bits} {label}: C = {c} and "
+                                         f"{C_WIDE} split K differently")
+                rows = list(range(C_WIDE - 1, -1, -1))
+                part = ops.grouped_q_matmul(x[:, rows].contiguous(), qt)
+                if not _bits_equal(torch, got[:, rows].contiguous(), part):
+                    raise AssertionError(f"q{bits} {label} at G={g}: rows "
+                                         f"of a C={c} launch differ from a "
+                                         f"C={C_WIDE} launch")
+                log(f"  grouped_q{bits}    {label}: rows of the C={c} launch "
+                    f"bit-equal to a C={C_WIDE} launch at G={g}")
+                del part
             w_bytes = g * k * n * bits // 8
             sb = g * (k // GROUP) * n * 2
             row = {"G": g, "C": c, "K": k, "N": n, "copies": 1,
@@ -5221,10 +5267,12 @@ def _row_invariance(torch, gen, ops, sizes):
     depends neither on how many tokens share its expert nor on its place,
     so the speculative verify scores a token as plain decode does. So are
     rows of C = 8 and 4 launches (decode at the serve point), of C = 128
-    and 80 launches (the wgmma body), of C = 256 and 160 and of C = 320
-    and 256 launches (the wide body: its n160 tiles and its n96 tail);
-    every such pair must share one plan. Rows of C = 160 and 128 launches
-    (the two wgmma bodies) are checked where their plans split K alike."""
+    and 80 launches (the wgmma body), of C = 256 and 160, of C = 320 and
+    256, of C = 640 and 320 (up and down), of C = 320 and 160 (down) and
+    of C = 416 and 400 (up: the wide body's n96 tail) launches (C > 128:
+    one, two, three and four token tiles); every such pair
+    must split K alike. Rows of C = 160 and 128 launches (the two wgmma
+    bodies) are checked where their plans split K alike."""
     from repro_torch.kernels import q4_matmul as qk
     def check(what, fn, x, c_part=C_DECODE):
         full = fn(x)
@@ -5244,15 +5292,21 @@ def _row_invariance(torch, gen, ops, sizes):
     # the mma.sync body at the verify's C = 12 against C = 8 and at C = 8
     # against the serve point's C = 4, the wgmma body at C = 128 against C
     # = 80 (one 128-token tile, one plan), the wide body at C = 256 against
-    # C = 160 and at C = 320 against C = 256 (whose tokens 0-95 run the n96
-    # tail reversed), each pair on one plan; and the wide body against the
-    # wgmma body where their plans split K alike
+    # C = 160 and at C = 320 against C = 256 (two 128-token tiles on the
+    # wide body's splits), C = 640 against 320 (four token tiles against
+    # two), the down-projection's C = 320 against 160 and the up-projection's
+    # C = 416 against 400 (each with an n96 tail, whose tokens run in tile 0
+    # of the other launch), each pair on one set of splits; and the wide
+    # body against the wgmma body where their plans split K alike
     across = []
-    for c_full, c_part in ((C_VERIFY, C_DECODE), (C_DECODE, C_SERVE),
-                           (C_PREFILL, 80), (256, C_WIDE), (320, 256),
-                           (C_WIDE, C_PREFILL)):
+    both = ("up", "down")
+    for c_full, c_part, labels in (
+            (C_VERIFY, C_DECODE, both), (C_DECODE, C_SERVE, both),
+            (C_PREFILL, 80, both), (256, C_WIDE, both), (320, 256, both),
+            (640, 320, both), (320, C_WIDE, ("down",)),
+            (416, 400, ("up",)), (C_WIDE, C_PREFILL, both)):
         for name, bits, g, grouped in cases:
-            for label in ("up", "down"):
+            for label in labels:
                 _, k, n = SHAPES[label]
                 splits = {qk.launch_plan(c, k, n, bits)[2:4]
                           for c in (c_full, c_part)}
@@ -5283,8 +5337,11 @@ def _row_invariance(torch, gen, ops, sizes):
     log(f"kernels: row invariance holds for every kernel (rows of C = "
         f"{C_VERIFY} launches bit-equal to C = {C_DECODE} launches and of C "
         f"= {C_DECODE} to C = {C_SERVE}, rows of C = {C_PREFILL} launches to "
-        f"C = 80 launches, rows of C = 256 launches to C = {C_WIDE} launches "
-        f"and of C = 320 to C = 256), and rows of C = {C_WIDE} "
+        f"C = 80 launches, rows of C = 256 launches to C = {C_WIDE} "
+        f"launches, of C = 320 to C = 256, of C = 640 to C = 320, at the "
+        f"down-projection of C = 320 to C = {C_WIDE} and of C = 416 to C = "
+        f"400), and rows of C = "
+        f"{C_WIDE} "
         f"launches to C = {C_PREFILL} launches where the two bodies split K "
         f"alike: {across}")
 
@@ -5375,9 +5432,10 @@ def _exact_checks(torch, gen, gk, ops, QTensor):
             raise AssertionError(f"{what} q{bits} not exact")
 
     # each contract in the three bodies: the mma.sync body (C <= 64), the
-    # wgmma body (64 < C <= 128) and the wide wgmma body (C > 128)
+    # wgmma body (64 < C <= 128, and two tiles at C = 161-256) and the wide
+    # wgmma body (C > 128; C = 400 ends in its n96 tail)
     for bits in (4, 8):
-        for c in (C_SERVE, C_DECODE, C_PREFILL, C_WIDE, 256):
+        for c in (C_SERVE, C_DECODE, C_PREFILL, C_WIDE, 256, 400):
             x, qt = _make_bank(torch, gen, 3, c, D_MODEL, D_FF, bits)
             grouped = ops.grouped_q_matmul(x, qt)
             loop = torch.stack([ops.q_matmul(x[e], qt.map(lambda t: t[e]))
@@ -5393,7 +5451,7 @@ def _exact_checks(torch, gen, gk, ops, QTensor):
             del x, qt, grouped, loop, z
         qmax = 7 if bits == 4 else 127
         for c_int, c_f32 in ((5, 8), (100, 72), (C_WIDE, 300),
-                             (C_SERVE, 256)):
+                             (C_SERVE, 256), (400, 400)):
             # integer-friendly: small integer x, power-of-two scales, K = 256
             xi = torch.randint(-3, 4, (2, c_int, 256), generator=gen,
                                device="cuda").to(torch.bfloat16)
@@ -5414,7 +5472,7 @@ def _exact_checks(torch, gen, gk, ops, QTensor):
             exact_case(bits, xi, (mag * sign).to(torch.int8), 1 + 2 ** -7,
                        f"f32-dequant C={c_f32}")
     torch.cuda.empty_cache()
-    for c in (5, 100, C_WIDE, 300, 256):
+    for c in (5, 100, C_WIDE, 300, 256, 400):
         xb = torch.randint(-3, 4, (2, c, 256), generator=gen,
                            device="cuda").to(torch.bfloat16)
         wb = (torch.randint(-8, 8, (2, 256, 128), generator=gen,
@@ -5427,8 +5485,8 @@ def _exact_checks(torch, gen, gk, ops, QTensor):
             raise AssertionError(f"empty group bf16 not exactly zero at C={c}")
     log("kernels: bit-exact checks passed in the three bodies (grouped == "
         "per-expert, integer-friendly inputs, f32 dequant, empty groups; C "
-        f"= {C_SERVE}, {C_DECODE}, {C_PREFILL}, {C_WIDE} and 256, 5, 100, "
-        f"{C_WIDE} and {C_SERVE}, 8, 72, 300 and 256)")
+        f"= {C_SERVE}, {C_DECODE}, {C_PREFILL}, {C_WIDE}, 256 and 400, 5, "
+        f"100, {C_WIDE}, {C_SERVE} and 400, 8, 72, 300, 256 and 400)")
 
 
 # --------------------------------------------------------------------------

@@ -18,10 +18,11 @@
 // Three bodies, chosen by the plan's token tile (launch_plan in
 // kernels/q4_matmul.py names it): the mma.sync body below for tiles of 8,
 // 16, 32 and 64 tokens (C <= 64: decode, the speculative verify), the
-// wgmma body of wgmma_body.cuh for the 128-token tile (64 < C <= 128), and
-// its wide variant (wgmma_wide.cuh) for the 160-token tile (C > 128:
-// prompts of 257 tokens and more at Mixtral's top-2 of 8). All compute the
-// same arithmetic and replace the same TPU kernels.
+// wgmma body of wgmma_body.cuh for the 128-token tile (64 < C <= 128, and
+// C = 161-256 in two tiles), and its wide variant (wgmma_wide.cuh) for the
+// 160-token tile (the other C > 128: prompts of 257 tokens and more at
+// Mixtral's top-2 of 8). All compute the same arithmetic and replace the
+// same TPU kernels.
 //
 // The mma.sync body: one templated tensor-core body, swap-AB. The kernel computes
 // out[g]^T = W[g]^T . x[g]^T with mma.sync.m16n8k16 (bf16 x bf16 -> f32):
@@ -250,11 +251,29 @@ struct Args {
   int G, M, K, N, gs, k_chunk, splits;
 };
 
-// The tile of this block, (g, token tile, column tile), as an index into
-// the counters: the grid is (column tiles, token tiles x splits, G).
-__device__ __forceinline__ int tile_index(const Args& a) {
-  return (blockIdx.z * (gridDim.y / a.splits) + blockIdx.y / a.splits)
-      * gridDim.x + blockIdx.x;
+// A block's place: expert g, K split ``split``, token tile mt of mtiles
+// and column tile nt of ntiles. Each body's grid has one decoder into it
+// (grid_place below, block_place in wgmma_body.cuh), which its kernel, its
+// counter and its epilogue all read.
+struct Place {
+  int g, split, mt, nt, mtiles, ntiles;
+};
+
+// The counter of the block's tile, (g, token tile, column tile): one per
+// tile, whatever order the grid runs the tiles in.
+__device__ __forceinline__ int tile_index(const Place& p) {
+  return (p.g * p.mtiles + p.mt) * p.ntiles + p.nt;
+}
+
+// The mma.sync body's grid: (column tiles, token tiles x splits, G).
+__device__ __forceinline__ Place grid_place(const Args& a) {
+  const int mtiles = gridDim.y / a.splits;
+  const int ntiles = gridDim.x;
+  const int mt = blockIdx.y / a.splits;
+  const int nt = blockIdx.x;
+  const int split = blockIdx.y % a.splits;
+  const int g = blockIdx.z;
+  return Place{g, split, mt, nt, mtiles, ntiles};
 }
 
 // A barrier over the threads that write the block's partial: the whole
@@ -282,13 +301,14 @@ __device__ __forceinline__ void split_sync() {
 // move the mma.sync body's dynamic shared memory off its 128-byte
 // alignment, which cost its decode launches ~10% on the card.)
 template <int THREADS>
-__device__ __forceinline__ bool split_last(const Args& a, int* slot) {
+__device__ __forceinline__ bool split_last(const Args& a, int tile,
+                                           int* slot) {
   split_sync<THREADS>();
   if (threadIdx.x == 0) {
     unsigned old;
     asm volatile("atom.acq_rel.gpu.global.inc.u32 %0, [%1], %2;\n"
                  : "=r"(old)
-                 : "l"(a.counters + tile_index(a)), "r"(a.splits - 1)
+                 : "l"(a.counters + tile), "r"(a.splits - 1)
                  : "memory");
     *slot = old == static_cast<unsigned>(a.splits - 1);
   }
@@ -402,10 +422,10 @@ tc_matmul_kernel(Args a) {
   using T = Tile<BITS, NT>;
   constexpr int S = T::STAGES;
   extern __shared__ __align__(16) char smem[];
-  const int g = blockIdx.z;
-  const int split = blockIdx.y % a.splits;
-  const int m0 = (blockIdx.y / a.splits) * T::BC;
-  const int n0 = blockIdx.x * BN;
+  const Place place = grid_place(a);
+  const int g = place.g, split = place.split;
+  const int m0 = place.mt * T::BC;
+  const int n0 = place.nt * BN;
   const int kbeg = split * a.k_chunk;
   const int kend = min(a.K, kbeg + a.k_chunk);
   const int nst = (kend - kbeg + BK - 1) / BK;
@@ -526,7 +546,9 @@ tc_matmul_kernel(Args a) {
                                acc[1][t][2 + h]);
     }
   // the ring's first word: every thread is past its last stage
-  if (!split_last<0>(a, reinterpret_cast<int*>(smem)) || !cols) return;
+  if (!split_last<0>(a, tile_index(place), reinterpret_cast<int*>(smem))
+      || !cols)
+    return;
   // the tile's last block: the split planes in order, U planes of all the
   // thread's outputs in flight at once (64 registers of loads)
   constexpr int U = NT >= 8 ? 1 : 8 / NT;

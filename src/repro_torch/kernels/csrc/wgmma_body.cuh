@@ -31,12 +31,21 @@
 // bytes, set the int4 and int8 time: they overlap the tensor core only in
 // part, and a variant that multicast the x tile over a cluster of two or
 // four blocks (half or a quarter of its L2 reads) ran no faster.
+//
+// Past one token tile the grid runs the token tiles of a column tile side
+// by side (block_place), so the weights cross HBM once per column tile and
+// reach the later tiles from L2. The bf16 bank, bound by those bytes, also
+// pairs the token tiles in a cluster of two whose producers multicast one
+// 64-column weight box each into both blocks (produce); the int banks run
+// no cluster: a pair gained them nothing on the card, its split of their
+// weight rows into two boxes cost them time (PERF.md), and the flushes,
+// not the L2 reads, set their time.
 
 #pragma once
 
 // (included inside dequant_matmul.cu's anonymous namespace, after <cuda.h>,
-// Args, split_last, store_bf16x4, int4_pair, int8_bf16x2, bf16_lo and
-// bf16_hi)
+// Args, Place, split_last, store_bf16x4, int4_pair, int8_bf16x2, bf16_lo
+// and bf16_hi)
 namespace wg {
 
 constexpr int BN = 128;                // weight columns per block
@@ -115,6 +124,42 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
       :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0),
          "r"(c1), "r"(c2), "r"(smem_u32(bar))
       : "memory");
+}
+
+// The same box into the same offset of every block of the cluster in
+// ``mask``, each completing on its own barrier at ``bar``'s offset.
+__device__ __forceinline__ void tma_load_mc(void* dst, const CUtensorMap* map,
+                                            int c0, int c1, int c2,
+                                            uint64_t* bar, uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes.multicast::cluster [%0], [%1, {%2, %3, %4}], [%5], %6;\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0),
+         "r"(c1), "r"(c2), "r"(smem_u32(bar)), "h"(mask)
+      : "memory");
+}
+
+// An arrival on the barrier at ``bar``'s offset in block ``cta`` of the
+// cluster.
+__device__ __forceinline__ void mbar_arrive_peer(uint64_t* bar, int cta) {
+  asm volatile(
+      "{\n.reg .b32 ra;\n"
+      "mapa.shared::cluster.u32 ra, %0, %1;\n"
+      "mbarrier.arrive.shared::cluster.b64 _, [ra];\n}\n"
+      :: "r"(smem_u32(bar)), "r"(cta) : "memory");
+}
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// Every thread of every block of the cluster: the barriers initialized
+// before any block reaches into another's shared memory.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n"
+               "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
 // Shared-memory matrix descriptor of a 128-byte-swizzled tile: start
@@ -273,9 +318,15 @@ __device__ __forceinline__ void flush(float (&acc)[R], float (&part)[R],
     acc[i] = fmaf(part[i], (i & 2) ? s1 : s0, acc[i]);
 }
 
-__device__ __forceinline__ void release(uint64_t* empty, int lane) {
+// This warp is done with the stage: its arrival on the stage's empty
+// barrier, and on the partner block's (``peer``, its rank in the cluster;
+// -1 alone), whose producer also loads into this block's stages.
+__device__ __forceinline__ void release(uint64_t* empty, int lane, int peer) {
   __syncwarp();
-  if (lane == 0) mbar_arrive(empty);      // this warp is done with the stage
+  if (lane == 0) {
+    mbar_arrive(empty);
+    if (peer >= 0) mbar_arrive_peer(empty, peer);
+  }
 }
 
 // One group of a stage: its wgmmas into ``cur``, and meanwhile the
@@ -284,7 +335,8 @@ template <int BITS, int SPF, int S, int NG>
 __device__ __forceinline__ void int_group(
     float (&acc)[64], float (&cur)[64], float (&prev)[64],
     const uint32_t (&f)[BK / 16][4], char* smem, uint64_t* empty,
-    const char* st, uint32_t xs, int grp, int it, int lane, int col) {
+    const char* st, uint32_t xs, int grp, int it, int lane, int col,
+    int peer) {
   using T = Tile<BITS>;
   wgmma_fence();
 #pragma unroll
@@ -302,7 +354,7 @@ __device__ __forceinline__ void int_group(
     fence_regs(prev);
     flush<BITS>(acc, prev, smem + (pv % S) * T::STAGE_BYTES + T::X_BYTES,
                 NG - 1, col);
-    release(empty + pv % S, lane);
+    release(empty + pv % S, lane, peer);
   }
 }
 
@@ -315,7 +367,7 @@ template <int BITS, int SPF, int S, int PAR>
 __device__ __forceinline__ void int_stage(
     float (&acc)[64], float (&p0)[64], float (&p1)[64],
     uint32_t (&f)[BK / 16][4], char* smem, uint64_t* full, uint64_t* empty,
-    int it, int nst, int warp_col, int lane, int col) {
+    int it, int nst, int warp_col, int lane, int col, int peer) {
   using T = Tile<BITS>;
   constexpr int NG = BK / 16 / SPF;          // groups per stage
   const char* st = smem + (it % S) * T::STAGE_BYTES;
@@ -325,10 +377,10 @@ __device__ __forceinline__ void int_stage(
     // this group's partial and the previous group's: p0 and p1 in turn
     if ((PAR * NG + grp) % 2)
       int_group<BITS, SPF, S, NG>(acc, p1, p0, f, smem, empty, st, xs, grp,
-                                  it, lane, col);
+                                  it, lane, col, peer);
     else
       int_group<BITS, SPF, S, NG>(acc, p0, p1, f, smem, empty, st, xs, grp,
-                                  it, lane, col);
+                                  it, lane, col, peer);
   }
   wgmma_wait<0>();                 // f is free again
   if (it + 1 < nst) {
@@ -340,12 +392,18 @@ __device__ __forceinline__ void int_stage(
 }
 
 // The producer thread: keeps the ring of stages full with TMA loads of x
-// (a box of BC tokens), the weight rows and the scale rows.
+// (a box of BC tokens), the weight rows and the scale rows. bf16 weights
+// come in two 64-column boxes; with a partner block (``peer``, the other
+// token tile of the column tile, bf16 only) each block loads box ``rank``
+// into both blocks' stages, so the pair's weights cross from L2 once. Each
+// stage's empty barrier then counts both blocks' consumer warps, and the
+// producer stays until the last of them has arrived (the partner reaches
+// into this block's barriers until then).
 template <int BITS, int BC>
 __device__ __forceinline__ void produce(
     const CUtensorMap* tm_x, const CUtensorMap* tm_w, const CUtensorMap* tm_s,
     const Args& a, char* smem, uint64_t* full, uint64_t* empty, int g,
-    int m0, int n0, int kbeg, int nst, int srows) {
+    int m0, int n0, int kbeg, int nst, int srows, int rank, int peer) {
   using T = Tile<BITS, BC>;
   constexpr int S = T::STAGES;
   const uint32_t tx = T::X_BYTES + T::W_BYTES
@@ -362,13 +420,19 @@ __device__ __forceinline__ void produce(
       tma_load(wst, tm_w, n0, k0 / 2, g, full + s);
     } else if constexpr (BITS == 8) {
       tma_load(wst, tm_w, n0, k0, g, full + s);
+    } else if (peer >= 0) {
+      tma_load_mc(wst + rank * T::W_BYTES / 2, tm_w, n0 + rank * BN / 2, k0,
+                  g, full + s, 3);
     } else {
       tma_load(wst, tm_w, n0, k0, g, full + s);
-      tma_load(wst + T::W_BYTES / 2, tm_w, n0 + 64, k0, g, full + s);
+      tma_load(wst + T::W_BYTES / 2, tm_w, n0 + BN / 2, k0, g, full + s);
     }
     if constexpr (BITS != 16)
       tma_load(wst + T::W_BYTES, tm_s, n0, k0 / a.gs, g, full + s);
   }
+  if (peer >= 0)
+    for (int it = nst > S ? nst - S : 0; it < nst; ++it)
+      mbar_wait(empty + it % S, (it / S) & 1);
 }
 
 // A consumer thread's tokens into ``out`` (one split) or the f32 workspace:
@@ -424,7 +488,7 @@ template <int BITS, int SPF>
 __device__ __forceinline__ void consume(const Args& a, char* smem,
                                         uint64_t* full, uint64_t* empty,
                                         int nst, int g, int m0, int n0,
-                                        int split, int role) {
+                                        int split, int role, int peer) {
   using T = Tile<BITS>;
   constexpr int S = T::STAGES;
   const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3;
@@ -451,7 +515,7 @@ __device__ __forceinline__ void consume(const Args& a, char* smem,
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(acc);
-      release(empty + s, lane);
+      release(empty + s, lane, peer);
     }
   } else {
     // codes -> registers -> wgmma; two partials in turn (register arrays
@@ -464,10 +528,10 @@ __device__ __forceinline__ void consume(const Args& a, char* smem,
     load_a<BITS>(f, smem + T::X_BYTES, warp_col, lane);
     for (int it = 0; it < nst; it += 2) {
       int_stage<BITS, SPF, S, 0>(acc, p0, p1, f, smem, full, empty, it,
-                                 nst, warp_col, lane, col);
+                                 nst, warp_col, lane, col, peer);
       if (it + 1 < nst)
         int_stage<BITS, SPF, S, 1>(acc, p0, p1, f, smem, full, empty,
-                                   it + 1, nst, warp_col, lane, col);
+                                   it + 1, nst, warp_col, lane, col, peer);
     }
     // the last group's partial: stage nst - 1's last group
     constexpr int NG = BK / 16 / SPF;
@@ -480,7 +544,7 @@ __device__ __forceinline__ void consume(const Args& a, char* smem,
       fence_regs(p0);
       flush<BITS>(acc, p0, ws_last, NG - 1, col);
     }
-    release(empty + last % S, lane);
+    release(empty + last % S, lane, peer);
   }
 
   store<BITS>(acc, a, g, m0, n0, split, role);
@@ -549,10 +613,30 @@ __device__ __forceinline__ void reduce_tile(const CUtensorMap* tm_ws,
   }
 }
 
+// The block's place in the grid (token tiles, column tiles, G x splits):
+// the token tile varies fastest, then the column tile, the K split and the
+// expert. So the ceil(C / BC) token tiles of one (expert, split, column
+// tile) are consecutive blocks, dispatched in one wave: of the TMA loads
+// of a stage's weight and scale boxes, the first brings them from HBM and
+// the others find them in L2. (A grid with the token tiles behind every
+// column tile ran a wave of column tiles through the bank, larger than the
+// L2, before the next token tile read it again.)
+template <int BC>
+__device__ __forceinline__ Place block_place(const Args& a) {
+  const int mtiles = (a.M + BC - 1) / BC;
+  const int ntiles = gridDim.y;
+  const int mt = blockIdx.x;
+  const int nt = blockIdx.y;
+  const int split = blockIdx.z % a.splits;
+  const int g = blockIdx.z / a.splits;
+  return Place{g, split, mt, nt, mtiles, ntiles};
+}
+
 // SPF: k16 steps per group flush, min(group, 64) / 16 (bf16: 4, unused).
 // BC: the token tile, 128 (this file's consumers) or 160 (wgmma_wide.cuh's).
 // tm_ws: the f32 workspace (splits, G * M, N) when K is split.
-template <int BITS, int SPF, int BC>
+// PAIR: the launch is a grid of clusters of two token tiles (launch_pair).
+template <int BITS, int SPF, int BC, bool PAIR>
 __global__ void __launch_bounds__(THREADS, 1)
 wg_matmul_kernel(const __grid_constant__ CUtensorMap tm_x,
                  const __grid_constant__ CUtensorMap tm_w,
@@ -567,25 +651,34 @@ wg_matmul_kernel(const __grid_constant__ CUtensorMap tm_x,
   uint64_t* rbar = empty + S;              // the split-K epilogue's planes
   int* arrival = reinterpret_cast<int*>(rbar + 2);
 
-  const int g = blockIdx.z;
-  const int split = blockIdx.y % a.splits;
-  const int m0 = (blockIdx.y / a.splits) * BC;
-  const int n0 = blockIdx.x * BN;
+  const Place place = block_place<BC>(a);
+  const int g = place.g, split = place.split;
+  const int m0 = place.mt * BC;
+  const int n0 = place.nt * BN;
   const int kbeg = split * a.k_chunk;
   const int kend = min(a.K, kbeg + a.k_chunk);
   const int nst = (kend - kbeg + BK - 1) / BK;
   const int srows = a.gs >= BK ? 1 : BK / a.gs;   // scale rows per stage
+  // a cluster holds token tiles mt and mt ^ 1 of one column tile; past an
+  // odd last tile its partner is the grid's pad, which exits at once
+  const int rank = PAIR ? static_cast<int>(cluster_rank()) : 0;
+  const int peer = PAIR && (place.mt ^ 1) < place.mtiles ? rank ^ 1 : -1;
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < S; ++s) {
       mbar_init(full + s, 1);
-      mbar_init(empty + s, CONSUMERS * 4);      // one arrival per warp
+      // one arrival per consumer warp of this block and of its partner
+      mbar_init(empty + s, CONSUMERS * 4 * (peer >= 0 ? 2 : 1));
     }
     mbar_init(rbar, 1);
     mbar_init(rbar + 1, 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  __syncthreads();
+  if constexpr (PAIR)
+    cluster_sync();
+  else
+    __syncthreads();
+  if (PAIR && place.mt >= place.mtiles) return;
 
   const int role = threadIdx.x / 128;
   if (role == CONSUMERS) {
@@ -594,21 +687,25 @@ wg_matmul_kernel(const __grid_constant__ CUtensorMap tm_x,
                  :: "n"(PRODUCER_REGS));
     if (threadIdx.x == CONSUMERS * 128)
       produce<BITS, BC>(&tm_x, &tm_w, &tm_s, a, smem, full, empty, g, m0, n0,
-                        kbeg, nst, srows);
+                        kbeg, nst, srows, rank, peer);
     return;
   }
 
   // consumers: warpgroup ``role`` owns the block's columns 64 role ..
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(CONSUMER_REGS));
   if constexpr (BC == 128)
-    consume<BITS, SPF>(a, smem, full, empty, nst, g, m0, n0, split, role);
+    consume<BITS, SPF>(a, smem, full, empty, nst, g, m0, n0, split, role,
+                       peer);
   else if (a.M - m0 <= WIDE_TAIL)     // a short last tile runs wgmma's n96
     consume_wide<BITS, SPF, BC, WIDE_TAIL / 2>(a, smem, full, empty, nst, g,
-                                               m0, n0, split, role);
+                                               m0, n0, split, role, peer);
   else
     consume_wide<BITS, SPF, BC, BC / 2>(a, smem, full, empty, nst, g, m0, n0,
-                                        split, role);
-  if (a.splits > 1 && split_last<CONSUMERS * 128>(a, arrival))
+                                        split, role, peer);
+  // the place decoded again, not kept live through the K loop (kept, it
+  // cost the int8 128-token rows 2-3% on the card)
+  if (a.splits > 1 && split_last<CONSUMERS * 128>(
+                          a, tile_index(block_place<BC>(a)), arrival))
     reduce_tile<BC>(&tm_ws, a, smem, rbar, g, m0, n0);
 }
 
@@ -661,7 +758,7 @@ inline bool make_map(CUtensorMap* map, const void* base,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int BITS, int SPF, int BC>
+template <int BITS, int SPF, int BC, bool PAIR>
 int launch_spf(const Args& a, const CUtensorMap& tx, const CUtensorMap& tw,
                const CUtensorMap& ts, const CUtensorMap& tws,
                cudaStream_t s) {
@@ -672,16 +769,51 @@ int launch_spf(const Args& a, const CUtensorMap& tx, const CUtensorMap& tw,
   static unsigned long long smem_set = 0;   // bit d: set on device d
   const unsigned long long bit = dev < 64 ? 1ull << dev : 0;
   if (!(smem_set & bit)) {
-    e = cudaFuncSetAttribute(wg_matmul_kernel<BITS, SPF, BC>,
+    e = cudaFuncSetAttribute(wg_matmul_kernel<BITS, SPF, BC, PAIR>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              T::SMEM);
     if (e != cudaSuccess) return static_cast<int>(e);
     smem_set |= bit;
   }
-  const dim3 grid((a.N + BN - 1) / BN, ((a.M + BC - 1) / BC) * a.splits, a.G);
-  wg_matmul_kernel<BITS, SPF, BC><<<grid, THREADS, T::SMEM, s>>>(tx, tw, ts,
-                                                                tws, a);
+  // block_place's order, token tiles fastest; a PAIR launch runs two
+  // blocks a cluster (the grid padded to an even count of token tiles)
+  const int mtiles = (a.M + BC - 1) / BC;
+  const dim3 grid(mtiles + PAIR * (mtiles % 2), (a.N + BN - 1) / BN,
+                  a.G * a.splits);
+  cudaLaunchAttribute cluster;
+  cluster.id = cudaLaunchAttributeClusterDimension;
+  cluster.val.clusterDim.x = 2;
+  cluster.val.clusterDim.y = 1;
+  cluster.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = T::SMEM;
+  cfg.stream = s;
+  cfg.attrs = &cluster;
+  cfg.numAttrs = PAIR;
+  void* args[] = {const_cast<CUtensorMap*>(&tx), const_cast<CUtensorMap*>(&tw),
+                  const_cast<CUtensorMap*>(&ts),
+                  const_cast<CUtensorMap*>(&tws), const_cast<Args*>(&a)};
+  e = cudaLaunchKernelExC(
+      &cfg,
+      reinterpret_cast<const void*>(wg_matmul_kernel<BITS, SPF, BC, PAIR>),
+      args);
+  if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Past one token tile the bf16 bank pairs its token tiles in clusters; the
+// int banks and every single-tile launch run blocks alone, with no cluster
+// code in their kernel.
+template <int BITS, int SPF, int BC>
+int launch_pair(const Args& a, const CUtensorMap& tx, const CUtensorMap& tw,
+                const CUtensorMap& ts, const CUtensorMap& tws,
+                cudaStream_t s) {
+  if constexpr (BITS == 16)
+    if (a.M > BC)
+      return launch_spf<BITS, SPF, BC, true>(a, tx, tw, ts, tws, s);
+  return launch_spf<BITS, SPF, BC, false>(a, tx, tw, ts, tws, s);
 }
 
 template <int BITS, int BC>
@@ -713,12 +845,12 @@ int launch(const Args& a, cudaStream_t s) {
     tws = tx;                           // unused without a split
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   if constexpr (BITS == 16) {
-    return launch_spf<16, BK / 16, BC>(a, tx, tw, ts, tws, s);
+    return launch_pair<16, BK / 16, BC>(a, tx, tw, ts, tws, s);
   } else {
     switch (a.gs >= BK ? BK / 16 : a.gs / 16) {
-      case 1: return launch_spf<BITS, 1, BC>(a, tx, tw, ts, tws, s);
-      case 2: return launch_spf<BITS, 2, BC>(a, tx, tw, ts, tws, s);
-      case 4: return launch_spf<BITS, 4, BC>(a, tx, tw, ts, tws, s);
+      case 1: return launch_pair<BITS, 1, BC>(a, tx, tw, ts, tws, s);
+      case 2: return launch_pair<BITS, 2, BC>(a, tx, tw, ts, tws, s);
+      case 4: return launch_pair<BITS, 4, BC>(a, tx, tw, ts, tws, s);
       default: return static_cast<int>(cudaErrorInvalidValue);
     }
   }

@@ -17,8 +17,10 @@
 // byte loaded once per 160 tokens.
 //
 // The last token tile of a launch that holds at most WIDE_TAIL tokens (C =
-// 161-256, and any C whose last tile is that short) runs the same loops
-// with wgmma.m64n96k16, so C = 256 flushes 256 rows, not 320.
+// 321-416, and any C past 256 whose last tile is that short) runs the same
+// loops with wgmma.m64n96k16. C = 161-256 takes two tiles either way and
+// runs them on wgmma_body.cuh's 128-token tile, which the card ran faster
+// than a 160-token tile and this n96 tail on every bank (PERF.md).
 //
 // What the card showed on the way (the numbers are in PERF.md): a block of
 // 64 columns by up to 256 tokens, its two warpgroups splitting the tokens
@@ -123,7 +125,7 @@ template <int BITS, int SPF, int BC, int R>
 __device__ __forceinline__ void wide_stage(
     float (&acc)[R], float (&part)[R], const uint32_t (&f)[BK / 16][4],
     uint32_t (&fn)[BK / 16][4], char* smem, uint64_t* full, uint64_t* empty,
-    int it, int nst, int warp_col, int lane, int col) {
+    int it, int nst, int warp_col, int lane, int col, int peer) {
   using T = Tile<BITS, BC>;
   constexpr int S = T::STAGES;
   constexpr int NG = BK / 16 / SPF;          // groups per stage
@@ -148,7 +150,7 @@ __device__ __forceinline__ void wide_stage(
     fence_regs(part);
     flush<BITS>(acc, part, st + T::X_BYTES, grp, col);
   }
-  release(empty + it % S, lane);
+  release(empty + it % S, lane, peer);
 }
 
 // Issue one bf16 stage's wgmmas into acc once the stage has landed.
@@ -174,7 +176,7 @@ __device__ __forceinline__ void wide_bf16_stage(float (&acc)[R], char* smem,
 template <int BITS, int SPF, int BC, int R>
 __device__ __forceinline__ void consume_wide(
     const Args& a, char* smem, uint64_t* full, uint64_t* empty, int nst,
-    int g, int m0, int n0, int split, int role) {
+    int g, int m0, int n0, int split, int role, int peer) {
   using T = Tile<BITS, BC>;
   constexpr int S = T::STAGES;
   const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3;
@@ -192,11 +194,11 @@ __device__ __forceinline__ void consume_wide(
     for (int it = 1; it < nst; ++it) {
       wide_bf16_stage<BC>(acc, smem, full, it, role);
       wgmma_wait<1>();             // the previous stage's wgmmas are done
-      release(empty + (it - 1) % S, lane);
+      release(empty + (it - 1) % S, lane, peer);
     }
     wgmma_wait<0>();
     fence_regs(acc);
-    release(empty + (nst - 1) % S, lane);
+    release(empty + (nst - 1) % S, lane, peer);
   } else {
     // codes -> registers -> wgmma; two fragment sets in turn (register
     // arrays are indexed at compile time only, so stages go in pairs)
@@ -208,10 +210,10 @@ __device__ __forceinline__ void consume_wide(
     load_a<BITS>(f0, smem + T::X_BYTES, warp_col, lane);
     for (int it = 0; it < nst; it += 2) {
       wide_stage<BITS, SPF, BC>(acc, part, f0, f1, smem, full, empty, it, nst,
-                                warp_col, lane, col);
+                                warp_col, lane, col, peer);
       if (it + 1 < nst)
         wide_stage<BITS, SPF, BC>(acc, part, f1, f0, smem, full, empty,
-                                  it + 1, nst, warp_col, lane, col);
+                                  it + 1, nst, warp_col, lane, col, peer);
     }
   }
   store<BITS>(acc, a, g, m0, n0, split, role);

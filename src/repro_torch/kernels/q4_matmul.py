@@ -15,7 +15,8 @@ K splits, from the shape alone (no expert count G), so the grouped launch
 and the per-expert loop run the same arithmetic. Up to 64 tokens (decode,
 the speculative verify) a plan names the ``mma_sync`` body; above 64
 (prefill) the ``wgmma`` body with its 128-token tile, and above 128 the
-``wgmma_wide`` body with its 160-token tile. With more than one
+``wgmma_wide`` body with its 160-token tile, but for C = 161-256, which
+run two 128-token tiles. With more than one
 split the partials go through an f32 workspace, and the last block of
 each tile to finish adds them in split order in the kernel's own epilogue
 (:func:`splitk_reduce_plain` is that arithmetic in plain PyTorch).
@@ -79,10 +80,11 @@ BLOCK_N = 128
 #: token tiles the kernels are built for: one n8 mma.sync fragment per 8
 #: up to 64, the wgmma body's n128 tile and the wide body's n160 tile
 BLOCK_C = (8, 16, 32, 64, 128, 160)
-#: the wgmma body's token tile: it serves every launch with 64 < C <= 128
+#: the wgmma body's token tile: it serves every launch with 64 < C <= 128,
+#: and in two tiles every launch with 160 < C <= 256
 WGMMA_BLOCK_C = 128
-#: the wide wgmma body's token tile: it serves every launch with C > 128,
-#: in ceil(C / 160) tiles
+#: the wide wgmma body's token tile: it serves every other launch with C >
+#: 128, in ceil(C / 160) tiles
 WIDE_BLOCK_C = 160
 #: K split boundaries are multiples of this (the kernels' pipeline stage)
 SPLIT_GRAIN = 64
@@ -130,10 +132,13 @@ def launch_plan(c: int, k: int, n: int, bits: int) -> LaunchPlan:
     (C = 160, 320, 640: the 512-, 1024- and 2048-token buckets at top-2 of
     8 and capacity factor 1.25 fill whole tiles). K splits by the same two
     caps, counted over the column tiles alone and the byte cap at 160
-    tokens, so that every C > 128 shares one set of splits. A last tile of
-    at most 96 tokens (C = 161-256 among others) runs the body's n96
-    consumers inside the same launch, so C = 256 computes 256 rows, not
-    320.
+    tokens, so that every C > 128 shares one set of splits. C = 161-256
+    (Kimi-K2's 8192-token bucket, C = 216, among them) takes two tiles
+    either way and runs them on the ``wgmma`` body's 128-token tile with
+    those splits: on the card two 128-token tiles beat a 160-token tile
+    and the wide body's n96 tail on every bank (PERF.md). A last tile of at
+    most 96 tokens past 256 (C = 321-416 among others) runs the wide
+    body's n96 consumers inside the same launch.
 
     It takes no expert count: a bank of G experts runs each expert exactly
     as a launch of one would. ``bits`` (4, 8 or 16) is checked; only the
@@ -146,8 +151,9 @@ def launch_plan(c: int, k: int, n: int, bits: int) -> LaunchPlan:
     tile of 8 to 64 does not change a row's arithmetic: the verify scores
     a token as decode does), every C in 65..128 the ``wgmma`` body with
     another (one 128-token tile: a C = 80 row equals its C = 128 row), and
-    every C > 128, 129..256 among them, the ``wgmma_wide`` body with a third
-    (a C = 160 row equals its C = 256 and its C = 320 row)."""
+    every C > 128 a third, on either wgmma body: the two compute a row
+    alike where their splits agree, so a C = 160 row equals its C = 256
+    and its C = 320 row."""
     if bits not in (4, 8, 16):
         raise ValueError(f"bits must be 4, 8 or 16, got {bits}")
     grains = max(1, math.ceil(k / SPLIT_GRAIN))
@@ -157,12 +163,16 @@ def launch_plan(c: int, k: int, n: int, bits: int) -> LaunchPlan:
         body = "mma_sync"
         want = math.ceil(MIN_BLOCKS / (tiles * math.ceil(c / block_c)))
     else:
-        # one token tile at C <= 128; the wide body's splits count its
-        # column tiles alone, and its partials may reach the weight bytes
-        body = "wgmma" if block_c == WGMMA_BLOCK_C else "wgmma_wide"
+        # one token tile at C <= 128; past it the wide body's splits, which
+        # count its column tiles alone and let its partials reach the
+        # weight bytes
+        wide = block_c == WIDE_BLOCK_C
         want = 1 if 2 * tiles >= WAVE else WAVE // tiles
-        cap = 16 if body == "wgmma" else 8
+        cap = 8 if wide else 16
         want = min(want, k * bits // (cap * 8 * block_c))
+        if WIDE_BLOCK_C < c <= 2 * WGMMA_BLOCK_C:
+            block_c = WGMMA_BLOCK_C        # two 128-token tiles
+        body = "wgmma" if block_c == WGMMA_BLOCK_C else "wgmma_wide"
     want = max(1, min(grains, MAX_SPLITS, want))
     k_chunk = math.ceil(grains / want) * SPLIT_GRAIN
     return LaunchPlan(BLOCK_N, block_c, k_chunk, math.ceil(k / k_chunk),

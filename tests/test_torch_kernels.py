@@ -302,6 +302,7 @@ def test_pack_matches_packed_codes():
 import importlib.util  # noqa: E402
 import inspect  # noqa: E402
 import math  # noqa: E402
+import re  # noqa: E402
 from pathlib import Path  # noqa: E402
 
 from repro_torch.kernels import q4_matmul as tk  # noqa: E402
@@ -432,10 +433,12 @@ def test_kernel_arithmetic_f32_dequant_exact(bits, k):
 @pytest.mark.parametrize("c,k,n", PLAN_SHAPES)
 def test_launch_plan_covers_k(c, k, n, bits):
     """Splits on 64-aligned boundaries that cover K exactly, a token tile
-    that the kernels are built for, the kernels' one column tile."""
+    that the kernels are built for, the kernels' one column tile; the
+    token tile holds C, or C takes as many of it as of the wide tile."""
     plan = tk.launch_plan(c, k, n, bits)
     assert plan.block_n == tk.BLOCK_N and plan.block_c in tk.BLOCK_C
-    assert plan.block_c >= min(c, tk.BLOCK_C[-1])
+    assert plan.block_c >= c or math.ceil(c / plan.block_c) == math.ceil(
+        c / tk.WIDE_BLOCK_C)
     assert plan.k_chunk % tk.SPLIT_GRAIN == 0
     bounds = [min(k, s * plan.k_chunk) for s in range(plan.splits + 1)]
     assert bounds[0] == 0 and bounds[-1] == k
@@ -558,37 +561,117 @@ def test_split_counters_cover_every_timed_shape():
     assert split > 0
 
 
-def _c_expr(text: str, start: str) -> str:
-    """The C expression that follows ``start`` in ``text`` up to its
-    closing parenthesis or semicolon, as Python: integer division, the
-    launch's fields and CUDA's built-ins by plain names."""
-    i = text.index(start) + len(start)
-    depth, j = 0, i
-    while depth > 0 or text[j] not in ");":
-        depth += {"(": 1, ")": -1}.get(text[j], 0)
-        j += 1
-    expr = " ".join(text[i:j].split())
+def _py(expr: str) -> str:
+    """A C integer expression as Python: integer division, the launch's
+    fields and CUDA's built-ins by plain names."""
+    expr = " ".join(expr.split())
     for c_name, py in (("T::BC", "BC"), ("a.", ""), ("blockIdx.", "b"),
                        ("gridDim.", "grid_"), ("/", "//")):
         expr = expr.replace(c_name, py)
     return expr
 
 
+def _c_expr(text: str, start: str) -> str:
+    """The C expression that follows ``start`` in ``text`` up to its
+    closing parenthesis or semicolon, as Python (``_py``)."""
+    i = text.index(start) + len(start)
+    depth, j = 0, i
+    while depth > 0 or text[j] not in ");":
+        depth += {"(": 1, ")": -1}.get(text[j], 0)
+        j += 1
+    return _py(text[i:j])
+
+
+def _csrc(name: str) -> str:
+    return (Path(tk.__file__).parent / "csrc" / name).read_text()
+
+
+#: (grid source, decoder head) of each body: the mma.sync body's 3-D grid
+#: in dequant_matmul.cu, the wgmma bodies' 1-D grid in wgmma_body.cuh
+DECODERS = {"mma_sync": ("dequant_matmul.cu", "Place grid_place("),
+            "wgmma": ("wgmma_body.cuh", "Place block_place(")}
+
+
+def _places(body: str, env: dict):
+    """Every block of the grid that ``body``'s launcher builds, decoded by
+    the kernel's own decoder read from the CUDA source, and the counter
+    ``tile_index`` gives it: (linear block id, {field: array}, counter).
+    The linear id is CUDA's, x fastest, then y, then z."""
+    main = _csrc("dequant_matmul.cu")
+    source, head = DECODERS[body]
+    text = _csrc(source)
+    at = text.index("const dim3 grid(")
+    launcher = text[text.rindex("\nint launch", 0, at):at]
+    env = dict(env)
+    for name, expr in re.findall(r"const int (\w+) = ([^;]+);", launcher):
+        env[name] = eval(_py(expr), {}, env)
+    grid = [eval(e, {}, env)
+            for e in _c_expr(text, "const dim3 grid(").split(", ")]
+    grid += [1] * (3 - len(grid))
+    bx, by, bz = (a.ravel() for a in np.meshgrid(
+        *(np.arange(d) for d in grid), indexing="ij"))
+    linear = (bz * grid[1] + by) * grid[0] + bx
+    fn = text[text.index(head):]
+    fn = fn[:fn.index("return Place{")]
+    scope = {**env, "bx": bx, "by": by, "bz": bz, "grid_x": grid[0],
+             "grid_y": grid[1], "grid_z": grid[2]}
+    for name, expr in re.findall(r"const int (\w+) = ([^;]+);", fn):
+        scope[name] = eval(_py(expr), {}, scope)
+    fields = re.search(r"struct Place \{\s*int ([^;]+);", main).group(1)
+    place = {f: np.broadcast_to(scope[f], linear.shape)
+             for f in fields.split(", ")}
+    tile = _c_expr(main, "int tile_index(const Place& p) {\n  return")
+    counter = eval(tile.replace("p.", ""), {}, place)
+    return linear, place, counter
+
+
+def _check_places(body: str, plan, g: int, c: int, n: int, bits: int):
+    """Every (g, split, token tile, column tile) is taken by exactly one
+    block, and each of ``split_tiles`` counters by one block of each split,
+    all of one (expert, token tile, column tile); the wgmma grid's pad (a
+    block past an odd last token tile, which exits at once) takes none.
+    Returns the decode of the blocks that take a tile."""
+    # launch_pair's choice: clusters of two token tiles for the bf16 bank
+    # past one token tile
+    env = {"N": n, "M": c, "G": g, "splits": plan.splits,
+           "BN": plan.block_n, "BC": plan.block_c,
+           "PAIR": body == "wgmma" and bits == 16 and c > plan.block_c}
+    linear, place, counter = _places(body, env)
+    mtiles, ntiles = math.ceil(c / plan.block_c), math.ceil(n / 128)
+    assert (place["mtiles"] == mtiles).all()
+    assert (place["ntiles"] == ntiles).all()
+    pad = place["mt"] >= mtiles
+    pads = mtiles % 2 if env["PAIR"] else 0
+    assert pad.sum() == g * plan.splits * ntiles * pads
+    assert (place["mt"][pad] == mtiles).all()
+    linear, counter = linear[~pad], counter[~pad]
+    place = {f: v[~pad] for f, v in place.items()}
+    key = np.stack([place[f] for f in ("g", "split", "mt", "nt")])
+    want = g * plan.splits * mtiles * ntiles
+    assert linear.size == want
+    assert np.unique(key, axis=1).shape[1] == want
+    assert key.min(axis=1).tolist() == [0, 0, 0, 0]
+    assert key.max(axis=1).tolist() == [g - 1, plan.splits - 1, mtiles - 1,
+                                        ntiles - 1]
+    tiles = tk.split_tiles(plan, g, c, n)
+    assert counter.min() == 0 and counter.max() == tiles - 1
+    assert (np.bincount(counter, minlength=tiles) == plan.splits).all()
+    assert np.unique(counter * plan.splits + place["split"]).size \
+        == counter.size
+    tile = np.stack([counter, place["g"], place["mt"], place["nt"]])
+    assert np.unique(tile, axis=1).shape[1] == tiles
+    return linear, place
+
+
 @pytest.mark.parametrize("body", ["mma_sync", "wgmma"])
 def test_tile_index_matches_split_tiles(body):
-    """The kernels' ``tile_index`` (dequant_matmul.cu) over every block of
-    the grid their launcher builds (``launch`` there for the mma.sync body,
-    ``launch_spf`` in wgmma_body.cuh for both wgmma tiles), read from the
-    CUDA sources: at every split plan of every timed shape it maps the
-    blocks onto exactly ``split_tiles`` counters, each counter taken by one
-    block of each split, all of one (expert, token tile, column tile)."""
-    csrc = Path(tk.__file__).parent / "csrc"
-    main = (csrc / "dequant_matmul.cu").read_text()
-    launcher = main if body == "mma_sync" else \
-        (csrc / "wgmma_body.cuh").read_text()
-    grid_exprs = _c_expr(launcher, "const dim3 grid(").split(", ")
-    assert len(grid_exprs) == 3
-    tile_expr = _c_expr(main, "int tile_index(const Args& a) {\n  return")
+    """The kernels' block decoders and ``tile_index`` (dequant_matmul.cu)
+    over every block of the grid their launcher builds (``launch`` there
+    for the mma.sync body, ``launch_spf`` in wgmma_body.cuh for both wgmma
+    tiles), read from the CUDA sources: at every split plan of every timed
+    shape they map the blocks onto exactly ``split_tiles`` counters, each
+    counter taken by one block of each split, all of one (expert, token
+    tile, column tile)."""
     checked = 0
     for g, (c, k, n) in _timed_launches():
         for bits in (4, 8, 16):
@@ -596,25 +679,47 @@ def test_tile_index_matches_split_tiles(body):
             if plan.splits == 1 or (plan.body == "mma_sync") != (
                     body == "mma_sync"):
                 continue
-            env = {"N": n, "M": c, "G": g, "splits": plan.splits,
-                   "BN": plan.block_n, "BC": plan.block_c}
-            grid = [eval(e, {}, env) for e in grid_exprs]
-            assert grid[0] * plan.block_n >= n
-            assert grid[1] // plan.splits * plan.block_c >= c
-            bx, by, bz = (a.ravel() for a in np.meshgrid(
-                *(np.arange(d) for d in grid), indexing="ij"))
-            idx = eval(tile_expr, {}, {
-                **env, "bx": bx, "by": by, "bz": bz, "grid_x": grid[0],
-                "grid_y": grid[1], "grid_z": grid[2]})
-            tiles = tk.split_tiles(plan, g, c, n)
-            assert idx.min() == 0 and idx.max() == tiles - 1
-            assert (np.bincount(idx, minlength=tiles) == plan.splits).all()
-            split = by % plan.splits
-            assert np.unique(idx * plan.splits + split).size == idx.size
-            tile = (bz * grid[1] + by // plan.splits) * grid[0] + bx
-            assert np.unique(np.stack([idx, tile]), axis=1).shape[1] == tiles
+            _check_places(body, plan, g, c, n, bits)
             checked += 1
     assert checked > 0
+
+
+@pytest.mark.parametrize("g", [1, 3, 4])
+@pytest.mark.parametrize("c", [216, 256, 320, 400, 640])
+def test_wgmma_token_tiles_share_a_wave(c, g):
+    """In the wgmma bodies' grid the token tiles of one (expert, split,
+    column tile) are consecutive blocks, the token tile varying fastest, so
+    they run in one wave and read each weight stage through L2 (in the
+    bf16 bank a pair of them, one cluster, shares each stage's weight
+    boxes); every (expert,
+    split, token tile, column tile) has one block and each counter one
+    block per split (Mixtral's up- and down-projections, every bank;
+    Kimi-K2's int4 up-projection at G = 384 for C = 216; C = 400 has an odd
+    last tile, whose partner in the bf16 bank's clusters is the grid's
+    pad)."""
+    shapes = [(4096, 14336), (14336, 4096)]
+    banks = [(g, shapes)]
+    if c == 216 and g == 1:
+        banks.append((384, [(7168, 2048)]))
+    for experts, kns in banks:
+        for k, n in kns:
+            for bits in (4, 8, 16):
+                plan = tk.launch_plan(c, k, n, bits)
+                assert plan.body in ("wgmma", "wgmma_wide")
+                linear, place = _check_places("wgmma", plan, experts, c, n,
+                                              bits)
+                mtiles = math.ceil(c / plan.block_c)
+                order = np.argsort(linear)
+                mt = place["mt"][order]
+                assert (mt == np.arange(linear.size) % mtiles).all()
+                # consecutive but for the pad after an odd last tile
+                step = np.diff(linear[order])
+                assert set(step.tolist()) <= {1, 1 + (bits == 16) * (
+                    mtiles % 2)}
+                group = np.stack([place[f][order]
+                                  for f in ("g", "split", "nt")])
+                runs = group.reshape(3, -1, mtiles)
+                assert (runs == runs[:, :, :1]).all()
 
 
 def test_split_workspace_is_checked():
@@ -658,16 +763,17 @@ FULL_KN = [(4096, 14336), (14336, 4096), (7168, 2048), (2048, 7168),
 @pytest.mark.parametrize("c", [65, 80, 108, 128, 160, 256])
 @pytest.mark.parametrize("k,n", FULL_KN)
 def test_launch_plan_wgmma_body(c, k, n):
-    """64 < C <= 128 takes the wgmma body's 128-token tile, C > 128 the
-    wide body's 160-token tile in ceil(C / 160) tiles; the splits cover K
-    on 64-aligned boundaries and fit one wave of column tiles at G = 1,
-    and the f32 partials stay within half the weight bytes (128-token
-    tile) or within the weight bytes (160-token tile)."""
+    """64 < C <= 128 takes the wgmma body's 128-token tile, C = 129-160 the
+    wide body's 160-token tile and C = 161-256 two 128-token tiles; the
+    splits cover K on 64-aligned boundaries and fit one wave of column
+    tiles at G = 1, and the f32 partials stay within half the weight bytes
+    (C <= 128) or, at C > 128, within the weight bytes at 160 tokens (the
+    wide body's splits whichever tile runs)."""
     for bits in (4, 8, 16):
         plan = tk.launch_plan(c, k, n, bits)
         wide = c > 128
-        assert plan.body == ("wgmma_wide" if wide else "wgmma")
-        assert plan.block_c == (160 if wide else 128)
+        assert plan.body == ("wgmma_wide" if 128 < c <= 160 else "wgmma")
+        assert plan.block_c == (160 if 128 < c <= 160 else 128)
         assert plan.block_n == tk.BLOCK_N
         assert plan.k_chunk % tk.SPLIT_GRAIN == 0
         bounds = [min(k, s * plan.k_chunk) for s in range(plan.splits + 1)]
@@ -679,7 +785,7 @@ def test_launch_plan_wgmma_body(c, k, n):
         else:
             assert plan.splits * tiles <= tk.WAVE
         if plan.splits > 1:
-            assert plan.splits * 8 * plan.block_c <= k * bits / (
+            assert plan.splits * 8 * (160 if wide else 128) <= k * bits / (
                 8 if wide else 16)
 
 
@@ -688,16 +794,21 @@ def test_launch_plan_row_invariance_domain(label):
     """For every timed (K, N): all C in 1..64 share one body and one K
     split (a decode row equals its verify row), and so do all C in
     65..128 (one 128-token wgmma tile: a C = 80 row equals its C = 128
-    row) and all C in 129..256 (the wide body: a C = 160 row equals its
-    C = 256 row)."""
+    row). All C in 129..640 share one K split (a C = 160 row equals its C
+    = 256 and C = 320 row: the two wgmma bodies compute a row alike on
+    alike splits), on the wide body's 160-token tile but for C = 161-256,
+    which run two 128-token wgmma tiles."""
     _, k, n = _chip_smoke().SHAPES[label]
     for bits in (4, 8, 16):
         for lo, hi, body in ((1, 64, "mma_sync"), (65, 128, "wgmma"),
-                             (129, 256, "wgmma_wide")):
+                             (129, 160, "wgmma_wide"), (161, 256, "wgmma"),
+                             (257, 640, "wgmma_wide")):
             plans = {tk.launch_plan(c, k, n, bits)._replace(block_c=0)
                      for c in range(lo, hi + 1)}
             assert len(plans) == 1
             assert plans.pop().body == body
+        splits = {tk.launch_plan(c, k, n, bits)[2:4] for c in range(129, 641)}
+        assert len(splits) == 1
 
 
 @pytest.mark.parametrize("c", [320, 640])

@@ -12,17 +12,23 @@ the wrappers ``ops.q_matmul``, ``ops.grouped_q_matmul`` and
 ``ops.grouped_bf16_matmul``. For every kernel and shape the main process
 asks parent, this, this, parent and reports the mean of each pair. Then, on
 this checkout alone, it times the launch that ``launch_plan`` chooses
-(its body: ``mma_sync`` up to 64 tokens, ``wgmma`` up to 128,
-``wgmma_wide`` above) against the same launch with another K split, in
+(its body: ``mma_sync`` up to 64 tokens, ``wgmma`` up to 128 and at
+161-256, ``wgmma_wide`` at 129-160 and past 256) against the same launch
+with another K split, in
 turns (plan, other, other, plan): unsplit where the plan splits, two
-splits where it does not. Each checkout's wrappers choose the token count
+splits where it does not; and, where 160 < C <= 256 (two token tiles of
+either wgmma body), against the same launch on the other wgmma token tile
+(128 or 160) with the plan's K splits. Besides ``SHAPES`` it times the
+int4 bank at Kimi-K2's 8192-token prefill bucket (``KIMI_ROWS``, G = 384).
+Each checkout's wrappers choose the token count
 they hand the kernels (this one the true C on the card) and the plan is
 read from their own call.
 Each worker holds every result against its plain version
 (``chip_smoke._close``) before it times it, and answers with a SHA-256 of
 the first input copy's output bytes: where parent and this checkout run
 the same plan (body, tiles and K splits), the outputs must be byte-equal,
-and the script exits 1 after the table if any row is not. Times are
+and so must the two wgmma tiles' on one set of splits; the script exits 1
+after the table if any row is not. Times are
 device times as in ``chip_smoke.py``: a CUDA graph of 20 launches cycling
 through input copies that exceed twice the L2. Inputs come from a seed
 per case, so both checkouts see the same bytes. The records go to
@@ -43,15 +49,25 @@ KERNELS = {"q4_matmul": (4, False), "q8_matmul": (8, False),
            "grouped_bf16": (16, True)}
 #: experts per bank of each rung: the serve phase's layout in chip_smoke.py
 SIZES = {4: 3, 8: 4, 16: 1}
+#: rows of chip_smoke.KIMI_PREFILL_SHAPES timed for the int4 bank at G =
+#: KIMI_G, after SHAPES (seeded by their place after it)
+KIMI_ROWS = ("kimi_prefill216_up",)
 REPS = 20
 REPLY = "@@ab "                 # marks the worker's answers on its stdout
 
 
+def rows_of(cs) -> list:
+    """(kernel, shape) of every row, in order."""
+    return ([(name, shape) for name in KERNELS for shape in cs.SHAPES]
+            + [("grouped_q4", shape) for shape in KIMI_ROWS])
+
+
 def worker(tree: Path) -> None:
     """Answer one JSON request per stdin line: ``{"kernel", "shape",
-    "splits"}`` -> ``{"ms", "splits", "body", "plan", "sha256",
+    "splits", "tile"}`` -> ``{"ms", "splits", "body", "plan", "sha256",
     "max_abs_err"}``; ``splits`` None times the plan, a number
-    the plan with that many K splits."""
+    the plan with that many K splits; ``tile`` 128 or 160 runs the plan's
+    splits on that wgmma token tile."""
     sys.path[:0] = [str(tree / "src"), str(ROOT)]
     import hashlib
 
@@ -67,12 +83,28 @@ def worker(tree: Path) -> None:
     def build(name, shape):
         bits, grouped = KERNELS[name]
         g = SIZES[bits] if grouped else 1
+        place = (list(cs.SHAPES).index(shape) if shape in cs.SHAPES
+                 else len(cs.SHAPES) + KIMI_ROWS.index(shape))
+        gen = torch.Generator(device="cuda").manual_seed(
+            list(KERNELS).index(name) * 100 + place)
+        if shape in KIMI_ROWS:
+            # one copy (the bank is past twice the L2), held against its
+            # plain version on the first, a middle and the last expert
+            g = cs.KIMI_G
+            c, k, n = cs.KIMI_PREFILL_SHAPES[shape]
+            qt, deq = cs._kimi_bank(torch, gen, g, k, n, bits)
+            del deq
+            x = torch.randn((g, c, k), generator=gen, device="cuda").to(
+                torch.bfloat16)
+            sel = [0, g // 2, g - 1]
+            return (bits, c, k, n), [
+                (lambda: ops.grouped_q_matmul(x, qt),
+                 lambda: gk.grouped_quantized_matmul_plain(
+                     x[sel], qt.q[sel], qt.scales[sel], bits=bits,
+                     group_size=cs.GROUP), sel)]
         c, k, n = cs.SHAPES[shape]
         nbytes = g * k * n * bits // 8 + (g * (k // cs.GROUP) * n * 2
                                           if bits < 16 else 0)
-        gen = torch.Generator(device="cuda").manual_seed(
-            list(KERNELS).index(name) * 100
-            + list(cs.SHAPES).index(shape))
         cases = []
         for _ in range(cs._copies(torch, nbytes)):
             x, w = cs._make_bank(torch, gen, g, c, k, n, bits)
@@ -104,10 +136,12 @@ def worker(tree: Path) -> None:
             cached[key] = build(*key)
         (bits, c, k, n), cases = cached[key]
         plan_fn = getattr(qk, "launch_plan", None)
-        if req["splits"] is not None and plan_fn is None:
+        tile = req.get("tile")
+        if (req["splits"] is not None or tile) and plan_fn is None:
             raise SystemExit("splits: this checkout has no launch_plan")
         # the plan each checkout's wrapper asks for (for the C it hands the
-        # kernel, padded or not), or it with req["splits"] K splits
+        # kernel, padded or not), or it with req["splits"] K splits, or on
+        # the wgmma token tile req["tile"]
         seen = {}
 
         def plan_of(c_, k_, n_, b_):
@@ -117,13 +151,17 @@ def worker(tree: Path) -> None:
                 k_chunk = -(-grains // req["splits"]) * qk.SPLIT_GRAIN
                 plan = plan._replace(k_chunk=k_chunk,
                                      splits=-(-k_ // k_chunk))
+            if tile:
+                plan = plan._replace(block_c=tile, body="wgmma_wide"
+                                     if tile == qk.WIDE_BLOCK_C else "wgmma")
             seen["plan"] = plan
             return plan
         if plan_fn is not None:
             qk.launch_plan = plan_of
         try:
             got = cases[0][0]()
-            err, ok = cs._close(torch, got, cases[0][1]())
+            sel = cases[0][2] if len(cases[0]) > 2 else slice(None)
+            err, ok = cs._close(torch, got[sel], cases[0][1]())
             digest = hashlib.sha256(got.contiguous().view(torch.uint8).cpu()
                                     .numpy().tobytes()).hexdigest()
             plan = seen.get("plan")
@@ -132,7 +170,7 @@ def worker(tree: Path) -> None:
             if not ok:
                 raise AssertionError(f"{key} splits={splits} disagrees with "
                                      f"its plain version: max |diff| {err}")
-            ms = cs._graph_ms(torch, [f for f, _ in cases], REPS)
+            ms = cs._graph_ms(torch, [case[0] for case in cases], REPS)
         finally:
             if plan_fn is not None:
                 qk.launch_plan = plan_fn
@@ -149,9 +187,10 @@ class Worker:
              str(tree)], stdin=subprocess.PIPE, stdout=subprocess.PIPE,
             text=True)
 
-    def ask(self, kernel: str, shape: str, splits=None) -> dict:
+    def ask(self, kernel: str, shape: str, splits=None, tile=None) -> dict:
         self.proc.stdin.write(json.dumps({"kernel": kernel, "shape": shape,
-                                          "splits": splits}) + "\n")
+                                          "splits": splits, "tile": tile})
+                              + "\n")
         self.proc.stdin.flush()
         for line in self.proc.stdout:
             if line.startswith(REPLY):
@@ -197,44 +236,61 @@ def main(argv=None) -> int:
     workers = {"parent": Worker(parent), "this": Worker(ROOT)}
     rows, differ = [], []
     try:
-        for name in KERNELS:
-            for shape in cs.SHAPES:
-                ab = [workers[w].ask(name, shape)
-                      for w in ("parent", "this", "this", "parent")]
-                first = workers["this"].ask(name, shape)
-                other = 1 if first["splits"] > 1 else 2
-                split = [first, *(workers["this"].ask(name, shape, other)
-                                  for _ in range(2)),
-                         workers["this"].ask(name, shape)]
-                same_plan = ab[0]["plan"] == ab[1]["plan"]
-                equal = {r["sha256"] for r in ab} == {ab[0]["sha256"]}
-                if same_plan and not equal:
-                    differ.append(f"{name} {shape}")
-                row = {"kernel": name, "shape": shape,
-                       "same_plan": same_plan, "bytes_equal": equal,
-                       "parent_ms": (ab[0]["ms"] + ab[3]["ms"]) / 2,
-                       "ms": (ab[1]["ms"] + ab[2]["ms"]) / 2,
-                       "splits": split[0]["splits"],
-                       "body": split[0]["body"],
-                       "plan_ms": (split[0]["ms"] + split[3]["ms"]) / 2,
-                       "other_splits": split[1]["splits"],
-                       "other_ms": (split[1]["ms"] + split[2]["ms"]) / 2,
-                       "turns": {"ab": [r["ms"] for r in ab],
-                                 "split": [r["ms"] for r in split]},
-                       "max_abs_err": max(r["max_abs_err"]
-                                          for r in ab + split)}
-                rows.append(row)
-                print(f"{name:13s} {shape:13s} parent {row['parent_ms']:.4f}"
-                      f" ms, this {row['ms']:.4f} ms "
-                      f"({row['parent_ms'] / row['ms']:.2f}x; turns "
-                      f"{[round(t, 4) for t in row['turns']['ab']]}); "
-                      f"{row['body']} plan "
-                      f"({row['splits']} splits) {row['plan_ms']:.4f} ms, "
-                      f"{row['other_splits']} splits {row['other_ms']:.4f} "
-                      "ms; outputs "
-                      f"{'byte-equal' if equal else 'DIFFER'} "
-                      f"({'same' if same_plan else 'other'} plan)",
-                      flush=True)
+        for name, shape in rows_of(cs):
+            ab = [workers[w].ask(name, shape)
+                  for w in ("parent", "this", "this", "parent")]
+            first = workers["this"].ask(name, shape)
+            other = 1 if first["splits"] > 1 else 2
+            split = [first, *(workers["this"].ask(name, shape, other)
+                              for _ in range(2)),
+                     workers["this"].ask(name, shape)]
+            same_plan = ab[0]["plan"] == ab[1]["plan"]
+            equal = {r["sha256"] for r in ab} == {ab[0]["sha256"]}
+            if same_plan and not equal:
+                differ.append(f"{name} {shape}")
+            row = {"kernel": name, "shape": shape,
+                   "same_plan": same_plan, "bytes_equal": equal,
+                   "parent_ms": (ab[0]["ms"] + ab[3]["ms"]) / 2,
+                   "ms": (ab[1]["ms"] + ab[2]["ms"]) / 2,
+                   "splits": split[0]["splits"],
+                   "body": split[0]["body"],
+                   "plan_ms": (split[0]["ms"] + split[3]["ms"]) / 2,
+                   "other_splits": split[1]["splits"],
+                   "other_ms": (split[1]["ms"] + split[2]["ms"]) / 2,
+                   "turns": {"ab": [r["ms"] for r in ab],
+                             "split": [r["ms"] for r in split]},
+                   "max_abs_err": max(r["max_abs_err"] for r in ab + split)}
+            tiles = ""
+            c = {**cs.SHAPES, **cs.KIMI_PREFILL_SHAPES}[shape][0]
+            if 160 < c <= 256:
+                # two token tiles either way: the plan's against the other
+                # wgmma tile on the plan's splits (bit-equal by design)
+                alt = 128 if first["plan"][1] == 160 else 160
+                turns = [workers["this"].ask(name, shape, tile=t)
+                         for t in (None, alt, alt, None)]
+                row.update(
+                    tile_ms=(turns[0]["ms"] + turns[3]["ms"]) / 2,
+                    other_tile=alt,
+                    other_tile_ms=(turns[1]["ms"] + turns[2]["ms"]) / 2,
+                    tile_bytes_equal=len({r["sha256"] for r in turns}) == 1)
+                row["turns"]["tile"] = [r["ms"] for r in turns]
+                if not row["tile_bytes_equal"]:
+                    differ.append(f"{name} {shape} on the {alt}-token tile")
+                tiles = (f", {row['other_tile_ms']:.4f} ms on the {alt}-token"
+                         f" tile ({row['tile_ms']:.4f} ms in its turns; "
+                         + ("byte-equal" if row["tile_bytes_equal"]
+                            else "DIFFER") + ")")
+            rows.append(row)
+            print(f"{name:13s} {shape:18s} parent {row['parent_ms']:.4f} "
+                  f"ms, this {row['ms']:.4f} ms "
+                  f"({row['parent_ms'] / row['ms']:.2f}x; turns "
+                  f"{[round(t, 4) for t in row['turns']['ab']]}); "
+                  f"{row['body']} plan "
+                  f"({row['splits']} splits) {row['plan_ms']:.4f} ms, "
+                  f"{row['other_splits']} splits {row['other_ms']:.4f} "
+                  f"ms{tiles}; outputs "
+                  f"{'byte-equal' if equal else 'DIFFER'} "
+                  f"({'same' if same_plan else 'other'} plan)", flush=True)
     finally:
         for w in workers.values():
             w.close()
@@ -246,7 +302,8 @@ def main(argv=None) -> int:
     same = sum(r["same_plan"] for r in rows)
     if differ:
         print(f"kernel_ab: outputs differ from the parent's on the same "
-              f"plan at {differ}", flush=True)
+              f"plan, or between the two wgmma tiles, at {differ}",
+              flush=True)
         return 1
     print(f"kernel_ab: {same} of {len(rows)} rows ran the parent's plan, all "
           "byte-equal to the parent's output", flush=True)
