@@ -119,7 +119,11 @@ Phases (each raises on failure, and the script then exits non-zero):
                launches each of its bank shards at G = bank / ep (3
                matrices x 2 layers x 5 forwards), and launches whose
                plan splits K (reduced in their own epilogue), booked per
-               rank;
+               rank; ep 2's plan also prefills one 1024-token prompt
+               (C = 320, the wide wgmma body) twice at ep 1 (int8 bank
+               G = 2) and ep 2 (G = 1 a rank): logits bytes equal, every
+               bank through that body only, the warm prefill ms of each
+               printed beside 3p's 1024-token prompt (int8 G = 4);
      8b. engine — default paged engines at ep 1, 2, 4: a three-rung point
                A of the ep 2 frontier, 4 requests, a replan to a point B
                of the ep 4 frontier that moves experts between the ranks
@@ -369,8 +373,9 @@ GROUP = 64
 #: down) and C = 320 (bucket 1024), which the wide wgmma body serves in one
 #: 160-token tile and two, and C = 256, two 128-token tiles of the wgmma
 #: body on the wide body's splits; then C = 320
-#: down and C = 640 (bucket 2048) up, appended last so that every earlier
-#: row keeps its place (tools/kernel_ab.py seeds a case by it)
+#: down, C = 640 (bucket 2048) up and C = 640 down, appended last so that
+#: every earlier row keeps its place (tools/kernel_ab.py seeds a case by
+#: it)
 SHAPES = {
     "decode4_up": (C_SERVE, D_MODEL, D_FF),
     "decode4_down": (C_SERVE, D_FF, D_MODEL),
@@ -386,6 +391,7 @@ SHAPES = {
     "prefill256_up": (256, D_MODEL, D_FF),
     "prefill320_down": (320, D_FF, D_MODEL),
     "prefill640_up": (640, D_MODEL, D_FF),
+    "prefill640_down": (640, D_FF, D_MODEL),
 }
 #: the wide wgmma body's token tile
 C_WIDE = 160
@@ -1823,6 +1829,12 @@ def phase_multi(torch, np, ctx, card: str):
 #: 8a's plans: per-layer counts per rung (every bank a multiple of ep)
 EP_PLANS = {2: ({4: 4, 8: 2}, (16, 8, 4)), 4: ({4: 4}, (16, 4))}
 EP_FORWARDS = 5                 # 8a: one prefill + 4 decode steps
+#: 8a's long prompt, through the plans that hold an int8 bank (ep 2's: G =
+#: 2 at ep 1, G = 1 on each rank of ep 2): the 1024-token bucket, C = 320,
+#: the wide wgmma body's two tiles, so that a plan rule that depends on the
+#: bank's size shows in its bytes across ep and in its prefill ms beside
+#: 3p's 1024-token prompt (int8 G = 4)
+EP_LONG = 1024
 GROUPED = {4: "grouped_q4", 8: "grouped_q8", 16: "grouped_bf16"}
 
 
@@ -1908,6 +1920,76 @@ def _ep_decode(torch, cfg, params, mesh, tokens):
     return b"".join(chunks)
 
 
+def _ep_long_prefill(torch, cfg, params, mesh, tokens):
+    """``Model.prefill`` of ``tokens`` (1, EP_LONG) with the kernels on,
+    twice: the second pass's logits bytes and ms (card synchronized), and
+    the launches of both passes by (wrapper, body)."""
+    import collections
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import build_model
+    model = build_model(cfg, mesh, use_kernel=True)
+    before = collections.Counter(ops.BODY_LAUNCHES)
+    for _ in range(2):
+        cache = model.init_cache(1, tokens.shape[1], device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, _ = model.prefill(params, {"tokens": tokens}, cache)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+    return (logits.float().cpu().numpy().tobytes(), ms,
+            collections.Counter(ops.BODY_LAUNCHES) - before)
+
+
+def _ep_long(torch, np, cfg, plan, ep, sp, placed, mesh, seed: int):
+    """8a's long prompt (``EP_LONG`` tokens) through ``plan`` at ep 1
+    (``sp``) and ep (``placed`` over ``mesh``): logits bytes equal, every
+    bank launched at G = bank / ep through the body that ``launch_plan``
+    names for the prompt's capacity and no other body; the body, K splits
+    and warm prefill ms per ep."""
+    from repro_torch.kernels.q4_matmul import launch_plan
+    moe = cfg.moe
+    cap = math.ceil(EP_LONG * moe.top_k * moe.capacity_factor
+                    / moe.num_experts)
+    c = -(-cap // 4) * 4
+    body = launch_plan(c, D_MODEL, D_FF, 16).body
+    splits = {b: (launch_plan(c, D_MODEL, D_FF, b).splits,
+                  launch_plan(c, D_FF, D_MODEL, b).splits)
+              for b in sorted(plan.ladder)}
+    tok = torch.from_numpy(np.random.default_rng(seed + 1).integers(
+        1, cfg.vocab_size, (1, EP_LONG))).to("cuda")
+    got, ms, books = {}, {}, {}
+    for n, params, m in ((1, sp, None), (ep, placed, mesh)):
+        with _RankLaunches() as ranks:
+            got[n], ms[n], bodies = _ep_long_prefill(torch, cfg, params, m,
+                                                     tok)
+        _require_rank_launches(ranks.by_rank, plan, n,
+                               f"8a long prompt, ep={n}",
+                               3 * cfg.num_layers * 2)
+        grouped = {k: v for k, v in body_launches(bodies).items()
+                   if k.split("/")[0] in GROUPED.values() and v}
+        if not grouped or any(not k.endswith(f"/{body}") for k in grouped):
+            raise AssertionError(f"8a long prompt, ep={n}: launches by body "
+                                 f"{grouped}, want {body} only")
+        books[n] = {r: {f"{k}@G={g}" if k != "split_k" else k: v
+                        for (k, g), v in sorted(b.items())}
+                    for r, b in sorted(ranks.by_rank.items())}
+    if got[ep] != got[1]:
+        raise AssertionError(f"8a long prompt: ep={ep} logits bytes differ "
+                             "from ep=1")
+    g8 = dict(zip(sorted(plan.ladder), plan.bank_sizes())).get(8, 0)
+    log(f"  8a ep={ep} long prompt: 1 x {EP_LONG} tokens, C = {c}, body "
+        f"{body}, K splits (up, down) by bits {splits}; int8 bank G = {g8} "
+        f"at ep=1, {g8 // ep} a rank at ep={ep}; warm prefill "
+        f"{ms[1]:.3f} ms at ep=1, {ms[ep]:.3f} ms at ep={ep}; logits bytes "
+        f"equal")
+    return {"tokens": EP_LONG, "capacity": c, "body": body,
+            "splits": {str(b): v for b, v in splits.items()},
+            "int8_bank_G": {"1": g8, str(ep): g8 // ep},
+            "warm_prefill_ms": {str(n): v for n, v in ms.items()},
+            "launches_by_rank": {str(n): v for n, v in books.items()},
+            "bytes_equal": True}
+
+
 def _ep_devices(torch, ep: int, distinct: bool):
     """The mesh's device list: ``cuda:0`` repeated, or distinct cards."""
     if distinct and torch.cuda.device_count() < ep:
@@ -1938,7 +2020,6 @@ def _ep_model_level(torch, np, ctx, seed: int, distinct: bool = False):
         sp = apply_precision_plan(params, cfg, plan)
         with _RankLaunches() as one:
             ref = _ep_decode(torch, cfg, sp, None, tok)
-        del sp
         _require_rank_launches(one.by_rank, plan, 1, f"ep {ep}: ep=1 run",
                                3 * L * EP_FORWARDS)
         mesh = make_ep_mesh(ep, devices=_ep_devices(torch, ep, distinct))
@@ -1950,7 +2031,9 @@ def _ep_model_level(torch, np, ctx, seed: int, distinct: bool = False):
         with _RankLaunches() as ranks:
             got = _ep_decode(torch, cfg, placed, mesh, tok)
         _, peak = _mem_gb(torch)
-        del placed
+        long = _ep_long(torch, np, cfg, plan, ep, sp, placed, mesh, seed) \
+            if 8 in per_layer else None
+        del sp, placed
         if got != ref:
             raise AssertionError(f"8a: ep={ep} logits bytes differ from "
                                  "ep=1")
@@ -1969,7 +2052,7 @@ def _ep_model_level(torch, np, ctx, seed: int, distinct: bool = False):
                                       per_layer.items()},
                         "ladder": list(ladder), "bytes_equal": True,
                         "launches_by_rank": per_rank,
-                        "place_s": build_s, "peak_gb": peak}
+                        "place_s": build_s, "peak_gb": peak, "long": long}
     return out
 
 
@@ -2193,6 +2276,25 @@ def _ep_group_and_cli(torch, np, ctx, seed: int, distinct: bool = False):
     return {"group_tokens": got, "decisions": decisions,
             "cli_seconds": cli_s, "cli_lines": text.splitlines(),
             "cli_launches": launches, "lone_cuda_error": refused}
+
+
+def _log_long_prompts(serve, plan) -> None:
+    """The warm prefill ms of an ``EP_LONG``-token prompt on the serve
+    point (3p) beside 8a's on banks of fewer experts."""
+    long = (((serve.get("ep") or {}).get("model") or {}).get("2")
+            or {}).get("long")
+    pre = serve.get("prefill")
+    if not long or not pre:
+        return
+    g8 = dict(zip(sorted(plan.ladder), plan.bank_sizes())).get(8, 0)
+    ms = pre["warm"]["prefill_ms_by_len"].get(EP_LONG, [])
+    g = long["int8_bank_G"]
+    log(f"long prompts: {EP_LONG} tokens (C = {long['capacity']}, "
+        f"{long['body']}), warm prefill ms {[round(v, 3) for v in ms]} on "
+        f"the serve point (3p, int8 bank G = {g8}); "
+        f"{long['warm_prefill_ms']['1']:.3f} at int8 G = {g['1']} and "
+        f"{long['warm_prefill_ms']['2']:.3f} at G = {g['2']} a rank (8a, "
+        f"ep 2's plan at ep=1 and ep=2)")
 
 
 def phase_ep(torch, np, ctx, card: str, seed: int, distinct: bool = False):
@@ -5561,6 +5663,7 @@ def main(argv=None) -> int:
         serve["ep"] = run("ep", phase_ep, torch, np, ctx, smi, args.seed)
         if serve["ep"] is not None:
             paths["ep"] = serve["ep"]["engine"]["path"]
+        _log_long_prompts(serve, ctx["point"].plan)
         ctx["engine"].close()
         del ctx, served          # the tuple held the params and engine too
         torch.cuda.empty_cache()

@@ -98,9 +98,9 @@
 //     x operand to the tensor core's own shared-memory reads and the copies
 //     to the TMA unit, and gives the registers the producer does not need
 //     to the consumers' f32 partials and accumulator (64 + 2 x 64 a
-//     thread). What is left at int4 and int8 is the conversions and group
-//     flushes on the CUDA cores, which overlap the tensor core only in part
-//     (wgmma_body.cuh).
+//     thread). What is left at int4 and int8 is the conversions, group
+//     flushes and barrier waits, one serial chain a stage per consumer
+//     warpgroup, about twice the tensor core's time (wgmma_body.cuh).
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -693,3 +693,27 @@ extern "C" int repro_bf16_matmul(const void* x, const void* w, void* out,
 extern "C" const char* repro_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
+
+#ifdef REPRO_STAMPS
+// The stage stamps of the stamped build (wgmma_body.cuh), for
+// tools/consumer_timeline.py: their layout (blocks, warpgroups, stages,
+// points), a copy into ``host`` and a reset to zero.
+extern "C" void repro_stamps_layout(int* dims) {
+  dims[0] = wg::STAMP_BLOCKS;
+  dims[1] = wg::STAMP_ROLES;
+  dims[2] = wg::STAMP_STAGES;
+  dims[3] = wg::ST_POINTS;
+}
+
+extern "C" int repro_stamps_read(void* host) {
+  return static_cast<int>(
+      cudaMemcpyFromSymbol(host, wg::g_stamps, sizeof(wg::g_stamps)));
+}
+
+extern "C" int repro_stamps_clear() {
+  void* p = nullptr;
+  cudaError_t e = cudaGetSymbolAddress(&p, wg::g_stamps);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaMemset(p, 0, sizeof(wg::g_stamps)));
+}
+#endif

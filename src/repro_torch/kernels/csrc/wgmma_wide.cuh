@@ -28,10 +28,12 @@
 // than two 128-token tiles. Its TMA loads alone took half that time, each x
 // row feeding only 64 columns, and multicasting x over a 2- or 4-block
 // cluster changed nothing. 128 columns halve the x bytes each product
-// needs. The flushes set the int time: without them the int4 bank ran in
-// the time of its TMA loads alone, and neither turn-taking between the two
-// warpgroups nor an x cluster made them overlap the other warpgroup's
-// wgmmas.
+// needs. A consumer warpgroup's stage is one serial chain, ~1,300 (int4)
+// to ~1,450 (int8) cycles against the tensor core's 640 for the block's
+// eight wgmmas (tools/chip_phases.py timeline): issue, the next stage's
+// full wait and conversion, wgmma_wait<0> (one partial: the flush waits
+// for its group), the flush, the release. Neither turn-taking between the
+// two warpgroups nor an x cluster shortened it.
 //
 // Arithmetic as in the other bodies: codes are exact bf16 integers; each
 // group of min(group, 64) K runs its k16 steps into a fresh f32 partial
@@ -140,17 +142,23 @@ __device__ __forceinline__ void wide_stage(
       wgmma_rs(part, f[step], desc_sw128(xs + step * 32, 1, 64), j != 0);
     }
     wgmma_commit();
+    if (grp == 0) WG_STAMP(it, ST_ISSUED);
     if (grp == 0 && it + 1 < nst) {
       const int nx = it + 1;
       mbar_wait(full + nx % S, (nx / S) & 1);
+      WG_STAMP(it, ST_FULL);
       load_a<BITS>(fn, smem + (nx % S) * T::STAGE_BYTES + T::X_BYTES,
                    warp_col, lane);
+      WG_STAMP(it, ST_CONVERTED);
     }
     wgmma_wait<0>();
+    if (grp == 0) WG_STAMP(it, ST_WAITED);
     fence_regs(part);
     flush<BITS>(acc, part, st + T::X_BYTES, grp, col);
+    if (grp == 0) WG_STAMP(it, ST_FLUSHED);
   }
   release(empty + it % S, lane, peer);
+  WG_STAMP(it, ST_RELEASED);
 }
 
 // Issue one bf16 stage's wgmmas into acc once the stage has landed.

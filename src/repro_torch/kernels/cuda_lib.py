@@ -21,6 +21,12 @@ the grouped wrappers' launches by the bank's expert count G, and
 (``q4_matmul.launch_plan``). ``SPLIT_LAUNCHES`` books, the same way, the
 launches whose plan splits K: each of them reduces its split partials in
 its own epilogue, with no second kernel.
+
+The wgmma bodies can stamp ``clock64()`` at the points of a pipeline
+stage into a device buffer when compiled with ``-D`` :data:`STAMP_MACRO`.
+Only ``tools/consumer_timeline.py`` builds that library (``build(defines=
+(STAMP_MACRO,), build_dir=...)``, into a directory of its own); the
+library the wrappers build and load never defines it.
 """
 from __future__ import annotations
 
@@ -59,6 +65,9 @@ BODY_LAUNCHES: "collections.Counter[Tuple[str, str]]" = collections.Counter()
 #: the launches of BODY_LAUNCHES whose plan splits K, by (wrapper, body)
 SPLIT_LAUNCHES: "collections.Counter[Tuple[str, str]]" = collections.Counter()
 
+#: the preprocessor macro that compiles the wgmma bodies' stage stamps in
+STAMP_MACRO = "REPRO_STAMPS"
+
 #: nvcc's output (ptxas registers, shared memory, spills) of the library
 #: in use: set by the build, or read back from the log kept beside it
 BUILD_LOG = ""
@@ -87,30 +96,40 @@ def _sources() -> List[Path]:
     return sorted(p for p in CSRC.iterdir() if p.is_file())
 
 
-def _lib_path() -> Path:
+def _lib_path(defines=(), build_dir: Optional[Path] = None) -> Path:
     h = hashlib.sha256()
     for p in _sources():
         h.update(p.name.encode() + b"\0" + p.read_bytes() + b"\0")
     h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"{LIB_STEM}-{h.hexdigest()[:16]}.so"
+    for d in defines:
+        h.update(b"\0-D" + d.encode())
+    return (build_dir or BUILD_DIR) / f"{LIB_STEM}-{h.hexdigest()[:16]}.so"
 
 
-def build() -> Path:
+def compile_command(units, out: Path, defines=()) -> List[str]:
+    """The nvcc command that compiles ``units`` into the library ``out``,
+    with ``-D`` for each of ``defines``."""
+    return [_nvcc(), *NVCC_FLAGS, *(f"-D{d}" for d in defines), "-o",
+            str(out), *map(str, units)]
+
+
+def build(defines=(), build_dir: Optional[Path] = None) -> Path:
     """Compile the ``.cu`` files of ``csrc/`` unless an up-to-date library
-    exists; returns the library's path."""
+    exists; returns the library's path. ``defines`` and ``build_dir`` are
+    for a tool's own build (the stamped timeline); the wrappers' library
+    takes neither."""
     global BUILD_LOG
-    lib = _lib_path()
+    lib = _lib_path(defines, build_dir)
     log = lib.with_suffix(".log")
     if lib.exists():
         BUILD_LOG = log.read_text() if log.exists() else ""
         return lib
-    cmd = [_nvcc(), *NVCC_FLAGS]
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    units = [str(p) for p in _sources() if p.suffix == ".cu"]
-    proc = subprocess.run([*cmd, "-o", str(tmp), *units],
-                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                          text=True)
+    units = [p for p in _sources() if p.suffix == ".cu"]
+    cmd = compile_command(units, tmp, defines)
+    lib.parent.mkdir(parents=True, exist_ok=True)
+    proc = subprocess.run(cmd, stdout=subprocess.PIPE,
+                          stderr=subprocess.STDOUT, text=True)
     BUILD_LOG = proc.stdout
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {units}:\n{proc.stdout}")
@@ -119,24 +138,29 @@ def build() -> Path:
     return lib
 
 
+def load(path: Path) -> ctypes.CDLL:
+    """Load the library at ``path``, bind its entry points and make it the
+    one the wrappers launch."""
+    global _LIB
+    lib = ctypes.CDLL(str(path))
+    vp, i32 = ctypes.c_void_p, ctypes.c_int
+    plan = [i32] * 4          # block_n, block_c, k_chunk, splits
+    # ..., out, ws, counters, G, M, K, N, [group,] plan, stream
+    lib.repro_dequant_matmul.argtypes = [
+        i32, vp, vp, vp, vp, vp, vp, i32, i32, i32, i32, i32, *plan, vp]
+    lib.repro_dequant_matmul.restype = i32
+    lib.repro_bf16_matmul.argtypes = [
+        vp, vp, vp, vp, vp, i32, i32, i32, i32, *plan, vp]
+    lib.repro_bf16_matmul.restype = i32
+    lib.repro_error_string.argtypes = [i32]
+    lib.repro_error_string.restype = ctypes.c_char_p
+    _LIB = lib
+    return lib
+
+
 def dequant_lib() -> ctypes.CDLL:
     """The loaded kernel library (built at first use)."""
-    global _LIB
-    if _LIB is None:
-        lib = ctypes.CDLL(str(build()))
-        vp, i32 = ctypes.c_void_p, ctypes.c_int
-        plan = [i32] * 4          # block_n, block_c, k_chunk, splits
-        # ..., out, ws, counters, G, M, K, N, [group,] plan, stream
-        lib.repro_dequant_matmul.argtypes = [
-            i32, vp, vp, vp, vp, vp, vp, i32, i32, i32, i32, i32, *plan, vp]
-        lib.repro_dequant_matmul.restype = i32
-        lib.repro_bf16_matmul.argtypes = [
-            vp, vp, vp, vp, vp, i32, i32, i32, i32, *plan, vp]
-        lib.repro_bf16_matmul.restype = i32
-        lib.repro_error_string.argtypes = [i32]
-        lib.repro_error_string.restype = ctypes.c_char_p
-        _LIB = lib
-    return _LIB
+    return _LIB if _LIB is not None else load(build())
 
 
 def check(rc: int, what: str) -> None:

@@ -358,10 +358,12 @@ def emulate_bank(x, codes, scales, *, group, bits):
 
 
 #: the reference's cases plus one whose K the plan splits 16 ways, one
-#: that the wgmma body serves (C > 64) and two that the wide body serves
-#: (C > 128: one 160-token tile, and two for C = 300)
+#: that the wgmma body serves (C > 64), two that the wide body serves
+#: (C > 128: one 160-token tile, and two for C = 300) and one whose K the
+#: wide body's byte cap splits in two at int4 and in four at int8
 EMU_CASES = CASES + [(2, 8, 1024, 128, 64), (2, 100, 256, 128, 64),
-                     (2, 160, 256, 128, 64), (1, 300, 512, 256, 64)]
+                     (2, 160, 256, 128, 64), (1, 300, 512, 256, 64),
+                     (1, 136, 5120, 128, 64)]
 
 #: shapes with the port's tile contract (N % 16, K % 16, group 16/32/64k)
 PLAN_SHAPES = [(8, 4096, 14336), (8, 14336, 4096), (16, 4096, 14336),
@@ -559,6 +561,11 @@ def test_split_counters_cover_every_timed_shape():
                 split += 1
                 assert tiles <= tk.MIN_COUNTERS
     assert split > 0
+    # every row of SHAPES is among them, the 2048-token bucket's
+    # down-projection too
+    cs = _chip_smoke()
+    assert cs.SHAPES["prefill640_down"] == (640, cs.D_FF, cs.D_MODEL)
+    assert all((8, shp) in _timed_launches() for shp in cs.SHAPES.values())
 
 
 def _py(expr: str) -> str:
@@ -924,3 +931,83 @@ def test_reset_clears_split_launches():
     assert not cuda_lib.SPLIT_LAUNCHES and ops.SPLIT_LAUNCHES is \
         cuda_lib.SPLIT_LAUNCHES
     assert "splitk_reduce" not in cuda_lib.LAUNCHES
+
+
+def test_wrappers_build_never_defines_the_stamps(monkeypatch, tmp_path):
+    """The library the wrappers build and load is compiled with no ``-D``
+    at all, so never with the wgmma bodies' stage stamps; the stamping
+    macro reaches only a build that asks for it, under a name of its own,
+    and it is the macro the sources test."""
+    import types
+    monkeypatch.setattr(cuda_lib, "BUILD_DIR", tmp_path / "kernels")
+    monkeypatch.setattr(cuda_lib, "_nvcc", lambda: "nvcc")
+    seen = []
+
+    def run(cmd, **kw):
+        seen.append(cmd)
+        return types.SimpleNamespace(returncode=1, stdout="stopped here")
+    monkeypatch.setattr(cuda_lib.subprocess, "run", run)
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        cuda_lib.build()
+    assert seen and not any(a.startswith("-D") for a in seen[0])
+    assert not any(cuda_lib.STAMP_MACRO in a for a in seen[0])
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        cuda_lib.build(defines=(cuda_lib.STAMP_MACRO,),
+                       build_dir=tmp_path / "timeline")
+    assert f"-D{cuda_lib.STAMP_MACRO}" in seen[1]
+    assert cuda_lib._lib_path() != cuda_lib._lib_path(
+        (cuda_lib.STAMP_MACRO,))
+    assert f"#ifdef {cuda_lib.STAMP_MACRO}" in _csrc("wgmma_body.cuh")
+
+
+def _timeline_tool():
+    path = Path(__file__).resolve().parents[1] / "tools" / \
+        "consumer_timeline.py"
+    spec = importlib.util.spec_from_file_location("consumer_timeline", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_timeline_reads_stamps_and_sass():
+    """The timeline tool's two readers on made-up input: the consumer K
+    loop found in SASS by its backward branch (not a retry stub's wider
+    one) and counted per stage, and stamps turned into a stage's period
+    and steps in their order."""
+    ct = _timeline_tool()
+    sass = "\n".join(
+        f"        /*{a:04x}*/  {op} ;" for a, op in enumerate([
+            "MOV R1, c[0x0][0x28]",
+            "HGMMA.64x128x16.F32.BF16 R24, R8, gdesc[UR4], R24",
+            "HGMMA.64x128x16.F32.BF16 R24, R8, gdesc[UR4], R24",
+            "FFMA R2, R3, R4, R2", "@!P0 BRA 0x4",
+            "HGMMA.64x128x16.F32.BF16 R24, R8, gdesc[UR4], R24",
+            "HGMMA.64x128x16.F32.BF16 R24, R8, gdesc[UR4], R24",
+            "PRMT R2, R3, 0x1, R4", "WARPGROUP.ARRIVE",
+            "@P1 BRA 0x1", "EXIT",
+            # a barrier wait's retry stub, branching back from afar
+            "@!P2 BRA 0x1"], start=0))
+    (loop,) = ct.consumer_loops(sass)
+    assert loop["stages"] == 1
+    assert loop["per_stage"] == {"HGMMA": 4, "FFMA": 1, "conversion": 1,
+                                 "MOV": 0, "sync": 1, "loads": 0, "rest": 2}
+    blocks, stages, n = 2, 16, len(ct.POINTS)
+    consumer = dict(issued=0, waited=300, flushed=380, released=400,
+                    full=450, converted=600)
+    at = [consumer, consumer, dict(empty=100)]
+    stamps = [0] * (blocks * ct.ROLES * stages * n)
+    for b in range(blocks):
+        for role in range(ct.ROLES):
+            for it in range(12):
+                for name, off in at[role].items():
+                    stamps[((b * ct.ROLES + role) * stages + it) * n
+                           + ct.POINTS.index(name)] = 1000 + 1000 * it + off
+    got = ct.analyse(stamps, blocks, stages, 12)
+    assert got["wg0"]["period"] == 1000 and got["wg1"]["blocks"] == blocks
+    assert got["wg0"]["steps"] == [
+        ("issued", 400), ("waited", 300), ("flushed", 80), ("released", 20),
+        ("full", 50), ("converted", 150)]
+    assert got["flush_skew"] == 0 and got["producer_period"] == 1000
+    # stage it + 1 could load from 2100 + 1000 it; the full wait for it
+    # returned at 1450 + 1000 it
+    assert got["producer_lead"] == -650

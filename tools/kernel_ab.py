@@ -16,7 +16,7 @@ this checkout alone, it times the launch that ``launch_plan`` chooses
 161-256, ``wgmma_wide`` at 129-160 and past 256) against the same launch
 with another K split, in
 turns (plan, other, other, plan): unsplit where the plan splits, two
-splits where it does not; and, where 160 < C <= 256 (two token tiles of
+splits where it does not; and, where C > 160 (two or more token tiles of
 either wgmma body), against the same launch on the other wgmma token tile
 (128 or 160) with the plan's K splits. Besides ``SHAPES`` it times the
 int4 bank at Kimi-K2's 8192-token prefill bucket (``KIMI_ROWS``, G = 384).
@@ -262,9 +262,10 @@ def main(argv=None) -> int:
                    "max_abs_err": max(r["max_abs_err"] for r in ab + split)}
             tiles = ""
             c = {**cs.SHAPES, **cs.KIMI_PREFILL_SHAPES}[shape][0]
-            if 160 < c <= 256:
-                # two token tiles either way: the plan's against the other
-                # wgmma tile on the plan's splits (bit-equal by design)
+            if c > 160:
+                # two or more token tiles either way: the plan's against
+                # the other wgmma tile on the plan's splits (bit-equal by
+                # design)
                 alt = 128 if first["plan"][1] == 160 else 160
                 turns = [workers["this"].ask(name, shape, tile=t)
                          for t in (None, alt, alt, None)]
