@@ -24,8 +24,9 @@ Phases (each raises on failure, and the script then exits non-zero):
                pass zeroes the kernels' launch counters just before and
                reads them just after, and requires B3 (q4, q8), B4 and
                launches whose plan splits K (``SPLIT_LAUNCHES``: each
-               reduces its splits in its own epilogue; there is no
-               stand-alone reduction kernel or counter);
+               runs its splits folded, a tile's in one block, booked in
+               ``FOLDED_LAUNCHES``, or reduces them in its own epilogue;
+               there is no stand-alone reduction kernel or counter);
      3b. paged == slot — the model hooks give bit-equal prefill and
                first-decode logits through pages and slot rows; a
                ``paged_kv=False`` engine serves the same greedy tokens;
@@ -50,9 +51,10 @@ Phases (each raises on failure, and the script then exits non-zero):
                128-token wgmma body), every decode iteration (C = 4 rows
                on the card) through the mma.sync body only (launches
                booked per body and prompt, prefills apart from decode
-               iterations); prefill ms per request and, warm, per prompt
-               length; a ``use_kernel=False`` engine at the same plan:
-               prefill logits within 2e-2 of max |logit| (7b's rule), the
+               iterations, and the folded ones per bank and body);
+               prefill ms per request and, warm, per prompt length; a
+               ``use_kernel=False`` engine at the same plan: prefill
+               logits within 2e-2 of max |logit| (7b's rule), the
                greedy tokens equal or their first divergence reported with
                its logit margins;
      3f. calibrate — ``calibrate_sensitivity`` on the full-width model
@@ -122,8 +124,11 @@ Phases (each raises on failure, and the script then exits non-zero):
                rank; ep 2's plan also prefills one 1024-token prompt
                (C = 320, the wide wgmma body) twice at ep 1 (int8 bank
                G = 2) and ep 2 (G = 1 a rank): logits bytes equal, every
-               bank through that body only, the warm prefill ms of each
-               printed beside 3p's 1024-token prompt (int8 G = 4);
+               bank through that body only, the int8 bank's
+               down-projections folded at ep 1 and spread at ep 2 on
+               every rank (as ``fold_splits`` gives their G, booked per
+               rank), the warm prefill ms of each printed beside 3p's
+               1024-token prompt (int8 G = 4);
      8b. engine — default paged engines at ep 1, 2, 4: a three-rung point
                A of the ep 2 frontier, 4 requests, a replan to a point B
                of the ep 4 frontier that moves experts between the ranks
@@ -168,7 +173,8 @@ Phases (each raises on failure, and the script then exits non-zero):
                (int4 bank of >= 320 experts beside int8 and bf16 banks)
                applied through ``apply_frontier_point``; 4 requests x 16
                prompt x 8 new tokens with the kernels on, each bank
-               launched at its G; a ``use_kernel=False`` engine at the
+               launched at its G (the folded launches logged per bank
+               and body); a ``use_kernel=False`` engine at the
                same plan: logits within 2e-2 of max |logit|, the first
                token divergence (if any) with its logit margins; peak
                memory;
@@ -307,10 +313,14 @@ Phases (each raises on failure, and the script then exits non-zero):
                epilogue at every row that splits K and every bank: ``out``
                byte-equal to ``splitk_reduce_plain`` of the partials left
                in a caller-given workspace, eager, on a second launch and
-               after a CUDA-graph replay;
-               bit-exact checks in the three bodies (grouped ==
+               after a CUDA-graph replay, and the same launch folded (a
+               tile's splits in one block) byte-equal to it, eager and
+               replayed; bit-exact checks in the three bodies (grouped ==
                per-expert, integer-friendly inputs, empty group == zeros,
-               f32 dequant), row invariance on one plan (rows of a C = 12
+               f32 dequant), the down-projection's grouped launch folded
+               byte-equal to the per-expert loop spread (int8 G = 4 at C =
+               128 and 320, int4 G = 3 at C = 128, both grids read from
+               the launch books), row invariance on one plan (rows of a C = 12
                verify launch bit-equal to a C = 8 launch, of C = 8 to C =
                4; rows of a C = 80 launch bit-equal to a C = 128 launch, of
                a C = 160 launch to a C = 256 launch, of C = 256 to C =
@@ -582,6 +592,7 @@ def serve_pass(torch, engine, prompts):
             "body_launches": body_launches(ops.BODY_LAUNCHES),
             "split_launches": split_count(ops),
             "split_body_launches": body_launches(ops.SPLIT_LAUNCHES),
+            "folded_body_launches": body_launches(ops.FOLDED_LAUNCHES),
             "launches_per_decode_iter": {
                 k: (ops.LAUNCHES[k] - before[k]) / n for k in before},
             "split_launches_per_decode_iter":
@@ -596,14 +607,15 @@ def serve_pass(torch, engine, prompts):
 
 
 def body_launches(counter) -> dict:
-    """``cuda_lib.BODY_LAUNCHES`` (or ``SPLIT_LAUNCHES``) as
-    {"wrapper/body": n}."""
+    """``cuda_lib.BODY_LAUNCHES`` (or ``SPLIT_LAUNCHES``,
+    ``FOLDED_LAUNCHES``) as {"wrapper/body": n}."""
     return {f"{k}/{b}": v for (k, b), v in sorted(counter.items())}
 
 
 def split_count(ops) -> int:
-    """The matmul launches booked so far whose plan split K: each reduced
-    its split partials in its own epilogue."""
+    """The matmul launches booked so far whose plan split K: each ran its
+    splits folded (``FOLDED_LAUNCHES``) or reduced their partials in its
+    own epilogue."""
     return sum(ops.SPLIT_LAUNCHES.values())
 
 
@@ -962,6 +974,7 @@ def _prefill_pass(torch, engine, prompts):
             "each_prefill_body_launches": [body_launches(c) for c in each],
             "each_prefill_prompt_len": lens,
             "decode_body_launches": body_launches(dec),
+            "folded_body_launches": body_launches(ops.FOLDED_LAUNCHES),
             "launches_per_decode_iter": {k: v / iters
                                          for k, v in dec_launches.items()},
             "iterations": engine.metrics["iterations"],
@@ -1024,7 +1037,8 @@ def phase_prefill(torch, np, ctx, card: str, seed: int):
                 f"length {_rounded(r['prefill_ms_by_len'])}), "
                 f"{r['decode_ms_per_iter']:.3f} ms per decode iteration "
                 f"({r['iterations']} iterations); launches by body: "
-                f"prefills {pre}, decode {dec}")
+                f"prefills {pre}, decode {dec}; folded (a tile's K splits "
+                f"in one block) {r['folded_body_launches']}")
             if uk:
                 for i, (one, n) in enumerate(zip(
                         r["each_prefill_body_launches"],
@@ -1844,7 +1858,8 @@ class _RankLaunches:
     before that rank's ``_expert_ffn``, so the launches an FFN call makes
     belong to the rank dispatched last. ``by_rank[r]`` counts
     ``(wrapper, G)`` and, as ``("split_k", 0)``, the launches among them
-    whose plan split K."""
+    whose plan split K; ``grids[r]`` counts those split launches by
+    ``(wrapper, "folded" | "spread")``."""
 
     def __enter__(self):
         import collections
@@ -1852,6 +1867,7 @@ class _RankLaunches:
         from repro_torch.kernels import ops
         self.mm, rank = mixed_moe, {"r": None}
         self.by_rank = collections.defaultdict(collections.Counter)
+        self.grids = collections.defaultdict(collections.Counter)
         self._dispatch, self._ffn = mixed_moe._dispatch_local, \
             mixed_moe._expert_ffn
 
@@ -1861,6 +1877,8 @@ class _RankLaunches:
 
         def ffn(*a, **kw):
             before = collections.Counter(ops.GROUP_LAUNCHES)
+            split0 = collections.Counter(ops.SPLIT_LAUNCHES)
+            folded0 = collections.Counter(ops.FOLDED_LAUNCHES)
             s0 = split_count(ops)
             out = self._ffn(*a, **kw)
             delta = collections.Counter(ops.GROUP_LAUNCHES)
@@ -1868,6 +1886,13 @@ class _RankLaunches:
             book = self.by_rank[rank["r"]]
             book.update(+delta)
             book[("split_k", 0)] += split_count(ops) - s0
+            grids = self.grids[rank["r"]]
+            for (name, body), v in ops.SPLIT_LAUNCHES.items():
+                folded = ops.FOLDED_LAUNCHES[(name, body)] \
+                    - folded0[(name, body)]
+                spread = v - split0[(name, body)] - folded
+                grids.update({(name, "folded"): folded,
+                              (name, "spread"): spread})
             return out
 
         mixed_moe._dispatch_local, mixed_moe._expert_ffn = dispatch, ffn
@@ -1944,9 +1969,11 @@ def _ep_long(torch, np, cfg, plan, ep, sp, placed, mesh, seed: int):
     """8a's long prompt (``EP_LONG`` tokens) through ``plan`` at ep 1
     (``sp``) and ep (``placed`` over ``mesh``): logits bytes equal, every
     bank launched at G = bank / ep through the body that ``launch_plan``
-    names for the prompt's capacity and no other body; the body, K splits
-    and warm prefill ms per ep."""
-    from repro_torch.kernels.q4_matmul import launch_plan
+    names for the prompt's capacity and no other body, the int8 bank's
+    down-projections on each rank on the grid that ``fold_splits`` gives
+    its G (ep 1 folded, ep spread: its bytes held equal across the two);
+    the body, K splits, grids and warm prefill ms per ep."""
+    from repro_torch.kernels.q4_matmul import fold_splits, launch_plan
     moe = cfg.moe
     cap = math.ceil(EP_LONG * moe.top_k * moe.capacity_factor
                     / moe.num_experts)
@@ -1955,9 +1982,16 @@ def _ep_long(torch, np, cfg, plan, ep, sp, placed, mesh, seed: int):
     splits = {b: (launch_plan(c, D_MODEL, D_FF, b).splits,
                   launch_plan(c, D_FF, D_MODEL, b).splits)
               for b in sorted(plan.ladder)}
+    g8 = dict(zip(sorted(plan.ladder), plan.bank_sizes())).get(8, 0)
+    down = launch_plan(c, D_FF, D_MODEL, 8)
+    folds = {n: fold_splits(down, g8 // n, c, D_MODEL, 8) for n in (1, ep)}
+    if not (folds[1] and not folds[ep]):
+        raise AssertionError(f"8a long prompt: the int8 bank's grids "
+                             f"{folds} by ep, want ep=1 folded and ep={ep} "
+                             "spread")
     tok = torch.from_numpy(np.random.default_rng(seed + 1).integers(
         1, cfg.vocab_size, (1, EP_LONG))).to("cuda")
-    got, ms, books = {}, {}, {}
+    got, ms, books, grids = {}, {}, {}, {}
     for n, params, m in ((1, sp, None), (ep, placed, mesh)):
         with _RankLaunches() as ranks:
             got[n], ms[n], bodies = _ep_long_prefill(torch, cfg, params, m,
@@ -1973,18 +2007,32 @@ def _ep_long(torch, np, cfg, plan, ep, sp, placed, mesh, seed: int):
         books[n] = {r: {f"{k}@G={g}" if k != "split_k" else k: v
                         for (k, g), v in sorted(b.items())}
                     for r, b in sorted(ranks.by_rank.items())}
+        # the int8 bank's down-projections: 2 passes x the layers a rank
+        want = 2 * cfg.num_layers
+        grids[n] = {}
+        for r, b in sorted(ranks.grids.items()):
+            took = {"folded": b[("grouped_q8", "folded")],
+                    "spread": b[("grouped_q8", "spread")]}
+            grids[n][r] = took
+            if took != ({"folded": want, "spread": 0} if folds[n]
+                        else {"folded": 0, "spread": want}):
+                raise AssertionError(
+                    f"8a long prompt, ep={n}: rank {r}'s int8 bank (G = "
+                    f"{g8 // n}) took {took}, want every split launch "
+                    f"{'folded' if folds[n] else 'spread'}")
     if got[ep] != got[1]:
         raise AssertionError(f"8a long prompt: ep={ep} logits bytes differ "
                              "from ep=1")
-    g8 = dict(zip(sorted(plan.ladder), plan.bank_sizes())).get(8, 0)
     log(f"  8a ep={ep} long prompt: 1 x {EP_LONG} tokens, C = {c}, body "
         f"{body}, K splits (up, down) by bits {splits}; int8 bank G = {g8} "
-        f"at ep=1, {g8 // ep} a rank at ep={ep}; warm prefill "
-        f"{ms[1]:.3f} ms at ep=1, {ms[ep]:.3f} ms at ep={ep}; logits bytes "
-        f"equal")
+        f"at ep=1, {g8 // ep} a rank at ep={ep}; its down-projections' "
+        f"grids by ep and rank {grids}; warm prefill {ms[1]:.3f} ms at "
+        f"ep=1, {ms[ep]:.3f} ms at ep={ep}; logits bytes equal")
     return {"tokens": EP_LONG, "capacity": c, "body": body,
             "splits": {str(b): v for b, v in splits.items()},
             "int8_bank_G": {"1": g8, str(ep): g8 // ep},
+            "int8_down_grids": {str(n): {str(r): v for r, v in g.items()}
+                                for n, g in grids.items()},
             "warm_prefill_ms": {str(n): v for n, v in ms.items()},
             "launches_by_rank": {str(n): v for n, v in books.items()},
             "bytes_equal": True}
@@ -4280,7 +4328,8 @@ def phase_kimi(torch, np, seed: int, card: str):
         out[name] = r
         log_pass(f"{name} engine", card, r)
         log(f"    serve peak {r['peak_gb']:.2f} GB; grouped launches "
-            f"{r['group_launches']}")
+            f"{r['group_launches']}; folded by bank and body "
+            f"{r['folded_body_launches']}")
         if name == "kernel":
             want = {f"{k}@G={g}" for k, g in _bank_keys(plan)}
             missing = want - set(r["group_launches"])
@@ -5085,6 +5134,14 @@ def _kimi_bank(torch, gen, g, k, n, bits):
     return QTensor(q=q, scales=scales, bits=bits, group_size=GROUP), deq
 
 
+def _grid_name(qk, plan, g, c, n, bits) -> str:
+    """A launch's grid: "folded" or "spread" where its plan splits K, else
+    "one"."""
+    if plan.splits == 1:
+        return "one"
+    return "folded" if qk.fold_splits(plan, g, c, n, bits) else "spread"
+
+
 def _kimi_rows(torch, gen, gk, ops, qk, reps):
     """B3 (``dequant_matmul<4|8>``) at G = 384 on Kimi's widths: held
     against its plain version on the first, a middle and the last expert
@@ -5137,11 +5194,14 @@ def _kimi_rows(torch, gen, gk, ops, qk, reps):
             w_bytes = g * k * n * bits // 8
             sb = g * (k // GROUP) * n * 2
             row = {"G": g, "C": c, "K": k, "N": n, "copies": 1,
-                   "plan": plan._asdict(), "max_abs_err": err,
+                   "plan": plan._asdict(),
+                   "grid": _grid_name(qk, plan, g, c, n, bits),
+                   "max_abs_err": err,
                    "checked_experts": [0, g // 2, g - 1],
                    "w_bytes": w_bytes,
                    "partial_bytes": (plan.splits * g * c * n * 4
-                                     if plan.splits > 1 else 0)}
+                                     if _grid_name(qk, plan, g, c, n, bits)
+                                     == "spread" else 0)}
             row["ms"] = _graph_ms(torch, [lambda: ops.grouped_q_matmul(
                 x, qt)], reps)
             row["library_ms"] = _graph_ms(torch, [lambda: torch.bmm(x, deq)],
@@ -5156,7 +5216,7 @@ def _kimi_rows(torch, gen, gk, ops, qk, reps):
             row["bound_ms"], row["bound_by"] = _bound_ms(
                 nbytes, 2.0 * g * c * k * n)
             log(f"  grouped_q{bits}    {label:10s} G={g} C={c:3d} K={k:5d} "
-                f"N={n:5d} splits {plan.splits} (f32 partials "
+                f"N={n:5d} splits {plan.splits} {row['grid']} (f32 partials "
                 f"{row['partial_bytes'] / 1e6:.1f} MB): {row['ms']:.4f} ms "
                 f"(bound {row['bound_ms']:.4f} ms by {row['bound_by']}, "
                 f"{row['bound_ms'] / row['ms']:.1%} of bound), plain "
@@ -5201,7 +5261,8 @@ def phase_kernels(torch, np, sizes, seed: int, reps: int, more=()):
                                  "differs between two launches")
         plan = qk.launch_plan(c, k, n, bits)
         row = {"G": g, "C": c, "K": k, "N": n, "copies": len(cases),
-               "plan": plan._asdict(), "max_abs_err": err}
+               "plan": plan._asdict(), "grid": _grid_name(qk, plan, g, c, n, bits),
+               "max_abs_err": err}
         kernels = [t[0] for t in cases]
         row["ms"] = _graph_ms(torch, kernels, reps)
         row["loop_ms"] = _time_ms(torch, kernels, reps)
@@ -5275,7 +5336,7 @@ def phase_kernels(torch, np, sizes, seed: int, reps: int, more=()):
             rows[label] = r
             log(f"  {name:13s} {label:10s} G={r['G']} C={r['C']:3d} "
                 f"K={k:5d} N={n:5d} x{r['copies']} splits "
-                f"{r['plan']['splits']}: {r['ms']:.4f} ms (loop "
+                f"{r['plan']['splits']} {r['grid']}: {r['ms']:.4f} ms (loop "
                 f"{r['loop_ms']:.4f}; bound {r['bound_ms']:.4f} ms by "
                 f"{r['bound_by']}, {r['bound_ms'] / r['ms']:.1%} of bound), "
                 f"plain {r['plain_ms']:.4f} ms, bmm {r['library_ms']:.4f} ms "
@@ -5328,9 +5389,10 @@ def phase_kernels(torch, np, sizes, seed: int, reps: int, more=()):
             r = bf16_case(g, c, k, n) if bits == 16 \
                 else q_case(bits, g, c, k, n, True)
             log(f"  {name:13s} {label:10s} G={g} C={c:3d} K={k:5d} "
-                f"N={n:5d} x{r['copies']} splits {r['plan']['splits']}: "
-                f"{r['ms']:.4f} ms (bound {r['bound_ms']:.4f} ms by "
-                f"{r['bound_by']}, {r['bound_ms'] / r['ms']:.1%} of bound), "
+                f"N={n:5d} x{r['copies']} splits {r['plan']['splits']} "
+                f"{r['grid']}: {r['ms']:.4f} ms (bound {r['bound_ms']:.4f} ms "
+                f"by {r['bound_by']}, {r['bound_ms'] / r['ms']:.1%} of "
+                "bound), "
                 f"plain {r['plain_ms']:.4f} ms, bmm {r['library_ms']:.4f} ms "
                 f"({r['library_ms'] / r['ms']:.2f}x), max|err| "
                 f"{r['max_abs_err']:.2e}")
@@ -5351,7 +5413,7 @@ def phase_kernels(torch, np, sizes, seed: int, reps: int, more=()):
             else q_case(bits, g, c, k, n, True)
         label = f"11 G{g} {c}x{k}x{n}"
         log(f"  {name:13s} {label:18s} x{r['copies']} splits "
-            f"{r['plan']['splits']}: {r['ms']:.4f} ms (bound "
+            f"{r['plan']['splits']} {r['grid']}: {r['ms']:.4f} ms (bound "
             f"{r['bound_ms']:.4f} ms by {r['bound_by']}, "
             f"{r['bound_ms'] / r['ms']:.1%} of bound), plain "
             f"{r['plain_ms']:.4f} ms, bmm {r['library_ms']:.4f} ms "
@@ -5451,10 +5513,12 @@ def _row_invariance(torch, gen, ops, sizes):
 def _split_epilogue_check(torch, gen, qk, sizes):
     """The split-K epilogue at every row of ``SHAPES`` whose plan splits K,
     for every bank (B1 and B2 at G = 1, B3 q4 and q8 and B4 at the serving
-    layout's G): the launch on a caller-given workspace leaves the split
-    partials there, and ``out`` is byte-equal to ``splitk_reduce_plain`` of
-    them, eager, on a second launch, and as the last of two launches in a
-    replayed CUDA graph (the workspace poisoned before the replay).
+    layout's G): the spread launch on a caller-given workspace leaves the
+    split partials there, and ``out`` is byte-equal to
+    ``splitk_reduce_plain`` of them, eager, on a second launch, and as the
+    last of two launches in a replayed CUDA graph (the workspace poisoned
+    before the replay); the same launch folded (a tile's splits in one
+    block, no workspace) gives the same bytes, eager and replayed.
     Returns the (bank, row) cases checked."""
     banks = (("q4_matmul", 4, 1), ("q8_matmul", 8, 1),
              ("grouped_q4", 4, sizes[4]), ("grouped_q8", 8, sizes[8]),
@@ -5467,24 +5531,29 @@ def _split_epilogue_check(torch, gen, qk, sizes):
                 continue
             x, w = _make_bank(torch, gen, g, c, k, n, bits)
             if bits == 16:
-                def run(ws, x=x, w=w):
-                    return qk.launch_bf16(x, w, ws=ws)
+                def run(ws, fold=False, x=x, w=w):
+                    return qk.launch_bf16(x, w, ws=ws, _fold=fold)
             else:
-                def run(ws, x=x, w=w, bits=bits, name=name, n=n):
+                def run(ws, fold=False, x=x, w=w, bits=bits, name=name,
+                        n=n):
                     return qk.launch_dequant(
                         x, w.q, w.scales, bits=bits, group_size=GROUP,
-                        n=n, name=name, ws=ws)
+                        n=n, name=name, ws=ws, _fold=fold)
             ws = torch.empty((plan.splits, g, c, n), dtype=torch.float32,
                              device="cuda")
             got = run(ws)
             want = qk.splitk_reduce_plain(ws)
             again = run(ws)
+            folded = run(None, True)
             what = f"{name} {label} (G={g}, {plan.splits} splits)"
             if not (_bits_equal(torch, got, want)
                     and _bits_equal(torch, again, want)):
                 raise AssertionError(f"{what}: out differs from the plain "
                                      "sum of its split partials, or between "
                                      "two launches")
+            if not _bits_equal(torch, folded, want):
+                raise AssertionError(f"{what}: the folded launch's bytes "
+                                     "differ from the spread launch's")
             side = torch.cuda.Stream()
             side.wait_stream(torch.cuda.current_stream())
             with torch.cuda.stream(side):
@@ -5495,18 +5564,21 @@ def _split_epilogue_check(torch, gen, qk, sizes):
             with torch.cuda.graph(graph):
                 run(ws)
                 last = run(ws)
+                last_folded = run(None, True)
             ws.fill_(float("nan"))
             graph.replay()
             torch.cuda.synchronize()
             if not (_bits_equal(torch, last, want) and _bits_equal(
-                    torch, qk.splitk_reduce_plain(ws), want)):
+                    torch, qk.splitk_reduce_plain(ws), want)
+                    and _bits_equal(torch, last_folded, want)):
                 raise AssertionError(f"{what}: a replayed CUDA graph's "
                                      "out differs from the eager launch's")
-            del graph, last, x, w, ws
+            del graph, last, last_folded, folded, x, w, ws
             checked.append(f"{name} {label}")
             torch.cuda.empty_cache()
     log(f"kernels: split-K epilogue byte-equal to splitk_reduce_plain of "
-        f"its partials (eager, a second launch, a replayed graph) at "
+        f"its partials (eager, a second launch, a replayed graph), and the "
+        f"folded launch byte-equal to the spread one (eager, replayed), at "
         f"{len(checked)} bank x row cases: {checked}")
     return checked
 
@@ -5574,6 +5646,7 @@ def _exact_checks(torch, gen, gk, ops, QTensor):
             exact_case(bits, xi, (mag * sign).to(torch.int8), 1 + 2 ** -7,
                        f"f32-dequant C={c_f32}")
     torch.cuda.empty_cache()
+    folded_vs_spread = _fold_loop_check(torch, gen, ops)
     for c in (5, 100, C_WIDE, 300, 256, 400):
         xb = torch.randint(-3, 4, (2, c, 256), generator=gen,
                            device="cuda").to(torch.bfloat16)
@@ -5588,7 +5661,55 @@ def _exact_checks(torch, gen, gk, ops, QTensor):
     log("kernels: bit-exact checks passed in the three bodies (grouped == "
         "per-expert, integer-friendly inputs, f32 dequant, empty groups; C "
         f"= {C_SERVE}, {C_DECODE}, {C_PREFILL}, {C_WIDE}, 256 and 400, 5, "
-        f"100, {C_WIDE}, {C_SERVE} and 400, 8, 72, 300, 256 and 400)")
+        f"100, {C_WIDE}, {C_SERVE} and 400, 8, 72, 300, 256 and 400); "
+        f"grouped launch folded == per-expert loop spread at "
+        f"{folded_vs_spread}")
+
+
+#: (bits, G, C) of the down-projection (K = D_FF, N = D_MODEL) at which the
+#: grouped launch folds and each expert's launch of one spreads: the int8
+#: bank at the serving layout's G = 4 on both wgmma bodies, the int4 bank
+#: at G = 3 on the 128-token tile
+FOLD_LOOP_CASES = ((8, 4, C_PREFILL), (8, 4, 320), (4, 3, C_PREFILL))
+
+
+def _fold_loop_check(torch, gen, ops):
+    """The bit contract across grids: at each of ``FOLD_LOOP_CASES`` the
+    grouped launch runs folded and the per-expert loop's launches spread
+    (both read from ``FOLDED_LAUNCHES`` / ``SPLIT_LAUNCHES``), on the same
+    plan, and their bytes are equal."""
+    import collections
+    from repro_torch.kernels import q4_matmul as qk
+    done = []
+    for bits, g, c in FOLD_LOOP_CASES:
+        name, one = f"grouped_q{bits}", f"q{bits}_matmul"
+        body = qk.launch_plan(c, D_FF, D_MODEL, bits).body
+        x, qt = _make_bank(torch, gen, g, c, D_FF, D_MODEL, bits)
+        split0 = collections.Counter(ops.SPLIT_LAUNCHES)
+        folded0 = collections.Counter(ops.FOLDED_LAUNCHES)
+        grouped = ops.grouped_q_matmul(x, qt)
+        loop = torch.stack([ops.q_matmul(x[e], qt.map(lambda t: t[e]))
+                            for e in range(g)])
+        split = collections.Counter(ops.SPLIT_LAUNCHES)
+        split.subtract(split0)
+        folded = collections.Counter(ops.FOLDED_LAUNCHES)
+        folded.subtract(folded0)
+        want_split = {(name, body): 1, (one, body): g}
+        want_folded = {(name, body): 1, (one, body): 0}
+        if ({k: split[k] for k in want_split} != want_split
+                or {k: folded[k] for k in want_folded} != want_folded):
+            raise AssertionError(
+                f"q{bits} down G={g} C={c}: split launches {dict(+split)}, "
+                f"folded {dict(+folded)}; want the grouped launch folded "
+                f"and the {g} per-expert launches spread on {body}")
+        if not _bits_equal(torch, grouped, loop):
+            raise AssertionError(f"q{bits} down G={g} C={c}: the folded "
+                                 "grouped launch differs from the spread "
+                                 "per-expert loop")
+        done.append(f"q{bits} G={g} C={c} ({body})")
+        del x, qt, grouped, loop
+        torch.cuda.empty_cache()
+    return done
 
 
 # --------------------------------------------------------------------------

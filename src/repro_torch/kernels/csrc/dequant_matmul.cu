@@ -77,6 +77,20 @@
 // memory, was tried during development and was slower at the decode
 // shapes.)
 //
+// Folded grids. The splits fix a row's arithmetic; how many blocks run
+// them is the grid's choice. A "spread" launch gives each split a block
+// of its own (above). A "folded" launch (fold_splits in q4_matmul.py
+// chooses it, from G x tiles against a wave of the card) gives each tile
+// one block that runs the plan's splits in turn as K segments: each
+// segment's f32 partial is computed as a split block computes it (fresh
+// accumulator, the same groups and fmaf), then added into a running sum in
+// segment order, ((p0 + p1) + p2) + ..., the first segment stored as it
+// is: split_last's and reduce_tile's order. The sum is rounded once to
+// bf16. So a folded tile's bytes equal the spread tile's, and the grid may
+// depend on G while no bit does. A folded launch has no workspace, no
+// arrival and no read-back. The entry points hand it to the kernels as a
+// launch of one split over the whole K (Args::seg, the segment, set).
+//
 // What bounds it on the H100, and what the design does about it:
 //   * decode (C <= 16, the mma.sync body): the weight bytes. ~2*C FLOPs per weight element is
 //     far below the card's ~295 FLOP/byte ridge. Weights stream through a
@@ -118,6 +132,7 @@ constexpr int X_STRIDE = 144;          // bytes per token row of a stage
 constexpr int SMEM_BUDGET = 72 * 1024; // three blocks per SM (NT <= 4)
 constexpr int SMEM_BUDGET_NT8 = 112 * 1024;  // two blocks per SM (NT = 8)
 constexpr int MAX_SPLITS = 16;         // K splits a plan may take
+constexpr int MAX_FOLD_NT = 2;         // mma.sync tiles that may fold: 8, 16
 
 // Shared-memory layout of one (BITS, NT) instantiation. A stage holds
 // the raw weight rows (padded so a warp's four K-pair rows fall on distinct
@@ -249,6 +264,7 @@ struct Args {
   float* ws;               // (splits, G, M, N) f32, written when splits > 1
   unsigned* counters;      // one per tile, zero between launches (splits > 1)
   int G, M, K, N, gs, k_chunk, splits;
+  int seg;                 // K per segment when folded (the plan's k_chunk)
 };
 
 // A block's place: expert g, K split ``split``, token tile mt of mtiles
@@ -415,7 +431,11 @@ __device__ __forceinline__ void load_a(uint32_t (&a)[2][4], const char* wsm,
   }
 }
 
-template <int BITS, int NT>
+// FOLD: the launch is folded (a.seg > 0): one block a tile runs its K
+// segments in turn, streaming the cp.async ring straight through their
+// boundaries (each stage lies in one segment: segments are multiples of
+// BK), and keeps their running sum in registers (2 NT 4 floats).
+template <int BITS, int NT, bool FOLD>
 __global__ void __launch_bounds__(Tile<BITS, NT>::THREADS,
                                   Tile<BITS, NT>::MIN_BLOCKS)
 tc_matmul_kernel(Args a) {
@@ -450,6 +470,9 @@ tc_matmul_kernel(Args a) {
     for (int t = 0; t < NT; ++t)
 #pragma unroll
       for (int i = 0; i < 4; ++i) acc[j][t][i] = part[j][t][i] = 0.0f;
+  float tot[2][NT][4];                      // folded: the segments' sum
+  const int sst = FOLD ? a.seg / BK : 0;    // folded: stages a segment
+  int left = sst;                           // stages left in the segment
   // this lane's row address for ldmatrix: matrix q = lane / 8 is token
   // fragment q / 2, K half q % 2
   const int ldm = ((NT >= 2 ? lane >> 4 : 0) * 8 + (lane & 7)) * X_STRIDE
@@ -511,8 +534,35 @@ tc_matmul_kernel(Args a) {
         }
       }
     }
+    if constexpr (FOLD) {
+      // a segment's last stage: its partial joins the running sum in
+      // segment order (the first as it is: split_last's adds), and acc
+      // starts the next segment from zero
+      if (--left == 0 || it + 1 == nst) {
+        const bool first = it < sst;
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int t = 0; t < NT; ++t)
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              tot[j][t][i] = first ? acc[j][t][i]
+                                   : tot[j][t][i] + acc[j][t][i];
+              acc[j][t][i] = 0.0f;
+            }
+        left = sst;
+      }
+    }
   }
   cp_async_wait<0>();
+  if constexpr (FOLD) {
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int t = 0; t < NT; ++t)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[j][t][i] = tot[j][t][i];
+  }
 
   // thread's outputs: columns n .. n+3, tokens m and m+1 per fragment
   const int n = n0 + wn * WN + 4 * gid;
@@ -594,7 +644,7 @@ tc_matmul_kernel(Args a) {
     }
 }
 
-template <int BITS, int NT>
+template <int BITS, int NT, bool FOLD>
 int launch(const Args& a, cudaStream_t s) {
   using T = Tile<BITS, NT>;
   // raise the dynamic-smem cap once per card: the attribute belongs to
@@ -606,26 +656,37 @@ int launch(const Args& a, cudaStream_t s) {
   const unsigned long long bit = dev < 64 ? 1ull << dev : 0;
   if (!(smem_set & bit)) {
     e = cudaFuncSetAttribute(
-        tc_matmul_kernel<BITS, NT>,
+        tc_matmul_kernel<BITS, NT, FOLD>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
     if (e != cudaSuccess) return static_cast<int>(e);
     smem_set |= bit;
   }
   const dim3 grid((a.N + BN - 1) / BN,
                   ((a.M + T::BC - 1) / T::BC) * a.splits, a.G);
-  tc_matmul_kernel<BITS, NT><<<grid, T::THREADS, T::SMEM, s>>>(a);
+  tc_matmul_kernel<BITS, NT, FOLD><<<grid, T::THREADS, T::SMEM, s>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
 #include "wgmma_body.cuh"
 
+// Folded mma.sync launches exist for the token tiles of 8 and 16 (decode,
+// the speculative verify): at 32 and 64 the running sum's registers would
+// spill under __launch_bounds__, so those tiles always spread.
+template <int BITS, int NT>
+int launch_mma(const Args& a, cudaStream_t s) {
+  if constexpr (NT <= MAX_FOLD_NT)
+    if (a.seg) return launch<BITS, NT, true>(a, s);
+  if (a.seg) return static_cast<int>(cudaErrorInvalidValue);
+  return launch<BITS, NT, false>(a, s);
+}
+
 template <int BITS>
 int launch_bits(const Args& a, int block_c, cudaStream_t s) {
   switch (block_c) {
-    case 8: return launch<BITS, 1>(a, s);
-    case 16: return launch<BITS, 2>(a, s);
-    case 32: return launch<BITS, 4>(a, s);
-    case 64: return launch<BITS, 8>(a, s);
+    case 8: return launch_mma<BITS, 1>(a, s);
+    case 16: return launch_mma<BITS, 2>(a, s);
+    case 32: return launch_mma<BITS, 4>(a, s);
+    case 64: return launch_mma<BITS, 8>(a, s);
     case 128: return wg::launch<BITS, 128>(a, s);
     case 160: return wg::launch<BITS, 160>(a, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
@@ -635,14 +696,27 @@ int launch_bits(const Args& a, int block_c, cudaStream_t s) {
 // The plan must be one launch_plan gives: 128-column tiles, a supported
 // token tile (8, 16, 32 or 64: mma.sync; 128: wgmma; 160: the wide wgmma
 // body), 64-aligned K splits that cover K exactly (at most MAX_SPLITS), and
-// a workspace and the tiles' counters when there is more than one.
-bool plan_ok(const Args& a, int block_n) {
+// a workspace and the tiles' counters when there is more than one and the
+// launch is spread; a folded launch has more than one and needs neither.
+bool plan_ok(const Args& a, int block_n, int fold) {
   if (block_n != BN || a.k_chunk <= 0 || a.k_chunk % BK) return false;
   if (a.splits < 1 || a.splits > MAX_SPLITS) return false;
   if (a.splits != (a.K + a.k_chunk - 1) / a.k_chunk) return false;
+  if (fold) return a.splits > 1 && a.K % 16 == 0 && a.N % 16 == 0;
   if (a.splits > 1 && (a.ws == nullptr || a.counters == nullptr))
     return false;
   return a.K % 16 == 0 && a.N % 16 == 0;
+}
+
+// A folded launch as the kernels take it: one split over the whole K, its
+// plan's splits as segments of ``seg`` K.
+Args folded(Args a) {
+  a.seg = a.k_chunk;
+  a.k_chunk *= a.splits;
+  a.splits = 1;
+  a.ws = nullptr;
+  a.counters = nullptr;
+  return a;
 }
 
 }  // namespace
@@ -652,68 +726,51 @@ bool plan_ok(const Args& a, int block_n) {
 // the caller. Shape contract (checked by the Python wrappers): N % 16 == 0,
 // K % 16 == 0, the quantization group a multiple of 16 that divides 64 or
 // that 64 divides, group | K, all tensors contiguous and 16-byte aligned.
-// The tile and split arguments come from launch_plan; with more than one
-// split the kernel writes the f32 workspace ``ws`` (splits, G, M, N), and
-// ``counters`` holds one zeroed int per tile, G * ceil(M / block_c) *
-// ceil(N / block_n) of them, which the launch leaves zeroed.
+// The tile and split arguments come from launch_plan. ``fold`` 0 spreads
+// the splits over blocks: with more than one split the kernel writes the
+// f32 workspace ``ws`` (splits, G, M, N), and ``counters`` holds one zeroed
+// int per tile, G * ceil(M / block_c) * ceil(N / block_n) of them, which
+// the launch leaves zeroed. ``fold`` 1 (a plan of more than one split)
+// runs a tile's splits in one block and takes neither.
 extern "C" int repro_dequant_matmul(
     int bits, const void* x, const void* w, const void* scales, void* out,
     void* ws, void* counters, int G, int M, int K, int N, int group_size,
-    int block_n, int block_c, int k_chunk, int splits, void* stream) {
+    int block_n, int block_c, int k_chunk, int splits, int fold,
+    void* stream) {
   const Args a{static_cast<const uint16_t*>(x),
                static_cast<const uint8_t*>(w),
                static_cast<const uint16_t*>(scales),
                static_cast<uint16_t*>(out), static_cast<float*>(ws),
                static_cast<unsigned*>(counters), G, M, K, N, group_size,
-               k_chunk, splits};
+               k_chunk, splits, 0};
   const bool gs_ok = group_size >= 16 && group_size % 16 == 0
       && (BK % group_size == 0 || group_size % BK == 0)
       && K % group_size == 0;
-  if (!plan_ok(a, block_n) || !gs_ok)
+  if (!plan_ok(a, block_n, fold) || !gs_ok)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bits == 4) return launch_bits<4>(a, block_c, s);
-  if (bits == 8) return launch_bits<8>(a, block_c, s);
+  const Args run = fold ? folded(a) : a;
+  if (bits == 4) return launch_bits<4>(run, block_c, s);
+  if (bits == 8) return launch_bits<8>(run, block_c, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 extern "C" int repro_bf16_matmul(const void* x, const void* w, void* out,
                                  void* ws, void* counters, int G, int M,
                                  int K, int N, int block_n, int block_c,
-                                 int k_chunk, int splits, void* stream) {
+                                 int k_chunk, int splits, int fold,
+                                 void* stream) {
   const Args a{static_cast<const uint16_t*>(x),
                static_cast<const uint8_t*>(w), nullptr,
                static_cast<uint16_t*>(out), static_cast<float*>(ws),
                static_cast<unsigned*>(counters), G, M, K, N, BK, k_chunk,
-               splits};
-  if (!plan_ok(a, block_n)) return static_cast<int>(cudaErrorInvalidValue);
-  return launch_bits<16>(a, block_c, static_cast<cudaStream_t>(stream));
+               splits, 0};
+  if (!plan_ok(a, block_n, fold))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch_bits<16>(fold ? folded(a) : a, block_c,
+                         static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* repro_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
-
-#ifdef REPRO_STAMPS
-// The stage stamps of the stamped build (wgmma_body.cuh), for
-// tools/consumer_timeline.py: their layout (blocks, warpgroups, stages,
-// points), a copy into ``host`` and a reset to zero.
-extern "C" void repro_stamps_layout(int* dims) {
-  dims[0] = wg::STAMP_BLOCKS;
-  dims[1] = wg::STAMP_ROLES;
-  dims[2] = wg::STAMP_STAGES;
-  dims[3] = wg::ST_POINTS;
-}
-
-extern "C" int repro_stamps_read(void* host) {
-  return static_cast<int>(
-      cudaMemcpyFromSymbol(host, wg::g_stamps, sizeof(wg::g_stamps)));
-}
-
-extern "C" int repro_stamps_clear() {
-  void* p = nullptr;
-  cudaError_t e = cudaGetSymbolAddress(&p, wg::g_stamps);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  return static_cast<int>(cudaMemset(p, 0, sizeof(wg::g_stamps)));
-}
-#endif

@@ -27,8 +27,8 @@
 // maps are 3-D over (G, rows, cols), so a ragged token, column or K edge is
 // zero-filled by the TMA unit and never reads the next expert.
 //
-// Where the int time goes (tools/chip_phases.py timeline, PERF.md): each
-// consumer warpgroup runs one serial chain a stage, ~1,200 (int4) to
+// Where the int time goes (measured with per-stage clock stamps, PERF.md):
+// each consumer warpgroup runs one serial chain a stage, ~1,200 (int4) to
 // ~1,330 (int8) cycles at 128 tokens against the tensor core's 512 for the
 // block's eight wgmmas: issue, wgmma_wait<1>, the flush (~300), the
 // release, wgmma_wait<0>, the next stage's full wait and its conversion
@@ -53,6 +53,17 @@
 // no cluster: a pair gained them nothing on the card, its split of their
 // weight rows into two boxes cost them time (PERF.md), and the flushes,
 // not the L2 reads, set their time.
+//
+// A folded launch (dequant_matmul.cu's head note: a tile's K splits run
+// in turn in one block) streams the segments' stages through the ring as
+// one K range; the consumers end each segment with no wgmma in flight and
+// keep the segments' running sum in shared memory, a plane of their
+// accumulators carved from the ring (FOLD; the ring keeps the stages that
+// fit beside it: 6 of 8 for int8 at 128 tokens, 5 of 6 at 160). A segment
+// boundary is a countdown in the stage loop, not a loop of its own: the
+// int consumers run at their register limit, and an outer segment loop
+// (its bounds live across the stages) or a running sum in a global plane
+// (its pointer live) each cost them 15-20% a stage on the card (PERF.md).
 
 #pragma once
 
@@ -66,6 +77,7 @@ constexpr int BK = 64;                 // K per stage
 constexpr int CONSUMERS = 2;           // warpgroups of 64 columns
 constexpr int THREADS = 128 * (CONSUMERS + 1);
 constexpr int SMEM_BUDGET = 200 * 1024;
+constexpr int SMEM_MAX = 227 * 1024;   // dynamic shared memory of a block
 constexpr int MAX_STAGES = 8;
 constexpr int PRODUCER_REGS = 40;      // setmaxnreg: 2 x 128 x 232 + 128 x 40
 constexpr int CONSUMER_REGS = 232;     // fit the SM's 65,536 registers
@@ -74,27 +86,33 @@ constexpr int CONSUMER_REGS = 232;     // fit the SM's 65,536 registers
 // weight rows of 128 columns (int4: 32 K pairs of 128 bytes; int8: 64 rows
 // of 128 bytes; bf16: two 64-column boxes of 64 rows of 128 bytes, all
 // swizzled), then up to four scale rows of 128 bf16. Every offset is a
-// multiple of 1024, the period of the 128-byte swizzle.
-template <int BITS, int BC = 128>
+// multiple of 1024, the period of the 128-byte swizzle. FOLD: the ring is
+// followed by the running sum of a folded launch's segments, BC / 2 f32 a
+// consumer thread, and holds the stages that fit beside it.
+template <int BITS, int BC = 128, bool FOLD = false>
 struct Tile {
   static constexpr int X_BYTES = BC * BK * 2;
   static constexpr int W_BYTES = BITS == 4 ? BK / 2 * BN
                                            : BK * BN * (BITS == 16 ? 2 : 1);
   static constexpr int S_BYTES = BITS == 16 ? 0 : 4 * BN * 2;
   static constexpr int STAGE_BYTES = X_BYTES + W_BYTES + S_BYTES;
-  static constexpr int STAGES_FIT = SMEM_BUDGET / STAGE_BYTES;
+  static constexpr int TOTAL_BYTES = FOLD ? CONSUMERS * 128 * BC / 2 * 4 : 0;
+  static constexpr int STAGES_FIT =
+      (FOLD ? SMEM_MAX - TOTAL_BYTES - 2048 : SMEM_BUDGET) / STAGE_BYTES;
   static constexpr int STAGES =
       STAGES_FIT > MAX_STAGES ? MAX_STAGES : STAGES_FIT;
-  // the ring, its full and empty barriers, the split-K epilogue's two
-  // plane barriers and its arrival word, and slack to align it to 1024
-  static constexpr int SMEM =
-      STAGES * STAGE_BYTES + (2 * STAGES + 3) * 8 + 1024;
+  // the ring, the running sum, the full and empty barriers, the split-K
+  // epilogue's two plane barriers and its arrival word, and slack to align
+  // it to 1024
+  static constexpr int SMEM = STAGES * STAGE_BYTES + TOTAL_BYTES
+      + (2 * STAGES + 3) * 8 + 1024;
   // f32 bytes of one split plane of the tile (the epilogue's TMA box)
   static constexpr int PLANE_BYTES = BC * BN * 4;
   static_assert(STAGE_BYTES % 1024 == 0 && X_BYTES % 1024 == 0,
                 "stages and their weight rows start on the swizzle period");
-  static_assert(2 * PLANE_BYTES <= STAGES * STAGE_BYTES,
+  static_assert(FOLD || 2 * PLANE_BYTES <= STAGES * STAGE_BYTES,
                 "the idle ring holds two split planes");
+  static_assert(STAGES >= 4 && SMEM <= SMEM_MAX, "the ring fits");
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -197,40 +215,6 @@ template <int N>
 __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
 }
-
-// Stage stamps, for tools/consumer_timeline.py only: with -DREPRO_STAMPS
-// (which the wrappers' build never defines) the first thread of each
-// warpgroup of the grid's first STAMP_BLOCKS blocks writes clock64() into
-// g_stamps at the points of each pipeline stage ``it`` it passes; without
-// it WG_STAMP is nothing.
-enum StampPoint {
-  ST_FULL,        // a stage's full wait returned (the next stage's)
-  ST_ISSUED,      // the stage's (first group's) wgmmas issued
-  ST_WAITED,      // the wgmma wait before the flush returned
-  ST_FLUSHED,     // the flush done
-  ST_CONVERTED,   // the next stage's codes converted
-  ST_RELEASED,    // a stage released
-  ST_DRAINED,     // wgmma_wait<0> returned (the 128-token body's stage end)
-  ST_EMPTY,       // producer: the stage's empty wait returned
-  ST_POINTS
-};
-#ifdef REPRO_STAMPS
-constexpr int STAMP_BLOCKS = 8;
-constexpr int STAMP_ROLES = 3;    // consumer warpgroups 0 and 1, producer
-constexpr int STAMP_STAGES = 256;
-__device__ unsigned long long g_stamps[STAMP_BLOCKS * STAMP_ROLES
-                                       * STAMP_STAGES * ST_POINTS];
-__device__ __forceinline__ void stamp(int it, int point) {
-  const unsigned blk =
-      blockIdx.x + gridDim.x * (blockIdx.y + gridDim.y * blockIdx.z);
-  if (threadIdx.x % 128 == 0 && blk < STAMP_BLOCKS && it < STAMP_STAGES)
-    g_stamps[((blk * STAMP_ROLES + threadIdx.x / 128) * STAMP_STAGES + it)
-             * ST_POINTS + point] = clock64();
-}
-#define WG_STAMP(it, point) stamp(it, point)
-#else
-#define WG_STAMP(it, point) ((void)0)
-#endif
 
 // Keep the compiler from moving an accumulator while a wgmma owns it.
 template <int R>
@@ -377,13 +361,15 @@ __device__ __forceinline__ void release(uint64_t* empty, int lane, int peer) {
 }
 
 // One group of a stage: its wgmmas into ``cur``, and meanwhile the
-// previous group's partial ``prev`` flushed into acc.
+// previous group's partial ``prev`` flushed into acc (none before the
+// first group of a K segment: ``start``, the block's first stage, or a
+// folded launch's segment's, whose previous segment flushed its own).
 template <int BITS, int SPF, int S, int NG>
 __device__ __forceinline__ void int_group(
     float (&acc)[64], float (&cur)[64], float (&prev)[64],
     const uint32_t (&f)[BK / 16][4], char* smem, uint64_t* empty,
-    const char* st, uint32_t xs, int grp, int it, int lane, int col,
-    int peer) {
+    const char* st, uint32_t xs, int grp, int it, bool start, int lane,
+    int col, int peer) {
   using T = Tile<BITS>;
   wgmma_fence();
 #pragma unroll
@@ -392,20 +378,54 @@ __device__ __forceinline__ void int_group(
     wgmma_rs(cur, f[step], desc_sw128(xs + step * 32, 1, 64), j != 0);
   }
   wgmma_commit();
-  if (grp == 0) WG_STAMP(it, ST_ISSUED);
   wgmma_wait<1>();                 // the previous group's wgmmas are done
-  if (grp == 0) WG_STAMP(it, ST_WAITED);
   if (grp > 0) {
     fence_regs(prev);
     flush<BITS>(acc, prev, st + T::X_BYTES, grp - 1, col);
-  } else if (it > 0) {
+  } else if (!start) {
     const int pv = it - 1;
     fence_regs(prev);
     flush<BITS>(acc, prev, smem + (pv % S) * T::STAGE_BYTES + T::X_BYTES,
                 NG - 1, col);
-    WG_STAMP(it, ST_FLUSHED);
     release(empty + pv % S, lane, peer);
-    WG_STAMP(it, ST_RELEASED);
+  }
+}
+
+// A folded launch's K segment done (no wgmma in flight): its partial acc
+// joins the running sum ``tot`` in segment order, the first as it is
+// (split_last's and reduce_tile's adds), and acc starts the next segment
+// from zero; after the last segment acc = the running sum plus its
+// partial (``last``), the value the spread epilogue rounds. ``tot`` holds
+// R f32 a consumer thread, thread-major, so a warp's accesses take 32
+// banks; each thread reads and writes its own words only.
+template <int R>
+__device__ __forceinline__ void fold_segment(float (&acc)[R], float* tot,
+                                             bool first, bool last) {
+  float* t = tot + threadIdx.x;
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    if (last) {
+      acc[i] = t[i * CONSUMERS * 128] + acc[i];
+    } else {
+      t[i * CONSUMERS * 128] = first ? acc[i]
+                                     : t[i * CONSUMERS * 128] + acc[i];
+      acc[i] = 0.0f;
+    }
+  }
+}
+
+// After stage ``it`` of a folded launch, with no wgmma in flight and the
+// stage's partials flushed: at a segment's last stage (``left`` counts
+// the segment's stages down; segments are a.seg / BK stages) the running
+// sum takes the segment, but for the block's last stage, whose segment
+// the caller adds after the loop.
+template <int R>
+__device__ __forceinline__ void fold_step(float (&acc)[R], float* tot,
+                                          int& left, const Args& a, int it,
+                                          int nst) {
+  if (--left == 0 && it + 1 < nst) {
+    fold_segment(acc, tot, it + 1 == a.seg / BK, false);
+    left = a.seg / BK;
   }
 }
 
@@ -413,35 +433,50 @@ __device__ __forceinline__ void int_group(
 // wgmmas run into one of two partials in turn while the previous group's
 // partial is flushed into acc (the previous stage's last one releases that
 // stage); once the stage's wgmmas are done, the next stage's fragments are
-// converted into ``f``.
-template <int BITS, int SPF, int S, int PAR>
+// converted into ``f``. FOLD: at a K segment's last stage the stage's last
+// partial is flushed and the stage released here, and the running sum
+// takes the segment (fold_step); the next segment's first stage then
+// flushes nothing before its first group.
+template <int BITS, int SPF, int S, int PAR, bool FOLD>
 __device__ __forceinline__ void int_stage(
     float (&acc)[64], float (&p0)[64], float (&p1)[64],
     uint32_t (&f)[BK / 16][4], char* smem, uint64_t* full, uint64_t* empty,
-    int it, int nst, int warp_col, int lane, int col, int peer) {
+    float* tot, int& left, const Args& a, int it, int nst, int warp_col,
+    int lane, int col, int peer) {
   using T = Tile<BITS>;
   constexpr int NG = BK / 16 / SPF;          // groups per stage
   const char* st = smem + (it % S) * T::STAGE_BYTES;
   const uint32_t xs = smem_u32(st);
+  const bool start = FOLD ? left == a.seg / BK : it <= 0;
 #pragma unroll
   for (int grp = 0; grp < NG; ++grp) {
     // this group's partial and the previous group's: p0 and p1 in turn
     if ((PAR * NG + grp) % 2)
       int_group<BITS, SPF, S, NG>(acc, p1, p0, f, smem, empty, st, xs, grp,
-                                  it, lane, col, peer);
+                                  it, start, lane, col, peer);
     else
       int_group<BITS, SPF, S, NG>(acc, p0, p1, f, smem, empty, st, xs, grp,
-                                  it, lane, col, peer);
+                                  it, start, lane, col, peer);
   }
   wgmma_wait<0>();                 // f is free again
-  WG_STAMP(it, ST_DRAINED);
   if (it + 1 < nst) {
     const int nx = it + 1;
     mbar_wait(full + nx % S, (nx / S) & 1);
-    WG_STAMP(it, ST_FULL);
     load_a<BITS>(f, smem + (nx % S) * T::STAGE_BYTES + T::X_BYTES, warp_col,
                  lane);
-    WG_STAMP(it, ST_CONVERTED);
+  }
+  if constexpr (FOLD) {
+    if (left == 1 && it + 1 < nst) {     // the segment's last group
+      if ((PAR * NG + NG - 1) % 2) {
+        fence_regs(p1);
+        flush<BITS>(acc, p1, st + T::X_BYTES, NG - 1, col);
+      } else {
+        fence_regs(p0);
+        flush<BITS>(acc, p0, st + T::X_BYTES, NG - 1, col);
+      }
+      release(empty + it % S, lane, peer);
+    }
+    fold_step(acc, tot, left, a, it, nst);
   }
 }
 
@@ -453,19 +488,18 @@ __device__ __forceinline__ void int_stage(
 // stage's empty barrier then counts both blocks' consumer warps, and the
 // producer stays until the last of them has arrived (the partner reaches
 // into this block's barriers until then).
-template <int BITS, int BC>
+template <int BITS, int BC, bool FOLD>
 __device__ __forceinline__ void produce(
     const CUtensorMap* tm_x, const CUtensorMap* tm_w, const CUtensorMap* tm_s,
     const Args& a, char* smem, uint64_t* full, uint64_t* empty, int g,
     int m0, int n0, int kbeg, int nst, int srows, int rank, int peer) {
-  using T = Tile<BITS, BC>;
+  using T = Tile<BITS, BC, FOLD>;
   constexpr int S = T::STAGES;
   const uint32_t tx = T::X_BYTES + T::W_BYTES
       + (BITS == 16 ? 0 : srows * BN * 2);
   for (int it = 0; it < nst; ++it) {
     const int s = it % S;
     mbar_wait(empty + s, ((it / S) & 1) ^ 1);
-    WG_STAMP(it, ST_EMPTY);
     char* st = smem + s * T::STAGE_BYTES;
     const int k0 = kbeg + it * BK;
     mbar_expect_tx(full + s, tx);
@@ -538,13 +572,15 @@ __device__ __forceinline__ void store(const float (&acc)[R], const Args& a,
 }
 
 // A consumer warpgroup's whole K range at the 128-token tile, then its
-// store.
-template <int BITS, int SPF>
+// store. FOLD: the range in K segments of a.seg / BK stages, their
+// running sum in ``tot`` (fold_segment).
+template <int BITS, int SPF, bool FOLD>
 __device__ __forceinline__ void consume(const Args& a, char* smem,
                                         uint64_t* full, uint64_t* empty,
-                                        int nst, int g, int m0, int n0,
-                                        int split, int role, int peer) {
-  using T = Tile<BITS>;
+                                        float* tot, int nst, int g, int m0,
+                                        int n0, int split, int role,
+                                        int peer) {
+  using T = Tile<BITS, 128, FOLD>;
   constexpr int S = T::STAGES;
   const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3;
   const int warp_col = role * 64 + warp * 16;        // the warp's 16 columns
@@ -554,6 +590,7 @@ __device__ __forceinline__ void consume(const Args& a, char* smem,
   for (int i = 0; i < 64; ++i) acc[i] = 0.0f;
 
   if constexpr (BITS == 16) {
+    int left = FOLD ? a.seg / BK : 0;        // stages left in the segment
     for (int it = 0; it < nst; ++it) {
       const int s = it % S;
       mbar_wait(full + s, (it / S) & 1);
@@ -571,7 +608,10 @@ __device__ __forceinline__ void consume(const Args& a, char* smem,
       wgmma_wait<0>();
       fence_regs(acc);
       release(empty + s, lane, peer);
+      if constexpr (FOLD) fold_step(acc, tot, left, a, it, nst);
     }
+    if constexpr (FOLD)
+      if (nst > a.seg / BK) fold_segment(acc, tot, false, true);
   } else {
     // codes -> registers -> wgmma; two partials in turn (register arrays
     // are indexed at compile time only, so stages go in pairs)
@@ -581,12 +621,15 @@ __device__ __forceinline__ void consume(const Args& a, char* smem,
     uint32_t f[BK / 16][4];
     mbar_wait(full, 0);
     load_a<BITS>(f, smem + T::X_BYTES, warp_col, lane);
+    int left = FOLD ? a.seg / BK : 0;        // stages left in the segment
     for (int it = 0; it < nst; it += 2) {
-      int_stage<BITS, SPF, S, 0>(acc, p0, p1, f, smem, full, empty, it,
-                                 nst, warp_col, lane, col, peer);
+      int_stage<BITS, SPF, S, 0, FOLD>(acc, p0, p1, f, smem, full, empty,
+                                       tot, left, a, it, nst, warp_col, lane,
+                                       col, peer);
       if (it + 1 < nst)
-        int_stage<BITS, SPF, S, 1>(acc, p0, p1, f, smem, full, empty,
-                                   it + 1, nst, warp_col, lane, col, peer);
+        int_stage<BITS, SPF, S, 1, FOLD>(acc, p0, p1, f, smem, full, empty,
+                                         tot, left, a, it + 1, nst, warp_col,
+                                         lane, col, peer);
     }
     // the last group's partial: stage nst - 1's last group
     constexpr int NG = BK / 16 / SPF;
@@ -600,6 +643,8 @@ __device__ __forceinline__ void consume(const Args& a, char* smem,
       flush<BITS>(acc, p0, ws_last, NG - 1, col);
     }
     release(empty + last % S, lane, peer);
+    if constexpr (FOLD)
+      if (nst > a.seg / BK) fold_segment(acc, tot, false, true);
   }
 
   store<BITS>(acc, a, g, m0, n0, split, role);
@@ -691,17 +736,20 @@ __device__ __forceinline__ Place block_place(const Args& a) {
 // BC: the token tile, 128 (this file's consumers) or 160 (wgmma_wide.cuh's).
 // tm_ws: the f32 workspace (splits, G * M, N) when K is split.
 // PAIR: the launch is a grid of clusters of two token tiles (launch_pair).
-template <int BITS, int SPF, int BC, bool PAIR>
+// FOLD: a folded launch (a.seg > 0; one split over K, segments of a.seg).
+template <int BITS, int SPF, int BC, bool PAIR, bool FOLD>
 __global__ void __launch_bounds__(THREADS, 1)
 wg_matmul_kernel(const __grid_constant__ CUtensorMap tm_x,
                  const __grid_constant__ CUtensorMap tm_w,
                  const __grid_constant__ CUtensorMap tm_s,
                  const __grid_constant__ CUtensorMap tm_ws, Args a) {
-  using T = Tile<BITS, BC>;
+  using T = Tile<BITS, BC, FOLD>;
   constexpr int S = T::STAGES;
   extern __shared__ __align__(16) char smem_raw[];
   char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
-  uint64_t* full = reinterpret_cast<uint64_t*>(smem + S * T::STAGE_BYTES);
+  float* tot = reinterpret_cast<float*>(smem + S * T::STAGE_BYTES);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + S * T::STAGE_BYTES
+                                               + T::TOTAL_BYTES);
   uint64_t* empty = full + S;
   uint64_t* rbar = empty + S;              // the split-K epilogue's planes
   int* arrival = reinterpret_cast<int*>(rbar + 2);
@@ -741,27 +789,28 @@ wg_matmul_kernel(const __grid_constant__ CUtensorMap tm_x,
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n"
                  :: "n"(PRODUCER_REGS));
     if (threadIdx.x == CONSUMERS * 128)
-      produce<BITS, BC>(&tm_x, &tm_w, &tm_s, a, smem, full, empty, g, m0, n0,
-                        kbeg, nst, srows, rank, peer);
+      produce<BITS, BC, FOLD>(&tm_x, &tm_w, &tm_s, a, smem, full, empty, g,
+                              m0, n0, kbeg, nst, srows, rank, peer);
     return;
   }
 
   // consumers: warpgroup ``role`` owns the block's columns 64 role ..
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(CONSUMER_REGS));
   if constexpr (BC == 128)
-    consume<BITS, SPF>(a, smem, full, empty, nst, g, m0, n0, split, role,
-                       peer);
+    consume<BITS, SPF, FOLD>(a, smem, full, empty, tot, nst, g, m0, n0,
+                             split, role, peer);
   else if (a.M - m0 <= WIDE_TAIL)     // a short last tile runs wgmma's n96
-    consume_wide<BITS, SPF, BC, WIDE_TAIL / 2>(a, smem, full, empty, nst, g,
-                                               m0, n0, split, role, peer);
+    consume_wide<BITS, SPF, BC, WIDE_TAIL / 2, FOLD>(
+        a, smem, full, empty, tot, nst, g, m0, n0, split, role, peer);
   else
-    consume_wide<BITS, SPF, BC, BC / 2>(a, smem, full, empty, nst, g, m0, n0,
-                                        split, role, peer);
+    consume_wide<BITS, SPF, BC, BC / 2, FOLD>(
+        a, smem, full, empty, tot, nst, g, m0, n0, split, role, peer);
   // the place decoded again, not kept live through the K loop (kept, it
   // cost the int8 128-token rows 2-3% on the card)
-  if (a.splits > 1 && split_last<CONSUMERS * 128>(
-                          a, tile_index(block_place<BC>(a)), arrival))
-    reduce_tile<BC>(&tm_ws, a, smem, rbar, g, m0, n0);
+  if constexpr (!FOLD)
+    if (a.splits > 1 && split_last<CONSUMERS * 128>(
+                            a, tile_index(block_place<BC>(a)), arrival))
+      reduce_tile<BC>(&tm_ws, a, smem, rbar, g, m0, n0);
 }
 
 // cuTensorMapEncodeTiled, reached through the runtime so the library needs
@@ -813,18 +862,18 @@ inline bool make_map(CUtensorMap* map, const void* base,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int BITS, int SPF, int BC, bool PAIR>
+template <int BITS, int SPF, int BC, bool PAIR, bool FOLD>
 int launch_spf(const Args& a, const CUtensorMap& tx, const CUtensorMap& tw,
                const CUtensorMap& ts, const CUtensorMap& tws,
                cudaStream_t s) {
-  using T = Tile<BITS, BC>;
+  using T = Tile<BITS, BC, FOLD>;
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return static_cast<int>(e);
   static unsigned long long smem_set = 0;   // bit d: set on device d
   const unsigned long long bit = dev < 64 ? 1ull << dev : 0;
   if (!(smem_set & bit)) {
-    e = cudaFuncSetAttribute(wg_matmul_kernel<BITS, SPF, BC, PAIR>,
+    e = cudaFuncSetAttribute(wg_matmul_kernel<BITS, SPF, BC, PAIR, FOLD>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              T::SMEM);
     if (e != cudaSuccess) return static_cast<int>(e);
@@ -852,23 +901,32 @@ int launch_spf(const Args& a, const CUtensorMap& tx, const CUtensorMap& tw,
                   const_cast<CUtensorMap*>(&tws), const_cast<Args*>(&a)};
   e = cudaLaunchKernelExC(
       &cfg,
-      reinterpret_cast<const void*>(wg_matmul_kernel<BITS, SPF, BC, PAIR>),
+      reinterpret_cast<const void*>(
+          wg_matmul_kernel<BITS, SPF, BC, PAIR, FOLD>),
       args);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
 
-// Past one token tile the bf16 bank pairs its token tiles in clusters; the
-// int banks and every single-tile launch run blocks alone, with no cluster
-// code in their kernel.
-template <int BITS, int SPF, int BC>
+// Past one token tile the bf16 bank pairs its token tiles in clusters (a
+// pair's two blocks fold alike); the int banks and every single-tile
+// launch run blocks alone, with no cluster code in their kernel.
+template <int BITS, int SPF, int BC, bool FOLD>
 int launch_pair(const Args& a, const CUtensorMap& tx, const CUtensorMap& tw,
                 const CUtensorMap& ts, const CUtensorMap& tws,
                 cudaStream_t s) {
   if constexpr (BITS == 16)
     if (a.M > BC)
-      return launch_spf<BITS, SPF, BC, true>(a, tx, tw, ts, tws, s);
-  return launch_spf<BITS, SPF, BC, false>(a, tx, tw, ts, tws, s);
+      return launch_spf<BITS, SPF, BC, true, FOLD>(a, tx, tw, ts, tws, s);
+  return launch_spf<BITS, SPF, BC, false, FOLD>(a, tx, tw, ts, tws, s);
+}
+
+template <int BITS, int SPF, int BC>
+int launch_fold(const Args& a, const CUtensorMap& tx, const CUtensorMap& tw,
+                const CUtensorMap& ts, const CUtensorMap& tws,
+                cudaStream_t s) {
+  return a.seg ? launch_pair<BITS, SPF, BC, true>(a, tx, tw, ts, tws, s)
+               : launch_pair<BITS, SPF, BC, false>(a, tx, tw, ts, tws, s);
 }
 
 template <int BITS, int BC>
@@ -900,12 +958,12 @@ int launch(const Args& a, cudaStream_t s) {
     tws = tx;                           // unused without a split
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   if constexpr (BITS == 16) {
-    return launch_pair<16, BK / 16, BC>(a, tx, tw, ts, tws, s);
+    return launch_fold<16, BK / 16, BC>(a, tx, tw, ts, tws, s);
   } else {
     switch (a.gs >= BK ? BK / 16 : a.gs / 16) {
-      case 1: return launch_pair<BITS, 1, BC>(a, tx, tw, ts, tws, s);
-      case 2: return launch_pair<BITS, 2, BC>(a, tx, tw, ts, tws, s);
-      case 4: return launch_pair<BITS, 4, BC>(a, tx, tw, ts, tws, s);
+      case 1: return launch_fold<BITS, 1, BC>(a, tx, tw, ts, tws, s);
+      case 2: return launch_fold<BITS, 2, BC>(a, tx, tw, ts, tws, s);
+      case 4: return launch_fold<BITS, 4, BC>(a, tx, tw, ts, tws, s);
       default: return static_cast<int>(cudaErrorInvalidValue);
     }
   }

@@ -30,7 +30,7 @@
 // cluster changed nothing. 128 columns halve the x bytes each product
 // needs. A consumer warpgroup's stage is one serial chain, ~1,300 (int4)
 // to ~1,450 (int8) cycles against the tensor core's 640 for the block's
-// eight wgmmas (tools/chip_phases.py timeline): issue, the next stage's
+// eight wgmmas (per-stage clock stamps, PERF.md): issue, the next stage's
 // full wait and conversion, wgmma_wait<0> (one partial: the flush waits
 // for its group), the flush, the release. Neither turn-taking between the
 // two warpgroups nor an x cluster shortened it.
@@ -122,13 +122,15 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[80], uint64_t a_desc,
 // before): each group's wgmmas run into the partial, which is flushed into
 // acc once they are done; while the stage's first group runs, the next
 // stage's codes are converted into ``fn``. BC is the block's token tile
-// (the stage's x rows), R the accumulator registers (the wgmma's N / 2).
-template <int BITS, int SPF, int BC, int R>
+// (the stage's x rows), R the accumulator registers (the wgmma's N / 2),
+// FOLD whether the launch is folded (the ring's stage count). No wgmma is
+// in flight when it returns.
+template <int BITS, int SPF, int BC, bool FOLD, int R>
 __device__ __forceinline__ void wide_stage(
     float (&acc)[R], float (&part)[R], const uint32_t (&f)[BK / 16][4],
     uint32_t (&fn)[BK / 16][4], char* smem, uint64_t* full, uint64_t* empty,
     int it, int nst, int warp_col, int lane, int col, int peer) {
-  using T = Tile<BITS, BC>;
+  using T = Tile<BITS, BC, FOLD>;
   constexpr int S = T::STAGES;
   constexpr int NG = BK / 16 / SPF;          // groups per stage
   const char* st = smem + (it % S) * T::STAGE_BYTES;
@@ -142,31 +144,25 @@ __device__ __forceinline__ void wide_stage(
       wgmma_rs(part, f[step], desc_sw128(xs + step * 32, 1, 64), j != 0);
     }
     wgmma_commit();
-    if (grp == 0) WG_STAMP(it, ST_ISSUED);
     if (grp == 0 && it + 1 < nst) {
       const int nx = it + 1;
       mbar_wait(full + nx % S, (nx / S) & 1);
-      WG_STAMP(it, ST_FULL);
       load_a<BITS>(fn, smem + (nx % S) * T::STAGE_BYTES + T::X_BYTES,
                    warp_col, lane);
-      WG_STAMP(it, ST_CONVERTED);
     }
     wgmma_wait<0>();
-    if (grp == 0) WG_STAMP(it, ST_WAITED);
     fence_regs(part);
     flush<BITS>(acc, part, st + T::X_BYTES, grp, col);
-    if (grp == 0) WG_STAMP(it, ST_FLUSHED);
   }
   release(empty + it % S, lane, peer);
-  WG_STAMP(it, ST_RELEASED);
 }
 
 // Issue one bf16 stage's wgmmas into acc once the stage has landed.
-template <int BC, int R>
+template <int BC, bool FOLD, int R>
 __device__ __forceinline__ void wide_bf16_stage(float (&acc)[R], char* smem,
                                                 uint64_t* full, int it,
                                                 int role) {
-  using T = Tile<16, BC>;
+  using T = Tile<16, BC, FOLD>;
   const int s = it % T::STAGES;
   mbar_wait(full + s, (it / T::STAGES) & 1);
   const char* st = smem + s * T::STAGE_BYTES;
@@ -180,13 +176,35 @@ __device__ __forceinline__ void wide_bf16_stage(float (&acc)[R], char* smem,
   wgmma_commit();
 }
 
+// The bf16 stages s0 .. s1 - 1 (the block's K segment; a spread launch
+// has one, 0 .. nst - 1), both operands in the stage: a stage's wgmmas run
+// while the next stage's are issued (stage s0 before the loop, so one
+// group is in flight on every path into the loop's head); none is in
+// flight when it returns.
+template <int BC, bool FOLD, int R>
+__device__ __forceinline__ void wide_bf16_segment(
+    float (&acc)[R], char* smem, uint64_t* full, uint64_t* empty, int s0,
+    int s1, int lane, int role, int peer) {
+  constexpr int S = Tile<16, BC, FOLD>::STAGES;
+  wide_bf16_stage<BC, FOLD>(acc, smem, full, s0, role);
+  for (int it = s0 + 1; it < s1; ++it) {
+    wide_bf16_stage<BC, FOLD>(acc, smem, full, it, role);
+    wgmma_wait<1>();             // the previous stage's wgmmas are done
+    release(empty + (it - 1) % S, lane, peer);
+  }
+  wgmma_wait<0>();
+  fence_regs(acc);
+  release(empty + (s1 - 1) % S, lane, peer);
+}
+
 // A consumer warpgroup's whole K range at wgmma N = 2 R, then its store.
-template <int BITS, int SPF, int BC, int R>
+// FOLD: the range in K segments of a.seg / BK stages, their running sum
+// in ``tot`` (fold_segment).
+template <int BITS, int SPF, int BC, int R, bool FOLD>
 __device__ __forceinline__ void consume_wide(
-    const Args& a, char* smem, uint64_t* full, uint64_t* empty, int nst,
-    int g, int m0, int n0, int split, int role, int peer) {
-  using T = Tile<BITS, BC>;
-  constexpr int S = T::STAGES;
+    const Args& a, char* smem, uint64_t* full, uint64_t* empty, float* tot,
+    int nst, int g, int m0, int n0, int split, int role, int peer) {
+  using T = Tile<BITS, BC, FOLD>;
   const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3;
   const int warp_col = role * 64 + warp * 16;        // the warp's 16 columns
   const int col = warp_col + 2 * (lane >> 2);        // codes: columns col, +1
@@ -195,18 +213,19 @@ __device__ __forceinline__ void consume_wide(
   for (int i = 0; i < R; ++i) acc[i] = 0.0f;
 
   if constexpr (BITS == 16) {
-    // both operands in the stage; a stage's wgmmas run while the next
-    // stage's are issued (stage 0 before the loop, so one group is in
-    // flight on every path into the loop's head)
-    wide_bf16_stage<BC>(acc, smem, full, 0, role);
-    for (int it = 1; it < nst; ++it) {
-      wide_bf16_stage<BC>(acc, smem, full, it, role);
-      wgmma_wait<1>();             // the previous stage's wgmmas are done
-      release(empty + (it - 1) % S, lane, peer);
+    if constexpr (FOLD) {
+      const int sst = a.seg / BK;
+      for (int s0 = 0; s0 < nst; s0 += sst) {
+        const int s1 = min(nst, s0 + sst);
+        wide_bf16_segment<BC, FOLD>(acc, smem, full, empty, s0, s1, lane,
+                                    role, peer);
+        if (s1 < nst) fold_segment(acc, tot, s0 == 0, false);
+        else if (s0 > 0) fold_segment(acc, tot, false, true);
+      }
+    } else {
+      wide_bf16_segment<BC, FOLD>(acc, smem, full, empty, 0, nst, lane, role,
+                                  peer);
     }
-    wgmma_wait<0>();
-    fence_regs(acc);
-    release(empty + (nst - 1) % S, lane, peer);
   } else {
     // codes -> registers -> wgmma; two fragment sets in turn (register
     // arrays are indexed at compile time only, so stages go in pairs)
@@ -216,13 +235,20 @@ __device__ __forceinline__ void consume_wide(
     uint32_t f0[BK / 16][4], f1[BK / 16][4];
     mbar_wait(full, 0);
     load_a<BITS>(f0, smem + T::X_BYTES, warp_col, lane);
+    int left = FOLD ? a.seg / BK : 0;        // stages left in the segment
     for (int it = 0; it < nst; it += 2) {
-      wide_stage<BITS, SPF, BC>(acc, part, f0, f1, smem, full, empty, it, nst,
-                                warp_col, lane, col, peer);
-      if (it + 1 < nst)
-        wide_stage<BITS, SPF, BC>(acc, part, f1, f0, smem, full, empty,
-                                  it + 1, nst, warp_col, lane, col, peer);
+      wide_stage<BITS, SPF, BC, FOLD>(acc, part, f0, f1, smem, full, empty,
+                                      it, nst, warp_col, lane, col, peer);
+      if constexpr (FOLD) fold_step(acc, tot, left, a, it, nst);
+      if (it + 1 < nst) {
+        wide_stage<BITS, SPF, BC, FOLD>(acc, part, f1, f0, smem, full, empty,
+                                        it + 1, nst, warp_col, lane, col,
+                                        peer);
+        if constexpr (FOLD) fold_step(acc, tot, left, a, it + 1, nst);
+      }
     }
+    if constexpr (FOLD)
+      if (nst > a.seg / BK) fold_segment(acc, tot, false, true);
   }
   store<BITS>(acc, a, g, m0, n0, split, role);
 }

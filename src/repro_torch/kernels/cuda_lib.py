@@ -19,14 +19,10 @@ the grouped wrappers' launches by the bank's expert count G, and
 ``mma_sync`` body serves token tiles up to 64, the ``wgmma`` body the
 128-token tile and the ``wgmma_wide`` body the 160-token tile
 (``q4_matmul.launch_plan``). ``SPLIT_LAUNCHES`` books, the same way, the
-launches whose plan splits K: each of them reduces its split partials in
-its own epilogue, with no second kernel.
-
-The wgmma bodies can stamp ``clock64()`` at the points of a pipeline
-stage into a device buffer when compiled with ``-D`` :data:`STAMP_MACRO`.
-Only ``tools/consumer_timeline.py`` builds that library (``build(defines=
-(STAMP_MACRO,), build_dir=...)``, into a directory of its own); the
-library the wrappers build and load never defines it.
+launches whose plan splits K, and ``FOLDED_LAUNCHES`` those of them that
+ran folded (``q4_matmul.fold_splits``: one block a tile runs the splits in
+turn); each of the others, spread over a block a split, reduces its split
+partials in its own epilogue, with no second kernel.
 """
 from __future__ import annotations
 
@@ -65,8 +61,9 @@ BODY_LAUNCHES: "collections.Counter[Tuple[str, str]]" = collections.Counter()
 #: the launches of BODY_LAUNCHES whose plan splits K, by (wrapper, body)
 SPLIT_LAUNCHES: "collections.Counter[Tuple[str, str]]" = collections.Counter()
 
-#: the preprocessor macro that compiles the wgmma bodies' stage stamps in
-STAMP_MACRO = "REPRO_STAMPS"
+#: the launches of SPLIT_LAUNCHES that ran folded, by (wrapper, body)
+FOLDED_LAUNCHES: "collections.Counter[Tuple[str, str]]" = \
+    collections.Counter()
 
 #: nvcc's output (ptxas registers, shared memory, spills) of the library
 #: in use: set by the build, or read back from the log kept beside it
@@ -81,6 +78,7 @@ def reset_launches() -> None:
     GROUP_LAUNCHES.clear()
     BODY_LAUNCHES.clear()
     SPLIT_LAUNCHES.clear()
+    FOLDED_LAUNCHES.clear()
 
 
 def _nvcc() -> str:
@@ -96,37 +94,26 @@ def _sources() -> List[Path]:
     return sorted(p for p in CSRC.iterdir() if p.is_file())
 
 
-def _lib_path(defines=(), build_dir: Optional[Path] = None) -> Path:
+def _lib_path() -> Path:
     h = hashlib.sha256()
     for p in _sources():
         h.update(p.name.encode() + b"\0" + p.read_bytes() + b"\0")
     h.update(" ".join(NVCC_FLAGS).encode())
-    for d in defines:
-        h.update(b"\0-D" + d.encode())
-    return (build_dir or BUILD_DIR) / f"{LIB_STEM}-{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"{LIB_STEM}-{h.hexdigest()[:16]}.so"
 
 
-def compile_command(units, out: Path, defines=()) -> List[str]:
-    """The nvcc command that compiles ``units`` into the library ``out``,
-    with ``-D`` for each of ``defines``."""
-    return [_nvcc(), *NVCC_FLAGS, *(f"-D{d}" for d in defines), "-o",
-            str(out), *map(str, units)]
-
-
-def build(defines=(), build_dir: Optional[Path] = None) -> Path:
+def build() -> Path:
     """Compile the ``.cu`` files of ``csrc/`` unless an up-to-date library
-    exists; returns the library's path. ``defines`` and ``build_dir`` are
-    for a tool's own build (the stamped timeline); the wrappers' library
-    takes neither."""
+    exists; returns the library's path."""
     global BUILD_LOG
-    lib = _lib_path(defines, build_dir)
+    lib = _lib_path()
     log = lib.with_suffix(".log")
     if lib.exists():
         BUILD_LOG = log.read_text() if log.exists() else ""
         return lib
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
     units = [p for p in _sources() if p.suffix == ".cu"]
-    cmd = compile_command(units, tmp, defines)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, units)]
     lib.parent.mkdir(parents=True, exist_ok=True)
     proc = subprocess.run(cmd, stdout=subprocess.PIPE,
                           stderr=subprocess.STDOUT, text=True)
@@ -144,7 +131,7 @@ def load(path: Path) -> ctypes.CDLL:
     global _LIB
     lib = ctypes.CDLL(str(path))
     vp, i32 = ctypes.c_void_p, ctypes.c_int
-    plan = [i32] * 4          # block_n, block_c, k_chunk, splits
+    plan = [i32] * 5          # block_n, block_c, k_chunk, splits, fold
     # ..., out, ws, counters, G, M, K, N, [group,] plan, stream
     lib.repro_dequant_matmul.argtypes = [
         i32, vp, vp, vp, vp, vp, vp, i32, i32, i32, i32, i32, *plan, vp]

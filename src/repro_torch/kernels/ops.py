@@ -10,7 +10,8 @@ A CPU tensor takes each kernel's plain PyTorch version; a CUDA tensor
 launches the kernel or raises. ``LAUNCHES`` counts launches per kernel
 wrapper (``LAUNCHES["grouped_q4"]`` and so on), ``BODY_LAUNCHES`` the
 matmul launches by (wrapper, body), ``SPLIT_LAUNCHES`` those of them whose
-plan splits K (and whose epilogue reduces the splits).
+plan splits K and ``FOLDED_LAUNCHES`` those of these that ran a tile's
+splits in one block (the others reduce the splits in their epilogue).
 """
 from __future__ import annotations
 
@@ -21,7 +22,8 @@ from repro_torch.core.quantization import QTensor
 from repro_torch.kernels import grouped_matmul as _gk
 from repro_torch.kernels import q4_matmul as _k
 from repro_torch.kernels.cuda_lib import (  # noqa: F401
-    BODY_LAUNCHES, GROUP_LAUNCHES, LAUNCHES, SPLIT_LAUNCHES, reset_launches,
+    BODY_LAUNCHES, FOLDED_LAUNCHES, GROUP_LAUNCHES, LAUNCHES, SPLIT_LAUNCHES,
+    reset_launches,
 )
 
 

@@ -17,9 +17,13 @@ the speculative verify) a plan names the ``mma_sync`` body; above 64
 (prefill) the ``wgmma`` body with its 128-token tile, and above 128 the
 ``wgmma_wide`` body with its 160-token tile, but for C = 161-256, which
 run two 128-token tiles. With more than one
-split the partials go through an f32 workspace, and the last block of
-each tile to finish adds them in split order in the kernel's own epilogue
-(:func:`splitk_reduce_plain` is that arithmetic in plain PyTorch).
+split a launch is spread or folded (:func:`fold_splits`, which also sees
+the bank's G): spread, each split is a block, the partials go through an
+f32 workspace, and the last block of each tile to finish adds them in
+split order in the kernel's own epilogue (:func:`splitk_reduce_plain` is
+that arithmetic in plain PyTorch); folded, one block a tile runs the
+splits in turn and adds their partials in the same order, with no
+workspace, so the two give the same bytes.
 """
 from __future__ import annotations
 
@@ -141,7 +145,8 @@ def launch_plan(c: int, k: int, n: int, bits: int) -> LaunchPlan:
     body's n96 consumers inside the same launch.
 
     It takes no expert count: a bank of G experts runs each expert exactly
-    as a launch of one would. ``bits`` (4, 8 or 16) is checked; only the
+    as a launch of one would (:func:`fold_splits`, which sees G, chooses
+    only which blocks run the splits). ``bits`` (4, 8 or 16) is checked; only the
     wgmma bodies' byte cap on their splits depends on it.
 
     Row invariance: a token's output row is bit-equal across launches
@@ -197,6 +202,79 @@ def split_tiles(plan: LaunchPlan, g: int, m: int, n: int) -> int:
     return g * math.ceil(m / plan.block_c) * math.ceil(n / plan.block_n)
 
 
+#: the mma.sync token tiles that may fold (dequant_matmul.cu's
+#: MAX_FOLD_NT): at 32 and 64 tokens the running sum would spill
+MAX_FOLD_BLOCK_C = 16
+#: a spread launch's own cost beside a folded one, as a share of its
+#: waves: the f32 partials written and read back, the arrival, the
+#: read-back. Calibrated on the card (PERF.md): every value in
+#: [0.03, 0.33) picks the same grid at every timed row; the bound below
+#: is Kimi-K2's decode bank (16 folded waves against 15.56 spread), the
+#: bound above the int banks at 1.5 spread waves against 2 folded.
+SPLIT_COST = 0.1
+#: weight streams (wgmma blocks; a bf16 cluster pair shares one) from
+#: which a folded bf16 launch keeps HBM busy: one folded bf16 block
+#: streams ~50 GB/s on the card, and the sweep's folded bf16 grids won
+#: from 64 streams and lost at 32 (PERF.md)
+BF16_FOLD_STREAMS = 64
+
+
+def wave(plan: LaunchPlan) -> int:
+    """Blocks of one wave of a foldable ``plan``'s body on the card: WAVE
+    for the wgmma bodies (one block an SM), three times it for the mma.sync
+    tiles that fold (dequant_matmul.cu's Tile::MIN_BLOCKS at 8 and 16
+    tokens)."""
+    return WAVE if plan.body != "mma_sync" else 3 * WAVE
+
+
+def can_fold(plan: LaunchPlan) -> bool:
+    """Whether the kernels have a folded grid for ``plan``: it splits K,
+    on a wgmma body or an mma.sync tile of at most MAX_FOLD_BLOCK_C."""
+    return plan.splits > 1 and (plan.body != "mma_sync"
+                                or plan.block_c <= MAX_FOLD_BLOCK_C)
+
+
+def fold_splits(plan: LaunchPlan, g: int, m: int, n: int, bits: int) -> bool:
+    """Whether a launch of ``plan`` over a bank of ``g`` experts of
+    ``bits`` runs each tile's K splits in one block (folded) rather than a
+    block a split (spread).
+
+    The int banks on the wgmma bodies, bound by their operations: a wave
+    model. With T = :func:`split_tiles` blocks folded and T x s spread and
+    w(b) = ceil(b / :func:`wave`) waves, spread costs about w(T s) / s
+    whole-K tile times and folded w(T); the launch folds where w(T) <=
+    (1 + SPLIT_COST) w(T s) / s, a tie included, since spreading writes,
+    counts and reads back its partials.
+
+    The bodies bound by bytes: a bf16 bank on the wgmma bodies folds from
+    BF16_FOLD_STREAMS weight streams (fewer folded blocks than that leave
+    HBM idle; more stream it at its rate whatever their waves), and every
+    mma.sync launch takes the wave model only once its folded grid fills
+    a wave (below one, its splits keep a wave of loads in flight that the
+    folded blocks cannot). Unsplit plans never fold, nor do the mma.sync
+    body's 32- and 64-token tiles.
+
+    It depends on G; no bit does. The plan's splits fix each row's
+    arithmetic, and a folded block adds its segments' partials in split
+    order as the spread epilogue does, so a bank of G experts gives, per
+    expert, the bytes of G launches of one, whichever grid each takes."""
+    if not can_fold(plan):
+        return False
+    tiles = split_tiles(plan, g, m, n)
+    if bits == 16 and plan.body != "mma_sync":
+        mtiles = math.ceil(m / plan.block_c)
+        # past one token tile the bf16 bank pairs its token tiles in
+        # clusters that share each weight stage (wgmma_body.cuh)
+        streams = tiles if mtiles == 1 else \
+            tiles // mtiles * math.ceil(mtiles / 2)
+        return streams >= BF16_FOLD_STREAMS
+    per_wave = wave(plan)
+    if plan.body == "mma_sync" and tiles < per_wave:
+        return False
+    spread = math.ceil(tiles * plan.splits / per_wave) / plan.splits
+    return math.ceil(tiles / per_wave) <= (1 + SPLIT_COST) * spread
+
+
 #: tile counters allocated at least this many at a time (Kimi-K2's decode
 #: bank, 384 experts x 56 column tiles, is 21,504)
 MIN_COUNTERS = 1 << 15
@@ -235,14 +313,15 @@ def _counters(device: torch.device, tiles: int) -> torch.Tensor:
 
 
 def _split_args(plan: LaunchPlan, out: torch.Tensor,
-                ws: Optional[torch.Tensor]):
+                ws: Optional[torch.Tensor], fold: bool = False):
     """The workspace and counter pointers of a launch: None for one
-    split; with more, the caller's f32 workspace (splits, G, M, N) or a new
-    one, and the device's counters."""
-    if plan.splits == 1:
+    split and for a folded launch; spread over more, the caller's f32
+    workspace (splits, G, M, N) or a new one, and the device's counters."""
+    if plan.splits == 1 or fold:
         if ws is not None:
             raise ValueError("a workspace was given to a launch whose plan "
-                             "does not split K")
+                             + ("is folded" if plan.splits > 1
+                                else "does not split K"))
         return None, None
     shape = (plan.splits, *out.shape)
     if ws is None:
@@ -257,56 +336,74 @@ def _split_args(plan: LaunchPlan, out: torch.Tensor,
     return ws.data_ptr(), counters.data_ptr()
 
 
-def _plan_args(plan: LaunchPlan):
+def _plan_args(plan: LaunchPlan, fold: bool):
     """The C entry points' plan arguments (the body rides on block_c)."""
-    return plan.block_n, plan.block_c, plan.k_chunk, plan.splits
+    return plan.block_n, plan.block_c, plan.k_chunk, plan.splits, int(fold)
 
 
-def _book(name: str, plan: LaunchPlan) -> None:
+def _grid(plan: LaunchPlan, g: int, m: int, n: int, bits: int,
+          fold: Optional[bool]) -> bool:
+    """Whether the launch runs folded: :func:`fold_splits`, or ``fold``
+    where a tool forces a grid (only where :func:`can_fold`)."""
+    if fold is None:
+        return fold_splits(plan, g, m, n, bits)
+    return fold and can_fold(plan)
+
+
+def _book(name: str, plan: LaunchPlan, fold: bool) -> None:
     cuda_lib.BODY_LAUNCHES[(name, plan.body)] += 1
     if plan.splits > 1:
         cuda_lib.SPLIT_LAUNCHES[(name, plan.body)] += 1
+    if fold:
+        cuda_lib.FOLDED_LAUNCHES[(name, plan.body)] += 1
 
 
 def launch_dequant(x: torch.Tensor, wq: torch.Tensor, scales: torch.Tensor,
                    *, bits: int, group_size: int, n: int, name: str,
-                   ws: Optional[torch.Tensor] = None) -> torch.Tensor:
+                   ws: Optional[torch.Tensor] = None,
+                   _fold: Optional[bool] = None) -> torch.Tensor:
     """Launch ``dequant_matmul<bits>`` on (G, M, K) activations with the
-    plan of :func:`launch_plan` (its body counted under wrapper ``name``,
-    and in ``SPLIT_LAUNCHES`` when it splits K: its epilogue then reduces
-    the splits). ``ws`` is an optional caller-given f32 workspace (splits,
-    G, M, N) for the split partials, left holding them; the caller has
-    validated shapes and counted the matmul."""
+    plan of :func:`launch_plan` and the grid of :func:`fold_splits` (its
+    body counted under wrapper ``name``, in ``SPLIT_LAUNCHES`` when it
+    splits K and in ``FOLDED_LAUNCHES`` when it runs folded; spread, its
+    epilogue reduces the splits). ``ws`` is an optional caller-given f32
+    workspace (splits, G, M, N) for a spread launch's split partials, left
+    holding them; the caller has validated shapes and counted the matmul.
+    ``_fold`` forces a grid, for the same-card A/B and the card's checks
+    of the two grids only."""
     g, m, kdim = x.shape
     plan = launch_plan(m, kdim, n, bits)
+    fold = _grid(plan, g, m, n, bits, _fold)
     out = torch.empty((g, m, n), dtype=torch.bfloat16, device=x.device)
-    ws_ptr, counters = _split_args(plan, out, ws)
+    ws_ptr, counters = _split_args(plan, out, ws, fold)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    _book(name, plan)
+    _book(name, plan, fold)
     rc = cuda_lib.dequant_lib().repro_dequant_matmul(
         bits, x.data_ptr(), wq.data_ptr(), scales.data_ptr(),
         out.data_ptr(), ws_ptr, counters, g, m, kdim, n, group_size,
-        *_plan_args(plan), stream)
+        *_plan_args(plan, fold), stream)
     cuda_lib.check(rc, f"dequant_matmul<{bits}>")
     return out
 
 
 def launch_bf16(x: torch.Tensor, w: torch.Tensor,
-                ws: Optional[torch.Tensor] = None) -> torch.Tensor:
+                ws: Optional[torch.Tensor] = None,
+                _fold: Optional[bool] = None) -> torch.Tensor:
     """Launch ``bf16_matmul`` on (G, M, K) x (G, K, N) with the plan of
-    :func:`launch_plan`, booked as :func:`launch_dequant` books its
-    launches, ``ws`` as there; the caller has validated shapes and counted
-    the matmul."""
+    :func:`launch_plan` and the grid of :func:`fold_splits`, booked as
+    :func:`launch_dequant` books its launches, ``ws`` and ``_fold`` as
+    there; the caller has validated shapes and counted the matmul."""
     g, m, kdim = x.shape
     n = w.shape[2]
     plan = launch_plan(m, kdim, n, 16)
+    fold = _grid(plan, g, m, n, 16, _fold)
     out = torch.empty((g, m, n), dtype=torch.bfloat16, device=x.device)
-    ws_ptr, counters = _split_args(plan, out, ws)
+    ws_ptr, counters = _split_args(plan, out, ws, fold)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    _book("grouped_bf16", plan)
+    _book("grouped_bf16", plan, fold)
     rc = cuda_lib.dequant_lib().repro_bf16_matmul(
         x.data_ptr(), w.data_ptr(), out.data_ptr(), ws_ptr, counters, g, m,
-        kdim, n, *_plan_args(plan), stream)
+        kdim, n, *_plan_args(plan, fold), stream)
     cuda_lib.check(rc, "bf16_matmul")
     return out
 

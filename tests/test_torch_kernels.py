@@ -933,81 +933,164 @@ def test_reset_clears_split_launches():
     assert "splitk_reduce" not in cuda_lib.LAUNCHES
 
 
-def test_wrappers_build_never_defines_the_stamps(monkeypatch, tmp_path):
-    """The library the wrappers build and load is compiled with no ``-D``
-    at all, so never with the wgmma bodies' stage stamps; the stamping
-    macro reaches only a build that asks for it, under a name of its own,
-    and it is the macro the sources test."""
-    import types
-    monkeypatch.setattr(cuda_lib, "BUILD_DIR", tmp_path / "kernels")
-    monkeypatch.setattr(cuda_lib, "_nvcc", lambda: "nvcc")
-    seen = []
-
-    def run(cmd, **kw):
-        seen.append(cmd)
-        return types.SimpleNamespace(returncode=1, stdout="stopped here")
-    monkeypatch.setattr(cuda_lib.subprocess, "run", run)
-    with pytest.raises(RuntimeError, match="nvcc failed"):
-        cuda_lib.build()
-    assert seen and not any(a.startswith("-D") for a in seen[0])
-    assert not any(cuda_lib.STAMP_MACRO in a for a in seen[0])
-    with pytest.raises(RuntimeError, match="nvcc failed"):
-        cuda_lib.build(defines=(cuda_lib.STAMP_MACRO,),
-                       build_dir=tmp_path / "timeline")
-    assert f"-D{cuda_lib.STAMP_MACRO}" in seen[1]
-    assert cuda_lib._lib_path() != cuda_lib._lib_path(
-        (cuda_lib.STAMP_MACRO,))
-    assert f"#ifdef {cuda_lib.STAMP_MACRO}" in _csrc("wgmma_body.cuh")
+def _parent_launch_plan(c, k, n, bits):
+    """``launch_plan`` as it stood before grids could fold, written out
+    again: folding chooses blocks, never a plan, so the two must agree."""
+    grains = max(1, math.ceil(k / 64))
+    block_c = next((b for b in (8, 16, 32, 64, 128, 160) if c <= b), 160)
+    tiles = math.ceil(n / 128)
+    if block_c < 128:
+        body = "mma_sync"
+        want = math.ceil(264 / (tiles * math.ceil(c / block_c)))
+    else:
+        wide = block_c == 160
+        want = 1 if 2 * tiles >= 132 else 132 // tiles
+        want = min(want, k * bits // ((8 if wide else 16) * 8 * block_c))
+        if 160 < c <= 256:
+            block_c = 128
+        body = "wgmma" if block_c == 128 else "wgmma_wide"
+    want = max(1, min(grains, 16, want))
+    k_chunk = math.ceil(grains / want) * 64
+    return (128, block_c, k_chunk, math.ceil(k / k_chunk), body)
 
 
-def _timeline_tool():
-    path = Path(__file__).resolve().parents[1] / "tools" / \
-        "consumer_timeline.py"
-    spec = importlib.util.spec_from_file_location("consumer_timeline", path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
+@pytest.mark.parametrize("bits", [4, 8, 16])
+def test_launch_plan_unchanged_by_folding(bits):
+    """Over a grid of (C, K, N) the plan is the one it was before the
+    grids could fold: the splits, which fix every row's bits, are the
+    same, and only fold_splits sees G."""
+    for c in (1, 4, 8, 12, 16, 33, 64, 65, 80, 128, 129, 160, 200, 216,
+              256, 257, 320, 400, 416, 640, 1000):
+        for k, n in ((4096, 14336), (14336, 4096), (7168, 2048),
+                     (2048, 7168), (4096, 896), (896, 4096), (256, 128)):
+            assert tuple(tk.launch_plan(c, k, n, bits)) == \
+                _parent_launch_plan(c, k, n, bits)
+    assert list(inspect.signature(tk.fold_splits).parameters) == [
+        "plan", "g", "m", "n", "bits"]
 
 
-def test_timeline_reads_stamps_and_sass():
-    """The timeline tool's two readers on made-up input: the consumer K
-    loop found in SASS by its backward branch (not a retry stub's wider
-    one) and counted per stage, and stamps turned into a stage's period
-    and steps in their order."""
-    ct = _timeline_tool()
-    sass = "\n".join(
-        f"        /*{a:04x}*/  {op} ;" for a, op in enumerate([
-            "MOV R1, c[0x0][0x28]",
-            "HGMMA.64x128x16.F32.BF16 R24, R8, gdesc[UR4], R24",
-            "HGMMA.64x128x16.F32.BF16 R24, R8, gdesc[UR4], R24",
-            "FFMA R2, R3, R4, R2", "@!P0 BRA 0x4",
-            "HGMMA.64x128x16.F32.BF16 R24, R8, gdesc[UR4], R24",
-            "HGMMA.64x128x16.F32.BF16 R24, R8, gdesc[UR4], R24",
-            "PRMT R2, R3, 0x1, R4", "WARPGROUP.ARRIVE",
-            "@P1 BRA 0x1", "EXIT",
-            # a barrier wait's retry stub, branching back from afar
-            "@!P2 BRA 0x1"], start=0))
-    (loop,) = ct.consumer_loops(sass)
-    assert loop["stages"] == 1
-    assert loop["per_stage"] == {"HGMMA": 4, "FFMA": 1, "conversion": 1,
-                                 "MOV": 0, "sync": 1, "loads": 0, "rest": 2}
-    blocks, stages, n = 2, 16, len(ct.POINTS)
-    consumer = dict(issued=0, waited=300, flushed=380, released=400,
-                    full=450, converted=600)
-    at = [consumer, consumer, dict(empty=100)]
-    stamps = [0] * (blocks * ct.ROLES * stages * n)
-    for b in range(blocks):
-        for role in range(ct.ROLES):
-            for it in range(12):
-                for name, off in at[role].items():
-                    stamps[((b * ct.ROLES + role) * stages + it) * n
-                           + ct.POINTS.index(name)] = 1000 + 1000 * it + off
-    got = ct.analyse(stamps, blocks, stages, 12)
-    assert got["wg0"]["period"] == 1000 and got["wg1"]["blocks"] == blocks
-    assert got["wg0"]["steps"] == [
-        ("issued", 400), ("waited", 300), ("flushed", 80), ("released", 20),
-        ("full", 50), ("converted", 150)]
-    assert got["flush_skew"] == 0 and got["producer_period"] == 1000
-    # stage it + 1 could load from 2100 + 1000 it; the full wait for it
-    # returned at 1450 + 1000 it
-    assert got["producer_lead"] == -650
+#: (row, bits, G, C, K, N, folds): the rows whose grid the card's timings
+#: settled (tools/kernel_ab.py, PERF.md): the wave model's (B3 q8 at G =
+#: 4, q4 at G = 3, B2, B4 and B1 at G = 1, Kimi-K2's int4 bank at G = 384,
+#: 8a's int8 bank at G = 2 and 1), the decode rows (mma.sync: folded only
+#: past a wave of blocks) and the bf16 bank's weight streams
+FOLD_ROWS = [
+    ("B3 q8 prefill_down", 8, 4, 128, 14336, 4096, True),
+    ("B3 q8 prefill160_down", 8, 4, 160, 14336, 4096, True),
+    ("B3 q8 prefill320_down", 8, 4, 320, 14336, 4096, True),
+    ("B3 q8 prefill640_down", 8, 4, 640, 14336, 4096, True),
+    ("B3 q4 prefill_down", 4, 3, 128, 14336, 4096, True),
+    ("B3 q4 prefill160_down", 4, 3, 160, 14336, 4096, False),
+    ("B3 q4 prefill320_down", 4, 3, 320, 14336, 4096, False),
+    ("B3 q4 prefill640_down", 4, 3, 640, 14336, 4096, True),
+    ("B2 prefill_down", 8, 1, 128, 14336, 4096, False),
+    ("B2 prefill160_down", 8, 1, 160, 14336, 4096, False),
+    ("B2 prefill320_down", 8, 1, 320, 14336, 4096, False),
+    ("B2 prefill640_down", 8, 1, 640, 14336, 4096, True),
+    ("B4 prefill640_down", 16, 1, 640, 14336, 4096, True),
+    ("B1 prefill640_down", 4, 1, 640, 14336, 4096, True),
+    ("B3 q4 kimi_prefill216_up", 4, 384, 216, 7168, 2048, True),
+    ("8a ep 1 int8 down", 8, 2, 320, 14336, 4096, True),
+    ("8a ep 2 int8 down", 8, 1, 320, 14336, 4096, False),
+    ("B3 q4 prefill_up (one split)", 4, 3, 128, 4096, 14336, False),
+    ("B4 prefill640_up (one split)", 16, 1, 640, 4096, 14336, False),
+    ("B3 q4 decode4_up (0.85 of a wave)", 4, 3, 4, 4096, 14336, False),
+    ("B3 q8 up (1.13 waves)", 8, 4, 8, 4096, 14336, False),
+    ("B3 q8 down", 8, 4, 8, 14336, 4096, False),
+    ("B3 q4 draft_up", 4, 8, 12, 4096, 14336, False),
+    ("B3 q4 kimi_up", 4, 384, 8, 7168, 2048, True),
+    ("B3 q4 kimi_down", 4, 384, 8, 2048, 7168, True),
+    ("B3 q8 kimi_up", 8, 384, 8, 7168, 2048, True),
+    ("B3 q8 kimi_down", 8, 384, 8, 2048, 7168, True),
+    ("B3 q4 kimi C=24 (32-token tile)", 4, 384, 24, 7168, 2048, False),
+    ("B4 prefill_down (32 streams)", 16, 1, 128, 14336, 4096, False),
+    ("B4 G=2 prefill_down (64 streams)", 16, 2, 128, 14336, 4096, True),
+    ("B4 prefill320_down (a pair: 32 streams)", 16, 1, 320, 14336, 4096,
+     False),
+    ("B4 G=2 prefill320_down (64 streams)", 16, 2, 320, 14336, 4096, True),
+    ("B4 C=400 (64 streams)", 16, 1, 400, 14336, 4096, True),
+]
+
+
+@pytest.mark.parametrize("row,bits,g,c,k,n,folds", FOLD_ROWS,
+                         ids=[r[0] for r in FOLD_ROWS])
+def test_fold_splits_rows(row, bits, g, c, k, n, folds):
+    plan = tk.launch_plan(c, k, n, bits)
+    assert tk.fold_splits(plan, g, c, n, bits) is folds
+    if plan.splits == 1:
+        assert not folds
+
+
+def test_folded_launch_takes_no_workspace(monkeypatch):
+    """A folded launch gets neither a workspace nor the device's counters,
+    and refuses a caller's workspace; spread, the same plan gets both."""
+    plan = tk.launch_plan(128, 14336, 4096, 8)
+    assert plan.splits > 1
+    out = torch.empty((4, 128, 4096), dtype=torch.bfloat16)
+    asked = []
+    monkeypatch.setattr(tk, "_counters",
+                        lambda device, tiles: asked.append(tiles) or
+                        torch.zeros(tiles, dtype=torch.int32))
+    assert tk._split_args(plan, out, None, fold=True) == (None, None)
+    assert not asked
+    with pytest.raises(ValueError, match="is folded"):
+        tk._split_args(plan, out, torch.empty((plan.splits, 4, 128, 4096)),
+                       fold=True)
+    ws_ptr, counters = tk._split_args(plan, out, None, fold=False)
+    assert ws_ptr and counters and asked == [tk.split_tiles(plan, 4, 128,
+                                                            4096)]
+
+
+def test_folded_launches_booked_and_cleared():
+    """A folded launch is booked in FOLDED_LAUNCHES beside its split plan's
+    SPLIT_LAUNCHES entry, a forced grid folds only a split plan, and
+    reset_launches clears the book."""
+    ops.reset_launches()
+    split = tk.launch_plan(128, 14336, 4096, 8)
+    one = tk.launch_plan(128, 4096, 14336, 8)
+    assert tk._grid(split, 4, 128, 4096, 8, None) is True
+    assert tk._grid(split, 1, 128, 4096, 8, None) is False
+    assert tk._grid(split, 1, 128, 4096, 8, True) is True
+    assert tk._grid(one, 4, 128, 14336, 8, True) is False
+    tk._book("grouped_q8", split, True)
+    tk._book("q8_matmul", split, False)
+    assert cuda_lib.FOLDED_LAUNCHES == {("grouped_q8", "wgmma"): 1}
+    assert cuda_lib.SPLIT_LAUNCHES == {("grouped_q8", "wgmma"): 1,
+                                       ("q8_matmul", "wgmma"): 1}
+    assert ops.FOLDED_LAUNCHES is cuda_lib.FOLDED_LAUNCHES
+    ops.reset_launches()
+    assert not cuda_lib.FOLDED_LAUNCHES and not cuda_lib.SPLIT_LAUNCHES
+
+
+@pytest.mark.parametrize("splits", [2, 3, 4, 5, 16])
+def test_folded_running_sum_matches_split_order(splits):
+    """A folded block's running sum (the first segment's partial as it
+    is, each later one added, the last added to the sum in the epilogue's
+    registers) gives splitk_reduce_plain's bytes: f32 addition commutes,
+    so sum + partial and partial + sum round alike."""
+    rng = np.random.default_rng(splits)
+    ws = torch.from_numpy(rng.standard_normal((splits, 2, 4, 32)).astype(
+        np.float32) * 10.0 ** rng.integers(-3, 4, size=(splits, 1, 1, 1)))
+    tot = ws[0].clone()
+    for s in range(1, splits - 1):
+        tot = tot + ws[s]
+    last = ws[splits - 1] + tot if splits > 1 else tot
+    np.testing.assert_array_equal(bits16(last.to(torch.bfloat16)),
+                                  bits16(tk.splitk_reduce_plain(ws)))
+
+
+def test_folded_entry_points_take_a_fold_flag():
+    """The C entry points and their ctypes bindings both take the grid as
+    an int after the splits, and the kernels run a folded launch as one
+    split over K in segments of the plan's k_chunk."""
+    main = _csrc("dequant_matmul.cu")
+    for entry in ("repro_dequant_matmul(", "repro_bf16_matmul("):
+        head = main[main.index(f'extern "C" int {entry}'):]
+        head = head[:head.index("{")]
+        assert "int k_chunk, int splits, int fold," in " ".join(head.split())
+    body = main[main.index("Args folded(Args a) {"):]
+    body = body[:body.index("}")]
+    for line in ("a.seg = a.k_chunk;", "a.k_chunk *= a.splits;",
+                 "a.splits = 1;", "a.ws = nullptr;", "a.counters = nullptr;"):
+        assert line in body
+    assert "plan = [i32] * 5" in Path(cuda_lib.__file__).read_text()
