@@ -774,3 +774,27 @@ extern "C" int repro_bf16_matmul(const void* x, const void* w, void* out,
 extern "C" const char* repro_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
+
+#ifdef REPRO_STAMPS
+// The stage stamps of the stamped build (wgmma_body.cuh), for
+// tools/consumer_timeline.py: their layout (blocks, warpgroups, stages,
+// points), a copy into ``host`` and a reset to zero.
+extern "C" void repro_stamps_layout(int* dims) {
+  dims[0] = wg::STAMP_BLOCKS;
+  dims[1] = wg::STAMP_ROLES;
+  dims[2] = wg::STAMP_STAGES;
+  dims[3] = wg::ST_POINTS;
+}
+
+extern "C" int repro_stamps_read(void* host) {
+  return static_cast<int>(
+      cudaMemcpyFromSymbol(host, wg::g_stamps, sizeof(wg::g_stamps)));
+}
+
+extern "C" int repro_stamps_clear() {
+  void* p = nullptr;
+  cudaError_t e = cudaGetSymbolAddress(&p, wg::g_stamps);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaMemset(p, 0, sizeof(wg::g_stamps)));
+}
+#endif

@@ -27,23 +27,30 @@
 // maps are 3-D over (G, rows, cols), so a ragged token, column or K edge is
 // zero-filled by the TMA unit and never reads the next expert.
 //
-// Where the int time goes (measured with per-stage clock stamps, PERF.md):
-// each consumer warpgroup runs one serial chain a stage, ~1,200 (int4) to
-// ~1,330 (int8) cycles at 128 tokens against the tensor core's 512 for the
-// block's eight wgmmas: issue, wgmma_wait<1>, the flush (~300), the
-// release, wgmma_wait<0>, the next stage's full wait and its conversion
-// (~260 int4, ~390 int8). The loop's SASS is near its floor (64 FFMA and
-// 74 or 101 conversion instructions a stage against 48 or 64), and the
-// producer runs ~7 stages ahead. Two schedules that take work off the
-// chain ran slower and are not kept: a second fragment set, converted and
-// flushed while the stage's own wgmmas run (0.95-1.02x: the chain stays as
-// long), and converter warps in the producer's warpgroup writing a bf16 A
-// tile for shared-memory wgmmas (0.53-0.68x: they took ~930 cycles a
-// stage, and shared memory would carry ~90 KB a stage). ptxas serialises
-// every wgmma of the kernel (C7514) where a barrier wait or a loop's back
-// edge lies between a group's issue and the flush of its partial, so no
-// group stays in flight across one. A variant that multicast the x tile
-// over a cluster of two or four blocks ran no faster.
+// Where the int time goes (per-stage clock stamps, tools/consumer_timeline.py,
+// PERF.md): each consumer warpgroup runs one serial chain a stage,
+// ~1,230-1,250 (int4) to ~1,360-1,390 (int8) cycles at 128 tokens against
+// the tensor core's 512 for the block's eight wgmmas: issue (~120-250),
+// wgmma_wait<1>, the flush (~170-340), the release, wgmma_wait<0>, the
+// next stage's full wait (~115-170) and its conversion (~220-320 int4,
+// ~390-410 int8). The chain is the warpgroup's own CUDA-core and
+// shared-memory work, ~1,000 cycles of it against 256 of its own wgmmas, so
+// no order of the two warpgroups' issues shortens it: taking turns to
+// issue (wgmma_wide.cuh's turn_take; the warpgroups then issue 460-490
+// cycles apart) left the period as it was and, with a copy of the K loop a
+// warpgroup, ran these rows 2-5% slower, so this body issues at will. The
+// loop's SASS is near its floor (64 FFMA and 74 or 101 conversion
+// instructions a stage against 48 or 64), and the producer runs ~7 stages
+// ahead. Schedules that take work off the chain or move it ran slower and
+// are not kept: a second fragment set, converted and flushed while the
+// stage's own wgmmas run (0.95-1.02x); converter warps in the producer's
+// warpgroup writing a bf16 A tile for shared-memory wgmmas (0.53-0.68x);
+// the next stage's full wait and ldmatrix, or the flush's scale, read
+// ahead under the flush (0.92-0.97x: registers the loop cannot spare).
+// ptxas serialises every wgmma of the kernel (C7514) where a barrier wait
+// or a loop's back edge lies between a group's issue and the flush of its
+// partial, so no group stays in flight across one. A variant that
+// multicast the x tile over a cluster of two or four blocks ran no faster.
 //
 // Past one token tile the grid runs the token tiles of a column tile side
 // by side (block_place), so the weights cross HBM once per column tile and
@@ -216,6 +223,41 @@ __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
 }
 
+// Stage stamps, for tools/consumer_timeline.py only: with -DREPRO_STAMPS
+// (which the wrappers' build never defines) the first thread of each
+// warpgroup of the grid's first STAMP_BLOCKS blocks writes clock64() into
+// g_stamps at the points of each pipeline stage ``it`` it passes; without
+// it WG_STAMP is nothing.
+enum StampPoint {
+  ST_FULL,        // a stage's full wait returned (the next stage's)
+  ST_ISSUED,      // the stage's (first group's) wgmmas issued
+  ST_WAITED,      // the wgmma wait before the flush returned
+  ST_FLUSHED,     // the flush done
+  ST_CONVERTED,   // the next stage's codes converted
+  ST_RELEASED,    // a stage released
+  ST_DRAINED,     // wgmma_wait<0> returned (the 128-token body's stage end)
+  ST_EMPTY,       // producer: the stage's empty wait returned
+  ST_TURN,        // the stage's issue begins (its turn taken, if any)
+  ST_POINTS
+};
+#ifdef REPRO_STAMPS
+constexpr int STAMP_BLOCKS = 8;
+constexpr int STAMP_ROLES = 3;    // consumer warpgroups 0 and 1, producer
+constexpr int STAMP_STAGES = 256;
+__device__ unsigned long long g_stamps[STAMP_BLOCKS * STAMP_ROLES
+                                       * STAMP_STAGES * ST_POINTS];
+__device__ __forceinline__ void stamp(int it, int point) {
+  const unsigned blk =
+      blockIdx.x + gridDim.x * (blockIdx.y + gridDim.y * blockIdx.z);
+  if (threadIdx.x % 128 == 0 && blk < STAMP_BLOCKS && it < STAMP_STAGES)
+    g_stamps[((blk * STAMP_ROLES + threadIdx.x / 128) * STAMP_STAGES + it)
+             * ST_POINTS + point] = clock64();
+}
+#define WG_STAMP(it, point) stamp(it, point)
+#else
+#define WG_STAMP(it, point) ((void)0)
+#endif
+
 // Keep the compiler from moving an accumulator while a wgmma owns it.
 template <int R>
 __device__ __forceinline__ void fence_regs(float (&d)[R]) {
@@ -371,6 +413,7 @@ __device__ __forceinline__ void int_group(
     const char* st, uint32_t xs, int grp, int it, bool start, int lane,
     int col, int peer) {
   using T = Tile<BITS>;
+  if (grp == 0) WG_STAMP(it, ST_TURN);
   wgmma_fence();
 #pragma unroll
   for (int j = 0; j < SPF; ++j) {
@@ -378,7 +421,9 @@ __device__ __forceinline__ void int_group(
     wgmma_rs(cur, f[step], desc_sw128(xs + step * 32, 1, 64), j != 0);
   }
   wgmma_commit();
+  if (grp == 0) WG_STAMP(it, ST_ISSUED);
   wgmma_wait<1>();                 // the previous group's wgmmas are done
+  if (grp == 0) WG_STAMP(it, ST_WAITED);
   if (grp > 0) {
     fence_regs(prev);
     flush<BITS>(acc, prev, st + T::X_BYTES, grp - 1, col);
@@ -387,7 +432,9 @@ __device__ __forceinline__ void int_group(
     fence_regs(prev);
     flush<BITS>(acc, prev, smem + (pv % S) * T::STAGE_BYTES + T::X_BYTES,
                 NG - 1, col);
+    WG_STAMP(it, ST_FLUSHED);
     release(empty + pv % S, lane, peer);
+    WG_STAMP(it, ST_RELEASED);
   }
 }
 
@@ -459,11 +506,14 @@ __device__ __forceinline__ void int_stage(
                                   it, start, lane, col, peer);
   }
   wgmma_wait<0>();                 // f is free again
+  WG_STAMP(it, ST_DRAINED);
   if (it + 1 < nst) {
     const int nx = it + 1;
     mbar_wait(full + nx % S, (nx / S) & 1);
+    WG_STAMP(it, ST_FULL);
     load_a<BITS>(f, smem + (nx % S) * T::STAGE_BYTES + T::X_BYTES, warp_col,
                  lane);
+    WG_STAMP(it, ST_CONVERTED);
   }
   if constexpr (FOLD) {
     if (left == 1 && it + 1 < nst) {     // the segment's last group
@@ -500,6 +550,7 @@ __device__ __forceinline__ void produce(
   for (int it = 0; it < nst; ++it) {
     const int s = it % S;
     mbar_wait(empty + s, ((it / S) & 1) ^ 1);
+    WG_STAMP(it, ST_EMPTY);
     char* st = smem + s * T::STAGE_BYTES;
     const int k0 = kbeg + it * BK;
     mbar_expect_tx(full + s, tx);

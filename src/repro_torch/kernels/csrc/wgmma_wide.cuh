@@ -28,12 +28,19 @@
 // than two 128-token tiles. Its TMA loads alone took half that time, each x
 // row feeding only 64 columns, and multicasting x over a 2- or 4-block
 // cluster changed nothing. 128 columns halve the x bytes each product
-// needs. A consumer warpgroup's stage is one serial chain, ~1,300 (int4)
-// to ~1,450 (int8) cycles against the tensor core's 640 for the block's
-// eight wgmmas (per-stage clock stamps, PERF.md): issue, the next stage's
-// full wait and conversion, wgmma_wait<0> (one partial: the flush waits
-// for its group), the flush, the release. Neither turn-taking between the
-// two warpgroups nor an x cluster shortened it.
+// needs. A consumer warpgroup's stage is one serial chain, ~1,360-1,380
+// (int4) and ~1,440-1,480 (int8) cycles against the tensor core's 640 for
+// the block's eight wgmmas (per-stage clock stamps, PERF.md): issue
+// (~140-300), the next stage's full wait (~210-290) and conversion
+// (~270-440 int4, ~570-580 int8), wgmma_wait<0> (one partial: the flush
+// waits for its group), the flush (~140-220), the release. The int4
+// consumers of a spread or one-split grid take turns to issue (turn_take
+// below): warpgroup 1 issues ~250 cycles after warpgroup 0, whose flush
+// then runs under warpgroup 1's wgmmas, and their stage falls to
+// ~1,310-1,330 cycles: the chain is still the warpgroup's own work, but
+// those rows ran 1-4% faster. Doing the conversion after wgmma_wait<0>,
+// in one block with the flush, lengthened the flush to 335-725 cycles
+// (0.85-1.0x); an x cluster shortened nothing.
 //
 // Arithmetic as in the other bodies: codes are exact bf16 integers; each
 // group of min(group, 64) K runs its k16 steps into a fresh f32 partial
@@ -118,14 +125,62 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[80], uint64_t a_desc,
 #undef WG_OPS48
 #undef WG_OPS80
 
+// The int4 consumers' turns (PERF.md): consumer warpgroup r issues a
+// stage's wgmmas only in its turn, taken on named barrier 2 + r over both
+// consumer warpgroups (256 threads; barrier 1 is split_last's, 0
+// __syncthreads). A warpgroup takes its turn at the top of a stage, where
+// no wgmma of its own is in flight (bar.sync), issues and commits the
+// stage's k16 steps, and passes the turn to the other (bar.arrive, which
+// does not wait). Warpgroup 1 opens with one arrival on warpgroup 0's
+// barrier and does not pass the turn after its last stage, where no stage
+// of warpgroup 0 is left to take it: for any stage count every arrival
+// meets one sync. The K loop is instantiated per warpgroup (ROLE 0 or 1),
+// so the ids are immediates and no role is live across the loop; ROLE -1
+// is the loop without turns, one copy for both warpgroups. The turns ran
+// the int4 rows of a spread or one-split grid 1-4% faster; the int8 rows,
+// the folded launches and the 128-token body ran 1-6% slower with them (a
+// copy of the loop a warpgroup costs the instruction cache as much as the
+// order gains) and issue at will. One copy of the loop choosing its
+// barrier from a per-thread value ran 3-7% slower and spilled at the 16-
+// and 32-K groups. -DREPRO_LOCKSTEP (for
+// tools/consumer_timeline.py's baseline only; the wrappers' build never
+// defines it) turns them off everywhere.
+#ifdef REPRO_LOCKSTEP
+constexpr bool TURNS = false;
+#else
+constexpr bool TURNS = true;
+#endif
+
+template <int BITS, bool FOLD>
+constexpr bool TAKES_TURNS = TURNS && BITS == 4 && !FOLD;
+
+template <int ROLE>
+__device__ __forceinline__ void turn_open() {
+  if (ROLE == 1) asm volatile("bar.arrive 2, 256;\n" ::: "memory");
+}
+
+template <int ROLE>
+__device__ __forceinline__ void turn_take() {
+  if (ROLE == 0) asm volatile("bar.sync 2, 256;\n" ::: "memory");
+  if (ROLE == 1) asm volatile("bar.sync 3, 256;\n" ::: "memory");
+}
+
+template <int ROLE>
+__device__ __forceinline__ void turn_pass(int it, int nst) {
+  if (ROLE == 0) asm volatile("bar.arrive 3, 256;\n" ::: "memory");
+  if (ROLE == 1 && it + 1 < nst)
+    asm volatile("bar.arrive 2, 256;\n" ::: "memory");
+}
+
 // One stage of the int4/int8 consumer with fragments ``f`` (converted
 // before): each group's wgmmas run into the partial, which is flushed into
 // acc once they are done; while the stage's first group runs, the next
-// stage's codes are converted into ``fn``. BC is the block's token tile
-// (the stage's x rows), R the accumulator registers (the wgmma's N / 2),
-// FOLD whether the launch is folded (the ring's stage count). No wgmma is
-// in flight when it returns.
-template <int BITS, int SPF, int BC, bool FOLD, int R>
+// stage's codes are converted into ``fn``. The stage's first group takes
+// the warpgroup's turn, its last passes it (ROLE, turn_take). BC is the
+// block's token tile (the stage's x rows), R the accumulator registers
+// (the wgmma's N / 2), FOLD whether the launch is folded (the ring's stage
+// count). No wgmma is in flight when it returns.
+template <int BITS, int SPF, int BC, bool FOLD, int ROLE, int R>
 __device__ __forceinline__ void wide_stage(
     float (&acc)[R], float (&part)[R], const uint32_t (&f)[BK / 16][4],
     uint32_t (&fn)[BK / 16][4], char* smem, uint64_t* full, uint64_t* empty,
@@ -137,6 +192,10 @@ __device__ __forceinline__ void wide_stage(
   const uint32_t xs = smem_u32(st);
 #pragma unroll
   for (int grp = 0; grp < NG; ++grp) {
+    if (grp == 0) {
+      turn_take<ROLE>();
+      WG_STAMP(it, ST_TURN);
+    }
     wgmma_fence();
 #pragma unroll
     for (int j = 0; j < SPF; ++j) {
@@ -144,17 +203,24 @@ __device__ __forceinline__ void wide_stage(
       wgmma_rs(part, f[step], desc_sw128(xs + step * 32, 1, 64), j != 0);
     }
     wgmma_commit();
+    if (grp == NG - 1) turn_pass<ROLE>(it, nst);
+    if (grp == 0) WG_STAMP(it, ST_ISSUED);
     if (grp == 0 && it + 1 < nst) {
       const int nx = it + 1;
       mbar_wait(full + nx % S, (nx / S) & 1);
+      WG_STAMP(it, ST_FULL);
       load_a<BITS>(fn, smem + (nx % S) * T::STAGE_BYTES + T::X_BYTES,
                    warp_col, lane);
+      WG_STAMP(it, ST_CONVERTED);
     }
     wgmma_wait<0>();
+    if (grp == 0) WG_STAMP(it, ST_WAITED);
     fence_regs(part);
     flush<BITS>(acc, part, st + T::X_BYTES, grp, col);
+    if (grp == 0) WG_STAMP(it, ST_FLUSHED);
   }
   release(empty + it % S, lane, peer);
+  WG_STAMP(it, ST_RELEASED);
 }
 
 // Issue one bf16 stage's wgmmas into acc once the stage has landed.
@@ -197,6 +263,45 @@ __device__ __forceinline__ void wide_bf16_segment(
   release(empty + (s1 - 1) % S, lane, peer);
 }
 
+// Consumer warpgroup ``role``'s int4/int8 K range at wgmma N = 2 R into
+// acc (its store is the caller's): codes -> registers -> wgmma, two
+// fragment sets in turn (register arrays are indexed at compile time only,
+// so stages go in pairs); ROLE 0 or 1 (= role) takes turns, -1 does not.
+// FOLD: the range in K segments of a.seg / BK stages, their running sum in
+// ``tot`` (fold_segment).
+template <int BITS, int SPF, int BC, int R, bool FOLD, int ROLE>
+__device__ __forceinline__ void consume_wide_int(
+    float (&acc)[R], const Args& a, char* smem, uint64_t* full,
+    uint64_t* empty, float* tot, int nst, int role, int peer) {
+  using T = Tile<BITS, BC, FOLD>;
+  const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3;
+  // the warp's 16 columns
+  const int warp_col = (ROLE < 0 ? role : ROLE) * 64 + warp * 16;
+  const int col = warp_col + 2 * (lane >> 2);        // codes: columns col, +1
+  float part[R];
+#pragma unroll
+  for (int i = 0; i < R; ++i) part[i] = 0.0f;
+  uint32_t f0[BK / 16][4], f1[BK / 16][4];
+  mbar_wait(full, 0);
+  load_a<BITS>(f0, smem + T::X_BYTES, warp_col, lane);
+  turn_open<ROLE>();
+  int left = FOLD ? a.seg / BK : 0;        // stages left in the segment
+  for (int it = 0; it < nst; it += 2) {
+    wide_stage<BITS, SPF, BC, FOLD, ROLE>(acc, part, f0, f1, smem, full,
+                                          empty, it, nst, warp_col, lane,
+                                          col, peer);
+    if constexpr (FOLD) fold_step(acc, tot, left, a, it, nst);
+    if (it + 1 < nst) {
+      wide_stage<BITS, SPF, BC, FOLD, ROLE>(acc, part, f1, f0, smem, full,
+                                            empty, it + 1, nst, warp_col,
+                                            lane, col, peer);
+      if constexpr (FOLD) fold_step(acc, tot, left, a, it + 1, nst);
+    }
+  }
+  if constexpr (FOLD)
+    if (nst > a.seg / BK) fold_segment(acc, tot, false, true);
+}
+
 // A consumer warpgroup's whole K range at wgmma N = 2 R, then its store.
 // FOLD: the range in K segments of a.seg / BK stages, their running sum
 // in ``tot`` (fold_segment).
@@ -204,10 +309,7 @@ template <int BITS, int SPF, int BC, int R, bool FOLD>
 __device__ __forceinline__ void consume_wide(
     const Args& a, char* smem, uint64_t* full, uint64_t* empty, float* tot,
     int nst, int g, int m0, int n0, int split, int role, int peer) {
-  using T = Tile<BITS, BC, FOLD>;
-  const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3;
-  const int warp_col = role * 64 + warp * 16;        // the warp's 16 columns
-  const int col = warp_col + 2 * (lane >> 2);        // codes: columns col, +1
+  const int lane = threadIdx.x & 31;
   float acc[R];
 #pragma unroll
   for (int i = 0; i < R; ++i) acc[i] = 0.0f;
@@ -226,29 +328,16 @@ __device__ __forceinline__ void consume_wide(
       wide_bf16_segment<BC, FOLD>(acc, smem, full, empty, 0, nst, lane, role,
                                   peer);
     }
+  } else if constexpr (TAKES_TURNS<BITS, FOLD>) {
+    if (role == 0)
+      consume_wide_int<BITS, SPF, BC, R, FOLD, 0>(acc, a, smem, full, empty,
+                                                  tot, nst, role, peer);
+    else
+      consume_wide_int<BITS, SPF, BC, R, FOLD, 1>(acc, a, smem, full, empty,
+                                                  tot, nst, role, peer);
   } else {
-    // codes -> registers -> wgmma; two fragment sets in turn (register
-    // arrays are indexed at compile time only, so stages go in pairs)
-    float part[R];
-#pragma unroll
-    for (int i = 0; i < R; ++i) part[i] = 0.0f;
-    uint32_t f0[BK / 16][4], f1[BK / 16][4];
-    mbar_wait(full, 0);
-    load_a<BITS>(f0, smem + T::X_BYTES, warp_col, lane);
-    int left = FOLD ? a.seg / BK : 0;        // stages left in the segment
-    for (int it = 0; it < nst; it += 2) {
-      wide_stage<BITS, SPF, BC, FOLD>(acc, part, f0, f1, smem, full, empty,
-                                      it, nst, warp_col, lane, col, peer);
-      if constexpr (FOLD) fold_step(acc, tot, left, a, it, nst);
-      if (it + 1 < nst) {
-        wide_stage<BITS, SPF, BC, FOLD>(acc, part, f1, f0, smem, full, empty,
-                                        it + 1, nst, warp_col, lane, col,
-                                        peer);
-        if constexpr (FOLD) fold_step(acc, tot, left, a, it + 1, nst);
-      }
-    }
-    if constexpr (FOLD)
-      if (nst > a.seg / BK) fold_segment(acc, tot, false, true);
+    consume_wide_int<BITS, SPF, BC, R, FOLD, -1>(acc, a, smem, full, empty,
+                                                 tot, nst, role, peer);
   }
   store<BITS>(acc, a, g, m0, n0, split, role);
 }

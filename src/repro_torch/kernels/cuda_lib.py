@@ -23,6 +23,14 @@ launches whose plan splits K, and ``FOLDED_LAUNCHES`` those of them that
 ran folded (``q4_matmul.fold_splits``: one block a tile runs the splits in
 turn); each of the others, spread over a block a split, reduces its split
 partials in its own epilogue, with no second kernel.
+
+The wgmma bodies can stamp ``clock64()`` at the points of a pipeline
+stage into a device buffer when compiled with ``-D`` :data:`STAMP_MACRO`,
+and run their int consumers without turns (both consumer warpgroups
+issuing at will) with ``-D`` :data:`LOCKSTEP_MACRO`. Only
+``tools/consumer_timeline.py`` builds such a library (``build(defines=
+(STAMP_MACRO,), build_dir=...)``, into a directory of its own); the
+library the wrappers build and load defines neither.
 """
 from __future__ import annotations
 
@@ -65,6 +73,12 @@ SPLIT_LAUNCHES: "collections.Counter[Tuple[str, str]]" = collections.Counter()
 FOLDED_LAUNCHES: "collections.Counter[Tuple[str, str]]" = \
     collections.Counter()
 
+#: the preprocessor macro that compiles the wgmma bodies' stage stamps in
+STAMP_MACRO = "REPRO_STAMPS"
+#: the macro that compiles the int consumers' turns out (the timeline's
+#: baseline: both consumer warpgroups issue at will)
+LOCKSTEP_MACRO = "REPRO_LOCKSTEP"
+
 #: nvcc's output (ptxas registers, shared memory, spills) of the library
 #: in use: set by the build, or read back from the log kept beside it
 BUILD_LOG = ""
@@ -94,26 +108,37 @@ def _sources() -> List[Path]:
     return sorted(p for p in CSRC.iterdir() if p.is_file())
 
 
-def _lib_path() -> Path:
+def _lib_path(defines=(), build_dir: Optional[Path] = None) -> Path:
     h = hashlib.sha256()
     for p in _sources():
         h.update(p.name.encode() + b"\0" + p.read_bytes() + b"\0")
     h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"{LIB_STEM}-{h.hexdigest()[:16]}.so"
+    for d in defines:
+        h.update(b"\0-D" + d.encode())
+    return (build_dir or BUILD_DIR) / f"{LIB_STEM}-{h.hexdigest()[:16]}.so"
 
 
-def build() -> Path:
+def compile_command(units, out: Path, defines=()) -> List[str]:
+    """The nvcc command that compiles ``units`` into the library ``out``,
+    with ``-D`` for each of ``defines``."""
+    return [_nvcc(), *NVCC_FLAGS, *(f"-D{d}" for d in defines), "-o",
+            str(out), *map(str, units)]
+
+
+def build(defines=(), build_dir: Optional[Path] = None) -> Path:
     """Compile the ``.cu`` files of ``csrc/`` unless an up-to-date library
-    exists; returns the library's path."""
+    exists; returns the library's path. ``defines`` and ``build_dir`` are
+    for a tool's own build (the stamped timeline); the wrappers' library
+    takes neither."""
     global BUILD_LOG
-    lib = _lib_path()
+    lib = _lib_path(defines, build_dir)
     log = lib.with_suffix(".log")
     if lib.exists():
         BUILD_LOG = log.read_text() if log.exists() else ""
         return lib
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
     units = [p for p in _sources() if p.suffix == ".cu"]
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, units)]
+    cmd = compile_command(units, tmp, defines)
     lib.parent.mkdir(parents=True, exist_ok=True)
     proc = subprocess.run(cmd, stdout=subprocess.PIPE,
                           stderr=subprocess.STDOUT, text=True)

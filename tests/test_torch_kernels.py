@@ -933,6 +933,354 @@ def test_reset_clears_split_launches():
     assert "splitk_reduce" not in cuda_lib.LAUNCHES
 
 
+def test_wrappers_build_never_defines_the_stamps(monkeypatch, tmp_path):
+    """The library the wrappers build and load is compiled with no ``-D``
+    at all, so never with the wgmma bodies' stage stamps nor with their
+    turns compiled out; those macros reach only a build that asks for
+    them, under a name of its own, and they are the macros the sources
+    test."""
+    import types
+    monkeypatch.setattr(cuda_lib, "BUILD_DIR", tmp_path / "kernels")
+    monkeypatch.setattr(cuda_lib, "_nvcc", lambda: "nvcc")
+    seen = []
+
+    def run(cmd, **kw):
+        seen.append(cmd)
+        return types.SimpleNamespace(returncode=1, stdout="stopped here")
+    monkeypatch.setattr(cuda_lib.subprocess, "run", run)
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        cuda_lib.build()
+    assert seen and not any(a.startswith("-D") for a in seen[0])
+    macros = (cuda_lib.STAMP_MACRO, cuda_lib.LOCKSTEP_MACRO)
+    assert not any(m in a for a in seen[0] for m in macros)
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        cuda_lib.build(defines=macros, build_dir=tmp_path / "timeline")
+    assert all(f"-D{m}" in seen[1] for m in macros)
+    assert cuda_lib._lib_path() != cuda_lib._lib_path(
+        (cuda_lib.STAMP_MACRO,))
+    sources = _csrc("wgmma_body.cuh") + _csrc("wgmma_wide.cuh")
+    assert all(f"#ifdef {m}" in sources for m in macros)
+
+
+def _timeline_tool():
+    path = Path(__file__).resolve().parents[1] / "tools" / \
+        "consumer_timeline.py"
+    spec = importlib.util.spec_from_file_location("consumer_timeline", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_timeline_reads_stamps_and_sass():
+    """The timeline tool's two readers on made-up input: the consumer K
+    loop found in SASS by its backward branch (not a retry stub's wider
+    one) and counted per stage; stamps turned into a stage's period and
+    steps in their order, each warpgroup's issue and flush windows, the
+    cycles to the other's issue and the share of its flush under the
+    other's wgmmas; and the points named as the sources' StampPoint."""
+    ct = _timeline_tool()
+    enum = _csrc("wgmma_body.cuh")
+    enum = enum[enum.index("enum StampPoint {"):]
+    enum = enum[:enum.index("ST_POINTS")]
+    assert tuple(p.lower() for p in re.findall(r"ST_(\w+),", enum)) == \
+        ct.POINTS
+    sass = "\n".join(
+        f"        /*{a:04x}*/  {op} ;" for a, op in enumerate([
+            "MOV R1, c[0x0][0x28]",
+            "HGMMA.64x128x16.F32.BF16 R24, R8, gdesc[UR4], R24",
+            "HGMMA.64x128x16.F32.BF16 R24, R8, gdesc[UR4], R24",
+            "FFMA R2, R3, R4, R2", "@!P0 BRA 0x4",
+            "HGMMA.64x128x16.F32.BF16 R24, R8, gdesc[UR4], R24",
+            "HGMMA.64x128x16.F32.BF16 R24, R8, gdesc[UR4], R24",
+            "PRMT R2, R3, 0x1, R4", "WARPGROUP.ARRIVE",
+            "@P1 BRA 0x1", "EXIT",
+            # a barrier wait's retry stub, branching back from afar
+            "@!P2 BRA 0x1"], start=0))
+    (loop,) = ct.consumer_loops(sass)
+    assert loop["stages"] == 1
+    assert loop["per_stage"] == {"HGMMA": 4, "FFMA": 1, "conversion": 1,
+                                 "MOV": 0, "sync": 1, "loads": 0, "rest": 2}
+    # two warpgroups in turn, 1000 cycles a stage, warpgroup 1 500 cycles
+    # behind: each one's wgmmas (issued to drained) span 300 cycles, its
+    # flush 100 from its wait's return
+    blocks, stages, n = 2, 16, len(ct.POINTS)
+    consumer = dict(turn=-20, issued=0, waited=30, flushed=130,
+                    released=140, drained=300, full=320, converted=600)
+    at = [consumer, {k: v + 500 for k, v in consumer.items()},
+          dict(empty=100)]
+    stamps = [0] * (blocks * ct.ROLES * stages * n)
+    for b in range(blocks):
+        for role in range(ct.ROLES):
+            for it in range(12):
+                for name, off in at[role].items():
+                    stamps[((b * ct.ROLES + role) * stages + it) * n
+                           + ct.POINTS.index(name)] = 1000 + 1000 * it + off
+    got = ct.analyse(stamps, blocks, stages, 12)
+    assert got["wg0"]["period"] == 1000 and got["wg1"]["blocks"] == blocks
+    assert got["wg0"]["steps"] == [
+        ("turn", 380), ("issued", 20), ("waited", 30), ("flushed", 100),
+        ("released", 10), ("drained", 160), ("full", 20),
+        ("converted", 280)]
+    for wg in ("wg0", "wg1"):
+        assert got[wg]["issue_window"] == 20
+        assert got[wg]["flush_window"] == 100
+        assert got[wg]["to_other_issue"] == 500
+    # warpgroup 0 flushes at 1030-1130 + 1000 it, before warpgroup 1's
+    # wgmmas (1500-1800); warpgroup 1 flushes at 1530-1630, under
+    # warpgroup 0's next stage's? no: those run 2000-2300
+    assert got["wg0"]["flush_overlap"] == 0
+    assert got["wg1"]["flush_overlap"] == 0
+    assert got["flush_skew"] == 500 and got["producer_period"] == 1000
+    # stage it + 1 could load from 2100 + 1000 it; the full wait for it
+    # returned at 1320 + 1000 it
+    assert got["producer_lead"] == -780
+    # warpgroup 1 150 cycles behind: warpgroup 0's flush (30-130) lies
+    # under none of warpgroup 1's wgmmas (150-450), warpgroup 1's flush
+    # (180-280) wholly under warpgroup 0's (0-300)
+    at[1] = {k: v + 150 for k, v in consumer.items()}
+    for b in range(blocks):
+        for it in range(12):
+            for name, off in at[1].items():
+                stamps[((b * ct.ROLES + 1) * stages + it) * n
+                       + ct.POINTS.index(name)] = 1000 + 1000 * it + off
+    got = ct.analyse(stamps, blocks, stages, 12)
+    assert got["wg0"]["flush_overlap"] == 0
+    assert got["wg1"]["flush_overlap"] == 1
+    assert got["wg0"]["to_other_issue"] == 150
+    assert got["wg1"]["to_other_issue"] == 850
+
+
+#: the int consumers that take turns: (source, the K loop's function, its
+#: stage functions), at the wide body's n160 and at its n96 tail
+TURN_BODIES = {"160": ("wgmma_wide.cuh", "consume_wide_int", ("wide_stage",)),
+               "n96": ("wgmma_wide.cuh", "consume_wide_int", ("wide_stage",))}
+TURN_HELPERS = {"turn_open": "", "turn_take": "", "turn_pass": "int it, int nst"}
+
+
+def _function(text: str, name: str) -> str:
+    """The body of the (template) function ``name`` in ``text``: from its
+    head to the closing brace at the start of a line."""
+    head = re.search(rf"\n(?:template <[^\n]*>\n)?[^\n]*\bvoid {name}\(",
+                     text)
+    assert head, name
+    body = text[head.start():]
+    return body[:body.index("\n}\n") + 3]
+
+
+def _turn_ops(helper: str) -> list:
+    """The named-barrier operations of a turn helper of wgmma_wide.cuh:
+    (C condition, "sync" | "arrive", barrier id, thread count) a line."""
+    body = _function(_csrc("wgmma_wide.cuh"), helper)
+    return [(cond, op, int(i), int(n)) for cond, op, i, n in re.findall(
+        r'if \(([^)]*)\)\s*asm volatile\("bar\.(sync|arrive) (\d+), (\d+);',
+        body)]
+
+
+def _ops_of(helper: str, role: int, ops: list, **env) -> list:
+    """What warpgroup ``role`` (ROLE 0 or 1; -1 the loop without turns)
+    does in ``helper`` (``ops``: its lines, as _turn_ops reads them)."""
+    return [(op, bar) for cond, op, bar, _ in ops
+            if eval(cond.replace("&&", " and "), {}, {"ROLE": role, **env})]
+
+
+def test_turn_barriers_are_immediates():
+    """The int consumers' turns: named barriers with immediate ids 2 and
+    3 (one a consumer warpgroup, neither split_last's 1 nor
+    __syncthreads' 0) over the 256 consumer threads, in helpers
+    instantiated per role (a template argument, so no role is live across
+    the K loop; ROLE -1, the loop without turns, touches no barrier); they
+    are the only named barriers of the wgmma bodies. The int4 wide
+    consumers of a spread or one-split grid take turns, every other
+    consumer one copy of the loop without them (the A/B on the card), and
+    the wrappers' build keeps them (TURNS true without REPRO_LOCKSTEP)."""
+    body, wide = _csrc("wgmma_body.cuh"), _csrc("wgmma_wide.cuh")
+    consumers = int(re.search(r"constexpr int CONSUMERS = (\d+);",
+                              body).group(1))
+    assert 'asm volatile("bar.sync 1, %0;\\n" :: "n"(THREADS)' in \
+        _csrc("dequant_matmul.cu")
+    ops_ = {h: _turn_ops(h) for h in TURN_HELPERS}
+    assert all(ops_.values())
+    for helper, params in TURN_HELPERS.items():
+        assert re.search(rf"template <int ROLE>\n__device__ __forceinline__ "
+                         rf"void {helper}\({params}\)", wide), helper
+        for cond, op, bar, count in ops_[helper]:
+            assert bar in (2, 3) and count == consumers * 128 == 256
+            assert cond.startswith("ROLE == ")
+    for role in (0, 1):
+        assert _ops_of("turn_take", role, ops_["turn_take"]) == [
+            ("sync", 2 + role)]
+        assert _ops_of("turn_pass", role, ops_["turn_pass"], it=0,
+                       nst=2) == [("arrive", 3 - role)]
+    assert _ops_of("turn_open", 0, ops_["turn_open"]) == []
+    assert _ops_of("turn_open", 1, ops_["turn_open"]) == [("arrive", 2)]
+    for helper in TURN_HELPERS:
+        assert _ops_of(helper, -1, ops_[helper], it=0, nst=2) == []
+    # no other named barrier in the bodies
+    n_ops = sum(len(v) for v in ops_.values())
+    assert len(re.findall(r'"bar\.', body + wide)) == n_ops
+    assert re.search(r"#ifdef REPRO_LOCKSTEP\nconstexpr bool TURNS = false;"
+                     r"\n#else\nconstexpr bool TURNS = true;\n#endif", wide)
+    assert ("template <int BITS, bool FOLD>\nconstexpr bool TAKES_TURNS = "
+            "TURNS && BITS == 4 && !FOLD;") in wide
+    # who takes turns: the int4 wide loop, per role; the rest at will
+    fn = _function(wide, "consume_wide")
+    turns = fn[fn.index("if constexpr (TAKES_TURNS<BITS, FOLD>)"):]
+    for role in (0, 1):
+        assert f"consume_wide_int<BITS, SPF, BC, R, FOLD, {role}>" in turns
+    assert "consume_wide_int<BITS, SPF, BC, R, FOLD, -1>" in turns
+    assert "(ROLE < 0 ? role : ROLE) * 64" in _function(wide,
+                                                        "consume_wide_int")
+    for name in ("consume_wide_int", "wide_stage"):
+        calls = re.findall(r"(turn_\w+)<([^>]*)>\(", _function(wide, name))
+        assert calls and all(arg == "ROLE" for _, arg in calls), name
+    for name in ("consume", "int_stage", "int_group"):
+        assert not re.search(r"turn_\w+<", _function(body, name)), name
+
+
+def _turn_program(body: str) -> dict:
+    """What one int consumer does with its turns, read from its source:
+    the turn_open calls before its K loop, the guards (on the group
+    ``grp`` of a stage) of its turn_take and turn_pass calls, and the
+    named-barrier operations of each helper. Checks on the way that the K
+    loop runs every stage 0 .. nst - 1 in pairs and that no part of it
+    reads a column bound (a warpgroup whose columns lie past N takes its
+    turns like the other), nor do the folded launch's segment steps touch
+    a barrier."""
+    source, loop, stages = TURN_BODIES[body]
+    text = _csrc(source)
+    fn = _function(text, loop)
+    head = fn.index("for (int it = 0; it < nst; it += 2) {")
+    assert "if (it + 1 < nst)" in fn[head:]
+    code = fn[head:] + "".join(_function(text, s) for s in stages)
+    assert "a.N" not in code and "n0" not in code
+    for step in ("fold_step", "fold_segment"):
+        assert "bar." not in _function(_csrc("wgmma_body.cuh"), step)
+    guards = {}
+    for helper in ("turn_take", "turn_pass"):
+        found = [g for s in stages for g in re.findall(
+            rf"if \(([^)]*)\)\s*\{{?\s*(?:WG_STAMP\([^)]*\);\s*)?"
+            rf"{helper}<ROLE>\(", _function(text, s))]
+        assert len(found) == len(re.findall(
+            rf"{helper}<ROLE>\(", "".join(_function(text, s)
+                                          for s in stages))), helper
+        guards[helper] = found
+    return {"opens": fn[:head].count("turn_open<ROLE>();"),
+            "guards": guards,
+            "ops": {h: _turn_ops(h) for h in TURN_HELPERS}}
+
+
+def _turn_table(prog: dict, nst: int) -> dict:
+    """Each warpgroup's named-barrier operations in each turn helper, at
+    every stage of ``nst`` (only turn_pass depends on the stage)."""
+    ops = prog["ops"]
+    return {"open": [_ops_of("turn_open", r, ops["turn_open"])
+                     for r in (0, 1)],
+            "take": [_ops_of("turn_take", r, ops["turn_take"])
+                     for r in (0, 1)],
+            "pass": [[_ops_of("turn_pass", r, ops["turn_pass"], it=it,
+                              nst=nst) for it in range(nst)]
+                     for r in (0, 1)]}
+
+
+def _emulate_turns(prog: dict, nst: int, ng: int, seg, order,
+                   table=None) -> list:
+    """Two consumer warpgroups running ``prog`` over ``nst`` stages of
+    ``ng`` groups (a folded launch's segments of ``seg`` stages add their
+    running sums between stages, no barrier), interleaved by ``order``
+    (which runnable warpgroup steps next); named barriers as the hardware
+    counts them: a generation completes at 256 arrivals, a sync waits for
+    it. Returns the warpgroups' stage issues in the order they happened;
+    raises on a deadlock, an arrival no sync meets, or arrivals left over
+    at the end."""
+    # which groups of a stage take and pass the turn
+    at = {h: [any(eval(g, {}, {"grp": grp, "NG": ng}) for g in gs)
+              for grp in range(ng)] for h, gs in prog["guards"].items()}
+    table = table or _turn_table(prog, nst)
+    opens, takes, passes = table["open"], table["take"], table["pass"]
+
+    def program(role):
+        ev = []
+        for _ in range(prog["opens"]):
+            ev += opens[role]
+        for it in range(nst):
+            for grp in range(ng):
+                if at["turn_take"][grp]:
+                    ev += takes[role]
+                    ev.append(("issue", it))
+                if at["turn_pass"][grp]:
+                    ev += passes[role][it]
+            if seg and (it + 1) % seg == 0:
+                ev.append(("fold", it))
+        return ev
+
+    progs = [program(0), program(1)]
+    pc, count, waiting, issued = [0, 0], {2: 0, 3: 0}, {}, []
+    while pc[0] < len(progs[0]) or pc[1] < len(progs[1]):
+        ready = [r for r in (0, 1) if r not in waiting
+                 and pc[r] < len(progs[r])]
+        if not ready:
+            raise AssertionError(f"deadlock at {pc}, waiting on {waiting}")
+        r = order(ready)
+        op, arg = progs[r][pc[r]]
+        pc[r] += 1
+        if op == "issue":
+            issued.append((r, arg))
+        elif op in ("sync", "arrive"):
+            count[arg] += 128
+            if count[arg] == 256:
+                count[arg] = 0
+                woken = [w for w, b in waiting.items() if b == arg]
+                if op == "arrive" and not woken:
+                    raise AssertionError(f"an arrival on {arg} met no sync")
+                for w in woken:
+                    del waiting[w]
+            elif op == "sync":
+                waiting[r] = arg
+    assert count == {2: 0, 3: 0}, f"arrivals left over: {count}"
+    return issued
+
+
+@pytest.mark.parametrize("body", sorted(TURN_BODIES))
+def test_turn_protocol_balances(body):
+    """Emulated from the sources: the two consumer warpgroups' turns (one
+    initial arrival, a sync at each stage's start, an arrival after its
+    commit, none after warpgroup 1's last stage) balance every arrival
+    against a sync, never deadlock and issue the stages strictly in turn,
+    warpgroup 0 first, for 1-17 stages, 1, 2 or 4 groups a stage, spread
+    or folded in segments of 1-4 stages, with either warpgroup's columns
+    past N (the K loop reads no column bound), in any interleaving."""
+    import random
+    prog = _turn_program(body)
+    rng = random.Random(0)
+    orders = (lambda ready: ready[0], lambda ready: ready[-1],
+              lambda ready: rng.choice(ready))
+    for nst in range(1, 18):
+        want = [(r, it) for it in range(nst) for r in (0, 1)]
+        table = _turn_table(prog, nst)
+        for ng in (1, 2, 4):
+            for seg in (None, 1, 2, 3, 4):
+                for order in orders:
+                    assert _emulate_turns(prog, nst, ng, seg, order,
+                                          table) == want
+
+
+@pytest.mark.parametrize("mutation", ["no opening arrival",
+                                      "an arrival after the last stage"])
+def test_turn_protocol_emulation_fails_a_broken_protocol(mutation):
+    """The emulation refuses the two broken protocols: warpgroup 1 not
+    opening (warpgroup 0 waits forever) and warpgroup 1 passing its turn
+    after its last stage (an arrival no sync meets)."""
+    prog = _turn_program("160")
+    if mutation == "no opening arrival":
+        prog["opens"] = 0
+    else:
+        prog["ops"]["turn_pass"] = [
+            (cond.replace(" && it + 1 < nst", ""), op, bar, n)
+            for cond, op, bar, n in prog["ops"]["turn_pass"]]
+    with pytest.raises(AssertionError, match="deadlock|met no sync|left"):
+        _emulate_turns(prog, 3, 1, None, lambda ready: ready[0])
+
+
 def _parent_launch_plan(c, k, n, bits):
     """``launch_plan`` as it stood before grids could fold, written out
     again: folding chooses blocks, never a plan, so the two must agree."""

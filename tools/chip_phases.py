@@ -14,6 +14,8 @@ iterate on a phase without the whole script:
     python3 tools/chip_phases.py engine-mesh
     python3 tools/chip_phases.py engine-mesh-cards     # 4 cards
     python3 tools/chip_phases.py roofline dry-cell
+    python3 tools/chip_phases.py timeline [--parent DIR] [--tile 128]
+        [--lockstep] [--tree DIR]
 
 ``poisson``, ``ep`` (8), ``ep-cards`` (8 with rank r on ``cuda:r``),
 ``prefill`` (3p, long prompts through the wgmma bodies) and ``kernels`` (5,
@@ -33,7 +35,14 @@ speculative configs) and ``engine-mesh-cards`` 11 with position p on
 the card and on ``meta``, their times and shares of the bound, and the
 split (2, 2) decode's count) and ``dry-cell`` one dry-run cell on the
 card's host (``run_cell``, Mixtral ``decode_32k`` over the 256-position
-mesh of ``meta``). It builds the kernels first, prints what the phases print, writes their
+mesh of ``meta``); ``timeline`` counts the int wgmma consumers' SASS
+per stage and reads their stage stamps from a library built with the
+stamping macro into ``build/timeline/`` (``tools/consumer_timeline.py``;
+``--parent`` also compares the SASS with an earlier checkout's sources,
+``--tile`` runs the plans on one wgmma token tile, ``--lockstep`` stamps
+the consumers with their turns compiled out, the schedule before them,
+``--tree`` stamps another checkout's sources that carry the stamps). It
+builds the kernels first, prints what the phases print, writes their
 records to ``--out`` and exits 1 if a phase failed. ``chip_smoke.py``
 stays the check of record: it runs every phase and prints the result
 lines.
@@ -52,7 +61,7 @@ PHASES = ("poisson", "prefill", "ep", "ep-cards", "kernels", "kimi",
           "qwen3", "families",
           "families-train", "families-mesh", "families-mesh-cards",
           "kimi-rows", "mesh", "mesh-cards", "engine-mesh",
-          "engine-mesh-cards", "roofline", "dry-cell")
+          "engine-mesh-cards", "roofline", "dry-cell", "timeline")
 CARDS = ("ep-cards", "mesh-cards", "families-mesh-cards",
          "engine-mesh-cards")                              # several cards
 
@@ -66,6 +75,14 @@ def main(argv=None) -> int:
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--profile", action="store_true",
                     help="profile the serve phase's warm rerun")
+    ap.add_argument("--parent", help="timeline: an unpacked earlier "
+                    "checkout whose kernels' SASS is compared")
+    ap.add_argument("--tile", type=int, choices=(128, 160),
+                    help="timeline: run every plan on this wgmma token tile")
+    ap.add_argument("--lockstep", action="store_true",
+                    help="timeline: the int consumers' turns compiled out")
+    ap.add_argument("--tree", help="timeline: stamp this checkout's "
+                    "sources instead of this one's")
     ap.add_argument("--out", default=str(ROOT / "chiprun_out"
                                          / "chip_phases.json"))
     args = ap.parse_args(argv)
@@ -122,6 +139,11 @@ def main(argv=None) -> int:
             card, True)
     if "roofline" in phases:
         run("roofline", cs.phase_roofline, torch, np, args.seed, card)
+    if "timeline" in phases:
+        sys.path.insert(0, str(ROOT / "tools"))
+        import consumer_timeline
+        run("timeline", consumer_timeline.run, torch, cs, args.parent,
+            args.tile, args.tree, args.lockstep)
     if "dry-cell" in phases:
         run("dry cell", cs.phase_dry_cell, torch)
     if "kimi" in phases:
